@@ -52,16 +52,28 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_TC_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 
-# bf16 tolerances (absolute), with their reasons:
-# - attention output: O is bf16 (ulp 2^-8 relative, |O| < 4 here) and the
-#   kernel rounds P to bf16 before P@V, as the TPU kernel does;
+# Tolerances, each with its reason:
+# - prefill output (absolute): O is bf16 with |O| up to ~4 at the prefill
+#   shape (early rows see few keys), and the kernel rounds P to bf16 before
+#   P@V, as the TPU kernel does, where the plain version keeps P in f32.
+#   About twice the 0.0156 measured on an H100;
 O_TOL = 3e-2
-# - logsumexp: f32 on both sides from the same bf16 inputs; only the
-#   summation order differs;
+# - prefill logsumexp (absolute): f32 on both sides from the same bf16
+#   inputs; only the summation order differs;
 L_TOL = 1e-3
-# - logits after 8 bf16 layers: each layer's attention output may differ
-#   by bf16 rounding, and the difference propagates (|logits| < 8 here).
-LOGIT_TOL = 0.25
+# - decode output (per element): the kernel and the plain version both
+#   accumulate in f32 and round once to bf16, so each element may differ
+#   by one bf16 ulp of its value and no more. 2^-7 * |ref| is between one
+#   and two ulps; the floor covers f32 summation-order noise near 0. At the
+#   decode shape |O| is ~0.04 (a softmax over ~750 keys), so one key
+#   dropped or counted twice (~1e-3) or bf16 accumulation fails it;
+DECODE_REL_TOL = 2.0 ** -7
+DECODE_ABS_FLOOR = 1e-5
+# - first-token logits (2^-6 of the largest |logit|, one to two bf16 ulps
+#   there): the logits are bf16, and the kernel path differs from the plain
+#   path only in the attention's rounding (above). 0.031 at |logit| ~4,
+#   about half of this, was measured on an H100.
+LOGIT_REL_TOL = 2.0 ** -6
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -113,6 +125,13 @@ def bound(bytes_moved: float, flops: float, flop_rate: float):
 
 def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def decode_excess(torch, got, want) -> float:
+    """Largest per-element error over its decode tolerance; <= 1 passes."""
+    want = want.float()
+    limit = DECODE_REL_TOL * want.abs() + DECODE_ABS_FLOOR
+    return float(((got.float() - want).abs() / limit).max())
 
 
 # --- phase: kernels ------------------------------------------------------------
@@ -185,7 +204,9 @@ def check_flash_decode(torch, fa, F, gen):
         got = fa.flash_decode(q, k, v, lengths)
         want = fa._decode_ref(q, k, v, lengths)
         err = max_err(torch, got, want)
-        require(err <= O_TOL, f"flash_decode {label}: error {err}")
+        excess = decode_excess(torch, got, want)
+        require(excess <= 1.0, f"flash_decode {label}: error {err}, "
+                               f"{excess} x its per-element tolerance")
         nan = torch.full((), float("nan"), dtype=k.dtype, device=dev)
         poisoned = fa.flash_decode(q, torch.where(valid, k, nan),
                                    torch.where(valid, v, nan), lengths)
@@ -226,7 +247,10 @@ def check_flash_decode(torch, fa, F, gen):
         out[label] = {
             "shape": {"B": b, "Tq": tq, "H": h, "KVH": kvh, "S": s, "D": d},
             "lengths": [int(x) for x in lengths.tolist()],
-            "max_abs_err": err, "tol": O_TOL,
+            "max_abs_err": err, "max_abs_ref": float(want.float().abs().max()),
+            "tol": f"per element {DECODE_REL_TOL} * |ref| + "
+                   f"{DECODE_ABS_FLOOR}",
+            "worst_err_over_tol": excess,
             "poisoned_tail_bit_equal": poison_equal,
             "paged_vs_dense_bit_equal": paged_equal,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -340,14 +364,19 @@ def run_serve(torch, fa, serve, bootstrap):
     kern, plain = kern.float(), plain.float()
     logit_err = float((kern - plain).abs().max())
     require(bool(torch.isfinite(kern).all()), "non-finite logits")
-    require(logit_err <= LOGIT_TOL, f"first-token logits error {logit_err}")
+    logit_tol = LOGIT_REL_TOL * float(plain.abs().max())
+    require(logit_err <= logit_tol,
+            f"first-token logits error {logit_err} > {logit_tol}")
     kern_tok = int(torch.argmax(kern))
     require(kern_tok == http_tokens[0],
             f"served first token {http_tokens[0]} != kernel-path argmax "
             f"{kern_tok}")
+    # Where the plain path's top-1 leads by more than both paths can move,
+    # the two paths must pick the same token.
     top2 = torch.topk(plain, 2).values
     margin = float(top2[0] - top2[1])
-    if margin > 2 * LOGIT_TOL:
+    argmax_checked = margin > 2 * logit_tol
+    if argmax_checked:
         require(int(torch.argmax(plain)) == kern_tok,
                 "plain-path first token differs at a clear margin")
     return {
@@ -357,8 +386,9 @@ def run_serve(torch, fa, serve, bootstrap):
         "decode_steps": cache.decode_steps,
         "http_tokens": len(http_tokens),
         "first_token_logit_max_abs_err": logit_err,
-        "logit_tol": LOGIT_TOL,
+        "logit_tol": logit_tol,
         "plain_top1_margin": margin,
+        "plain_argmax_checked": argmax_checked,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }, loop
 

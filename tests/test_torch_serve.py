@@ -15,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_operator.payload import heartbeat as jax_heartbeat
+from tpu_operator.payload import steptrace as jax_steptrace
 from tpu_operator_torch.payload import bootstrap
+from tpu_operator_torch.payload import heartbeat
 from tpu_operator_torch.payload import serve
+from tpu_operator_torch.payload import steptrace
 
 WINDOW, NEW, VOCAB = 16, 4, 32
 
@@ -160,6 +164,53 @@ def test_load_schedule_and_generator():
     assert gen.due(1.5) == 2    # the rate at the later time: 2 rps
     assert gen.due(2.5) is None
     assert serve.LoadSchedule.parse("3:0").rate_at(1e9) == 3  # hold
+
+
+def test_heartbeats_carry_serving_state_and_step_timing():
+    beats = []
+    reporter = heartbeat.HeartbeatReporter(
+        "http://status", "job", interval=0,
+        poster=lambda url, body: beats.append((url, body)))
+    loop = serve.ServeLoop(serve_args(load="10:1"), info(),
+                           heartbeat=reporter,
+                           recorder=steptrace.StepRecorder())
+    summary = loop.run()
+    assert summary["completed"] >= 1
+    assert all(url == "http://status/api/heartbeat" for url, _ in beats)
+    bodies = [body for _, body in beats]
+    assert any(b["serving"]["ready"] for b in bodies)
+    timed = [b["stepTiming"] for b in bodies if "stepTiming" in b]
+    # Each digest covers a disjoint span; the last steps may follow the
+    # last beat.
+    assert 0 < sum(t["steps"] for t in timed) <= loop.steps
+    assert {"dataWait", "compute", "host"} <= set(timed[0]["phases"])
+    assert any("stepTimeSeconds" in b for b in bodies)
+
+
+def test_heartbeat_and_step_digest_wire_match_the_jax_package():
+    """The same calls on the port's copies and on the JAX package's
+    modules, under the same clock, post the same bodies: the operator
+    reads both payloads' beats alike."""
+    def drive(hb_mod, st_mod):
+        ticks = iter(np.arange(0.0, 100.0, 0.25))
+        clock = lambda: float(next(ticks))  # noqa: E731
+        bodies = []
+        rec = st_mod.StepRecorder(capacity=16, clock=clock)
+        rep = hb_mod.HeartbeatReporter(
+            "http://s/", "j", namespace="ns", attempt=2, interval=1.0,
+            clock=clock, poster=lambda _url, body: bodies.append(body))
+        for step in range(6):
+            rec.begin(step)
+            for phase in (st_mod.DATA, st_mod.COMPUTE, st_mod.HOST):
+                rec.lap(phase)
+            rec.commit()
+            if rep.due(step):
+                rep.report(step, steptiming=rec.summary(),
+                           serving={"ready": True, "queueDepth": step})
+        return bodies
+
+    ours = drive(heartbeat, steptrace)
+    assert ours and ours == drive(jax_heartbeat, jax_steptrace)
 
 
 def test_run_payload_exit_codes():

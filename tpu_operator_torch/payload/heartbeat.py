@@ -1,26 +1,27 @@
-"""Training-step heartbeats: payload → operator status server.
+"""Serving heartbeats: payload → operator status server.
 
-The missing liveness signal of the whole reference lineage: a TPU slice
-whose JAX group hangs (deadlocked collective, stuck host transfer, wedged
-DCN link) keeps every pod Running — kubelet sees a healthy process, the
-operator sees healthy pods, and the only symptom is *silence*. The
-heartbeat closes that gap from the inside: process 0 of the group posts
-step telemetry (step, step-time, tokens/sec, loss) to the operator's
-status server (``POST /api/heartbeat``), which surfaces it as per-job
-gauges in ``/metrics`` and as ``status.lastHeartbeat`` on the TPUJob — a
-stale timestamp there IS the hang alarm, visible from ``kubectl get``.
+A replica whose process hangs keeps its pod Running — kubelet sees a
+healthy process, the operator sees healthy pods, and the only symptom is
+*silence*. The heartbeat closes that gap from the inside: the replica
+posts its step cadence and serving telemetry (readiness, tokens/s, queue
+depth, KV-cache use) to the operator's status server
+(``POST /api/heartbeat``), which surfaces it as per-job gauges in
+``/metrics`` and as ``status.lastHeartbeat`` on the TPUJob — a stale
+timestamp there IS the hang alarm, visible from ``kubectl get``.
 
 Strictly best-effort by design: the reporter never raises, never blocks
 the step loop beyond a short socket timeout, and rate-limits itself — a
 down status server costs the payload one failed connect per interval,
 nothing more. The env contract (TPUJOB_STATUS_URL, injected by
 trainer/replicas.py when the operator advertises a URL) gates the whole
-feature: unset means ``from_env`` returns None and training runs exactly
-as before.
+feature: unset means ``from_env`` returns None and the payload runs
+exactly as before.
 
-This is the PyTorch payload's own copy of
-``tpu_operator/payload/heartbeat.py`` (stdlib only): the same wire format
-and env contract, so the operator reads both payloads' beats alike.
+This is the PyTorch payload's own copy of the part of
+``tpu_operator/payload/heartbeat.py`` that the serve loop uses (stdlib
+only): the same wire format and env contract, so the operator reads both
+payloads' beats alike. The profile, drain and startup channels come with
+the slices that port those features.
 """
 
 from __future__ import annotations
@@ -35,143 +36,61 @@ from typing import Any, Callable, Dict, Optional
 log = logging.getLogger(__name__)
 
 DEFAULT_INTERVAL = 10.0  # seconds between posts (per process)
-POST_TIMEOUT = 2.0       # socket timeout: never stall a training step
+POST_TIMEOUT = 2.0       # socket timeout: never stall a decode step
 
 
-def interval_of(heartbeat: Any) -> float:
-    """THE posting cadence of a reporter-shaped object — the single
-    definition every consumer shares (the reporter's own ``due()``, the
-    train-loop startup ticker, the autotune runtime's host-budget
-    pacing). Each used to re-derive it with its own hardcoded fallback
-    (``getattr(hb, "interval", 10.0)``), which only agreed with
-    DEFAULT_INTERVAL by coincidence; a reporter with a malformed or
-    negative interval now resolves identically everywhere (0 stays 0 —
-    the explicit every-step cadence tests and benches use)."""
-    try:
-        interval = float(getattr(heartbeat, "interval", DEFAULT_INTERVAL))
-    except (TypeError, ValueError):
-        return DEFAULT_INTERVAL
-    if not math.isfinite(interval) or interval < 0:
-        return DEFAULT_INTERVAL
-    return interval
-
-
-def _http_post(url: str, body: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+def _http_post(url: str, body: Dict[str, Any]) -> None:
     import urllib.request
 
     req = urllib.request.Request(
         url, data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"}, method="POST")
     with urllib.request.urlopen(req, timeout=POST_TIMEOUT) as resp:
-        # The 200 ACK body is the operator's only control channel back
-        # into the payload (the on-demand profile directive rides it);
-        # non-JSON bodies are fine — the ACK is then just an ACK.
-        try:
-            parsed = json.loads(resp.read() or b"{}")
-        except (ValueError, json.JSONDecodeError):
-            return None
-        return parsed if isinstance(parsed, dict) else None
+        resp.read()
 
 
 class HeartbeatReporter:
     """Posts step telemetry to ``{base_url}/api/heartbeat``.
 
-    ``tokens_per_batch`` (> 0) turns step cadence into tokens/sec — LM
-    payloads pass B·T; payloads without a token notion leave it 0 and the
-    field is omitted. ``clock``/``poster`` are injectable for tests.
-
-    ``cadence_only`` is the non-zero-process flavor (straggler
-    detection): the beat carries only identity + step cadence + the
-    ``stepTiming`` phase digest — no loss/tokens/checkpoint/startup
-    payload, which stays process 0's single stream. The controller feeds
-    these into its per-process gang cadence map and nothing else."""
+    ``clock``/``poster`` are injectable for tests. A serve replica is one
+    process, so it sends the whole stream: identity, step cadence, the
+    ``stepTiming`` digest and the serving state."""
 
     def __init__(self, base_url: str, job_name: str,
                  namespace: str = "default", process_id: int = 0,
                  attempt: int = 0, interval: float = DEFAULT_INTERVAL,
-                 tokens_per_batch: int = 0,
                  clock: Callable[[], float] = time.monotonic,
-                 poster: Optional[Callable[[str, Dict[str, Any]], None]] = None,
-                 cadence_only: bool = False):
+                 poster: Optional[Callable[[str, Dict[str, Any]], None]] = None):
         self.url = base_url.rstrip("/") + "/api/heartbeat"
         self.job_name = job_name
         self.namespace = namespace
         self.process_id = process_id
         self.attempt = attempt
+        # A malformed or negative interval falls back to the default; 0
+        # stays 0 (post every step).
+        if not math.isfinite(interval) or interval < 0:
+            interval = DEFAULT_INTERVAL
         self.interval = interval
-        self.tokens_per_batch = tokens_per_batch
-        self.cadence_only = cadence_only
         self._clock = clock
         self._poster = poster or _http_post
         self._last_post: Optional[float] = None
         self._last_step: Optional[int] = None
         self._failed_once = False
-        # Async host path (payload/autotune.py): when set (an
-        # ``AsyncHost.submit``-shaped callable) steady-state posts hand
-        # their serialization + socket round-trip to the worker thread
-        # and the step thread pays an enqueue. Beats carrying the
-        # one-shot ``startup`` breakdown still post synchronously: their
-        # ACK/retry protocol (the 503-until-reconciled dance) needs the
-        # real result.
-        self.async_sink: Optional[Callable[..., bool]] = None
-        # On-demand deep-profiling channel (process 0 only): a directive
-        # arriving in a heartbeat ACK is stashed here until the train
-        # loop takes it; the capture result is attached to every
-        # subsequent beat until a 200 ACK clears it (the startup
-        # one-shot protocol). Seen ids dedup a directive raced by its
-        # own result fold.
-        self._profile_directive: Optional[Dict[str, Any]] = None
-        self._profile_result: Optional[Dict[str, Any]] = None
-        self._profile_seen: set = set()
-        # Cooperative-drain channel (process 0 only), same shape as the
-        # profile channel: the operator's drain directive arrives in a
-        # heartbeat ACK, is stashed until the train loop takes it, and the
-        # payload's ``drainAck {id, step}`` one-shot rides every
-        # subsequent beat until a 200 clears it — so the operator learns
-        # the drain was adopted even across a lossy status-server window.
-        self._drain_directive: Optional[Dict[str, Any]] = None
-        self._drain_ack: Optional[Dict[str, Any]] = None
-        self._drain_seen: set = set()
 
     def due(self, _step: int) -> bool:
-        now = self._clock()
         return self._last_post is None \
-            or now - self._last_post >= interval_of(self)
+            or self._clock() - self._last_post >= self.interval
 
-    def report(self, step: int, metrics: Optional[Dict[str, Any]] = None,
-               checkpoint: Optional[Dict[str, Any]] = None,
-               startup: Optional[Dict[str, Any]] = None,
+    def report(self, step: int,
                steptiming: Optional[Dict[str, Any]] = None,
-               dataplane: Optional[Dict[str, Any]] = None,
                serving: Optional[Dict[str, Any]] = None) -> bool:
         """Post one heartbeat; returns True when the post succeeded. Step
         time is averaged over the steps since the previous post, so it is
         meaningful at any reporting interval.
 
-        ``checkpoint`` is the payload's durability state
-        (``Checkpointer.stats()``): last verified step, save failures,
-        restore fallbacks — surfaced as ``lastCheckpointStep`` /
-        ``checkpointSaveFailures`` / ``checkpointRestoreFallbacks`` so the
-        operator's restart decisions and ``status.checkpoint`` see which
-        step is actually durable.
-
-        ``startup`` is the attempt's startup-phase breakdown
-        (``StartupTracker.breakdown()``), attached once after the first
-        step — the operator folds it into ``status.startup`` and the
-        ``job_startup_seconds`` histograms.
-
         ``steptiming`` is the flight recorder's windowed phase digest
-        (``StepRecorder.summary()``) — per-phase p50/p95/max since the
-        previous digest. The operator folds process 0's into
-        ``status.stepTiming`` + the ``job_step_phase_seconds`` histograms
-        and feeds EVERY process's into the gang straggler detector.
-
-        ``dataplane`` is the self-tuning data plane's current knob state
-        (``DataPlaneRuntime.wire()``): live prefetch depth, host-path
-        mode, effective checkpoint cadence, and the per-knob adjustment
-        counters — the operator folds it into ``status.dataPlane`` +
-        the ``job_prefetch_depth`` gauge and the
-        ``job_autotune_adjustments_total`` counters."""
+        (``StepRecorder.summary()``); ``serving`` is the replica's serving
+        state (``ServeLoop.serving_wire()``)."""
         now = self._clock()
         body: Dict[str, Any] = {
             "namespace": self.namespace,
@@ -183,187 +102,39 @@ class HeartbeatReporter:
         if steptiming:
             body["stepTiming"] = dict(steptiming)
         if serving:
-            # Serving beats come from EVERY replica (each is its own
-            # server), so — unlike loss/checkpoint/startup — they ride
-            # cadence-only reporters too: readiness and traffic are
-            # per-replica facts the controller aggregates.
             body["serving"] = dict(serving)
-        if startup and not self.cadence_only:
-            body["startup"] = dict(startup)
-        if dataplane and not self.cadence_only:
-            # Knob state is process 0's stream (one controller per job
-            # worth reporting); cadence beats stay minimal.
-            body["dataPlane"] = dict(dataplane)
         if self._last_post is not None and self._last_step is not None \
                 and step > self._last_step:
             per_step = (now - self._last_post) / (step - self._last_step)
             body["stepTimeSeconds"] = round(per_step, 6)
-            if self.tokens_per_batch > 0 and per_step > 0 \
-                    and not self.cadence_only:
-                body["tokensPerSec"] = round(self.tokens_per_batch / per_step, 3)
-        if self.cadence_only:
-            # Non-zero processes contribute cadence for straggler
-            # detection only; everything else is process 0's stream.
-            self._last_post, self._last_step = now, int(step)
-            return self._post(body)
-        if checkpoint:
-            if checkpoint.get("lastCheckpointStep") is not None:
-                body["lastCheckpointStep"] = int(
-                    checkpoint["lastCheckpointStep"])
-            for src, dst in (("saveFailures", "checkpointSaveFailures"),
-                             ("restoreFallbacks",
-                              "checkpointRestoreFallbacks"),
-                             # Remote warm-start store (write-behind
-                             # uploader counters, merged into stats()).
-                             ("lastUploadedStep", "storeLastUploadedStep"),
-                             ("uploadFailures", "storeUploadFailures")):
-                if checkpoint.get(src) is not None:
-                    body[dst] = int(checkpoint[src])
-        loss = (metrics or {}).get("loss")
-        if loss is not None:
-            try:
-                loss = float(loss)
-                # A diverged step yields NaN/Inf — the server rejects those
-                # (they would poison CRD status JSON), so skip the field and
-                # let the heartbeat still carry liveness.
-                if math.isfinite(loss):
-                    body["loss"] = loss
-            except (TypeError, ValueError):
-                pass
         self._last_post, self._last_step = now, int(step)
-        if self._profile_result is not None:
-            body["profile"] = dict(self._profile_result)
-        if self._drain_ack is not None:
-            body["drainAck"] = dict(self._drain_ack)
         return self._post(body)
 
-    def take_profile_directive(self) -> Optional[Dict[str, Any]]:
-        """The pending on-demand profile directive (``{"id", "steps"}``)
-        stashed from a heartbeat ACK, consumed exactly once — the train
-        loop polls this after each due beat."""
-        directive, self._profile_directive = self._profile_directive, None
-        return directive
-
-    def attach_profile_result(self, result: Dict[str, Any]) -> None:
-        """Attach a finished capture's result to every subsequent beat
-        until a 200 ACK clears it (the startup one-shot protocol); the
-        id joins the seen set so the directive — still Requested until
-        the controller folds this very result — is never re-taken."""
-        self._profile_seen.add(str(result.get("id", "")))
-        self._profile_result = dict(result)
-
-    def take_drain_directive(self) -> Optional[Dict[str, Any]]:
-        """The pending cooperative-drain directive (``{"id", "reason",
-        ...}``) stashed from a heartbeat ACK, consumed exactly once — the
-        train loop polls this after each due beat and arms the planned-
-        drain latch."""
-        directive, self._drain_directive = self._drain_directive, None
-        return directive
-
-    def attach_drain_ack(self, ack: Dict[str, Any]) -> None:
-        """Attach the drain adoption ACK (``{"id", "step"}`` — the
-        boundary step the gang agreed to drain at) to every subsequent
-        beat until a 200 clears it; the id joins the seen set so the
-        directive — resent by the operator until its status folds to
-        Acked — is never re-taken."""
-        self._drain_seen.add(str(ack.get("id", "")))
-        self._drain_ack = dict(ack)
-
     def _post(self, body: Dict[str, Any]) -> bool:
-        """Best-effort POST shared by every report flavor: never raises,
-        logs the first failure of a streak rather than a stream. With an
-        ``async_sink`` wired (the autotune host worker), steady posts are
-        handed off — enqueue-and-return, True = accepted for delivery —
-        while ``startup``/``profile``-carrying beats keep the synchronous
-        path: their one-shot retry protocol needs the server's actual
-        verdict."""
-        sink = self.async_sink
-        if sink is not None and "startup" not in body \
-                and "profile" not in body and "drainAck" not in body:
-            return bool(sink(self._post_now, body))
-        return self._post_now(body)
-
-    def _post_now(self, body: Dict[str, Any]) -> bool:
+        """Best-effort POST: never raises, logs the first failure of a
+        streak rather than a stream."""
         try:
-            ack = self._poster(self.url, body)
+            self._poster(self.url, body)
             self._failed_once = False
-            if "profile" in body:
-                # The capture result one-shot is ACKed — stop resending.
-                self._profile_result = None
-            if "drainAck" in body:
-                # The drain adoption one-shot is ACKed — stop resending.
-                self._drain_ack = None
-            if isinstance(ack, dict):
-                directive = ack.get("profile")
-                if isinstance(directive, dict) and directive.get("id") \
-                        and str(directive["id"]) not in self._profile_seen:
-                    if len(self._profile_seen) >= 64:
-                        # Ids arrive one explicit tpujobctl call at a
-                        # time; the cap is a leak backstop, not a policy.
-                        self._profile_seen.clear()
-                    self._profile_seen.add(str(directive["id"]))
-                    self._profile_directive = dict(directive)
-                drain = ack.get("drain")
-                if isinstance(drain, dict) and drain.get("id") \
-                        and str(drain["id"]) not in self._drain_seen:
-                    if len(self._drain_seen) >= 64:
-                        # One directive in flight at a time; leak backstop.
-                        self._drain_seen.clear()
-                    self._drain_seen.add(str(drain["id"]))
-                    self._drain_directive = dict(drain)
             return True
-        except Exception as e:  # noqa: BLE001 — heartbeats never kill training
+        except Exception as e:  # noqa: BLE001 — heartbeats never kill serving
             if not self._failed_once:
                 log.warning("heartbeat post to %s failed: %s", self.url, e)
                 self._failed_once = True
             return False
 
-    def report_startup(self, stage: str) -> bool:
-        """Post a pre-first-step liveness beat carrying only the in-flight
-        ``startupStage`` (RENDEZVOUS/RESTORE/COMPILE/FIRST_STEP): the stall
-        watchdog's baseline is the operator's receipt stamp, so these keep
-        a long compile from reading as a hang. Deliberately does NOT touch
-        the step-cadence bookkeeping (``_last_post``): the first real step
-        report must fire immediately, and step-time averaging must not
-        span the startup window. Startup liveness is process 0's job —
-        cadence-only reporters no-op (the operator would discard the
-        post)."""
-        if self.cadence_only:
-            return False
-        return self._post({
-            "namespace": self.namespace,
-            "name": self.job_name,
-            "processId": self.process_id,
-            "attempt": self.attempt,
-            "startupStage": str(stage),
-        })
 
-    def maybe_report(self, step: int,
-                     metrics: Optional[Dict[str, Any]] = None,
-                     checkpoint: Optional[Dict[str, Any]] = None,
-                     serving: Optional[Dict[str, Any]] = None) -> bool:
-        if not self.due(step):
-            return False
-        return self.report(step, metrics, checkpoint=checkpoint,
-                           serving=serving)
-
-
-def from_env(env: Optional[Dict[str, str]] = None,
-             tokens_per_batch: int = 0) -> Optional[HeartbeatReporter]:
+def from_env(env: Optional[Dict[str, str]] = None
+             ) -> Optional[HeartbeatReporter]:
     """Reporter from the operator's env contract, or None when heartbeats
-    are not wired (no TPUJOB_STATUS_URL). Process 0 posts the full
-    telemetry stream (one per job, as before); every OTHER process posts
-    ``cadence_only`` beats — identity + step cadence + the stepTiming
-    phase digest — which the controller's straggler detector compares
-    across the gang to find the replica pacing the collective. One small
-    POST per process per interval, rate-limited inside the reporter."""
+    are not wired (no TPUJOB_STATUS_URL)."""
     e = env if env is not None else os.environ
     url = e.get("TPUJOB_STATUS_URL", "")
     job = e.get("TPUJOB_NAME", "")
     if not url or not job:
         return None
 
-    # Best-effort contract: malformed env must not kill training.
+    # Best-effort contract: malformed env must not kill the payload.
     def _num(var: str, default, cast):
         try:
             return cast(e.get(var) or default)
@@ -371,23 +142,10 @@ def from_env(env: Optional[Dict[str, str]] = None,
             log.warning("ignoring malformed %s=%r", var, e.get(var))
             return default
 
-    process_id = _num("JAX_PROCESS_ID", 0, int)
-    if process_id != 0 and str(
-            e.get("TPUJOB_STEPTRACE_ENABLED", "1")).lower() in ("0",
-                                                                "false"):
-        # Cadence beats exist FOR the straggler detector; with the flight
-        # recorder explicitly disabled (spec.stepTrace.enabled: false)
-        # the controller no-ops every one of them — a 64-process gang
-        # would pay 63 discarded POSTs per interval for a feature the
-        # user turned off. Process 0's stream is independent telemetry
-        # and keeps flowing.
-        return None
     return HeartbeatReporter(
         url, job,
         namespace=e.get("TPUJOB_NAMESPACE", "default"),
-        process_id=process_id,
+        process_id=_num("JAX_PROCESS_ID", 0, int),
         attempt=_num("TPUJOB_ATTEMPT", 0, int),
         interval=_num("TPUJOB_HEARTBEAT_INTERVAL", DEFAULT_INTERVAL, float),
-        tokens_per_batch=tokens_per_batch,
-        cadence_only=process_id != 0,
     )

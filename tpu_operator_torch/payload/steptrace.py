@@ -1,58 +1,44 @@
-"""Data-plane flight recorder: per-step phase timing for the train loop.
+"""Flight recorder: per-step phase timing for the serve loop.
 
-Steady-state step time, where a job spends almost all of its life,
+Steady-state step time, where a replica spends almost all of its life,
 would otherwise be a single averaged ``stepTimeSeconds`` on the
-heartbeat: no split between input wait, device compute, host work, and
-checkpoint stalls, and no way to see that ONE replica in a gang is pacing
-the collective for everyone. This module times the phases:
+heartbeat, with no split between device work and host work. This module
+times the phases:
 
-- :class:`StepRecorder` times each step's phases into a fixed-size ring
-  buffer. The step path pays **timestamps only** (one ``clock()`` call and
-  one dict store per phase boundary, one lock-guarded append per step);
+- :class:`StepRecorder` times each step's phases into a bounded window.
+  The step path pays **timestamps only** (one ``clock()`` call and one
+  dict store per phase boundary, one lock-guarded append per step);
   percentile aggregation runs off-loop, on the heartbeat cadence.
 - :meth:`StepRecorder.summary` drains the since-last-summary window into
   the wire-format digest the heartbeat carries (``stepTiming``): per-phase
   p50/p95/max plus whole-step percentiles. Windowed on purpose — each
   digest describes a disjoint span of steps, so the controller can feed
-  histograms without double counting and the straggler detector sees
-  time-local cadence, not a lifetime average.
-- On a retryable payload exit the ring buffer dumps as a JSON artifact
-  next to the checkpoint dir (:func:`postmortem_dump`) — and ships through
-  the write-behind store worker when ``spec.store`` is wired — so a
-  postmortem of a preempted or stalled attempt sees the last N steps'
-  phase timings, not just the final heartbeat.
+  histograms without double counting.
 
-Phase definitions (one step, in loop order):
+Phases (one step, in loop order; the serve loop times DATA, COMPUTE and
+HOST, and the other two keep their wire names for the training slice):
 
-- ``DATA`` — input/data wait: time blocked in ``next()`` on the
-  ``device_prefetch`` stream. Near zero while the prefetcher keeps up;
-  growth here means host batch generation or H2D transfer fell behind.
-- ``DISPATCH`` — the jitted step call itself: async enqueue of the device
-  program. Growth means trace/compile on the dispatch path or the runtime
-  throttling a too-deep queue.
-- ``COMPUTE`` — device execution: the host's residual wait, bounded by
-  ``block_until_ready`` fenced ONE STEP DEEP (after dispatching step i
-  the loop blocks on step i-1's metrics) so dispatch pipelining is
-  preserved — a same-step fence serialized host dispatch against device
-  compute and cost measurable throughput. The dominant phase on a
-  healthy, device-bound step; shrinkage here with wall time flat means
-  the host became the bottleneck.
-- ``CHECKPOINT`` — the ``maybe_save`` boundary: normally the async
-  handoff (~0), spiking when a save blocks on the previous one.
-- ``HOST`` — everything else host-side: logging, metrics fetch, the
-  heartbeat post.
+- ``DATA`` — input wait before the step.
+- ``DISPATCH`` — the launch of the step's device work, where a loop
+  times it apart from the wait.
+- ``COMPUTE`` — the decode step itself: kernel launches and the wait for
+  the step's next tokens on the host.
+- ``CHECKPOINT`` — a checkpoint save at the step boundary.
+- ``HOST`` — everything else host-side: token delivery, completions,
+  the heartbeat post.
 
-This is the PyTorch payload's own copy of
-``tpu_operator/payload/steptrace.py`` (stdlib only; a plain
-``threading.Lock`` where the original takes a lock-order-witnessed one).
-The wire format is the same, so the operator reads both payloads' digests
-alike.
+This is the PyTorch payload's own copy of the part of
+``tpu_operator/payload/steptrace.py`` that the serve loop uses (stdlib
+only; a plain ``threading.Lock`` where the original takes a
+lock-order-witnessed one). The wire format is the same, so the operator
+reads both payloads' digests alike. The ring buffer and its postmortem
+dump, keyed on a checkpoint dir, come with the slice that ports
+checkpoints.
 """
 
 from __future__ import annotations
 
 import collections
-import json
 import logging
 import math
 import os
@@ -72,7 +58,7 @@ HOST = "HOST"
 PHASES = (DATA, DISPATCH, COMPUTE, CHECKPOINT, HOST)
 
 # Wire-format field name per phase: the keys of ``stepTiming.phases`` on
-# the heartbeat, in ``status.stepTiming``, and in the postmortem artifact.
+# the heartbeat and in ``status.stepTiming``.
 PHASE_FIELDS = {
     DATA: "dataWait",
     DISPATCH: "dispatch",
@@ -81,10 +67,7 @@ PHASE_FIELDS = {
     HOST: "host",
 }
 
-# Per-phase digest stats carried for each phase field.
-DIGEST_KEYS = ("p50Seconds", "p95Seconds", "maxSeconds")
-
-# Ring-buffer capacity default (last N steps retained for the postmortem).
+# Window capacity default (the newest N steps digested per summary).
 DEFAULT_BUFFER_STEPS = 512
 
 # Operator env contract (trainer/replicas.py injects when spec.stepTrace
@@ -114,19 +97,17 @@ def digest(values: List[float]) -> Dict[str, float]:
 
 
 class StepRecorder:
-    """Per-step phase timing into a bounded ring buffer.
+    """Per-step phase timing into a bounded window.
 
-    Step-loop usage (one thread — the train loop — drives begin/lap/
-    commit; ``summary``/``snapshot``/``dump`` may be called from any
-    thread, hence the lock on the shared buffers)::
+    Step-loop usage (one thread — the step loop — drives begin/lap/
+    commit; ``summary`` may be called from any thread, hence the lock on
+    the shared buffers)::
 
         rec.begin(i)
-        batch = next(stream);            rec.lap(steptrace.DATA)
-        state, m = step(state, batch);   rec.lap(steptrace.DISPATCH)
-        block_until_ready(prev_m);       rec.lap(steptrace.COMPUTE)
-        ckpt.maybe_save(i + 1, state);   rec.lap(steptrace.CHECKPOINT)
-        log/heartbeat;                   rec.lap(steptrace.HOST)
-        rec.commit();                    prev_m = m
+        active = active_slots();         rec.lap(steptrace.DATA)
+        tokens = engine.step(model);     rec.lap(steptrace.COMPUTE)
+        deliver(tokens);                 rec.lap(steptrace.HOST)
+        rec.commit()
 
     ``lap`` attributes the time since the previous boundary to the named
     phase (re-entering a phase accumulates). ``clock`` is injectable for
@@ -138,18 +119,14 @@ class StepRecorder:
         self._clock = clock
         self.capacity = max(8, int(capacity))
         self._lock = threading.Lock()
-        # Last-N completed step records: {"step": i, "seconds": total,
-        # DATA: dt, ...} with raw phase-name keys.
-        self._ring: collections.deque = collections.deque(
-            maxlen=self.capacity)  # guarded-by: _lock
         # Since-last-summary window: phase -> samples, whole-step totals,
         # and per-step LOCAL time (total minus the COMPUTE wait) — the
         # straggler detector's signal. Drained and reset by summary();
-        # BOUNDED at the ring capacity because summary() only runs when a
+        # BOUNDED at the capacity because summary() only runs when a
         # heartbeat is wired — a standalone payload (no TPUJOB_STATUS_URL)
         # with the recorder default-ON must not accumulate O(steps) floats
         # forever. A window that hit the bound simply digests the newest
-        # `capacity` steps, same retention story as the ring itself.
+        # `capacity` steps.
         self._window: Dict[str, collections.deque] = {}  # guarded-by: _lock
         self._window_steps: collections.deque = collections.deque(
             maxlen=self.capacity)  # guarded-by: _lock
@@ -160,12 +137,6 @@ class StepRecorder:
         self._t0 = 0.0
         self._tlast = 0.0
         self.steps_recorded = 0
-        # Optional per-step observer (the autotune controller): called on
-        # the step-loop thread with each committed record, AFTER the ring
-        # bookkeeping and outside the lock. Must be cheap (the controller
-        # does float adds, evaluating once per window) and must not raise
-        # — commit shields the loop regardless.
-        self.on_commit: Optional[Callable[[Dict[str, Any]], None]] = None
 
     # -- step path (timestamps only) -------------------------------------------
 
@@ -189,7 +160,6 @@ class StepRecorder:
         self._cur = None
         cur["seconds"] = self._clock() - self._t0
         with self._lock:
-            self._ring.append(cur)
             self._window_steps.append(cur["seconds"])
             # Local time = everything the COMPUTE fence did NOT cover. In
             # a synchronous gang every member's step (and compute wait)
@@ -206,13 +176,6 @@ class StepRecorder:
                             maxlen=self.capacity)
                     self._window[phase].append(cur[phase])
         self.steps_recorded += 1
-        observer = self.on_commit
-        if observer is not None:
-            try:
-                observer(cur)
-            except Exception:  # noqa: BLE001 — observers never kill the loop
-                log.exception("steptrace commit observer failed; detaching")
-                self.on_commit = None
 
     def abandon(self) -> None:
         """Drop the in-flight step (loop exiting mid-step): a partial
@@ -253,44 +216,12 @@ class StepRecorder:
             out["phases"] = phases
         return out
 
-    def snapshot(self) -> List[Dict[str, Any]]:
-        """The ring buffer's records, oldest first, with wire-format phase
-        names — the postmortem artifact body."""
-        with self._lock:
-            ring = list(self._ring)
-        out = []
-        for rec in ring:
-            row: Dict[str, Any] = {"step": rec["step"],
-                                   "stepSeconds": round(rec["seconds"], 6)}
-            for phase in PHASES:
-                if phase in rec:
-                    row[PHASE_FIELDS[phase]] = round(rec[phase], 6)
-            out.append(row)
-        return out
-
-    def dump(self, path: str, meta: Optional[Dict[str, Any]] = None) -> str:
-        """Write the ring buffer as a JSON artifact (atomic tmp+rename).
-        Raises OSError on an unwritable destination — callers on exit
-        paths should use :func:`postmortem_dump`, which never raises."""
-        body: Dict[str, Any] = {
-            "kind": "tpujob-steptrace",
-            "capacity": self.capacity,
-            "stepsRecorded": self.steps_recorded,
-            **(meta or {}),
-            "steps": self.snapshot(),
-        }
-        tmp = f"{path}.tmp-{os.getpid()}"
-        with open(tmp, "w", encoding="utf-8") as f:
-            json.dump(body, f)
-        os.replace(tmp, path)
-        return path
-
 
 def from_env(env: Optional[Dict[str, str]] = None) -> Optional[StepRecorder]:
     """Recorder from the operator's env contract. Default ON (absent env):
     the recorder costs timestamps only, and a black-box data plane costs
     more. ``TPUJOB_STEPTRACE_ENABLED=0`` opts out; TPUJOB_STEPTRACE_BUFFER
-    sizes the ring."""
+    sizes the window."""
     e = env if env is not None else os.environ
     if str(e.get(ENV_ENABLED, "1")).lower() in ("0", "false"):
         return None
@@ -300,72 +231,3 @@ def from_env(env: Optional[Dict[str, str]] = None) -> Optional[StepRecorder]:
         log.warning("ignoring malformed %s=%r", ENV_BUFFER, e.get(ENV_BUFFER))
         capacity = DEFAULT_BUFFER_STEPS
     return StepRecorder(capacity=capacity)
-
-
-def postmortem_path(checkpoint_dir: str, attempt: int,
-                    process_id: int) -> str:
-    """The artifact path for one attempt's trace: a sibling of the
-    checkpoint dir (same volume — it survives the pod exactly as long as
-    the checkpoints do), named by attempt + process so successive attempts
-    and gang members never clobber each other. When the checkpoint dir IS
-    a top-level mount point (``checkpointDir: /ckpt`` with the PVC at
-    /ckpt), its parent is the container root fs — outside the volume —
-    so the artifact goes INSIDE the checkpoint dir instead (a
-    non-numeric file there is invisible to both the orbax step walk and
-    the quarantine scan)."""
-    name = f"steptrace-attempt{int(attempt)}-p{int(process_id)}.json"
-    ckpt = os.path.abspath(checkpoint_dir.rstrip("/") or "/")
-    base = os.path.dirname(ckpt)
-    if base == os.path.dirname(base):  # parent of a top-level dir: rootfs
-        return os.path.join(ckpt, name)
-    return os.path.join(base, name)
-
-
-def postmortem_dump(recorder: StepRecorder, checkpoint_dir: str,
-                    env: Optional[Dict[str, str]] = None) -> Optional[str]:
-    """Best-effort ring-buffer dump on a retryable exit: writes the
-    artifact next to the checkpoint dir and returns its path, or None
-    (logged) when there is nowhere to write or the write failed — a
-    postmortem aid must never turn a retryable exit into a permanent
-    one."""
-    e = env if env is not None else os.environ
-    if not checkpoint_dir:
-        log.debug("steptrace: no checkpoint dir; skipping postmortem dump")
-        return None
-
-    def _num(var: str) -> int:
-        try:
-            return int(e.get(var) or 0)
-        except ValueError:
-            return 0
-
-    attempt, process_id = _num("TPUJOB_ATTEMPT"), _num("JAX_PROCESS_ID")
-    path = postmortem_path(checkpoint_dir, attempt, process_id)
-    meta = {
-        "job": e.get("TPUJOB_NAME", ""),
-        "namespace": e.get("TPUJOB_NAMESPACE", "default"),
-        "attempt": attempt,
-        "processId": process_id,
-    }
-    try:
-        recorder.dump(path, meta=meta)
-    except OSError as err:
-        # The sibling slot can be unwritable (read-only parent, the
-        # checkpoint dir deeper than the mount): fall back INSIDE the
-        # checkpoint dir, which the payload provably writes.
-        fallback = os.path.join(os.path.abspath(checkpoint_dir),
-                                os.path.basename(path))
-        if fallback == path:
-            log.warning("steptrace: postmortem dump to %s failed: %s",
-                        path, err)
-            return None
-        try:
-            recorder.dump(fallback, meta=meta)
-            path = fallback
-        except OSError as err2:
-            log.warning("steptrace: postmortem dump failed (%s: %s; "
-                        "%s: %s)", path, err, fallback, err2)
-            return None
-    log.info("steptrace: dumped last %d step timings to %s",
-             min(recorder.steps_recorded, recorder.capacity), path)
-    return path
