@@ -12,13 +12,21 @@ one JSON line each:
    sm_90a (one nvcc per source, in parallel) and prints ptxas's register
    and spill report.
 3. ``kernels``: each kernel's wrapper on tensors on the card at the serve
-   path's shapes, held against its plain PyTorch version on the same
+   and training paths' shapes, held against its plain PyTorch version on the same
    inputs with the stated bf16 tolerance, and timed (CUDA events, warm,
    median) beside the plain version and one PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only; the port never
    calls it). The decode kernel is also run on poisoned (NaN) tails and
    on a paged gather, which must be bit-equal to the clean dense cache.
-4. ``serve``: a full-width ServeLoop (the flagship GQA LM: dim 2048,
+4. ``kernels`` (backward): the two backward kernels at the training
+   shape against the plain backward with a per-element tolerance set from
+   the kernels' bf16 roundings, at two ragged cases with offsets, a
+   stride, precomputed D and f32 grads, a zeroed-D negative control that
+   must fail, and a bit-equality check of two launches; timed beside the
+   plain version, the bound and SDPA's backward (a yardstick only).
+   ``autograd``: flash_attention's gradients against torch autograd
+   through the plain reference attention.
+5. ``serve``: a full-width ServeLoop (the flagship GQA LM: dim 2048,
    8 layers, 16 heads / 4 K/V heads, vocab 32768; seeded init; batch 8,
    window 1920, 128 decode tokens, page size 16) under ``--load 8:1`` and
    one HTTP ``POST /v1/decode``. Launch counters are zeroed just before
@@ -26,9 +34,21 @@ one JSON line each:
    per admission and the decode kernel 8 times per decode step. One
    request's first-token logits are recomputed on the plain path and
    compared with the kernel path.
-5. ``profile``: one full-width admission and ten 8-slot decode steps
+6. ``profile``: one full-width admission and ten 8-slot decode steps
    under torch.profiler: device time by kernel, device-busy time and the
    idle share beside the host clock.
+7. ``train``: the same LM trained at full width for 6 steps (global batch
+   32 x 2048 tokens as 4 microbatches, adam with a bf16 first moment)
+   through ``transformer.build`` and ``train.train_loop``. Launch counters
+   are zeroed just before the loop and read just after: every kernel of
+   the step must have run layers x microbatches x steps times. Every loss
+   finite, the first within [ln V, ln V + 2]; the loss trajectory, a smoke
+   tokens/s and the peak memory are printed. Before the loop, on the
+   seeded init, one 2-row microbatch's loss and every parameter's
+   gradient through the kernels are held against plain attention under
+   autograd; the same comparison on the trained weights is reported.
+   ``profile_train``: one training step and one adam update under
+   torch.profiler.
 
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` name/power
 line, and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -74,6 +94,38 @@ DECODE_ABS_FLOOR = 1e-5
 #   path only in the attention's rounding (above). 0.031 at |logit| ~4,
 #   about half of this, was measured on an H100.
 LOGIT_REL_TOL = 2.0 ** -6
+# - backward grads (per element): the kernels round P and dS to bf16 before
+#   their products and the bf16 grads once more; a rounding to bf16 (8
+#   significant bits) moves a value by at most 2^-8 of it. The plain
+#   version keeps f32. So an element may differ by 2^-8 of its value plus
+#   2^-8 of A, the sum of absolute terms of its product (scale |dS||K| for
+#   dq, scale |dS|^T|Q| for dk, |P|^T|dO| for dv); the tolerance is twice
+#   that bound. The floor, 2^-16 of the tensor's largest |ref|, covers
+#   f32 noise where dS = P (dP - D) cancels to ~0 (a row that sees one
+#   key has dP = D exactly in real arithmetic; each side keeps ~1e-6 of
+#   f32 rounding there, 1.3e-6 seen); a dropped or doubled term moves an
+#   element by 1e-3 of the largest or more;
+BWD_REL_TOL = 2.0 ** -7
+BWD_ABS_FLOOR = 2.0 ** -16
+# - attention gradients through autograd (max abs, per tensor): K1's bf16
+#   P and O and K2's roundings against f32 plain attention with bf16
+#   grads; about 4 bf16 ulps at the largest gradient. A wrong layout, a
+#   dropped group sum or a missing tile moves errors to O(max |ref|);
+AUTOGRAD_REL_TOL = 2.0 ** -6
+# - full-width cross-check, kernels vs plain attention under autograd on
+#   the same weights (2 rows), through 8 layers of bf16 backward in which
+#   only the attention's internal roundings differ: the loss (absolute;
+#   ln 32768 ~ 10.4, bf16 logits, 4094 targets); the whole gradient (norm
+#   of the difference over the norm, all parameters together) to 2^-6; and
+#   each parameter's gradient to 2^-3. The per-parameter bound is loose
+#   because a q or k weight's gradient at init is small, a sum over 4094
+#   positions that mostly cancels, while the per-position bf16 noise of P
+#   and dS (up to 2^-8 each) does not cancel with it: 3.6% was seen there.
+#   A wiring fault (a layout, a GQA group, a missing layer) is off by
+#   O(100%);
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_GLOBAL_TOL = 2.0 ** -6
+TRAIN_GRAD_REL_TOL = 2.0 ** -3
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -138,12 +190,13 @@ def decode_excess(torch, got, want) -> float:
 
 
 def check_flash_fwd(torch, fa, F, gen):
-    """The prefill kernel at the serve prefill shape (causal GQA) and at a
-    non-causal MHA shape with a ragged T."""
+    """The forward kernel at the serve prefill shape and the training shape
+    (causal GQA) and at a non-causal MHA shape with a ragged T."""
     dev = "cuda"
     results = {}
     for label, (b, t, h, kvh, causal) in {
             "prefill_causal_gqa": (1, 1920, 16, 4, True),
+            "train_causal_gqa": (8, 2048, 16, 4, True),
             "noncausal_mha_ragged": (2, 1000, 16, 16, False)}.items():
         d = 128
         q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
@@ -259,6 +312,239 @@ def check_flash_decode(torch, fa, F, gen):
             "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
         }
     return out
+
+
+def bwd_plain_terms(torch, fa, q, k, v, g, L, D, offsets, causal):
+    """The plain backward on [B,T,H,D] blocks, f32: ((dq, dk, dv), (A_dq,
+    A_dk, A_dv)), where A are the sums of absolute terms of the three
+    products whose operand the kernel rounds to bf16: scale |dS| |K|,
+    scale |dS|^T |Q| and |P|^T |dO|."""
+    qt, kt, vt, gt = (x.permute(0, 2, 1, 3) for x in (q, k, v, g))
+    grads = fa._bwd_ref(qt, kt, vt, gt, L, D, offsets, causal)
+    b, hq, tq, d = qt.shape
+    hkv, tk = kt.shape[1], kt.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5
+    qg = qt.reshape(b, hkv, group, tq, d).float()
+    gg = gt.reshape(b, hkv, group, tq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kt.float()) * scale
+    if causal:
+        q_off, k_off, stride = fa._normalize_offsets(offsets)
+        q_pos = q_off + stride * torch.arange(tq, device=q.device)
+        k_pos = k_off + stride * torch.arange(tk, device=q.device)
+        s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                        torch.full((), fa.NEG_INF, device=q.device))
+    p = torch.exp(s - L.reshape(b, hkv, group, tq, 1))
+    del s
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", gg, vt.float())
+    ds = (p * (dp - D.reshape(b, hkv, group, tq, 1))).abs_()
+    del dp
+    a_dv = torch.einsum("bhgqk,bhgqd->bhkd", p, gg.abs())
+    del p
+    a_dq = scale * torch.einsum("bhgqk,bhkd->bhgqd", ds, kt.float().abs())
+    a_dk = scale * torch.einsum("bhgqk,bhgqd->bhkd", ds, qg.abs())
+    terms = (a_dq.reshape(b, hq, tq, d), a_dk, a_dv)
+    return (tuple(x.permute(0, 2, 1, 3) for x in grads),
+            tuple(x.permute(0, 2, 1, 3) for x in terms))
+
+
+def bwd_excess(torch, got, want, terms) -> float:
+    """Largest per-element error over its K2 tolerance; <= 1 passes."""
+    limit = BWD_REL_TOL * (want.abs() + terms) \
+        + BWD_ABS_FLOOR * float(want.abs().max())
+    return float(((got.float() - want).abs() / limit).max())
+
+
+def bwd_case(torch, fa, gen, b, t, h, kvh, causal, offsets, fused,
+             grad_dtype):
+    """Inputs of one K2 case: q/k/v/dO bf16 from ``gen``; O and L from K1
+    for the aligned causal case (what the training backward sees), else
+    from the plain forward at the case's offsets; D = rowsum(dO O) f32."""
+    dev, d = "cuda", 128
+    q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
+    g = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
+    if causal and tuple(offsets) == (0, 0, 1):
+        out, L = fa.flash_attention_with_lse(q, k, v, causal=True)
+    else:
+        qt, kt, vt = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+        carry = fa.init_carry(b, h, t, d, device=dev)
+        o, l, m = fa._merge_ref(qt, kt, vt, *carry, offsets, causal)
+        out = fa.finalize((o, l, m), torch.bfloat16).permute(
+            0, 2, 1, 3).contiguous()
+        L = fa._logsumexp_rows(l, m).contiguous()
+    D = (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None] \
+        .contiguous()
+
+    def run():
+        return fa.attention_block_grads(
+            q, k, v, g, L, out if fused else None, offsets, causal=causal,
+            grad_dtype=grad_dtype, D=None if fused else D)
+
+    return (q, k, v, g, L, out, D), run
+
+
+def kernel_device_ms(torch, fn, calls: int, names):
+    """Device ms per call of each named kernel, from torch.profiler over
+    ``calls`` calls of ``fn`` (one launch of each kernel splits the time
+    a CUDA-event pair around both would lump together)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = _device_rows(torch, prof, calls)
+    return {name: sum(ms for key, ms, _n in rows if name in key) or
+            "not measured" for name in names}
+
+
+def check_flash_bwd(torch, fa, F, gen):
+    """The backward kernels (K2) against the plain backward: at the
+    training shape (B 8, T 2048, H 16, KVH 4, causal, O and L from K1,
+    fused D, bf16 grads) and at two ragged T 1000 cases with offsets
+    (group 4 with a stride and precomputed D; group 1), f32 grads. A
+    negative control (the plain side with D zeroed) must fail the
+    tolerance, and two launches must be bit-equal. Timed beside the plain
+    version, the bound, and the backward of one SDPA call."""
+    cases = {
+        "train_causal_gqa": (8, 2048, 16, 4, True, (0, 0, 1), True,
+                             torch.bfloat16),
+        "offsets_stride_g4_precomputed_d_ragged": (
+            2, 1000, 16, 4, True, (0, 3, 2), False, torch.float32),
+        "offsets_g1_ragged": (2, 1000, 8, 8, True, (128, 0, 1), True,
+                              torch.float32),
+    }
+    out = {}
+    for label, (b, t, h, kvh, causal, offs, fused, gd) in cases.items():
+        inputs, run = bwd_case(torch, fa, gen, b, t, h, kvh, causal, offs,
+                               fused, gd)
+        q, k, v, g, L, o, D = inputs
+        got = run()
+        torch.cuda.synchronize()
+        want, terms = bwd_plain_terms(torch, fa, q, k, v, g, L, D, offs,
+                                      causal)
+        res = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": 128,
+                         "causal": causal},
+               "offsets": list(offs), "fused_d": fused,
+               "grad_dtype": str(gd).replace("torch.", ""),
+               "tol": f"per element {BWD_REL_TOL} * (|ref| + A) + "
+                      f"{BWD_ABS_FLOOR} * max |ref|, A the sum of absolute "
+                      f"terms"}
+        for name, gg, ww, aa in zip(("dq", "dk", "dv"), got, want, terms):
+            require(gg.dtype == gd, f"flash_bwd {label}: {name} dtype")
+            require(bool(torch.isfinite(gg.float()).all()),
+                    f"flash_bwd {label}: non-finite {name}")
+            excess = bwd_excess(torch, gg, ww, aa)
+            res[name] = {"max_abs_err": max_err(torch, gg, ww),
+                         "max_abs_ref": float(ww.abs().max()),
+                         "worst_err_over_tol": excess}
+            require(excess <= 1.0, f"flash_bwd {label}: {name} error "
+                                   f"{excess} x its tolerance")
+        out[label] = res
+        if label != "train_causal_gqa":
+            del inputs, got, want, terms
+            continue
+        # Negative control: the plain side with D = 0 must fail.
+        zero_want, _ = bwd_plain_terms(torch, fa, q, k, v, g, L,
+                                       torch.zeros_like(D), offs, causal)
+        control = max(bwd_excess(torch, gg, ww, aa) for gg, ww, aa
+                      in zip(got, zero_want, terms))
+        require(control > 1.0, f"flash_bwd: the zeroed-D control passed "
+                               f"({control} x the tolerance)")
+        res["zeroed_d_control_worst_err_over_tol"] = control
+        del zero_want, want, terms
+        again = run()
+        equal = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+        require(equal, "flash_bwd: two launches differ")
+        res["two_launches_bit_equal"] = equal
+        del again, got
+        res["ms_pair"] = time_ms(torch, run, reps=20)
+        per_kernel = kernel_device_ms(
+            torch, run, 10, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+        res["ms_dq"] = per_kernel["flash_bwd_dq_kernel"]
+        res["ms_dkv"] = per_kernel["flash_bwd_dkv_kernel"]
+        qt, kt, vt, gt = (x.permute(0, 2, 1, 3) for x in (q, k, v, g))
+        res["plain_ms"] = time_ms(
+            torch, lambda: fa._bwd_ref(qt, kt, vt, gt, L, D, offs, causal),
+            reps=5)
+        # Yardstick: SDPA's backward, timed as forward+backward minus
+        # forward on the same inputs ([B,H,T,D] copies); never called by
+        # the port.
+        ql, kl, vl = (x.detach().contiguous().requires_grad_(True)
+                      for x in (qt, kt, vt))
+        gl = gt.contiguous()
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                               enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True, enable_gqa=True).backward(gl)
+
+        res["library_fwd_bwd_ms"] = time_ms(torch, sdpa_fwd_bwd, reps=20)
+        res["library_fwd_ms"] = time_ms(torch, sdpa_fwd, reps=20)
+        res["library_ms"] = res["library_fwd_bwd_ms"] - res["library_fwd_ms"]
+        res["library_ms_is"] = ("F.scaled_dot_product_attention backward: "
+                                "forward+backward minus forward")
+        pairs = t * (t + 1) // 2
+        mac = 2.0 * 128 * pairs * b * h  # one [T,T]-by-D product
+        in_bytes = 2.0 * (3 * b * t * h * 128 + 2 * b * t * kvh * 128) \
+            + 4.0 * b * h * t  # q, dO, O, k, v, L
+        for name, products, out_bytes in (
+                ("dq", 3, 2.0 * b * t * h * 128),
+                ("dkv", 4, 2.0 * 2 * b * t * kvh * 128),
+                ("pair", 5, 2.0 * (b * t * h + 2 * b * t * kvh) * 128)):
+            bms, by = bound(in_bytes + out_bytes, products * mac,
+                            BF16_TC_FLOPS)
+            res[f"bound_ms_{name}"], res[f"bound_by_{name}"] = bms, by
+        res["flops_pair"] = 5 * mac
+    return out
+
+
+def check_attention_autograd(torch, fa):
+    """flash_attention's gradients on the card (K1 forward, K2 backward
+    through FlashAttention) against torch autograd through the plain
+    reference_attention, B 2, T 512, causal GQA, bf16, a random
+    cotangent."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    b, t, h, kvh, d = 2, 512, 16, 4, 128
+    shapes = ((b, t, h, d), (b, t, kvh, d), (b, t, kvh, d))
+    xs = [torch.randn(s, generator=gen, device="cuda").bfloat16()
+          for s in shapes]
+    cot = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+
+    def grads(fn):
+        ts = [x.clone().requires_grad_(True) for x in xs]
+        fn(*ts).backward(cot)
+        return [x.grad for x in ts]
+
+    before = fa.launch_counts()
+    got = grads(lambda q, k, v: fa.flash_attention(q, k, v, causal=True))
+    after = fa.launch_counts()
+    want = grads(lambda q, k, v: fa.reference_attention(q, k, v, True))
+    res = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d},
+           "tol": f"max abs error <= {AUTOGRAD_REL_TOL} * max |ref| per "
+                  f"tensor"}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(after[name] == before[name] + 1,
+                f"autograd: {name} launched {after[name] - before[name]} "
+                f"times, wanted 1")
+    for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
+        require(gg.shape == ww.shape and gg.dtype == ww.dtype,
+                f"autograd: {name} shape/dtype")
+        err, ref = max_err(torch, gg, ww), float(ww.float().abs().max())
+        res[name] = {"max_abs_err": err, "max_abs_ref": ref}
+        require(err <= AUTOGRAD_REL_TOL * ref,
+                f"autograd: {name} error {err} > {AUTOGRAD_REL_TOL} x {ref}")
+    return res
 
 
 # --- phase: serve --------------------------------------------------------------
@@ -465,6 +751,182 @@ def profile_engine(torch, loop, steps: int = 10):
                             "steps": steps, **decode}}
 
 
+# --- phase: train --------------------------------------------------------------
+
+
+TRAIN_ARGV = ["--steps", "6", "--batch", "32", "--seq-len", "2048",
+              "--grad-accum", "4", "--adam-mu-dtype", "bf16",
+              "--vocab", "32768", "--dim", "2048", "--heads", "16",
+              "--kv-heads", "4", "--layers", "8", "--seed", "0",
+              "--log-every", "0", "--device", "cuda",
+              "--checkpoint-dir", "", "--profile-dir", ""]
+
+
+def run_train(torch, fa, transformer, train, data):
+    """The flagship GQA LM at full width (bench.py:636, without remat),
+    6 steps of global batch 32 x 2048 as 4 microbatches of 8, through
+    transformer.build and train.train_loop. Before the loop, on the
+    seeded init, the plain cross-check (gated); after it, the same check
+    on the trained weights (reported). Launch counters are zeroed just
+    before the loop and read just after."""
+    import math
+
+    args = transformer.parse_args(TRAIN_ARGV)
+    built = transformer.build(args)
+    # Two rows from another seed, so the training stream is untouched.
+    (rows,) = next(data.synthetic_lm(args.seed + 1, 2, args.seq_len,
+                                     vocab=args.vocab))
+    tokens = torch.from_numpy(rows).to(built.device)
+    at_init = check_train_plain(torch, fa, transformer, train, built.model,
+                                tokens)
+    require(at_init["loss_abs_err"] <= TRAIN_LOSS_TOL,
+            f"train cross-check: loss {at_init['loss_kernels']} vs plain "
+            f"{at_init['loss_plain']}")
+    require(at_init["grad_rel_err_all"] <= TRAIN_GRAD_GLOBAL_TOL,
+            f"train cross-check: the whole gradient off by "
+            f"{at_init['grad_rel_err_all']} of its norm")
+    worst_name, worst = at_init["worst_grad_rel_err"][0]
+    require(worst <= TRAIN_GRAD_REL_TOL,
+            f"train cross-check: {worst_name} gradient off by {worst} of "
+            f"its norm")
+    losses, starts = [], []
+
+    def step(batch):
+        starts.append(time.perf_counter())
+        metrics = built.step(batch)
+        losses.append(metrics["loss"])  # stays on the card until the end
+        return metrics
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    last = train.train_loop(step, built.batches, args.steps,
+                            device=built.device)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    counts = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trajectory = [float(x) for x in losses]
+    require(len(trajectory) == args.steps, "train: wrong number of steps")
+    require(all(math.isfinite(x) for x in trajectory),
+            f"train: non-finite loss {trajectory}")
+    require(trajectory[-1] == last["loss"], "train: loop result")
+    ln_v = math.log(args.vocab)
+    require(ln_v <= trajectory[0] <= ln_v + 2,
+            f"train: step-0 loss {trajectory[0]} outside [ln V, ln V + 2] "
+            f"= [{ln_v}, {ln_v + 2}]")
+    per_path = args.layers * args.grad_accum * args.steps
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(counts[name] == per_path,
+                f"train: {name} launched {counts[name]} times, wanted "
+                f"{args.layers} x {args.grad_accum} x {args.steps}")
+    step_s = [b - a for a, b in zip(starts, starts[1:] + [end])]
+    n_tokens = args.batch * args.seq_len
+    return {
+        "model": "lm_flagship_gqa_kv4 (bench.py:636), no remat",
+        "argv": TRAIN_ARGV,
+        "params": sum(p.numel() for p in built.model.parameters()),
+        "launches": counts,
+        "loss_trajectory": trajectory,
+        "loop_seconds": end - t0,
+        "step_seconds": step_s,
+        "smoke_tokens_per_s_median_steps_2_to_5":
+            n_tokens / statistics.median(step_s[2:6]),
+        "smoke_reading": "6 steps from a cold start; not a throughput "
+                         "measurement",
+        "peak_memory_gb": peak,
+        "crosscheck_at_init": at_init,
+        "crosscheck_trained_reported_only": check_train_plain(
+            torch, fa, transformer, train, built.model, tokens),
+    }, built
+
+
+def check_train_plain(torch, fa, transformer, train, model, tokens):
+    """One microbatch (``tokens``, 2 rows): the loss and every parameter's
+    gradient through the kernels against the same model with plain
+    attention (``_attn_ref``) under autograd, on the card."""
+
+    def plain_attend(_i):
+        def attend(q, k, v):
+            out, _ = fa._attn_ref(q.permute(0, 2, 1, 3),
+                                  k.permute(0, 2, 1, 3),
+                                  v.permute(0, 2, 1, 3), True)
+            return out.permute(0, 2, 1, 3)
+        return attend
+
+    def loss_and_grads(attend_for_layer):
+        model.zero_grad(set_to_none=True)
+        loss = train.next_token_nll(model(tokens, None, attend_for_layer),
+                                    tokens)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    kern_loss, kern = loss_and_grads(transformer._causal_attend)
+    plain_loss, plain = loss_and_grads(plain_attend)
+    ratios, diff_sq, ref_sq = [], 0.0, 0.0
+    for name, g in kern.items():
+        ref = plain[name]
+        diff, norm = float((g - ref).norm()), float(ref.norm())
+        diff_sq, ref_sq = diff_sq + diff ** 2, ref_sq + norm ** 2
+        ratios.append((name, diff / max(norm, 1e-30), norm))
+    ratios.sort(key=lambda r: -r[1])
+    return {"rows": int(tokens.shape[0]), "loss_kernels": kern_loss,
+            "loss_plain": plain_loss,
+            "loss_abs_err": abs(kern_loss - plain_loss),
+            "loss_tol": TRAIN_LOSS_TOL,
+            "grad_rel_err_all": (diff_sq / ref_sq) ** 0.5,
+            "worst_grad_rel_err": [(n, r) for n, r, _ in ratios[:5]],
+            "worst_grad_norm_plain": [(n, g) for n, _, g in ratios[:5]],
+            "median_grad_norm_plain": statistics.median(
+                g for _, _, g in ratios),
+            "grad_tol": f"all params {TRAIN_GRAD_GLOBAL_TOL}, each "
+                        f"{TRAIN_GRAD_REL_TOL} of the plain norm"}
+
+
+def _classify(op: str) -> str:
+    if "flash_fwd" in op:
+        return "K1 flash_fwd"
+    if "flash_bwd" in op:
+        return "K2 flash_bwd"
+    if any(s in op for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+        return "cuBLAS"
+    return "other (elementwise, reductions, copies)"
+
+
+def profile_train(torch, built):
+    """One full training step (4 microbatches + the adam update) under
+    torch.profiler, and the adam update alone, beside the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    (host,) = next(built.batches)
+    tokens = torch.from_numpy(host).to(built.device)
+    built.step(tokens)  # one unprofiled step
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        built.step(tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(torch, prof, 1)
+    groups: dict = {}
+    for key, ms, _n in rows:
+        groups[_classify(key)] = groups.get(_classify(key), 0.0) + ms
+    params = [p for p in built.model.parameters() if p.requires_grad]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        built.optimizer.step(params, built.opt_state)
+        torch.cuda.synchronize()
+        opt_wall = (time.perf_counter() - t0) * 1e3
+    opt_rows = _device_rows(torch, prof, 1)
+    return {"train_step": {**_breakdown(rows, wall), "by_group_ms": groups},
+            "adam_update": _breakdown(opt_rows, opt_wall)}
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -477,8 +939,11 @@ def main() -> int:
 
         from tpu_operator_torch.kernels import build
         from tpu_operator_torch.payload import bootstrap
+        from tpu_operator_torch.payload import data
         from tpu_operator_torch.payload import flash_attention as fa
         from tpu_operator_torch.payload import serve
+        from tpu_operator_torch.payload import train
+        from tpu_operator_torch.payload import transformer
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repo ({e})",
               file=sys.stderr)
@@ -505,24 +970,41 @@ def main() -> int:
             emit({"phase": "kernels", "kernel": "flash_fwd", **fwd})
             dec = check_flash_decode(torch, fa, F, gen)
             emit({"phase": "kernels", "kernel": "flash_decode", **dec})
+        bwd = check_flash_bwd(torch, fa, F, gen)
+        emit({"phase": "kernels", "kernel": "flash_bwd", **bwd})
+        emit({"phase": "autograd", **check_attention_autograd(torch, fa)})
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         sv, loop = run_serve(torch, fa, serve, bootstrap)
         emit({"phase": "serve", **sv})
         emit({"phase": "profile", **profile_engine(torch, loop)})
+        del loop
+        torch.cuda.empty_cache()
+        tr, built = run_train(torch, fa, transformer, train, data)
+        emit({"phase": "train", **tr})
+        emit({"phase": "profile_train", **profile_train(torch, built)})
     except SmokeFailure as e:
         emit({"phase": "failed", "error": str(e)})
         return 1
-    main_fwd, main_dec = fwd["prefill_causal_gqa"], dec["full"]
+    serve_fwd, train_fwd = fwd["prefill_causal_gqa"], fwd["train_causal_gqa"]
+    main_dec, main_bwd = dec["full"], bwd["train_causal_gqa"]
+    bwd_err = {name: max(r[n]["max_abs_err"] for r in bwd.values()
+                         for n in names)
+               for name, names in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_fwd.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:462",
-         "launches": sv["launches"]["flash_fwd"],
+         "launches": tr["launches"]["flash_fwd"],
+         "launches_by_path": {"train": tr["launches"]["flash_fwd"],
+                              "serve": sv["launches"]["flash_fwd"]},
          "max_abs_err": max(r["max_abs_err_O"] for r in fwd.values()),
-         "ms": main_fwd["ms"], "plain_ms": main_fwd["plain_ms"],
-         "bound_ms": main_fwd["bound_ms"],
-         "bound_by": main_fwd["bound_by"],
-         "library_ms": main_fwd["library_ms"]},
+         "ms": train_fwd["ms"], "plain_ms": train_fwd["plain_ms"],
+         "bound_ms": train_fwd["bound_ms"],
+         "bound_by": train_fwd["bound_by"],
+         "library_ms": train_fwd["library_ms"],
+         "shape": "train B8 T2048", "serve_prefill_ms": serve_fwd["ms"],
+         "serve_prefill_bound_ms": serve_fwd["bound_ms"]},
         {"name": "flash_decode", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_decode.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:990",
@@ -533,6 +1015,23 @@ def main() -> int:
          "bound_by": main_dec["bound_by"],
          "library_ms": main_dec["library_ms"]},
     ]
+    for name, line in (("dq", 629), ("dkv", 665)):
+        kernels.append({
+            "name": f"flash_bwd_{name}", "route": "cuda",
+            "source": "tpu_operator_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": f"tpu_operator/payload/flash_attention.py:{line}",
+            "launches": tr["launches"][f"flash_bwd_{name}"],
+            "max_abs_err": bwd_err[name],
+            "ms": main_bwd[f"ms_{name}"],
+            "plain_ms": main_bwd["plain_ms"],
+            "bound_ms": main_bwd[f"bound_ms_{name}"],
+            "bound_by": main_bwd[f"bound_by_{name}"],
+            "library_ms": main_bwd["library_ms"],
+            "shape": "train B8 T2048",
+            "plain_ms_is": "_bwd_ref: dq, dk and dv together",
+            "library_ms_is": main_bwd["library_ms_is"],
+            "pair_ms": main_bwd["ms_pair"],
+            "pair_bound_ms": main_bwd["bound_ms_pair"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

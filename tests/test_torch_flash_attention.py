@@ -150,8 +150,10 @@ def test_cpu_path_never_counts_kernel_launches():
     path leaves them untouched."""
     tfa.reset_launch_counts()
     q, k, v = _inputs(2, 1, 8, 2, 1, 8)
-    tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
-                        torch.from_numpy(v))
+    qt = torch.from_numpy(q).requires_grad_(True)
+    tfa.flash_attention(qt, torch.from_numpy(k),
+                        torch.from_numpy(v)).sum().backward()
     tfa.flash_decode(torch.from_numpy(q[:, :1]), torch.from_numpy(k),
                      torch.from_numpy(v), torch.tensor([8], dtype=torch.int32))
-    assert tfa.launch_counts() == {"flash_fwd": 0, "flash_decode": 0}
+    assert tfa.launch_counts() == {"flash_fwd": 0, "flash_decode": 0,
+                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0}

@@ -6,14 +6,15 @@ The operator's env contract is framework-neutral: ``JAX_COORDINATOR_ADDRESS``,
 ``TPUJOB_*`` variables the job. :func:`process_info_from_env` parses them
 into :class:`ProcessInfo`.
 
-Serve replicas are single-process servers, so this slice forms no process
-group: :func:`initialize` accepts a one-process job and raises for more
-(a multi-process NCCL group comes with the training slice).
+Serve replicas and the one-card trainer are single-process, so no
+process group is formed yet: :func:`initialize` accepts a one-process job
+and raises for more (the multi-process NCCL group is still to port).
 
 ``run_payload`` maps clean completion -> 0, an application error -> 1
-(permanent), and SIGTERM (preemption/eviction) -> 143 (retryable), the
-signals the operator's restart machinery classifies. ``EXIT_PLANNED``
-(160, a cooperative drain) is kept for the training loop of a later slice.
+(permanent), SIGTERM (preemption/eviction) -> 143 (retryable), and an
+operator-directed drain -> ``EXIT_PLANNED`` (160), the signals the
+operator's restart machinery classifies. While a training step loop runs,
+SIGTERM defers to the next step boundary through the drain latch below.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import logging
 import os
 import signal
 import sys
+import threading
 from typing import Callable, Optional
 
 log = logging.getLogger(__name__)
@@ -82,13 +84,67 @@ EXIT_RETRYABLE = 143  # 128 + SIGTERM: the retryable band
 EXIT_PLANNED = 160    # operator-directed (cooperative-drain) restart
 
 
+# Drain latch (the reference's, bootstrap.py:239-280). SIGTERM inside the
+# step loop sets it, and the loop exits EXIT_RETRYABLE at the next step
+# boundary instead of mid-step; outside the loop, or on a second SIGTERM,
+# the process exits at once. A drain DIRECTIVE (the operator's
+# cooperative-drain protocol, riding a heartbeat ACK) arms the same latch
+# plus _planned, and the loop exits EXIT_PLANNED, so the restart is billed
+# as planned, not preempted.
+_drain = threading.Event()
+_planned = threading.Event()
+_in_step_loop = threading.Event()
+
+
+def request_drain() -> None:
+    _drain.set()
+
+
+def request_planned_drain() -> None:
+    """Arm the drain latch for an operator-directed (planned) restart:
+    drain at the next step boundary and exit EXIT_PLANNED."""
+    _planned.set()
+    _drain.set()
+
+
+def draining() -> bool:
+    return _drain.is_set()
+
+
+def drain_exit_code() -> int:
+    """The exit code the current drain latch maps to: EXIT_PLANNED for a
+    directive-driven drain, EXIT_RETRYABLE for a signal-driven one."""
+    return EXIT_PLANNED if _planned.is_set() else EXIT_RETRYABLE
+
+
+def reset_drain() -> None:
+    """Test hook: clear the module-level drain latches."""
+    _drain.clear()
+    _planned.clear()
+
+
+def enter_step_loop() -> None:
+    """The training loop marks itself drainable; SIGTERM then defers to
+    the next step boundary instead of killing the process mid-step."""
+    _in_step_loop.set()
+
+
+def exit_step_loop() -> None:
+    _in_step_loop.clear()
+
+
 def run_payload(fn: Callable[[ProcessInfo], None]) -> int:
     """Run a payload under the exit-code contract: SIGTERM exits 143
-    (retryable), any other exception exits 1 (permanent), a clean return
-    exits 0."""
+    (retryable; inside a training step loop, at the next step boundary),
+    a planned drain 160, any other exception 1 (permanent), a clean
+    return 0."""
 
     def _sigterm(_signum, _frame):
-        raise SystemExit(EXIT_RETRYABLE)
+        if _drain.is_set() or not _in_step_loop.is_set():
+            raise SystemExit(EXIT_RETRYABLE)
+        log.info("SIGTERM: draining at the next step boundary (send again "
+                 "to exit immediately)")
+        request_drain()
 
     signal.signal(signal.SIGTERM, _sigterm)
     try:

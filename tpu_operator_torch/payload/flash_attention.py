@@ -1,7 +1,7 @@
-"""Flash attention for the serve path: CUDA kernels plus their plain
-PyTorch versions (counterpart of ``tpu_operator/payload/flash_attention.py``).
+"""Flash attention: CUDA kernels plus their plain PyTorch versions
+(counterpart of ``tpu_operator/payload/flash_attention.py``).
 
-Two kernels, both in ``tpu_operator_torch/kernels/csrc/``:
+Three kernels, all in ``tpu_operator_torch/kernels/csrc/``:
 
 - :func:`flash_attention` (prefill) launches ``flash_fwd.cu``, the port of
   the TPU kernel ``_fwd_kernel``: exact attention over ``[B, T, H, D]``,
@@ -12,12 +12,20 @@ Two kernels, both in ``tpu_operator_torch/kernels/csrc/``:
   the port of ``_decode_kernel``: ``[B, Tq, H, D]`` new-token queries
   against a ``[B, S, KVH, D]`` cache with per-row int32 ``lengths``; keys
   at positions ``>= lengths[b]`` are never read.
+- :func:`attention_block_grads` (the backward of every training block)
+  launches the two kernels of ``flash_bwd.cu``, the port of
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: dQ, dK, dV from the forward's
+  O and L, with D = rowsum(dO * O) fused or given, causal offsets with a
+  stride, and grads in bf16 or f32. :class:`FlashAttention` (the custom
+  VJP of the reference's ``_attn``) pairs it with the forward, so
+  :func:`flash_attention` is differentiable.
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor goes to
 the kernel (bf16, head dim 128, contiguous) or the call raises; a CPU
-tensor goes to the plain version (:func:`_attn_ref`, :func:`_decode_ref`),
-which is also the yardstick ``chip_smoke.py`` holds each kernel against.
-There is no fallback from the kernel to the plain version.
+tensor goes to the plain version (:func:`_attn_ref`, :func:`_decode_ref`,
+:func:`_bwd_ref`), which is also the yardstick ``chip_smoke.py`` holds
+each kernel against. There is no fallback from the kernel to the plain
+version.
 
 Masking uses the finite ``NEG_INF = -1e30`` of the reference: a masked key
 adds exactly 0 once its row has seen a valid key, and a row that saw none
@@ -29,7 +37,7 @@ count), so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,7 +46,8 @@ NEG_INF = -1e30
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # o, l, m
 
 # Kernel launches since the last reset, by kernel.
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -130,6 +139,51 @@ def _attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     carry = init_carry(b, h, t, d, device=q.device)
     o, l, m = _merge_ref(q, k, v, *carry, (0, 0, 1), causal)
     return finalize((o, l, m), q.dtype), _logsumexp_rows(l, m)
+
+
+def _normalize_offsets(offsets: Sequence[int]) -> Tuple[int, int, int]:
+    """(q_off, k_off, stride) ints; the contiguous two-element form gets
+    stride 1."""
+    offs = [int(x) for x in offsets]
+    if len(offs) == 2:
+        offs.append(1)
+    if len(offs) != 3 or offs[2] <= 0:
+        raise ValueError(f"offsets must be (q_off, k_off[, stride > 0]), "
+                         f"got {tuple(offsets)}")
+    return offs[0], offs[1], offs[2]
+
+
+def _bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             g: torch.Tensor, L: torch.Tensor, D: torch.Tensor,
+             offsets: Sequence[int], causal: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) f32 of one K/V block on [B,H,T,D] blocks (K/V may carry
+    grouped heads; dk/dv come back at that size), from the *global* row
+    logsumexp ``L`` and ``D = rowsum(dO * O)``, both [B,H,Tq,1] f32. The
+    reference's ``_bwd_ref``: f32 throughout, scores materialised."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = _group_of(hq, hkv)
+    scale = d ** -0.5
+    qg = q.reshape(b, hkv, group, tq, d).float()
+    gg = g.reshape(b, hkv, group, tq, d).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
+    if causal:
+        q_off, k_off, stride = _normalize_offsets(offsets)
+        q_pos = q_off + stride * torch.arange(tq, dtype=torch.int32,
+                                              device=q.device)
+        k_pos = k_off + stride * torch.arange(tk, dtype=torch.int32,
+                                              device=q.device)
+        s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                        torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - L.float().reshape(b, hkv, group, tq, 1))
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, gg)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", gg, vf)
+    ds = p * (dp - D.float().reshape(b, hkv, group, tq, 1))
+    dq = scale * torch.einsum("bhgqk,bhkd->bhgqd", ds, kf)
+    dk = scale * torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    return dq.reshape(b, hq, tq, d), dk, dv
 
 
 def _decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -277,6 +331,73 @@ def _flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+_GRAD_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor, L: torch.Tensor,
+                    out: Optional[torch.Tensor], D: Optional[torch.Tensor],
+                    offsets: Tuple[int, int, int], causal: bool,
+                    grad_dtype: torch.dtype
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both backward kernels. Exactly one of ``out`` (fused D) and ``D``
+    ([B,H,Tq,1] f32) is given."""
+    from tpu_operator_torch.kernels import build
+
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("flash_bwd: q/dO [B,Tq,H,D], k/v [B,Tk,KVH,D]")
+    b, tq, h, d = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    if g.shape != q.shape or (out is not None and out.shape != q.shape):
+        raise ValueError(f"flash_bwd: dO/O must match q {tuple(q.shape)}")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_bwd: k/v {tuple(k.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    rows = {"q": q, "k": k, "v": v, "dO": g}
+    if out is not None:
+        rows["O"] = out
+    for arg, x in rows.items():
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"flash_bwd: {arg} must be bfloat16, "
+                             f"got {x.dtype}")
+    stats = {"L": L} if D is None else {"L": L, "D": D}
+    for arg, x in stats.items():
+        if x.dtype != torch.float32 or tuple(x.shape) != (b, h, tq, 1):
+            raise ValueError(f"flash_bwd: {arg} must be f32 [{b},{h},{tq},1]")
+    if grad_dtype not in _GRAD_DTYPES:
+        raise ValueError(f"flash_bwd: grad_dtype must be bf16 or f32, "
+                         f"got {grad_dtype}")
+    group = _group_of(h, kvh)
+    if 64 % group != 0:
+        raise ValueError(f"flash_bwd: group {group} must divide 64")
+    _check_kernel_inputs("flash_bwd", {**rows, **stats}, d)
+    q_off, k_off, stride = offsets
+    if max(abs(q_off), abs(k_off)) + stride * max(tq, tk) >= 2 ** 31:
+        raise ValueError("flash_bwd: positions overflow int32")
+    dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
+    o_ptr = out.data_ptr() if out is not None else None
+    d_ptr = D.data_ptr() if D is not None else None
+    scalars = (b, tq, tk, h, kvh, d, int(bool(causal)), q_off, k_off, stride,
+               d ** -0.5, int(grad_dtype == torch.float32))
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_bwd_dq_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   g.data_ptr(), L.data_ptr(), o_ptr, d_ptr,
+                                   dq.data_ptr(), *scalars, stream)
+        build.check(rc, "flash_bwd_dq")
+        LAUNCHES["flash_bwd_dq"] += 1
+        rc = lib.flash_bwd_dkv_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    g.data_ptr(), L.data_ptr(), o_ptr, d_ptr,
+                                    dk.data_ptr(), dv.data_ptr(), *scalars,
+                                    stream)
+        build.check(rc, "flash_bwd_dkv")
+        LAUNCHES["flash_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
 def _route(q: torch.Tensor) -> str:
     if q.is_cuda:
         return "cuda"
@@ -300,10 +421,66 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 2, 1, 3), lse
 
 
+def attention_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          g: torch.Tensor, L: torch.Tensor,
+                          out: Optional[torch.Tensor],
+                          offsets: Sequence[int], *, causal: bool = True,
+                          grad_dtype: torch.dtype = torch.float32,
+                          D: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) contributions of one K/V block, given the *global* row
+    logsumexp ``L`` [B,H,Tq,1] f32 and the forward output ``out``: the
+    reference's contract, in the port's [B,T,H,D] layout (q, dO ``g`` and
+    ``out`` [B,Tq,H,D]; k, v [B,Tk,KVH,D], and dk/dv come back at that KV
+    size). ``offsets`` is (q_off, k_off) or (q_off, k_off, stride): slot i
+    sits at global position off + stride*i. By default D = rowsum(dO*O) is
+    fused into the kernels; a caller reusing one dO/O across many blocks
+    passes ``D`` [B,H,Tq,1] f32 instead (``out`` is then unused). Grads
+    come in ``grad_dtype``. CUDA: the two backward kernels; CPU: the plain
+    version."""
+    offs = _normalize_offsets(offsets)
+    if _route(q) == "cuda":
+        if D is not None:
+            return _flash_bwd_cuda(q, k, v, g, L, None, D, offs, causal,
+                                   grad_dtype)
+        return _flash_bwd_cuda(q, k, v, g, L, out, None, offs, causal,
+                               grad_dtype)
+    if D is None:
+        D = (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    dq, dk, dv = _bwd_ref(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                          v.permute(0, 2, 1, 3), g.permute(0, 2, 1, 3), L, D,
+                          offs, causal)
+    return tuple(x.permute(0, 2, 1, 3).to(grad_dtype) for x in (dq, dk, dv))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Exact attention with the flash backward (the reference's ``_attn``
+    custom VJP): the forward saves (q, k, v, O, L); the backward runs
+    :func:`attention_block_grads` at offsets (0, 0, 1) with fused D and
+    grads in the input dtype."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+        out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_block_grads(
+            q, k, v, g.contiguous(), lse, out, (0, 0, 1), causal=ctx.causal,
+            grad_dtype=q.dtype)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """Single-device exact attention, [B,T,H,D] in and out."""
-    return flash_attention_with_lse(q, k, v, causal=causal)[0]
+    """Single-device exact attention, [B,T,H,D] in and out; differentiable
+    through :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v, causal)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Flight recorder: per-step phase timing for the serve loop.
+"""Flight recorder: per-step phase timing for the serve and training loops.
 
 Steady-state step time, where a replica spends almost all of its life,
 would otherwise be a single averaged ``stepTimeSeconds`` on the
@@ -16,19 +16,20 @@ times the phases:
   histograms without double counting.
 
 Phases (one step, in loop order; the serve loop times DATA, COMPUTE and
-HOST, and the other two keep their wire names for the training slice):
+HOST, the training loop DATA, DISPATCH, COMPUTE and HOST, and CHECKPOINT
+keeps its wire name for the slice that ports checkpoints):
 
 - ``DATA`` — input wait before the step.
 - ``DISPATCH`` — the launch of the step's device work, where a loop
   times it apart from the wait.
-- ``COMPUTE`` — the decode step itself: kernel launches and the wait for
-  the step's next tokens on the host.
+- ``COMPUTE`` — the wait for device work: the decode step's next tokens,
+  or the training loop's fence on the previous step.
 - ``CHECKPOINT`` — a checkpoint save at the step boundary.
 - ``HOST`` — everything else host-side: token delivery, completions,
-  the heartbeat post.
+  logs, the heartbeat post.
 
 This is the PyTorch payload's own copy of the part of
-``tpu_operator/payload/steptrace.py`` that the serve loop uses (stdlib
+``tpu_operator/payload/steptrace.py`` that the two loops use (stdlib
 only; a plain ``threading.Lock`` where the original takes a
 lock-order-witnessed one). The wire format is the same, so the operator
 reads both payloads' digests alike. The ring buffer and its postmortem

@@ -1,16 +1,20 @@
-"""Carry a flax LM param tree across to the port's ``TransformerLM``.
+"""Carry a flax LM param tree across to the port's ``TransformerLM`` and
+back.
 
 The tree is the reference's ``TransformerLM`` params as nested dicts of
 numpy arrays (``tok_embed``, ``pos_embed``, ``block{i}``, ``ln_final``,
 ``lm_head``). Flax dense kernels are ``[in, out]``; torch ``Linear``
-weights are ``[out, in]``, so kernels are transposed. Weights land in
-bf16 (the reference casts them to bf16 at every apply, with the same
-rounding), LayerNorm params stay f32.
+weights are ``[out, in]``, so kernels are transposed. Dense and embedding
+weights land in ``param_dtype``: bf16 for serving (the reference casts
+them to bf16 at every apply, with the same rounding), f32 for training
+(the reference's f32 master params). LayerNorm params stay f32.
+:func:`to_flax` is the inverse, as f32 numpy arrays, so a test can compare
+parameters leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -40,11 +44,12 @@ def _load_ln(ln: torch.nn.LayerNorm, tree: Mapping[str, Any]) -> None:
 
 
 @torch.no_grad()
-def from_flax(params: Mapping[str, Any], *, heads: int,
-              device=None) -> TransformerLM:
+def from_flax(params: Mapping[str, Any], *, heads: int, device=None,
+              param_dtype: torch.dtype = torch.bfloat16) -> TransformerLM:
     """``TransformerLM`` holding the flax tree's weights. ``heads`` is not
     recoverable from shapes; vocab, dim, layers, max_seq, the K/V head
-    count and the qkv layout are read from the tree."""
+    count and the qkv layout are read from the tree. Gradients stay off
+    (the model's default)."""
     vocab, dim = np.shape(params["tok_embed"]["embedding"])
     max_seq = np.shape(params["pos_embed"]["embedding"])[0]
     layers = 0
@@ -57,7 +62,8 @@ def from_flax(params: Mapping[str, Any], *, heads: int,
         kv_dim = np.shape(block0["k"]["kernel"])[1]
         kv_heads, split = kv_dim // (dim // heads), True
     model = TransformerLM(vocab, dim, heads, layers, max_seq,
-                          kv_heads=kv_heads, split_qkv=split, device=device)
+                          kv_heads=kv_heads, split_qkv=split,
+                          param_dtype=param_dtype, device=device)
     model.tok_embed.weight.copy_(_t(params["tok_embed"]["embedding"]))
     model.pos_embed.weight.copy_(_t(params["pos_embed"]["embedding"]))
     for i, block in enumerate(model.blocks):
@@ -70,3 +76,37 @@ def from_flax(params: Mapping[str, Any], *, heads: int,
     _load_ln(model.ln_final, params["ln_final"])
     _load_dense(model.lm_head, params["lm_head"])
     return model
+
+
+def _np(p: torch.Tensor) -> np.ndarray:
+    return p.detach().float().cpu().numpy()
+
+
+def _dense_tree(layer: torch.nn.Linear) -> Dict[str, np.ndarray]:
+    tree = {"kernel": _np(layer.weight).T.copy()}
+    if layer.bias is not None:
+        tree["bias"] = _np(layer.bias)
+    return tree
+
+
+def _ln_tree(ln: torch.nn.LayerNorm) -> Dict[str, np.ndarray]:
+    return {"scale": _np(ln.weight), "bias": _np(ln.bias)}
+
+
+def to_flax(model: TransformerLM) -> Dict[str, Any]:
+    """The flax param tree of ``model`` as f32 numpy arrays (the inverse
+    of :func:`from_flax`)."""
+    tree: Dict[str, Any] = {
+        "tok_embed": {"embedding": _np(model.tok_embed.weight)},
+        "pos_embed": {"embedding": _np(model.pos_embed.weight)},
+    }
+    for i, block in enumerate(model.blocks):
+        names = ("q", "k", "v") if block.split_qkv else ("qkv",)
+        sub = {name: _dense_tree(getattr(block, name))
+               for name in names + ("attn_out", "mlp_up", "mlp_down")}
+        sub["ln_attn"] = _ln_tree(block.ln_attn)
+        sub["ln_mlp"] = _ln_tree(block.ln_mlp)
+        tree[f"block{i}"] = sub
+    tree["ln_final"] = _ln_tree(model.ln_final)
+    tree["lm_head"] = _dense_tree(model.lm_head)
+    return tree
