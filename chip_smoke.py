@@ -13,7 +13,8 @@ one JSON line each:
    and spill report.
 3. ``kernels``: each kernel's wrapper on tensors on the card at the serve
    and training paths' shapes, held against its plain PyTorch version on the same
-   inputs with the stated bf16 tolerance, and timed (CUDA events, warm,
+   inputs with the stated bf16 tolerance (per element; the forward kernel
+   also against a zeroed-V-tile negative control that must fail), and timed (CUDA events, warm,
    median) beside the plain version and one PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only; the port never
    calls it). The decode kernel is also run on poisoned (NaN) tails and
@@ -43,10 +44,12 @@ one JSON line each:
    are zeroed just before the loop and read just after: every kernel of
    the step must have run layers x microbatches x steps times. Every loss
    finite, the first within [ln V, ln V + 2]; the loss trajectory, a smoke
-   tokens/s and the peak memory are printed. Before the loop, on the
-   seeded init, one 2-row microbatch's loss and every parameter's
-   gradient through the kernels are held against plain attention under
-   autograd; the same comparison on the trained weights is reported.
+   tokens/s and the peak memory are printed. Before the loop (seeded
+   init) and after it (trained weights), one 2-row microbatch's loss and
+   every parameter's gradient through the kernels are held against plain
+   attention under autograd (the gradients at init only) and against K1's
+   forward with the plain backward (both times); a plain side with D from
+   the bf16 O shows how much of the gap to autograd that alone makes.
    ``profile_train``: one training step and one adam update under
    torch.profiler.
 
@@ -73,12 +76,20 @@ BF16_TC_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 
 # Tolerances, each with its reason:
-# - prefill output (absolute): O is bf16 with |O| up to ~4 at the prefill
-#   shape (early rows see few keys), and the kernel rounds P to bf16 before
-#   P@V, as the TPU kernel does, where the plain version keeps P in f32.
-#   About twice the 0.0156 measured on an H100;
-O_TOL = 3e-2
-# - prefill logsumexp (absolute): f32 on both sides from the same bf16
+# - forward output (per element, against the plain version in f32): the
+#   kernel rounds P to bf16 before P@V, as the TPU kernel does, and O once
+#   more to bf16 (its row sum l adds the f32 P). A rounding to bf16 moves
+#   a value by at most 2^-8 of it, so an element may differ by 2^-8 of |O|
+#   plus 2^-8 of A = sum_j P_j |V_j|, the sum of absolute terms of its P@V;
+#   the tolerance is twice that bound. The floor, 2^-16 of the tensor's
+#   largest |ref|, covers f32 summation-order noise where O cancels to ~0.
+#   Each element is held to its own limit, so a late row (|O| ~0.02, A
+#   ~0.8) is held to ~0.006 where an early row may move more: one key tile
+#   dropped from the last 64 rows alone fails it (the zeroed-V-tile
+#   control below must fail);
+FWD_REL_TOL = 2.0 ** -7
+FWD_ABS_FLOOR = 2.0 ** -16
+# - forward logsumexp (absolute): f32 on both sides from the same bf16
 #   inputs; only the summation order differs;
 L_TOL = 1e-3
 # - decode output (per element): the kernel and the plain version both
@@ -122,10 +133,23 @@ AUTOGRAD_REL_TOL = 2.0 ** -6
 #   positions that mostly cancels, while the per-position bf16 noise of P
 #   and dS (up to 2^-8 each) does not cancel with it: 3.6% was seen there.
 #   A wiring fault (a layout, a GQA group, a missing layer) is off by
-#   O(100%);
+#   O(100%). The plain side under autograd takes D = rowsum(dO O), in
+#   effect, from the f32 O, where the kernels (and the reference's custom
+#   VJP) take it from the bf16 O: the ``plain_bf16_d`` side shows how much
+#   of the gap that alone makes;
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_GLOBAL_TOL = 2.0 ** -6
 TRAIN_GRAD_REL_TOL = 2.0 ** -3
+# - the same cross-check against K1's forward with the plain backward
+#   (``_bwd_ref``, f32) and D from K1's bf16 O, at init and on the trained
+#   weights: each parameter's gradient to 2^-5 of its norm. Forward, D and
+#   everything outside attention are then the same on both sides; only
+#   K2's roundings of P and dS (2^-8 of each value) and of its bf16 grads
+#   differ, and they do not cancel coherently over 4094 positions. Where
+#   the attention has saturated, dS = P (dP - D) leaves mostly D's bf16
+#   noise, which both sides share here; a kernel fault confined to such
+#   rows would not be shared;
+TRAIN_K2_GRAD_REL_TOL = 2.0 ** -5
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -189,9 +213,42 @@ def decode_excess(torch, got, want) -> float:
 # --- phase: kernels ------------------------------------------------------------
 
 
+def fwd_plain_terms(torch, fa, qt, kt, vt, causal):
+    """The plain forward on [B,H,T,D] blocks (``_merge_ref``), f32: (O, L
+    [B,H,T,1], A), A = sum_j P_j |V_j| the sum of absolute terms of each
+    element's P@V, the product whose operand the kernel rounds to bf16."""
+    b, h, t, d = qt.shape
+    carry = fa.init_carry(b, h, t, d, device=qt.device)
+    o, l, m = fa._merge_ref(qt, kt, vt, *carry, (0, 0, 1), causal)
+    ref_o = fa.finalize((o, l, m), torch.float32)
+    ref_l = fa._logsumexp_rows(l, m)
+    del o, l, m
+    hkv = kt.shape[1]
+    qg = qt.reshape(b, hkv, h // hkv, t, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kt.float()) * d ** -0.5
+    if causal:
+        pos = torch.arange(t, device=qt.device)
+        s = torch.where(pos[:, None] >= pos[None, :], s,
+                        torch.full((), fa.NEG_INF, device=qt.device))
+    p = torch.exp(s - ref_l.reshape(b, hkv, h // hkv, t, 1))
+    del s
+    terms = torch.einsum("bhgqk,bhkd->bhgqd", p, vt.float().abs())
+    return ref_o, ref_l, terms.reshape(b, h, t, d)
+
+
+def fwd_excess(torch, got, want, terms) -> float:
+    """Largest per-element error over its K1 tolerance; <= 1 passes."""
+    limit = FWD_REL_TOL * (want.abs() + terms) \
+        + FWD_ABS_FLOOR * float(want.abs().max())
+    return float(((got.float() - want).abs() / limit).max())
+
+
 def check_flash_fwd(torch, fa, F, gen):
     """The forward kernel at the serve prefill shape and the training shape
-    (causal GQA) and at a non-causal MHA shape with a ragged T."""
+    (causal GQA) and at a non-causal MHA shape with a ragged T, per element
+    against the plain version in f32. At the training shape, a negative
+    control: the plain side with V's last key tile zeroed (a fault that
+    leaves L intact and touches only the last 64 rows) must fail."""
     dev = "cuda"
     results = {}
     for label, (b, t, h, kvh, causal) in {
@@ -205,13 +262,32 @@ def check_flash_fwd(torch, fa, F, gen):
         out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         qt, kt, vt = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
-        ref_o, ref_l = fa._attn_ref(qt, kt, vt, causal)
-        err_o = max_err(torch, out.permute(0, 2, 1, 3), ref_o)
+        ref_o, ref_l, terms = fwd_plain_terms(torch, fa, qt, kt, vt, causal)
+        got = out.permute(0, 2, 1, 3)
+        err_o = max_err(torch, got, ref_o)
+        excess = fwd_excess(torch, got, ref_o, terms)
         err_l = max_err(torch, lse, ref_l)
         require(bool(torch.isfinite(out.float()).all()),
                 f"flash_fwd {label}: non-finite output")
-        require(err_o <= O_TOL, f"flash_fwd {label}: O error {err_o}")
+        require(excess <= 1.0, f"flash_fwd {label}: O error {err_o}, "
+                               f"{excess} x its per-element tolerance")
         require(err_l <= L_TOL, f"flash_fwd {label}: L error {err_l}")
+        control = {}
+        if label == "train_causal_gqa":
+            vc = vt.clone()
+            vc[:, :, -64:] = 0
+            ctrl_o, _, _ = fwd_plain_terms(torch, fa, qt, kt, vc, causal)
+            control = {
+                "zeroed_last_v_tile_control_worst_err_over_tol":
+                    fwd_excess(torch, got, ctrl_o, terms),
+                "zeroed_last_v_tile_control_max_abs_err":
+                    max_err(torch, got, ctrl_o)}
+            require(control["zeroed_last_v_tile_control_worst_err_over_tol"]
+                    > 1.0, f"flash_fwd: the zeroed-V-tile control passed "
+                           f"({control})")
+            del vc, ctrl_o
+        max_ref = float(ref_o.abs().max())
+        del ref_o, terms
         ms = time_ms(torch, lambda: fa.flash_attention_with_lse(
             q, k, v, causal=causal))
         plain_ms = time_ms(torch, lambda: fa._attn_ref(qt, kt, vt, causal),
@@ -226,7 +302,10 @@ def check_flash_fwd(torch, fa, F, gen):
         results[label] = {
             "shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
                       "causal": causal},
-            "max_abs_err_O": err_o, "tol_O": O_TOL,
+            "max_abs_err_O": err_o, "max_abs_ref_O": max_ref,
+            "tol_O": f"per element {FWD_REL_TOL} * (|ref| + A) + "
+                     f"{FWD_ABS_FLOOR} * max |ref|, A = sum_j P_j |V_j|",
+            "worst_err_over_tol_O": excess, **control,
             "max_abs_err_L": err_l, "tol_L": L_TOL,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
@@ -765,10 +844,10 @@ TRAIN_ARGV = ["--steps", "6", "--batch", "32", "--seq-len", "2048",
 def run_train(torch, fa, transformer, train, data):
     """The flagship GQA LM at full width (bench.py:636, without remat),
     6 steps of global batch 32 x 2048 as 4 microbatches of 8, through
-    transformer.build and train.train_loop. Before the loop, on the
-    seeded init, the plain cross-check (gated); after it, the same check
-    on the trained weights (reported). Launch counters are zeroed just
-    before the loop and read just after."""
+    transformer.build and train.train_loop. The plain cross-check runs
+    before the loop, on the seeded init, and after it, on the trained
+    weights (see gate_train_plain for what each gates). Launch counters
+    are zeroed just before the loop and read just after."""
     import math
 
     args = transformer.parse_args(TRAIN_ARGV)
@@ -779,16 +858,7 @@ def run_train(torch, fa, transformer, train, data):
     tokens = torch.from_numpy(rows).to(built.device)
     at_init = check_train_plain(torch, fa, transformer, train, built.model,
                                 tokens)
-    require(at_init["loss_abs_err"] <= TRAIN_LOSS_TOL,
-            f"train cross-check: loss {at_init['loss_kernels']} vs plain "
-            f"{at_init['loss_plain']}")
-    require(at_init["grad_rel_err_all"] <= TRAIN_GRAD_GLOBAL_TOL,
-            f"train cross-check: the whole gradient off by "
-            f"{at_init['grad_rel_err_all']} of its norm")
-    worst_name, worst = at_init["worst_grad_rel_err"][0]
-    require(worst <= TRAIN_GRAD_REL_TOL,
-            f"train cross-check: {worst_name} gradient off by {worst} of "
-            f"its norm")
+    gate_train_plain(at_init, at_init=True)
     losses, starts = [], []
 
     def step(batch):
@@ -824,6 +894,9 @@ def run_train(torch, fa, transformer, train, data):
                 f"{args.layers} x {args.grad_accum} x {args.steps}")
     step_s = [b - a for a, b in zip(starts, starts[1:] + [end])]
     n_tokens = args.batch * args.seq_len
+    trained = check_train_plain(torch, fa, transformer, train, built.model,
+                                tokens)
+    gate_train_plain(trained, at_init=False)
     return {
         "model": "lm_flagship_gqa_kv4 (bench.py:636), no remat",
         "argv": TRAIN_ARGV,
@@ -838,15 +911,71 @@ def run_train(torch, fa, transformer, train, data):
                          "measurement",
         "peak_memory_gb": peak,
         "crosscheck_at_init": at_init,
-        "crosscheck_trained_reported_only": check_train_plain(
-            torch, fa, transformer, train, built.model, tokens),
+        "crosscheck_trained": trained,
     }, built
 
 
+def plain_backward_attend(torch, fa, kernel_forward: bool):
+    """An attend (per layer) whose backward is the plain ``_bwd_ref`` in
+    f32 with D = rowsum(dO O) from the bf16 O its forward returned, the D
+    the kernels take, grads in the input dtype: what
+    ``attention_block_grads`` does on the CPU, run on the card. The
+    forward is K1 (``kernel_forward``) or the plain ``_attn_ref``."""
+
+    class PlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            if kernel_forward:
+                out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+            else:
+                o, lse = fa._attn_ref(*(x.permute(0, 2, 1, 3)
+                                        for x in (q, k, v)), True)
+                out = o.permute(0, 2, 1, 3)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, out, lse = ctx.saved_tensors
+            D = (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+            grads = fa._bwd_ref(*(x.permute(0, 2, 1, 3) for x in (q, k, v, g)),
+                                lse, D, (0, 0, 1), True)
+            return tuple(x.permute(0, 2, 1, 3).to(q.dtype) for x in grads)
+
+    return lambda _i: PlainBackward.apply
+
+
+def compare_grads(got, want):
+    """Loss gap and gradient gaps of side ``got`` against side ``want``,
+    each a (loss, {name: grad}) pair: the whole gradient's and each
+    parameter's difference norm over ``want``'s norm."""
+    (got_loss, got_g), (want_loss, want_g) = got, want
+    ratios, diff_sq, ref_sq = {}, 0.0, 0.0
+    for name, g in got_g.items():
+        ref = want_g[name]
+        diff, norm = float((g - ref).norm()), float(ref.norm())
+        diff_sq, ref_sq = diff_sq + diff ** 2, ref_sq + norm ** 2
+        ratios[name] = (diff / max(norm, 1e-30), norm)
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1][0])
+    return {"loss_abs_err": abs(got_loss - want_loss),
+            "grad_rel_err_all": (diff_sq / ref_sq) ** 0.5,
+            "worst_grad_rel_err": [(n, r) for n, (r, _) in worst[:5]],
+            "worst_grad_norm_ref": [(n, g) for n, (_, g) in worst[:5]],
+            "median_grad_norm_ref": statistics.median(
+                norm for _r, norm in ratios.values()),
+            "_ratios": ratios}
+
+
 def check_train_plain(torch, fa, transformer, train, model, tokens):
-    """One microbatch (``tokens``, 2 rows): the loss and every parameter's
-    gradient through the kernels against the same model with plain
-    attention (``_attn_ref``) under autograd, on the card."""
+    """One microbatch (``tokens``, 2 rows), on the card: the loss and every
+    parameter's gradient of four sides on the same weights:
+    - ``kernels``: K1 forward, K2 backward (the training path);
+    - ``plain``: plain attention (``_attn_ref``) under autograd;
+    - ``plain_bf16_d``: the plain forward and the plain backward with D
+      from its bf16 O: against ``plain``, the part of the gap that comes
+      from taking D from the bf16 O, in plain arithmetic;
+    - ``k1_plain_bwd``: K1's forward and the plain backward with D from
+      K1's bf16 O: against ``kernels``, K2's own roundings alone."""
 
     def plain_attend(_i):
         def attend(q, k, v):
@@ -865,26 +994,53 @@ def check_train_plain(torch, fa, transformer, train, model, tokens):
         model.zero_grad(set_to_none=True)
         return float(loss.detach()), grads
 
-    kern_loss, kern = loss_and_grads(transformer._causal_attend)
-    plain_loss, plain = loss_and_grads(plain_attend)
-    ratios, diff_sq, ref_sq = [], 0.0, 0.0
-    for name, g in kern.items():
-        ref = plain[name]
-        diff, norm = float((g - ref).norm()), float(ref.norm())
-        diff_sq, ref_sq = diff_sq + diff ** 2, ref_sq + norm ** 2
-        ratios.append((name, diff / max(norm, 1e-30), norm))
-    ratios.sort(key=lambda r: -r[1])
-    return {"rows": int(tokens.shape[0]), "loss_kernels": kern_loss,
-            "loss_plain": plain_loss,
-            "loss_abs_err": abs(kern_loss - plain_loss),
-            "loss_tol": TRAIN_LOSS_TOL,
-            "grad_rel_err_all": (diff_sq / ref_sq) ** 0.5,
-            "worst_grad_rel_err": [(n, r) for n, r, _ in ratios[:5]],
-            "worst_grad_norm_plain": [(n, g) for n, _, g in ratios[:5]],
-            "median_grad_norm_plain": statistics.median(
-                g for _, _, g in ratios),
-            "grad_tol": f"all params {TRAIN_GRAD_GLOBAL_TOL}, each "
-                        f"{TRAIN_GRAD_REL_TOL} of the plain norm"}
+    sides = {"kernels": transformer._causal_attend, "plain": plain_attend,
+             "plain_bf16_d": plain_backward_attend(torch, fa, False),
+             "k1_plain_bwd": plain_backward_attend(torch, fa, True)}
+    runs = {name: loss_and_grads(attend) for name, attend in sides.items()}
+    pairs = {"kernels_vs_plain": ("kernels", "plain"),
+             "plain_bf16_d_vs_plain": ("plain_bf16_d", "plain"),
+             "k1_plain_bwd_vs_plain": ("k1_plain_bwd", "plain"),
+             "kernels_vs_k1_plain_bwd": ("kernels", "k1_plain_bwd")}
+    out = {"rows": int(tokens.shape[0]),
+           "loss": {name: run[0] for name, run in runs.items()}}
+    for label, (a, b) in pairs.items():
+        out[label] = compare_grads(runs[a], runs[b])
+    del runs
+    # The parameters the kernels miss most against autograd, on each side.
+    out["worst_of_kernels_vs_plain_by_side"] = {
+        name: {label: out[label]["_ratios"][name][0] for label in pairs}
+        for name, _r in out["kernels_vs_plain"]["worst_grad_rel_err"]}
+    for label in pairs:
+        del out[label]["_ratios"]
+    out["tol"] = (f"kernels vs plain: loss {TRAIN_LOSS_TOL}; at init the "
+                  f"whole gradient {TRAIN_GRAD_GLOBAL_TOL} and each "
+                  f"parameter {TRAIN_GRAD_REL_TOL} of the plain norm; "
+                  f"kernels vs k1_plain_bwd: each parameter "
+                  f"{TRAIN_K2_GRAD_REL_TOL}")
+    return out
+
+
+def gate_train_plain(check, *, at_init: bool) -> None:
+    """The cross-check's gates: the loss against plain attention; at init
+    the gradients against plain attention; always each parameter's
+    gradient against K1 + the plain backward."""
+    kp, k2 = check["kernels_vs_plain"], check["kernels_vs_k1_plain_bwd"]
+    when = "at init" if at_init else "trained"
+    require(kp["loss_abs_err"] <= TRAIN_LOSS_TOL,
+            f"train cross-check {when}: loss {check['loss']}")
+    if at_init:
+        require(kp["grad_rel_err_all"] <= TRAIN_GRAD_GLOBAL_TOL,
+                f"train cross-check {when}: the whole gradient off by "
+                f"{kp['grad_rel_err_all']} of its norm")
+        name, worst = kp["worst_grad_rel_err"][0]
+        require(worst <= TRAIN_GRAD_REL_TOL,
+                f"train cross-check {when}: {name} gradient off by {worst} "
+                f"of its norm")
+    name, worst = k2["worst_grad_rel_err"][0]
+    require(worst <= TRAIN_K2_GRAD_REL_TOL,
+            f"train cross-check {when}: {name} gradient off by {worst} of "
+            f"its norm against K1 + the plain backward")
 
 
 def _classify(op: str) -> str:
@@ -991,6 +1147,10 @@ def main() -> int:
     bwd_err = {name: max(r[n]["max_abs_err"] for r in bwd.values()
                          for n in names)
                for name, names in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
+    bwd_excess_of = {
+        name: max(r[n]["worst_err_over_tol"] for r in bwd.values()
+                  for n in names)
+        for name, names in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_fwd.cu",
@@ -999,6 +1159,8 @@ def main() -> int:
          "launches_by_path": {"train": tr["launches"]["flash_fwd"],
                               "serve": sv["launches"]["flash_fwd"]},
          "max_abs_err": max(r["max_abs_err_O"] for r in fwd.values()),
+         "worst_err_over_tol": max(r["worst_err_over_tol_O"]
+                                   for r in fwd.values()),
          "ms": train_fwd["ms"], "plain_ms": train_fwd["plain_ms"],
          "bound_ms": train_fwd["bound_ms"],
          "bound_by": train_fwd["bound_by"],
@@ -1010,6 +1172,8 @@ def main() -> int:
          "replaces": "tpu_operator/payload/flash_attention.py:990",
          "launches": sv["launches"]["flash_decode"],
          "max_abs_err": max(r["max_abs_err"] for r in dec.values()),
+         "worst_err_over_tol": max(r["worst_err_over_tol"]
+                                   for r in dec.values()),
          "ms": main_dec["ms"], "plain_ms": main_dec["plain_ms"],
          "bound_ms": main_dec["bound_ms"],
          "bound_by": main_dec["bound_by"],
@@ -1022,6 +1186,7 @@ def main() -> int:
             "replaces": f"tpu_operator/payload/flash_attention.py:{line}",
             "launches": tr["launches"][f"flash_bwd_{name}"],
             "max_abs_err": bwd_err[name],
+            "worst_err_over_tol": bwd_excess_of[name],
             "ms": main_bwd[f"ms_{name}"],
             "plain_ms": main_bwd["plain_ms"],
             "bound_ms": main_bwd[f"bound_ms_{name}"],

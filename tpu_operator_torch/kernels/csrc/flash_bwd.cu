@@ -49,6 +49,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <mutex>
+
 using namespace nvcuda;
 
 namespace {
@@ -408,13 +410,28 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   emit_rows(acc_v, stage, dv, kv_row, 1.f, lane);
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+// The shared-memory attributes belong to a kernel on a device, not to a
+// launch: set them on the first launch of each instantiation on each device
+// and keep that call's result for every later launch.
+constexpr int MAX_DEVICES = 64;
+
+template <auto kernel>
+cudaError_t prepare() {
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t result[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    result[dev] = e;
+  });
+  return result[dev];
 }
 
 bool shape_ok(int B, int Tq, int Tk, int H, int KVH, int head_dim, int stride) {
@@ -441,14 +458,14 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (out_f32) {
-    err = prepare(flash_bwd_dq_kernel<float>);
+    err = prepare<flash_bwd_dq_kernel<float>>();
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dq_kernel<float><<<grid, NT, SMEM_BYTES, s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
         (const bf16*)o, (const float*)dvec, (float*)dq, Tq, Tk, H, KVH, group, causal, q_off,
         k_off, stride, scale);
   } else {
-    err = prepare(flash_bwd_dq_kernel<bf16>);
+    err = prepare<flash_bwd_dq_kernel<bf16>>();
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dq_kernel<bf16><<<grid, NT, SMEM_BYTES, s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
@@ -470,14 +487,14 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (out_f32) {
-    err = prepare(flash_bwd_dkv_kernel<float>);
+    err = prepare<flash_bwd_dkv_kernel<float>>();
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dkv_kernel<float><<<grid, NT, SMEM_BYTES, s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
         (const bf16*)o, (const float*)dvec, (float*)dk, (float*)dv, Tq, Tk, H, KVH, group,
         causal, q_off, k_off, stride, scale);
   } else {
-    err = prepare(flash_bwd_dkv_kernel<bf16>);
+    err = prepare<flash_bwd_dkv_kernel<bf16>>();
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dkv_kernel<bf16><<<grid, NT, SMEM_BYTES, s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,

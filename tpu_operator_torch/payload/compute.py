@@ -9,17 +9,16 @@ on ``--remat``. The flagship fits one H100 without it.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any
 
 
-def add_lm_compute_flags(parser, remat_help: Optional[str] = None) -> None:
+def add_lm_compute_flags(parser) -> None:
     """``--remat`` (gate), ``--remat-policy`` and ``--optimizer``."""
     from tpu_operator_torch.payload import models, optimizers
 
     parser.add_argument(
         "--remat", action="store_true",
-        help=remat_help or
-        "rematerialize each block on backward (not ported yet: raises)")
+        help="rematerialize each block on backward (not ported yet: raises)")
     models.add_remat_policy_flag(parser)
     optimizers.add_optimizer_flag(parser)
 
