@@ -19,7 +19,15 @@ one JSON line each:
    (``scaled_dot_product_attention``, a yardstick only; the port never
    calls it). The decode kernel is also run on poisoned (NaN) tails and
    on a paged gather, which must be bit-equal to the clean dense cache.
-4. ``kernels`` (backward): the two backward kernels at the training
+4. ``kernels`` (merge): the ring merge kernel (K4) at the long-context
+   ring shape (B 2, Tq = Tk = 2048, H 16, KVH 4) and a ragged Tq != Tk,
+   against the plain merge per element on the rows that have seen a key:
+   a home block from a fresh carry, a second merge into that live carry,
+   a wholly future block (the carry must come back bit-equal), striped
+   offsets, non-causal, group 1; two negative controls (a fresh carry on
+   the plain side, a zeroed V tile) must fail. Timed beside the plain
+   merge and the bound; no PyTorch call folds a carry, so no yardstick.
+5. ``kernels`` (backward): the two backward kernels at the training
    shape against the plain backward with a per-element tolerance set from
    the kernels' bf16 roundings, at two ragged cases with offsets, a
    stride, precomputed D and f32 grads, a zeroed-D negative control that
@@ -27,7 +35,11 @@ one JSON line each:
    plain version, the bound and SDPA's backward (a yardstick only).
    ``autograd``: flash_attention's gradients against torch autograd
    through the plain reference attention.
-5. ``serve``: a full-width ServeLoop (the flagship GQA LM: dim 2048,
+6. ``ring``: ring attention with 4 shards in one process (K4 forward, K2
+   backward ring), contiguous and striped, B 1, T 4096: output and
+   gradients against K1 + K2 on the whole sequence and against the plain
+   reference; each kernel launched 16 times per pass.
+7. ``serve``: a full-width ServeLoop (the flagship GQA LM: dim 2048,
    8 layers, 16 heads / 4 K/V heads, vocab 32768; seeded init; batch 8,
    window 1920, 128 decode tokens, page size 16) under ``--load 8:1`` and
    one HTTP ``POST /v1/decode``. Launch counters are zeroed just before
@@ -35,10 +47,10 @@ one JSON line each:
    per admission and the decode kernel 8 times per decode step. One
    request's first-token logits are recomputed on the plain path and
    compared with the kernel path.
-6. ``profile``: one full-width admission and ten 8-slot decode steps
+8. ``profile``: one full-width admission and ten 8-slot decode steps
    under torch.profiler: device time by kernel, device-busy time and the
    idle share beside the host clock.
-7. ``train``: the same LM trained at full width for 6 steps (global batch
+9. ``train``: the same LM trained at full width for 6 steps (global batch
    32 x 2048 tokens as 4 microbatches, adam with a bf16 first moment)
    through ``transformer.build`` and ``train.train_loop``. Launch counters
    are zeroed just before the loop and read just after: every kernel of
@@ -52,6 +64,14 @@ one JSON line each:
    the bf16 O shows how much of the gap to autograd that alone makes.
    ``profile_train``: one training step and one adam update under
    torch.profiler.
+10. ``train_sp``: the long-context flagship (bench.py:661, dim 2048,
+    8 layers, 16 / 4 heads, vocab 32768, global batch 8 x 8192 as 4
+    microbatches) with ``--seq-parallel 4 --sp-layout striped``, the whole
+    ring in this process, 4 steps through ``transformer.build`` and
+    ``train.train_loop``: K4, dq and dkv each launched layers x
+    microbatches x steps x 16 times and K1 never; before the loop one
+    row's loss and gradients on the ring are held against the single-shard
+    kernel path. ``profile_train_sp``: one such step under torch.profiler.
 
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` name/power
 line, and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -150,6 +170,48 @@ TRAIN_GRAD_REL_TOL = 2.0 ** -3
 #   noise, which both sides share here; a kernel fault confined to such
 #   rows would not be shared;
 TRAIN_K2_GRAD_REL_TOL = 2.0 ** -5
+# - merge kernel (K4) carry, on the rows that have seen a key (m > NEG_INF/2
+#   on the plain side; a row that has seen none carries weight-1 sums of
+#   the masked keys it met, and the kernel, which never loads a future
+#   tile, meets fewer of them; finalize discards both): o per element like
+#   K1's output, 2^-7 (|ref| + A) + 2^-16 max |ref|, A = sum_j P_j |V_j|
+#   over the visiting block, twice what rounding P to bf16 before P@V can
+#   move (o itself stays f32); l per element to 2^-12 of itself: f32 on
+#   both sides from the f32 P, apart only through scores that differ by
+#   f32 summation order (a relative 1e-5 at most here); m: the rows that
+#   have seen a key must be exactly the plain side's rows, and there m is
+#   held to 4 D 2^-24 scale |q| max|k|, four times the f32 error bound of
+#   a 128-term dot product of bf16 values summed in another order (the
+#   tensor cores may truncate). A wholly future block returns the carry
+#   bit-equal;
+MERGE_REL_TOL = 2.0 ** -7
+MERGE_ABS_FLOOR = 2.0 ** -16
+MERGE_L_REL_TOL = 2.0 ** -12
+MERGE_M_ULPS = 4
+# - ring attention (N = 4 shards in one process; K4 forward, K2 backward
+#   with precomputed D and f32 grads): the output per element against the
+#   plain reference like K1's, 2^-7 (|ref| + A) + 2^-16 max |ref| with A
+#   over the whole sequence (each merge rounds P to bf16 against its
+#   running max, which rescales exactly), and against K1 to twice that
+#   (both sides within it of the plain one); gradients per tensor to
+#   AUTOGRAD_REL_TOL of the largest, against autograd through the plain
+#   reference and against K1 + K2;
+RING_REL_TOL = 2.0 ** -7
+RING_ABS_FLOOR = 2.0 ** -16
+# - long-context cross-check, the SP path (ring: K4 + K2 with given D and
+#   f32 grads) against the single-shard kernel path (K1 + K2 with fused D
+#   and bf16 grads), same weights, one row of 8192 tokens, at init: the
+#   loss (absolute), the whole gradient and each parameter's gradient, as
+#   TRAIN_LOSS_TOL, TRAIN_GRAD_GLOBAL_TOL and TRAIN_GRAD_REL_TOL state for
+#   kernels against plain attention. The two sides round P against other
+#   running maxima, take D from differently rounded bf16 outputs and round
+#   the q/k/v gradients at other points: the same kind and size of noise as
+#   kernels against plain attention (3.65% of the worst parameter's norm
+#   at init on an H100, the train phase's cross-check). A wrong shard
+#   order, offset or stride moves a q/k gradient by O(100%).
+SP_LOSS_TOL = TRAIN_LOSS_TOL
+SP_GRAD_GLOBAL_TOL = TRAIN_GRAD_GLOBAL_TOL
+SP_GRAD_REL_TOL = TRAIN_GRAD_REL_TOL
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -626,6 +688,270 @@ def check_attention_autograd(torch, fa):
     return res
 
 
+def merge_plain_terms(torch, fa, q, k, v, carry, offsets, causal):
+    """The plain merge (``_merge_ref``, f32) of one block on the port's
+    layouts: (carry, A), A [B,H,Tq,D] = sum_j P_j |V_j| over the block, the
+    sum of absolute terms of each element's P@V."""
+    qt, kt, vt = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    offs = fa._normalize_offsets(offsets)
+    o, l, m = fa._merge_ref(qt, kt, vt, *carry, offs, causal)
+    b, h, tq, d = qt.shape
+    hkv, tk = kt.shape[1], kt.shape[2]
+    qg = qt.reshape(b, hkv, h // hkv, tq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kt.float()) * d ** -0.5
+    if causal:
+        q_pos = offs[0] + offs[2] * torch.arange(tq, device=q.device)
+        k_pos = offs[1] + offs[2] * torch.arange(tk, device=q.device)
+        s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                        torch.full((), fa.NEG_INF, device=q.device))
+    p = torch.exp(s - m.reshape(b, hkv, h // hkv, tq, 1))
+    del s
+    terms = torch.einsum("bhgqk,bhkd->bhgqd", p, vt.float().abs())
+    return (o, l, m), terms.reshape(b, h, tq, d)
+
+
+def merge_excess(torch, fa, q, k, got, want, terms):
+    """(worst o error over its tolerance, worst l error over its tolerance,
+    worst m error over its bound, rows seen agree) of kernel carry ``got``
+    against plain carry ``want``, on the plain side's rows that have seen
+    a key."""
+    (go, gl, gm), (wo, wl, wm) = got, want
+    seen = wm > fa.NEG_INF / 2
+    rows_agree = bool(torch.equal(seen, gm > fa.NEG_INF / 2))
+    o_lim = MERGE_REL_TOL * (wo.abs() + terms) \
+        + MERGE_ABS_FLOOR * float(torch.where(seen, wo.abs(), 0).max())
+    o_exc = torch.where(seen, (go - wo).abs() / o_lim, 0)
+    l_exc = torch.where(seen, (gl - wl).abs() / (MERGE_L_REL_TOL * wl.abs()),
+                        0)
+    d = q.shape[-1]
+    q_norm = q.float().norm(dim=-1).permute(0, 2, 1)[..., None]  # [B,H,Tq,1]
+    m_lim = MERGE_M_ULPS * d * 2.0 ** -24 * d ** -0.5 * q_norm \
+        * float(k.float().norm(dim=-1).max())
+    m_exc = torch.where(seen, (gm - wm).abs() / m_lim, 0)
+    return (float(o_exc.max()), float(l_exc.max()), float(m_exc.max()),
+            rows_agree)
+
+
+def check_flash_merge(torch, fa, gen):
+    """The merge kernel (K4) against the plain merge on the same inputs, at
+    the long-context ring shape (B 2, Tq = Tk = 2048, H 16, KVH 4) and a
+    ragged Tq != Tk: a home block from a fresh carry, a second merge of an
+    earlier block into that live carry, a wholly future block (the carry
+    comes back bit-equal), striped offsets (r, kv, 4) with r < kv and
+    r > kv, non-causal, and group 1. Two negative controls must fail: the
+    plain merge of the second block into a fresh carry (the kernel must
+    seed from the live one), and the home block's plain side with the last
+    V tile zeroed. Timed at the striped r > kv case, the training path's
+    merge, beside the plain merge and the bound; no single PyTorch call
+    folds a carry, so there is no library yardstick."""
+    dev, d, c = "cuda", 128, 2048
+
+    def qkv(b, tq, tk, h, kvh):
+        return (torch.randn(b, tq, h, d, generator=gen,
+                            device=dev).bfloat16(),
+                torch.randn(b, tk, kvh, d, generator=gen,
+                            device=dev).bfloat16(),
+                torch.randn(b, tk, kvh, d, generator=gen,
+                            device=dev).bfloat16())
+
+    def fresh(b, h, tq):
+        return fa.init_carry(b, h, tq, d, device=dev)
+
+    # label: (B, Tq, Tk, H, KVH, offsets, causal, carry from: None = fresh,
+    # else the label whose kernel output it is; reuse that case's q)
+    cases = {
+        "home_from_init": (2, c, c, 16, 4, (c, c, 1), True, None),
+        "second_merge_earlier_block": (2, c, c, 16, 4, (c, 0, 1), True,
+                                       "home_from_init"),
+        "wholly_future_block": (2, c, c, 16, 4, (c, 2 * c, 1), True,
+                                "second_merge_earlier_block"),
+        "striped_r_lt_kv": (2, c, c, 16, 4, (1, 2, 4), True, None),
+        "striped_r_gt_kv": (2, c, c, 16, 4, (1, 0, 4), True,
+                            "striped_r_lt_kv"),
+        "noncausal": (2, c, c, 16, 4, (0, 0, 1), False, "striped_r_gt_kv"),
+        "group1": (2, c, c, 8, 8, (0, 0, 1), True, None),
+        "ragged_tq1000_tk1500": (2, 1000, 1500, 16, 4, (0, 300, 1), True,
+                                 None),
+    }
+    out, kept = {}, {}
+    for label, (b, tq, tk, h, kvh, offs, causal, src) in cases.items():
+        q, k, v = qkv(b, tq, tk, h, kvh)
+        if src is not None:
+            q = kept[src][0]
+            carry = kept[src][1]
+        else:
+            carry = fresh(b, h, tq)
+        got = fa.merge_kv_block(q, k, v, carry, offs, causal=causal)
+        torch.cuda.synchronize()
+        require(all(x.dtype == torch.float32 for x in got),
+                f"flash_merge {label}: carry dtype")
+        want, terms = merge_plain_terms(torch, fa, q, k, v, carry, offs,
+                                        causal)
+        o_exc, l_exc, m_exc, rows_agree = merge_excess(
+            torch, fa, q, k, got, want, terms)
+        seen = want[2] > fa.NEG_INF / 2
+        res = {"shape": {"B": b, "Tq": tq, "Tk": tk, "H": h, "KVH": kvh,
+                         "D": d, "causal": causal},
+               "offsets": list(offs), "carry": src or "init_carry",
+               "rows_seen": int(seen.sum()), "rows": int(seen.numel()),
+               "max_abs_err_o": float(torch.where(
+                   seen, (got[0] - want[0]).abs(), 0).max()),
+               "max_abs_ref_o": float(torch.where(
+                   seen, want[0].abs(), 0).max()),
+               "worst_err_over_tol_o": o_exc,
+               "worst_err_over_tol_l": l_exc,
+               "worst_err_over_bound_m": m_exc,
+               "rows_seen_agree": rows_agree}
+        require(rows_agree, f"flash_merge {label}: the rows that saw a key "
+                            f"differ from the plain side's")
+        require(o_exc <= 1.0, f"flash_merge {label}: o {o_exc} x its "
+                              f"tolerance")
+        require(l_exc <= 1.0, f"flash_merge {label}: l {l_exc} x its "
+                              f"tolerance")
+        require(m_exc <= 1.0, f"flash_merge {label}: m {m_exc} x its bound")
+        if label == "wholly_future_block":
+            equal = all(bool(torch.equal(x, y)) for x, y in zip(got, carry))
+            require(equal, "flash_merge: a wholly future block changed the "
+                           "carry")
+            res["carry_bit_equal"] = equal
+        if label == "second_merge_earlier_block":
+            ctrl, _ = merge_plain_terms(torch, fa, q, k, v, fresh(b, h, tq),
+                                        offs, causal)
+            res["fresh_carry_control_worst_err_over_tol_o"] = merge_excess(
+                torch, fa, q, k, got, ctrl, terms)[0]
+            require(res["fresh_carry_control_worst_err_over_tol_o"] > 1.0,
+                    f"flash_merge: the fresh-carry control passed ({res})")
+        if label == "home_from_init":
+            vc = v.clone()
+            vc[:, -64:] = 0
+            ctrl, _ = merge_plain_terms(torch, fa, q, k, vc, carry, offs,
+                                        causal)
+            res["zeroed_last_v_tile_control_worst_err_over_tol_o"] = \
+                merge_excess(torch, fa, q, k, got, ctrl, terms)[0]
+            require(res["zeroed_last_v_tile_control_worst_err_over_tol_o"]
+                    > 1.0, f"flash_merge: the zeroed-V-tile control passed "
+                           f"({res})")
+        res["tol"] = (f"seen rows: o per element {MERGE_REL_TOL} * (|ref| + "
+                      f"A) + {MERGE_ABS_FLOOR} * max |ref|; l "
+                      f"{MERGE_L_REL_TOL} * |ref|; m {MERGE_M_ULPS} * D * "
+                      f"2^-24 * scale * |q| * max |k|; seen rows exact")
+        out[label] = res
+        kept[label] = (q, got)
+        del want, terms
+        if label == "striped_r_gt_kv":
+            res["ms"] = time_ms(torch, lambda: fa.merge_kv_block(
+                q, k, v, carry, offs, causal=causal), reps=50)
+            res["plain_ms"] = time_ms(torch, lambda: fa._merge_ref(
+                *(x.permute(0, 2, 1, 3) for x in (q, k, v)), *carry,
+                fa._normalize_offsets(offs), causal), reps=10)
+            q_pos = offs[0] + offs[2] * torch.arange(tq, device=dev)
+            k_pos = offs[1] + offs[2] * torch.arange(tk, device=dev)
+            pairs = int((q_pos[:, None] >= k_pos[None, :]).sum())
+            flops = 4.0 * b * h * d * pairs
+            nbytes = 2.0 * (b * tq * h * d + 2 * b * tk * kvh * d) \
+                + 2 * 4.0 * b * h * tq * (d + 2)
+            res["bound_ms"], res["bound_by"] = bound(nbytes, flops,
+                                                     BF16_TC_FLOPS)
+            res["library_ms"] = None
+            res["library"] = "none: no single PyTorch call folds a carry"
+            res["pairs"] = pairs
+            res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    return out
+
+
+def ring_plain_terms(torch, fa, q, k, v):
+    """Causal plain attention on [B,T,H,D] in f32 and A [B,T,H,D] = sum_j
+    P_j |V_j| over the whole sequence."""
+    group = q.shape[2] // k.shape[2]
+    kr, vr = (x.repeat_interleave(group, dim=2).float() for x in (k, v))
+    t = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * q.shape[-1] ** -0.5
+    mask = torch.tril(torch.ones(t, t, dtype=torch.bool, device=q.device))
+    s = torch.where(mask[None, None], s,
+                    torch.full((), fa.NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    del s
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr)
+    terms = torch.einsum("bhqk,bkhd->bqhd", p, vr.abs())
+    return out, terms
+
+
+def check_ring(torch, fa, ring_mod, gen):
+    """Ring attention with N = 4 shards in one process (the merge kernel
+    forward, the backward kernels in the backward ring), contiguous and
+    striped, B 1, T 4096, H 16, KVH 4: the output and the q/k/v gradients
+    of a random cotangent against K1 + K2 (``flash_attention``) on the
+    whole sequence and against the plain reference attention."""
+    import numpy as np
+
+    dev, b, t, h, kvh, d, n = "cuda", 1, 4096, 16, 4, 128, 4
+    xs = [torch.randn(b, t, hh, d, generator=gen, device=dev).bfloat16()
+          for hh in (h, kvh, kvh)]
+    cot = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
+
+    def run(fn):
+        ts = [x.clone().requires_grad_(True) for x in xs]
+        out = fn(*ts)
+        out.backward(cot)
+        return out.detach(), [x.grad for x in ts]
+
+    want_o, terms = ring_plain_terms(torch, fa, *xs)
+    floor = RING_ABS_FLOOR * float(want_o.abs().max())
+    plain_lim = RING_REL_TOL * (want_o.abs() + terms) + floor
+    del terms
+    ref_o, ref_g = run(lambda q, k, v: fa.reference_attention(q, k, v, True))
+    k_o, k_g = run(lambda q, k, v: fa.flash_attention(q, k, v, causal=True))
+    out = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
+                     "shards": n},
+           "tol": f"output per element {RING_REL_TOL} * (|ref| + A) + "
+                  f"{RING_ABS_FLOOR} * max |ref| against plain, twice that "
+                  f"against K1; gradients {AUTOGRAD_REL_TOL} * max |ref| "
+                  f"per tensor"}
+    for layout in ("contiguous", "striped"):
+        stripe = layout == "striped"
+        if stripe:
+            perm, inv = ring_mod.stripe_permutation(t, n)
+        else:
+            perm = inv = np.arange(t)
+        perm_t = torch.from_numpy(perm).to(dev)
+        inv_t = torch.from_numpy(inv).to(dev)
+        ring = ring_mod.SeqRing(n)
+        before = fa.launch_counts()
+        r_o, r_g = run(lambda q, k, v: ring_mod.ring_attention(
+            q[:, perm_t], k[:, perm_t], v[:, perm_t], ring, causal=True,
+            stripe=stripe)[:, inv_t])
+        after = fa.launch_counts()
+        launches = {name: after[name] - before[name] for name in after}
+        for name in ("flash_merge", "flash_bwd_dq", "flash_bwd_dkv"):
+            require(launches[name] == n * n, f"ring {layout}: {name} "
+                                             f"launched {launches[name]} "
+                                             f"times, wanted {n * n}")
+        require(launches["flash_fwd"] == 0, f"ring {layout}: K1 launched")
+        exc_plain = float(((r_o.float() - want_o).abs() / plain_lim).max())
+        exc_k1 = float(((r_o.float() - k_o.float()).abs()
+                        / (2 * plain_lim)).max())
+        res = {"launches": launches,
+               "out_worst_err_over_tol_vs_plain": exc_plain,
+               "out_worst_err_over_tol_vs_k1": exc_k1,
+               "out_max_abs_err_vs_plain": max_err(torch, r_o, want_o),
+               "out_max_abs_err_vs_k1": max_err(torch, r_o, k_o)}
+        require(exc_plain <= 1.0, f"ring {layout}: output {exc_plain} x "
+                                  f"its tolerance against plain")
+        require(exc_k1 <= 1.0, f"ring {layout}: output {exc_k1} x its "
+                               f"tolerance against K1")
+        for side, grads in (("plain", ref_g), ("k1_k2", k_g)):
+            for name, gg, ww in zip(("dq", "dk", "dv"), r_g, grads):
+                err, ref = max_err(torch, gg, ww), float(
+                    ww.float().abs().max())
+                res[f"{name}_vs_{side}"] = {"max_abs_err": err,
+                                            "max_abs_ref": ref}
+                require(err <= AUTOGRAD_REL_TOL * ref,
+                        f"ring {layout}: {name} against {side} {err} > "
+                        f"{AUTOGRAD_REL_TOL} x {ref}")
+        out[layout] = res
+    return out
+
+
 # --- phase: serve --------------------------------------------------------------
 
 
@@ -841,24 +1167,13 @@ TRAIN_ARGV = ["--steps", "6", "--batch", "32", "--seq-len", "2048",
               "--checkpoint-dir", "", "--profile-dir", ""]
 
 
-def run_train(torch, fa, transformer, train, data):
-    """The flagship GQA LM at full width (bench.py:636, without remat),
-    6 steps of global batch 32 x 2048 as 4 microbatches of 8, through
-    transformer.build and train.train_loop. The plain cross-check runs
-    before the loop, on the seeded init, and after it, on the trained
-    weights (see gate_train_plain for what each gates). Launch counters
-    are zeroed just before the loop and read just after."""
+def drive_train(torch, fa, train, built, args, label, wanted):
+    """``args.steps`` steps of ``built`` through train.train_loop, launch
+    counters zeroed just before the loop and read just after; every kernel
+    in ``wanted`` must have run exactly that many times. Every loss finite,
+    the first within [ln V, ln V + 2]. Returns the loop's readings."""
     import math
 
-    args = transformer.parse_args(TRAIN_ARGV)
-    built = transformer.build(args)
-    # Two rows from another seed, so the training stream is untouched.
-    (rows,) = next(data.synthetic_lm(args.seed + 1, 2, args.seq_len,
-                                     vocab=args.vocab))
-    tokens = torch.from_numpy(rows).to(built.device)
-    at_init = check_train_plain(torch, fa, transformer, train, built.model,
-                                tokens)
-    gate_train_plain(at_init, at_init=True)
     losses, starts = [], []
 
     def step(batch):
@@ -879,21 +1194,46 @@ def run_train(torch, fa, transformer, train, data):
     counts = fa.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     trajectory = [float(x) for x in losses]
-    require(len(trajectory) == args.steps, "train: wrong number of steps")
+    require(len(trajectory) == args.steps, f"{label}: wrong number of steps")
     require(all(math.isfinite(x) for x in trajectory),
-            f"train: non-finite loss {trajectory}")
-    require(trajectory[-1] == last["loss"], "train: loop result")
+            f"{label}: non-finite loss {trajectory}")
+    require(trajectory[-1] == last["loss"], f"{label}: loop result")
     ln_v = math.log(args.vocab)
     require(ln_v <= trajectory[0] <= ln_v + 2,
-            f"train: step-0 loss {trajectory[0]} outside [ln V, ln V + 2] "
+            f"{label}: step-0 loss {trajectory[0]} outside [ln V, ln V + 2] "
             f"= [{ln_v}, {ln_v + 2}]")
+    for name, want in wanted.items():
+        require(counts[name] == want,
+                f"{label}: {name} launched {counts[name]} times, wanted "
+                f"{want}")
+    return {"launches": counts, "loss_trajectory": trajectory,
+            "loop_seconds": end - t0,
+            "step_seconds": [b - a for a, b in zip(starts,
+                                                    starts[1:] + [end])],
+            "peak_memory_gb": peak}
+
+
+def run_train(torch, fa, transformer, train, data):
+    """The flagship GQA LM at full width (bench.py:636, without remat),
+    6 steps of global batch 32 x 2048 as 4 microbatches of 8, through
+    transformer.build and train.train_loop. The plain cross-check runs
+    before the loop, on the seeded init, and after it, on the trained
+    weights (see gate_train_plain for what each gates). Launch counters
+    are zeroed just before the loop and read just after: K1 and K2 once
+    per layer per microbatch, the merge kernel never."""
+    args = transformer.parse_args(TRAIN_ARGV)
+    built = transformer.build(args)
+    # Two rows from another seed, so the training stream is untouched.
+    (rows,) = next(data.synthetic_lm(args.seed + 1, 2, args.seq_len,
+                                     vocab=args.vocab))
+    tokens = torch.from_numpy(rows).to(built.device)
+    at_init = check_train_plain(torch, fa, transformer, train, built.model,
+                                tokens)
+    gate_train_plain(at_init, at_init=True)
     per_path = args.layers * args.grad_accum * args.steps
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        require(counts[name] == per_path,
-                f"train: {name} launched {counts[name]} times, wanted "
-                f"{args.layers} x {args.grad_accum} x {args.steps}")
-    step_s = [b - a for a, b in zip(starts, starts[1:] + [end])]
-    n_tokens = args.batch * args.seq_len
+    loop = drive_train(torch, fa, train, built, args, "train",
+                       {"flash_fwd": per_path, "flash_bwd_dq": per_path,
+                        "flash_bwd_dkv": per_path, "flash_merge": 0})
     trained = check_train_plain(torch, fa, transformer, train, built.model,
                                 tokens)
     gate_train_plain(trained, at_init=False)
@@ -901,17 +1241,96 @@ def run_train(torch, fa, transformer, train, data):
         "model": "lm_flagship_gqa_kv4 (bench.py:636), no remat",
         "argv": TRAIN_ARGV,
         "params": sum(p.numel() for p in built.model.parameters()),
-        "launches": counts,
-        "loss_trajectory": trajectory,
-        "loop_seconds": end - t0,
-        "step_seconds": step_s,
+        **loop,
         "smoke_tokens_per_s_median_steps_2_to_5":
-            n_tokens / statistics.median(step_s[2:6]),
+            args.batch * args.seq_len
+            / statistics.median(loop["step_seconds"][2:6]),
         "smoke_reading": "6 steps from a cold start; not a throughput "
                          "measurement",
-        "peak_memory_gb": peak,
         "crosscheck_at_init": at_init,
         "crosscheck_trained": trained,
+    }, built
+
+
+SP_TRAIN_ARGV = ["--steps", "4", "--batch", "8", "--seq-len", "8192",
+                 "--grad-accum", "4", "--adam-mu-dtype", "bf16",
+                 "--vocab", "32768", "--dim", "2048", "--heads", "16",
+                 "--kv-heads", "4", "--layers", "8", "--seq-parallel", "4",
+                 "--sp-layout", "striped", "--seed", "0", "--log-every", "0",
+                 "--device", "cuda", "--checkpoint-dir", "",
+                 "--profile-dir", ""]
+
+
+def check_sp_vs_single(torch, transformer, model, tokens, mesh, layout):
+    """One microbatch (``tokens``) on the same weights: the loss and every
+    parameter's gradient of the sequence-parallel path (the ring: K4, K2
+    with given D and f32 grads) against the single-shard kernel path (K1,
+    K2 with fused D and bf16 grads), gated at SP_LOSS_TOL,
+    SP_GRAD_GLOBAL_TOL and SP_GRAD_REL_TOL."""
+    def loss_and_grads(loss_fn):
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(tokens)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    sp = loss_and_grads(transformer.make_lm_loss(model, mesh, layout))
+    single = loss_and_grads(transformer.make_lm_loss(model))
+    res = compare_grads(sp, single)
+    del res["_ratios"], sp, single
+    res["rows"] = int(tokens.shape[0])
+    res["tol"] = (f"loss {SP_LOSS_TOL}; the whole gradient "
+                  f"{SP_GRAD_GLOBAL_TOL} and each parameter "
+                  f"{SP_GRAD_REL_TOL} of the single-shard norm")
+    require(res["loss_abs_err"] <= SP_LOSS_TOL,
+            f"train_sp cross-check: loss gap {res['loss_abs_err']}")
+    require(res["grad_rel_err_all"] <= SP_GRAD_GLOBAL_TOL,
+            f"train_sp cross-check: the whole gradient off by "
+            f"{res['grad_rel_err_all']} of its norm")
+    name, worst = res["worst_grad_rel_err"][0]
+    require(worst <= SP_GRAD_REL_TOL,
+            f"train_sp cross-check: {name} gradient off by {worst} of its "
+            f"norm")
+    return res
+
+
+def run_train_sp(torch, fa, transformer, train, data):
+    """The long-context flagship (bench.py:661 lm_longctx_T8192_gqa,
+    without remat) with --seq-parallel 4 --sp-layout striped: 4 steps of
+    global batch 8 x 8192 as 4 microbatches of 2, the whole ring of 4
+    shards in this one process, through transformer.build and
+    train.train_loop. Before the loop, one row's loss and gradients on the
+    ring are held against the single-shard kernel path. Launch counters
+    are zeroed just before the loop and read just after: the merge kernel
+    and both backward kernels N^2 = 16 times per layer per microbatch, K1
+    never."""
+    args = transformer.parse_args(SP_TRAIN_ARGV)
+    built = transformer.build(args)
+    mesh = transformer.make_lm_mesh(seq_parallel=args.seq_parallel)
+    (rows,) = next(data.synthetic_lm(args.seed + 1, 1, args.seq_len,
+                                     vocab=args.vocab))
+    tokens = torch.from_numpy(rows).to(built.device)
+    cross = check_sp_vs_single(torch, transformer, built.model, tokens, mesh,
+                               args.sp_layout)
+    n = args.seq_parallel
+    per_path = args.layers * args.grad_accum * args.steps * n * n
+    loop = drive_train(torch, fa, train, built, args, "train_sp",
+                       {"flash_merge": per_path, "flash_bwd_dq": per_path,
+                        "flash_bwd_dkv": per_path, "flash_fwd": 0})
+    return {
+        "model": "lm_longctx_T8192_gqa (bench.py:661), no remat",
+        "argv": SP_TRAIN_ARGV,
+        "mesh": {"world": mesh.world, "seq_procs": mesh.seq_procs,
+                 "seq_shards": mesh.seq_shards, "data": mesh.data},
+        "params": sum(p.numel() for p in built.model.parameters()),
+        **loop,
+        "smoke_tokens_per_s_median_steps_1_to_3":
+            args.batch * args.seq_len
+            / statistics.median(loop["step_seconds"][1:]),
+        "smoke_reading": "4 steps from a cold start, 4 ring shards sharing "
+                         "one card; not a throughput measurement",
+        "crosscheck_sp_vs_single_shard_at_init": cross,
     }, built
 
 
@@ -1044,6 +1463,8 @@ def gate_train_plain(check, *, at_init: bool) -> None:
 
 
 def _classify(op: str) -> str:
+    if "flash_merge" in op:
+        return "K4 flash_merge"
     if "flash_fwd" in op:
         return "K1 flash_fwd"
     if "flash_bwd" in op:
@@ -1097,6 +1518,7 @@ def main() -> int:
         from tpu_operator_torch.payload import bootstrap
         from tpu_operator_torch.payload import data
         from tpu_operator_torch.payload import flash_attention as fa
+        from tpu_operator_torch.payload import ring_attention as ring_mod
         from tpu_operator_torch.payload import serve
         from tpu_operator_torch.payload import train
         from tpu_operator_torch.payload import transformer
@@ -1126,9 +1548,13 @@ def main() -> int:
             emit({"phase": "kernels", "kernel": "flash_fwd", **fwd})
             dec = check_flash_decode(torch, fa, F, gen)
             emit({"phase": "kernels", "kernel": "flash_decode", **dec})
+            mrg = check_flash_merge(torch, fa, gen)
+            emit({"phase": "kernels", "kernel": "flash_merge", **mrg})
         bwd = check_flash_bwd(torch, fa, F, gen)
         emit({"phase": "kernels", "kernel": "flash_bwd", **bwd})
         emit({"phase": "autograd", **check_attention_autograd(torch, fa)})
+        rng = check_ring(torch, fa, ring_mod, gen)
+        emit({"phase": "ring", **rng})
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         sv, loop = run_serve(torch, fa, serve, bootstrap)
@@ -1139,6 +1565,12 @@ def main() -> int:
         tr, built = run_train(torch, fa, transformer, train, data)
         emit({"phase": "train", **tr})
         emit({"phase": "profile_train", **profile_train(torch, built)})
+        del built
+        torch.cuda.empty_cache()
+        sp, built = run_train_sp(torch, fa, transformer, train, data)
+        emit({"phase": "train_sp", **sp})
+        emit({"phase": "profile_train_sp", **profile_train(torch, built)})
+        del built
     except SmokeFailure as e:
         emit({"phase": "failed", "error": str(e)})
         return 1
@@ -1184,7 +1616,11 @@ def main() -> int:
             "name": f"flash_bwd_{name}", "route": "cuda",
             "source": "tpu_operator_torch/kernels/csrc/flash_bwd.cu",
             "replaces": f"tpu_operator/payload/flash_attention.py:{line}",
-            "launches": tr["launches"][f"flash_bwd_{name}"],
+            "launches": sp["launches"][f"flash_bwd_{name}"],
+            "launches_by_path": {
+                "train_sp": sp["launches"][f"flash_bwd_{name}"],
+                "train": tr["launches"][f"flash_bwd_{name}"],
+                "ring_check": rng["striped"]["launches"][f"flash_bwd_{name}"]},
             "max_abs_err": bwd_err[name],
             "worst_err_over_tol": bwd_excess_of[name],
             "ms": main_bwd[f"ms_{name}"],
@@ -1197,6 +1633,24 @@ def main() -> int:
             "library_ms_is": main_bwd["library_ms_is"],
             "pair_ms": main_bwd["ms_pair"],
             "pair_bound_ms": main_bwd["bound_ms_pair"]})
+    main_mrg = mrg["striped_r_gt_kv"]
+    kernels.append({
+        "name": "flash_merge", "route": "cuda",
+        "source": "tpu_operator_torch/kernels/csrc/flash_merge.cu",
+        "replaces": "tpu_operator/payload/flash_attention.py:287",
+        "launches": sp["launches"]["flash_merge"],
+        "launches_by_path": {
+            "train_sp": sp["launches"]["flash_merge"],
+            "train": tr["launches"]["flash_merge"],
+            "ring_check": rng["striped"]["launches"]["flash_merge"]},
+        "max_abs_err": max(r["max_abs_err_o"] for r in mrg.values()),
+        "worst_err_over_tol": max(r["worst_err_over_tol_o"]
+                                  for r in mrg.values()),
+        "ms": main_mrg["ms"], "plain_ms": main_mrg["plain_ms"],
+        "bound_ms": main_mrg["bound_ms"], "bound_by": main_mrg["bound_by"],
+        "library_ms": None, "library": main_mrg["library"],
+        "shape": "train_sp ring B2 Tq=Tk=2048 H16 KVH4, striped (1, 0, 4), "
+                 "live carry"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

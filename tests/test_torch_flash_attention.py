@@ -155,5 +155,9 @@ def test_cpu_path_never_counts_kernel_launches():
                         torch.from_numpy(v)).sum().backward()
     tfa.flash_decode(torch.from_numpy(q[:, :1]), torch.from_numpy(k),
                      torch.from_numpy(v), torch.tensor([8], dtype=torch.int32))
+    tfa.merge_kv_block(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v), tfa.init_carry(1, 2, 8, 8),
+                       (0, 0), causal=True)
     assert tfa.launch_counts() == {"flash_fwd": 0, "flash_decode": 0,
-                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                   "flash_merge": 0}

@@ -282,15 +282,33 @@ def test_build_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--seq-parallel", "2"], ["--tensor-parallel", "2"],
-    ["--sp-mode", "ulysses"], ["--sp-layout", "striped"],
+    ["--seq-parallel", "2", "--sp-mode", "ulysses"],
+    ["--tensor-parallel", "2"], ["--sp-mode", "ulysses"],
     ["--split-qkv", "on"], ["--fsdp"], ["--loss-chunk", "32"],
     ["--remat"], ["--checkpoint-dir", "/tmp/ckpt"],
     ["--profile-dir", "/tmp/prof"], ["--optimizer", "adam8"],
 ], ids=lambda f: f[0])
 def test_unported_flags_raise(flag):
+    """Sequence parallelism itself is ported (tests/test_torch_ring_
+    attention.py); Ulysses, its other strategy, is not."""
     args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.build(args)
+
+
+@pytest.mark.parametrize("flag,match", [
+    (["--sp-layout", "striped"], "seq-parallel > 1"),
+    (["--seq-parallel", "4", "--sp-layout", "striped", "--sp-mode",
+      "ulysses"], "sp-mode ring"),
+    (["--seq-parallel", "4", "--loss-chunk", "32"], "seq-parallel 1"),
+    (["--seq-parallel", "3"], "split"),
+], ids=["striped_without_sp", "striped_ulysses", "loss_chunk_with_sp",
+        "seq_len_not_divisible"])
+def test_sp_flags_the_reference_refuses_raise(flag, match):
+    """The combinations the reference refuses (transformer.py:169-174,
+    311-319) raise ValueError here too, before any unported flag."""
+    args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
+    with pytest.raises(ValueError, match=match):
         transformer.build(args)
 
 

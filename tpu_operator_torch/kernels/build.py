@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``_build/libkernels.so`` at first use, one ``nvcc`` per source, all
 started together, then linked into one shared library with a plain C
 interface and loaded with ``ctypes``. The library is rebuilt when the hash
-of the sources (and flags) changes. Nothing here runs at import time: the
+of the sources, the ``csrc/*.cuh`` headers they include, and the flags
+changes. Nothing here runs at import time: the
 CPU-only tests import every module of the port.
 
 A failed build raises RuntimeError with the compiler's output; so does a
@@ -50,11 +51,18 @@ SIGNATURES = {
     "flash_bwd_dq_bf16": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
     # q, k, v, dO, L, O, D, dk, dv | (the same scalars)
     "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
+    # q, k, v, o_in, l_in, m_in, o_out, l_out, m_out | B, Tq, Tk, H, KVH,
+    # head_dim, causal, q_off, k_off, stride | scale | stream
+    "flash_merge_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
 }
 
 
 def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -72,7 +80,7 @@ def nvcc_path() -> str:
 
 def source_digest() -> str:
     h = hashlib.sha256()
-    for path in sources():
+    for path in sources() + headers():
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())

@@ -49,7 +49,7 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <mutex>
+#include "smem_once.cuh"
 
 using namespace nvcuda;
 
@@ -410,28 +410,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   emit_rows(acc_v, stage, dv, kv_row, 1.f, lane);
 }
 
-// The shared-memory attributes belong to a kernel on a device, not to a
-// launch: set them on the first launch of each instantiation on each device
-// and keep that call's result for every later launch.
-constexpr int MAX_DEVICES = 64;
-
 template <auto kernel>
 cudaError_t prepare() {
-  static std::once_flag once[MAX_DEVICES];
-  static cudaError_t result[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  std::call_once(once[dev], [dev] {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    result[dev] = e;
-  });
-  return result[dev];
+  return set_smem_once<kernel>(SMEM_BYTES, true);
 }
 
 bool shape_ok(int B, int Tq, int Tk, int H, int KVH, int head_dim, int stride) {

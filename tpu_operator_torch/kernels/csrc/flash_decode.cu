@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_once.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -192,8 +194,7 @@ template <int R>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
            int B, int Tq, int S, int H, int KVH, float scale, cudaStream_t stream) {
   const size_t smem = ((size_t)NW * R * D + 2 * NW * R) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = set_smem_once<flash_decode_kernel<R>>(smem, false);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(KVH, B);
   flash_decode_kernel<R><<<grid, NW * 32, smem, stream>>>(

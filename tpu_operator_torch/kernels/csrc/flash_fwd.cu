@@ -39,6 +39,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "smem_once.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -233,8 +235,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   if (head_dim != D || B <= 0 || T <= 0 || KVH <= 0 || H % KVH != 0 ||
       ROWS % (H / KVH) != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  cudaError_t err = set_smem_once<flash_fwd_kernel>(SMEM_BYTES, false);
   if (err != cudaSuccess) return (int)err;
   const int group = H / KVH;
   const int blk_q = ROWS / group;

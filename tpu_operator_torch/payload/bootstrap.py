@@ -6,9 +6,15 @@ The operator's env contract is framework-neutral: ``JAX_COORDINATOR_ADDRESS``,
 ``TPUJOB_*`` variables the job. :func:`process_info_from_env` parses them
 into :class:`ProcessInfo`.
 
-Serve replicas and the one-card trainer are single-process, so no
-process group is formed yet: :func:`initialize` accepts a one-process job
-and raises for more (the multi-process NCCL group is still to port).
+:func:`initialize` forms the multi-process group of a training job from
+that env: ``JAX_COORDINATOR_ADDRESS`` is the TCP store's address,
+``JAX_PROCESS_ID`` the rank and ``JAX_NUM_PROCESSES`` the world size. One
+process runs per pod and drives one card, ``cuda:(process_id %
+device_count)``; the backend follows the device the entry point runs on
+(NCCL for CUDA, gloo only when the caller asked for the CPU; NCCL never
+falls back to gloo; beside NCCL a gloo group carries the host-side
+agreement of the drain code). A one-process job (a serve replica, the
+one-card trainer) forms no group.
 
 ``run_payload`` maps clean completion -> 0, an application error -> 1
 (permanent), SIGTERM (preemption/eviction) -> 143 (retryable), and an
@@ -23,8 +29,11 @@ import dataclasses
 import logging
 import os
 import signal
+import socket
 import sys
 import threading
+import time
+from datetime import timedelta
 from typing import Callable, Optional
 
 log = logging.getLogger(__name__)
@@ -68,16 +77,109 @@ def process_info_from_env(env: Optional[dict] = None) -> ProcessInfo:
     )
 
 
-def initialize(info: Optional[ProcessInfo] = None) -> ProcessInfo:
-    """Single-process jobs need no process group. A multi-process job is
-    refused: the NCCL rendezvous is not ported yet."""
+# First DNS poll delay; doubles up to the ``interval`` cap.
+INITIAL_DNS_POLL = 0.05
+
+# How long process-group formation and each collective may wait for peers.
+GROUP_TIMEOUT = timedelta(minutes=10)
+
+
+def wait_for_coordinator(address: str, timeout: float = 300.0,
+                         interval: float = 2.0,
+                         sleep: Callable[[float], None] = time.sleep,
+                         clock: Callable[[], float] = time.monotonic) -> None:
+    """Block until the coordinator's DNS name resolves (the operator
+    creates the Service before any pod, but cluster DNS takes seconds to
+    propagate). Polls at 50 ms first, with capped exponential backoff up to
+    ``interval``; raises TimeoutError after ``timeout`` seconds.
+    ``sleep``/``clock`` are injectable for tests."""
+    host = address.rsplit(":", 1)[0]
+    deadline = clock() + timeout
+    delay = min(INITIAL_DNS_POLL, interval) if interval > 0 else 0.0
+    while True:
+        try:
+            socket.getaddrinfo(host, None)
+            return
+        except socket.gaierror:
+            now = clock()
+            if now >= deadline:
+                raise TimeoutError(
+                    f"coordinator DNS {host!r} did not resolve in "
+                    f"{timeout:.0f}s")
+            if delay >= interval:
+                log.info("waiting for coordinator DNS %s ...", host)
+            else:
+                log.debug("waiting for coordinator DNS %s ...", host)
+            sleep(min(delay, max(0.0, deadline - now)))
+            delay = min(delay * 2 if delay > 0 else interval, interval)
+
+
+def initialize(info: Optional[ProcessInfo] = None,
+               device: Optional[str] = None) -> ProcessInfo:
+    """Form the process group of a multi-process job; a one-process job
+    forms none. ``device`` is the device the entry point runs on (default
+    CUDA): CUDA takes NCCL and the card ``process_id % device_count``, the
+    CPU takes gloo."""
     info = info or process_info_from_env()
-    if info.num_processes > 1:
-        raise NotImplementedError(
-            f"{info.num_processes}-process jobs need the NCCL process "
-            f"group, which is not yet ported to the PyTorch payload")
-    log.info("single-process job; no process group")
+    if info.num_processes <= 1:
+        log.info("single-process job; no process group")
+        return info
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device for the NCCL process group; pass device="
+                "'cpu' to form a gloo group on the CPU")
+        torch.cuda.set_device(info.process_id % torch.cuda.device_count())
+        backend = "nccl"
+    elif dev.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"no process-group backend for device {dev}")
+    wait_for_coordinator(info.coordinator_address)
+    dist.init_process_group(
+        backend, init_method=f"tcp://{info.coordinator_address}",
+        rank=info.process_id, world_size=info.num_processes,
+        timeout=GROUP_TIMEOUT)
+    global _host_group
+    # Host-side agreement (the drain code) rides gloo on CPU tensors, so
+    # reading it never waits on the card's stream.
+    _host_group = dist.new_group(backend="gloo") if backend == "nccl" \
+        else None
+    log.info("process %d/%d joined the %s group at %s", info.process_id,
+             info.num_processes, backend, info.coordinator_address)
     return info
+
+
+_host_group = None
+
+
+def host_group():
+    """The group for small host-side collectives on CPU tensors: a gloo
+    group beside NCCL, else the default group (None)."""
+    return _host_group
+
+
+def world_size() -> int:
+    """Processes in the job's group (1 when no group was formed)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def shutdown() -> None:
+    """Leave the process group, if one was formed."""
+    import torch.distributed as dist
+
+    global _host_group
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _host_group = None
 
 
 EXIT_RETRYABLE = 143  # 128 + SIGTERM: the retryable band
@@ -133,11 +235,13 @@ def exit_step_loop() -> None:
     _in_step_loop.clear()
 
 
-def run_payload(fn: Callable[[ProcessInfo], None]) -> int:
+def run_payload(fn: Callable[[ProcessInfo], None],
+                device: Optional[str] = None) -> int:
     """Run a payload under the exit-code contract: SIGTERM exits 143
     (retryable; inside a training step loop, at the next step boundary),
     a planned drain 160, any other exception 1 (permanent), a clean
-    return 0."""
+    return 0. ``device`` picks the process group's backend
+    (:func:`initialize`)."""
 
     def _sigterm(_signum, _frame):
         if _drain.is_set() or not _in_step_loop.is_set():
@@ -148,18 +252,21 @@ def run_payload(fn: Callable[[ProcessInfo], None]) -> int:
 
     signal.signal(signal.SIGTERM, _sigterm)
     try:
-        info = initialize()
+        info = initialize(device=device)
         fn(info)
         code = 0
     except SystemExit as e:
         code = int(e.code or 0)
     except Exception:  # noqa: BLE001 — the contract: app error = permanent
         log.exception("payload failed")
-        return 1
+        code = 1
+    finally:
+        shutdown()
     return code
 
 
-def main_wrapper(fn: Callable[[ProcessInfo], None]) -> None:
+def main_wrapper(fn: Callable[[ProcessInfo], None],
+                 device: Optional[str] = None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    sys.exit(run_payload(fn))
+    sys.exit(run_payload(fn, device=device))

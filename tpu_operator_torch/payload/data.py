@@ -77,15 +77,27 @@ def token_file_lm(path: str, seed: int, batch: int, seq_len: int,
     return stream()
 
 
-def lm_batches(args) -> Iterator[Tuple[np.ndarray]]:
+def lm_batches(args, mesh=None) -> Iterator[Tuple[np.ndarray]]:
     """``--data /path/tokens.npy`` selects the memory-mapped token stream,
-    else the synthetic recurrence."""
+    else the synthetic recurrence. Every process draws the same global
+    ``[batch, seq_len]`` stream and keeps the rows of its data rank
+    (``mesh.data_rank`` of ``mesh.data``; all of them without a mesh):
+    whole sequences, which its seq group shares."""
     data_path = getattr(args, "data", "")
     if data_path:
-        return token_file_lm(data_path, args.seed, args.batch, args.seq_len,
-                             vocab=args.vocab)
-    return synthetic_lm(args.seed, args.batch, args.seq_len,
-                        vocab=args.vocab)
+        stream = token_file_lm(data_path, args.seed, args.batch,
+                               args.seq_len, vocab=args.vocab)
+    else:
+        stream = synthetic_lm(args.seed, args.batch, args.seq_len,
+                              vocab=args.vocab)
+    if mesh is None or mesh.data == 1:
+        return stream
+    if args.batch % mesh.data:
+        raise ValueError(f"batch {args.batch} does not split over "
+                         f"{mesh.data} data ranks")
+    rows = args.batch // mesh.data
+    lo = mesh.data_rank * rows
+    return ((tokens[lo:lo + rows],) for (tokens,) in stream)
 
 
 def device_prefetch(batches, device: torch.device,

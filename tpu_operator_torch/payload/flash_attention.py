@@ -19,11 +19,16 @@ Three kernels, all in ``tpu_operator_torch/kernels/csrc/``:
   stride, and grads in bf16 or f32. :class:`FlashAttention` (the custom
   VJP of the reference's ``_attn``) pairs it with the forward, so
   :func:`flash_attention` is differentiable.
+- :func:`merge_kv_block` (every step of the forward ring,
+  ``ring_attention.py``) launches ``flash_merge.cu``, the port of
+  ``_merge_kernel``: one visiting K/V block folded into the f32 (o, l, m)
+  carry of the resident queries, causal offsets with a stride, no
+  finalize. It writes a new carry and leaves the one it was given intact.
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor goes to
 the kernel (bf16, head dim 128, contiguous) or the call raises; a CPU
 tensor goes to the plain version (:func:`_attn_ref`, :func:`_decode_ref`,
-:func:`_bwd_ref`), which is also the yardstick ``chip_smoke.py`` holds
+:func:`_bwd_ref`, :func:`_merge_ref`), which is also the yardstick ``chip_smoke.py`` holds
 each kernel against. There is no fallback from the kernel to the plain
 version.
 
@@ -47,7 +52,8 @@ Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # o, l, m
 
 # Kernel launches since the last reset, by kernel.
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_merge": 0}
 
 
 def reset_launch_counts() -> None:
@@ -331,6 +337,13 @@ def _flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_positions(name: str, offsets: Tuple[int, int, int], tq: int,
+                     tk: int) -> None:
+    q_off, k_off, stride = offsets
+    if max(abs(q_off), abs(k_off)) + stride * max(tq, tk) >= 2 ** 31:
+        raise ValueError(f"{name}: positions overflow int32")
+
+
 _GRAD_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -371,9 +384,8 @@ def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if 64 % group != 0:
         raise ValueError(f"flash_bwd: group {group} must divide 64")
     _check_kernel_inputs("flash_bwd", {**rows, **stats}, d)
+    _check_positions("flash_bwd", offsets, tq, tk)
     q_off, k_off, stride = offsets
-    if max(abs(q_off), abs(k_off)) + stride * max(tq, tk) >= 2 ** 31:
-        raise ValueError("flash_bwd: positions overflow int32")
     dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
@@ -396,6 +408,50 @@ def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.check(rc, "flash_bwd_dkv")
         LAUNCHES["flash_bwd_dkv"] += 1
     return dq, dk, dv
+
+
+def _flash_merge_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      carry: Carry, offsets: Tuple[int, int, int],
+                      causal: bool) -> Carry:
+    """The merge kernel; the carry it returns is new (the given one is
+    read, not written)."""
+    from tpu_operator_torch.kernels import build
+
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_merge: q [B,Tq,H,D], k/v [B,Tk,KVH,D]")
+    b, tq, h, d = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_merge: k/v {tuple(k.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"flash_merge: {arg} must be bfloat16, "
+                             f"got {x.dtype}")
+    o, l, m = carry
+    for arg, x, shape in (("o", o, (b, h, tq, d)), ("l", l, (b, h, tq, 1)),
+                          ("m", m, (b, h, tq, 1))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"flash_merge: carry {arg} must be f32 "
+                             f"{list(shape)}")
+    group = _group_of(h, kvh)
+    if 64 % group != 0:
+        raise ValueError(f"flash_merge: group {group} must divide 64")
+    _check_kernel_inputs("flash_merge", {"q": q, "k": k, "v": v, "o": o,
+                                         "l": l, "m": m}, d)
+    _check_positions("flash_merge", offsets, tq, tk)
+    o_out, l_out, m_out = (torch.empty_like(x) for x in (o, l, m))
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_merge_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            l.data_ptr(), m.data_ptr(), o_out.data_ptr(), l_out.data_ptr(),
+            m_out.data_ptr(), b, tq, tk, h, kvh, d, int(bool(causal)),
+            *offsets, d ** -0.5, stream)
+    build.check(rc, "flash_merge")
+    LAUNCHES["flash_merge"] += 1
+    return o_out, l_out, m_out
 
 
 def _route(q: torch.Tensor) -> str:
@@ -492,3 +548,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _route(q) == "cuda":
         return _flash_decode_cuda(q, k, v, lengths)
     return _decode_ref(q, k, v, lengths)
+
+
+def merge_kv_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   carry: Carry, offsets: Sequence[int], *,
+                   causal: bool = True) -> Carry:
+    """Fold K/V block ``k``/``v`` [B,Tk,KVH,D] into the streaming softmax
+    of the resident queries ``q`` [B,Tq,H,D]; ``carry`` is (o [B,H,Tq,D],
+    l, m [B,H,Tq,1]) f32, at query-head size (:func:`init_carry`).
+    ``offsets`` is (q_off, k_off) or (q_off, k_off, stride): slot i sits at
+    global position off + stride*i. Returns the new carry; the given one is
+    left as it was. CUDA: the merge kernel; CPU: the plain version."""
+    offs = _normalize_offsets(offsets)
+    if _route(q) == "cuda":
+        return _flash_merge_cuda(q, k, v, carry, offs, causal)
+    return _merge_ref(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                      v.permute(0, 2, 1, 3), *carry, offs, causal)

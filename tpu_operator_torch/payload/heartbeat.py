@@ -25,8 +25,11 @@ contract, so the operator reads both payloads' beats alike. A training
 beat carries ``loss`` (finite only) and ``tokensPerSec`` (from
 ``tokens_per_batch``); the cooperative-drain directive arrives in the
 ACK body and its ``drainAck`` one-shot rides every beat until a post
-succeeds. The profile and startup channels, the checkpoint fields and
-the cadence-only flavour come with the slices that port those features.
+succeeds. In a multi-process job only process 0 sends that stream; every
+other process sends the cadence-only flavour (identity, step cadence and
+the ``stepTiming`` digest, for the operator's straggler detector). The
+profile and startup channels and the checkpoint fields come with the
+slices that port those features.
 """
 
 from __future__ import annotations
@@ -63,11 +66,14 @@ def _http_post(url: str, body: Dict[str, Any]) -> Optional[Dict[str, Any]]:
 class HeartbeatReporter:
     """Posts step telemetry to ``{base_url}/api/heartbeat``.
 
-    ``clock``/``poster`` are injectable for tests. A serve replica and the
-    one-card trainer are one process each, so each sends the whole stream:
-    identity, step cadence, the ``stepTiming`` digest, and the serving
-    state or the training loss. ``tokens_per_batch`` (> 0) turns step
-    cadence into ``tokensPerSec``."""
+    ``clock``/``poster`` are injectable for tests. A serve replica, the
+    one-card trainer and process 0 of a training job send the whole
+    stream: identity, step cadence, the ``stepTiming`` digest, and the
+    serving state or the training loss. ``tokens_per_batch`` (> 0) turns
+    step cadence into ``tokensPerSec``. ``cadence_only`` is the flavour of
+    a training job's other processes: identity, step cadence and the
+    ``stepTiming`` digest (and a serving state, which is per replica), no
+    loss, tokens/s or drain ACK."""
 
     def __init__(self, base_url: str, job_name: str,
                  namespace: str = "default", process_id: int = 0,
@@ -75,7 +81,8 @@ class HeartbeatReporter:
                  tokens_per_batch: int = 0,
                  clock: Callable[[], float] = time.monotonic,
                  poster: Optional[Callable[[str, Dict[str, Any]],
-                                           Optional[Dict[str, Any]]]] = None):
+                                           Optional[Dict[str, Any]]]] = None,
+                 cadence_only: bool = False):
         self.url = base_url.rstrip("/") + "/api/heartbeat"
         self.job_name = job_name
         self.namespace = namespace
@@ -87,6 +94,7 @@ class HeartbeatReporter:
             interval = DEFAULT_INTERVAL
         self.interval = interval
         self.tokens_per_batch = tokens_per_batch
+        self.cadence_only = cadence_only
         self._clock = clock
         self._poster = poster or _http_post
         self._last_post: Optional[float] = None
@@ -131,9 +139,13 @@ class HeartbeatReporter:
                 and step > self._last_step:
             per_step = (now - self._last_post) / (step - self._last_step)
             body["stepTimeSeconds"] = round(per_step, 6)
-            if self.tokens_per_batch > 0 and per_step > 0:
+            if self.tokens_per_batch > 0 and per_step > 0 \
+                    and not self.cadence_only:
                 body["tokensPerSec"] = round(self.tokens_per_batch / per_step,
                                              3)
+        if self.cadence_only:
+            self._last_post, self._last_step = now, int(step)
+            return self._post(body)
         loss = (metrics or {}).get("loss")
         if loss is not None:
             try:
@@ -190,7 +202,10 @@ class HeartbeatReporter:
 def from_env(env: Optional[Dict[str, str]] = None
              ) -> Optional[HeartbeatReporter]:
     """Reporter from the operator's env contract, or None when heartbeats
-    are not wired (no TPUJOB_STATUS_URL)."""
+    are not wired (no TPUJOB_STATUS_URL). Process 0 sends the full stream,
+    every other process cadence-only beats; those exist for the straggler
+    detector, so a non-zero process sends none when the flight recorder is
+    off (TPUJOB_STEPTRACE_ENABLED=0)."""
     e = env if env is not None else os.environ
     url = e.get("TPUJOB_STATUS_URL", "")
     job = e.get("TPUJOB_NAME", "")
@@ -205,10 +220,15 @@ def from_env(env: Optional[Dict[str, str]] = None
             log.warning("ignoring malformed %s=%r", var, e.get(var))
             return default
 
+    process_id = _num("JAX_PROCESS_ID", 0, int)
+    if process_id != 0 and str(e.get("TPUJOB_STEPTRACE_ENABLED", "1")
+                               ).lower() in ("0", "false"):
+        return None
     return HeartbeatReporter(
         url, job,
         namespace=e.get("TPUJOB_NAMESPACE", "default"),
-        process_id=_num("JAX_PROCESS_ID", 0, int),
+        process_id=process_id,
         attempt=_num("TPUJOB_ATTEMPT", 0, int),
         interval=_num("TPUJOB_HEARTBEAT_INTERVAL", DEFAULT_INTERVAL, float),
+        cadence_only=process_id != 0,
     )

@@ -1,5 +1,5 @@
 """The training step and loop of the PyTorch payload (counterpart of the
-single-process, one-device part of ``tpu_operator/payload/train.py``).
+part of ``tpu_operator/payload/train.py`` that one process per card uses).
 
 - :func:`next_token_nll` / :func:`next_token_nll_masked`: the reference's
   loss, the logsumexp over an f32 cast of the bf16 logits minus the target
@@ -9,12 +9,18 @@ single-process, one-device part of ``tpu_operator/payload/train.py``).
   backward of ``loss / K`` into the f32 ``.grad`` of the params, then one
   optimizer update; the metrics are the microbatch mean. The reference
   sums the K gradients and divides once: the same up to f32 rounding.
-- :func:`train_loop`: the reference's loop (``train.py:766``) as far as a
-  single process on one card uses it: the DATA / DISPATCH / COMPUTE /
+  In a multi-process job :func:`all_reduce_grads` then sums the gradients
+  over the world and divides by the data-parallel size, as the
+  reference's psums over its (data, seq) mesh do.
+- :func:`train_loop`: the reference's loop (``train.py:766``) as far as
+  one process per card uses it: the DATA / DISPATCH / COMPUTE /
   CHECKPOINT / HOST laps of the flight recorder, the COMPUTE fence one
-  step deep, heartbeats with ``loss`` and ``tokensPerSec``, and the drain
-  latch (SIGTERM -> exit 143, a drain directive -> exit 160, both at a
-  step boundary).
+  step deep, heartbeats with ``loss`` and ``tokensPerSec`` (cadence only
+  from processes other than 0), and the drain latch (SIGTERM -> exit 143,
+  a drain directive -> exit 160, both at a step boundary). In a
+  multi-process job every process takes the world's largest drain code at
+  each step boundary (one ``all_reduce(MAX)``), so all of them exit at the
+  same step with the same code; one process does no collective.
 
 The fence: each step's metrics are copied to pinned host memory behind
 the step's work, and a CUDA event is recorded after the copy. After
@@ -31,6 +37,7 @@ import time
 from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from tpu_operator_torch.payload import bootstrap as bootstrap_mod
 from tpu_operator_torch.payload import data as data_mod
@@ -52,25 +59,56 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def next_token_nll_masked(logits: torch.Tensor, targets: torch.Tensor,
-                          mask: torch.Tensor) -> torch.Tensor:
+                          mask: torch.Tensor,
+                          count: Optional[int] = None) -> torch.Tensor:
     """Next-token NLL with explicit per-slot targets and a validity mask
-    ([T] or [B, T]), normalised by the count of valid slots."""
+    ([T] or [B, T]), normalised by ``count`` when given (a sequence shard
+    divides by the whole sequence's count of valid targets), else by the
+    count of valid slots here."""
     lse = torch.logsumexp(logits.float(), dim=-1)
     tgt = logits.gather(-1, targets.long()[..., None])[..., 0].float()
     mask = torch.broadcast_to(mask.float(), lse.shape)
-    return ((lse - tgt) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = ((lse - tgt) * mask).sum()
+    if count is not None:
+        return total / max(int(count), 1)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def all_reduce_grads(params: Sequence[torch.Tensor], metrics: Metrics,
+                     data_size: int) -> Metrics:
+    """Sum the ``.grad`` of ``params`` and the (scalar) ``metrics`` over the
+    world, then divide by ``data_size``: one flat f32 collective. Each
+    process's loss is its sequence shard's share of its data rank's mean,
+    so the sum over a seq group is that rank's gradient and the division
+    averages the data ranks. Returns the reduced metrics."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    keys = sorted(metrics)
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [metrics[k].reshape(1).float() for k in keys])
+    dist.all_reduce(flat)
+    flat /= data_size
+    offset = 0
+    for p, g in zip(params, grads):
+        n = g.numel()
+        p.grad = flat[offset:offset + n].view_as(g).to(g.dtype)
+        offset += n
+    return {k: flat[offset + i] for i, k in enumerate(keys)}
 
 
 def make_loss_train_step(loss_fn: Callable[[torch.Tensor],
                                            Tuple[torch.Tensor, Metrics]],
                          params: Sequence[torch.Tensor], optimizer,
-                         opt_state, grad_accum: int = 1
+                         opt_state, grad_accum: int = 1,
+                         reduce: Optional[Callable[[Sequence[torch.Tensor],
+                                                    Metrics], Metrics]] = None
                          ) -> Callable[[torch.Tensor], Metrics]:
     """``step(batch) -> metrics``: ``loss_fn(microbatch) -> (loss,
     metrics)`` differentiated into ``params``' ``.grad`` over
     ``grad_accum`` sequential microbatches (the leading dim split), then
-    one ``optimizer.step(params, opt_state)`` in place. The metrics stay
-    on the device."""
+    ``reduce(params, metrics)`` after the last backward when given (the
+    multi-process all-reduce), then one ``optimizer.step(params,
+    opt_state)`` in place. The metrics stay on the device."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     params = list(params)
@@ -88,9 +126,12 @@ def make_loss_train_step(loss_fn: Callable[[torch.Tensor],
             loss, metrics = loss_fn(mb)
             (loss / grad_accum).backward()
             micro_metrics.append({k: v.detach() for k, v in metrics.items()})
+        metrics = {k: torch.stack([m[k] for m in micro_metrics]).mean()
+                   for k in micro_metrics[0]}
+        if reduce is not None:
+            metrics = reduce(params, metrics)
         optimizer.step(params, opt_state)
-        return {k: torch.stack([m[k] for m in micro_metrics]).mean()
-                for k in micro_metrics[0]}
+        return metrics
 
     return step
 
@@ -132,6 +173,24 @@ def _infer_tokens_per_batch(batch_args: tuple) -> int:
     return 0
 
 
+def agreed_drain_code() -> int:
+    """The drain exit code every process takes at this step boundary: the
+    world's largest local code (0 = not draining). SIGTERM reaches one pod
+    and a drain directive process 0 only, so the processes agree on the
+    step; the max also picks EXIT_PLANNED (160) over EXIT_RETRYABLE (143),
+    the operator's precedence. One CPU scalar on the host group
+    (``bootstrap.host_group``), so the read never waits on the card; one
+    process does no collective."""
+    code = (bootstrap_mod.drain_exit_code() if bootstrap_mod.draining()
+            else 0)
+    if bootstrap_mod.world_size() <= 1:
+        return code
+    agreed = torch.tensor([code], dtype=torch.int32)
+    dist.all_reduce(agreed, op=dist.ReduceOp.MAX,
+                    group=bootstrap_mod.host_group())
+    return int(agreed.item())
+
+
 def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
                device, log_every: int = 0,
                log_fn: Optional[Callable[[int, dict], None]] = None,
@@ -160,8 +219,8 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
         for i in range(steps):
             if recorder is not None:
                 recorder.begin(i)
-            if bootstrap_mod.draining():
-                code = bootstrap_mod.drain_exit_code()
+            code = agreed_drain_code()
+            if code:
                 log.info("drain: exiting %d at step %d", code, i)
                 raise SystemExit(code)
             batch_args = next(dev_batches)
@@ -189,8 +248,9 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
             if log_every and log_fn and (i + 1) % log_every == 0:
                 log_fn(i + 1, ready.values())
             if heartbeat is not None and heartbeat.due(i + 1):
+                cadence = getattr(heartbeat, "cadence_only", False)
                 heartbeat.report(
-                    i + 1, ready.values(),
+                    i + 1, None if cadence else ready.values(),
                     steptiming=(recorder.summary()
                                 if recorder is not None else None))
             if recorder is not None:

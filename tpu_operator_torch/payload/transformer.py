@@ -1,5 +1,5 @@
-"""Transformer LM training payload on one CUDA card (counterpart of
-``tpu_operator/payload/transformer.py``).
+"""Transformer LM training payload, one process per CUDA card
+(counterpart of ``tpu_operator/payload/transformer.py``).
 
     python -m tpu_operator_torch.payload.transformer --steps 6 --batch 32 \\
         --seq-len 2048 --grad-accum 4 --adam-mu-dtype bf16 --vocab 32768 \\
@@ -12,11 +12,18 @@ bf16 compute (``models.py``), the differentiable flash attention (the
 forward and backward kernels on the card), the f32 next-token loss, and
 adam with an optional bf16 first moment (``optimizers.py``).
 
-One process, one device. The flags of the reference that need more
-(sequence and tensor parallelism, FSDP) or that are not ported yet
-(remat, chunked loss, checkpoints, profiling, adam8) parse with the
-reference's defaults and raise NotImplementedError when set away from
-them; ROADMAP Queue A lists them.
+``--seq-parallel N [--sp-layout striped]`` shards the sequence into N
+ring shards (``ring_attention.py``: the merge kernel forward, the backward
+kernels in a backward ring) over the processes of the job's group
+(:func:`make_lm_mesh`): with P processes per seq group each holds N / P
+consecutive shards, so one process runs the whole ring and four processes
+one shard each. The step takes the reference's striped step for both
+layouts (the identity permutation for contiguous).
+
+The flags of the reference that are not ported yet (tensor parallelism,
+Ulysses, FSDP, remat, chunked loss, checkpoints, profiling, adam8) parse
+with the reference's defaults and raise NotImplementedError when set away
+from them; ROADMAP Queue A lists them.
 """
 
 from __future__ import annotations
@@ -24,8 +31,9 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-from typing import Callable, Iterator, NamedTuple, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpu_operator_torch.device import resolve_device
@@ -34,6 +42,7 @@ from tpu_operator_torch.payload import compute
 from tpu_operator_torch.payload import data as data_mod
 from tpu_operator_torch.payload import flash_attention as fa
 from tpu_operator_torch.payload import optimizers
+from tpu_operator_torch.payload import ring_attention as ring_mod
 from tpu_operator_torch.payload import train
 from tpu_operator_torch.payload.models import TransformerLM
 
@@ -50,7 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--seq-len", type=int, default=2048,
                    help="global sequence length")
     p.add_argument("--seq-parallel", type=int, default=1,
-                   help="sequence-parallel shards (not ported: must be 1)")
+                   help="sequence-parallel ring shards (N); they spread over "
+                        "the job's processes, N / P per process")
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="tensor-parallel shards (not ported: must be 1)")
     p.add_argument("--split-qkv", choices=("auto", "on", "off"),
@@ -58,10 +68,13 @@ def parse_args(argv=None):
                    help="q/k/v projection layout (not ported: auto, which "
                         "splits under GQA and fuses otherwise)")
     p.add_argument("--sp-mode", choices=("ring", "ulysses"), default="ring",
-                   help="sequence-parallel strategy (not ported)")
+                   help="sequence-parallel strategy (ulysses not ported)")
     p.add_argument("--sp-layout", choices=("contiguous", "striped"),
                    default="contiguous",
-                   help="sequence-parallel layout (not ported)")
+                   help="how the ring shards the sequence: contiguous = "
+                        "shard r holds positions [rC, (r+1)C); striped = "
+                        "shard r holds positions r, r+N, r+2N, ... (balances "
+                        "the causal work)")
     compute.add_lm_compute_flags(p)
     p.add_argument("--grad-accum", type=int, default=1,
                    help="accumulate gradients over K sequential "
@@ -115,10 +128,8 @@ def _env_int(var: str, default: int) -> int:
 
 # flag -> (its default, the ROADMAP Queue A item that ports it)
 _NOT_PORTED = {
-    "seq_parallel": (1, "7 (ring attention: 6)"),
     "tensor_parallel": (1, "7"),
-    "sp_mode": ("ring", "6-7"),
-    "sp_layout": ("contiguous", "6"),
+    "sp_mode": ("ring", "7"),
     "split_qkv": ("auto", "7"),
     "fsdp": (False, "7"),
     "loss_chunk": (0, "1"),
@@ -128,8 +139,23 @@ _NOT_PORTED = {
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag set away from the reference's
-    default that the port cannot honour yet."""
+    """Raise ValueError for the sequence-parallel combinations the
+    reference refuses, then NotImplementedError for a flag set away from
+    the reference's default that the port cannot honour yet."""
+    shards = getattr(args, "seq_parallel", 1)
+    if shards < 1 or args.seq_len % shards:
+        raise ValueError(f"--seq-len {args.seq_len} must split into "
+                         f"--seq-parallel {shards} >= 1 shards")
+    if getattr(args, "sp_layout", "contiguous") == "striped":
+        if getattr(args, "sp_mode", "ring") != "ring":
+            raise ValueError("--sp-layout striped requires --sp-mode ring")
+        if shards <= 1:
+            raise ValueError(
+                "--sp-layout striped requires --seq-parallel > 1 (the "
+                "layout exists to balance the ring)")
+    if getattr(args, "loss_chunk", 0) and shards > 1:
+        raise ValueError("--loss-chunk requires --seq-parallel 1: sequence "
+                         "parallelism already shards the logits over T")
     for name, (default, item) in _NOT_PORTED.items():
         if getattr(args, name, default) != default:
             raise NotImplementedError(
@@ -149,6 +175,55 @@ def prefetch_depth(args) -> int:
 
 def _causal_attend(_i):
     return lambda q, k, v: fa.flash_attention(q, k, v, causal=True)
+
+
+class LMMesh(NamedTuple):
+    """The (data, seq) layout of the job's processes: ``world`` processes,
+    ``seq_procs`` (P) per seq group sharing ``seq_shards`` (N) ring shards,
+    ``data`` = world / P data ranks. Ranks are data-major: rank = data_rank
+    · P + seq_rank, so a seq group is P neighbouring ranks."""
+
+    world: int
+    rank: int
+    seq_procs: int
+    seq_shards: int
+
+    @property
+    def data(self) -> int:
+        return self.world // self.seq_procs
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.seq_procs
+
+    @property
+    def seq_rank(self) -> int:
+        return self.rank % self.seq_procs
+
+    def ring(self) -> ring_mod.SeqRing:
+        first = self.data_rank * self.seq_procs
+        return ring_mod.SeqRing(self.seq_shards,
+                                range(first, first + self.seq_procs),
+                                self.seq_rank)
+
+
+def make_lm_mesh(world: Optional[int] = None, rank: Optional[int] = None,
+                 seq_parallel: int = 1) -> LMMesh:
+    """The (data, seq) mesh over the job's processes (default: the process
+    group, or one process without one): P = min(world, N) processes per seq
+    group, data = world / P. N must split over P, and P over the world."""
+    import torch.distributed as dist
+
+    grouped = dist.is_available() and dist.is_initialized()
+    if world is None:
+        world = dist.get_world_size() if grouped else 1
+    if rank is None:
+        rank = dist.get_rank() if grouped else 0
+    procs = min(world, seq_parallel)
+    if seq_parallel < 1 or seq_parallel % procs or world % procs:
+        raise ValueError(f"--seq-parallel {seq_parallel} does not lay out "
+                         f"over {world} processes")
+    return LMMesh(world, rank, procs, seq_parallel)
 
 
 class Built(NamedTuple):
@@ -171,28 +246,94 @@ def build_model(args, device) -> TransformerLM:
     return model.init_weights(gen)
 
 
-def make_lm_train_step(model: TransformerLM, optimizer, opt_state,
-                       grad_accum: int = 1):
-    """Next-token cross-entropy step over ``model``'s trainable params
-    (the ones ``opt_state`` was initialised on)."""
+def make_lm_loss(model: TransformerLM, mesh: Optional[LMMesh] = None,
+                 sp_layout: str = "contiguous"):
+    """``loss_fn(tokens) -> (loss, metrics)`` of one microbatch on ``mesh``
+    (default: one process, one shard).
+
+    One shard: flash attention over the whole sequence. More: the
+    reference's striped step (``transformer.py:337-359``) for either layout.
+    Every process holds its data rank's ``[b, T]`` tokens and takes its
+    slots' tokens, positions (``perm``), targets (``(perm + 1) % T``) and
+    mask (``perm < T - 1``); attention is the ring. The loss is divided by
+    the whole sequence's count of valid targets, b·(T - 1), so the sum over
+    a seq group is the reference's loss, and so is its gradient."""
+    mesh = mesh or make_lm_mesh(1, 0, 1)
+    if mesh.seq_shards == 1:
+        def loss_fn(tokens):
+            loss = train.next_token_nll(model(tokens, None, _causal_attend),
+                                        tokens)
+            return loss, {"loss": loss.detach()}
+
+        return loss_fn
+
+    seq_len = model.max_seq
+    striped = sp_layout == "striped"
+    perm = ring_mod.stripe_permutation(seq_len, mesh.seq_shards)[0] \
+        if striped else np.arange(seq_len)
+    local = seq_len // mesh.seq_procs
+    # This process's slots, in slab order: the global positions it holds.
+    pos = torch.from_numpy(
+        perm[mesh.seq_rank * local:(mesh.seq_rank + 1) * local]).to(
+            next(model.parameters()).device)
+    tgt = (pos + 1) % seq_len
+    mask = pos < seq_len - 1
+    ring = mesh.ring()
+
+    def attend_for_layer(_i):
+        return lambda q, k, v: ring_mod.ring_attention(
+            q, k, v, ring, causal=True, stripe=striped)
+
     def loss_fn(tokens):
-        loss = train.next_token_nll(model(tokens, None, _causal_attend),
-                                    tokens)
+        if tokens.shape[1] != seq_len:
+            raise ValueError(f"the sequence layout was built for seq_len "
+                             f"{seq_len}, got a batch with T="
+                             f"{tokens.shape[1]}")
+        logits = model(tokens[:, pos], pos[None], attend_for_layer)
+        loss = train.next_token_nll_masked(
+            logits, tokens[:, tgt], mask,
+            count=tokens.shape[0] * (seq_len - 1))
         return loss, {"loss": loss.detach()}
 
+    return loss_fn
+
+
+def make_lm_train_step(model: TransformerLM, optimizer, opt_state,
+                       grad_accum: int = 1, mesh: Optional[LMMesh] = None,
+                       sp_layout: str = "contiguous"):
+    """Next-token cross-entropy step (:func:`make_lm_loss`) over
+    ``model``'s trainable params (the ones ``opt_state`` was initialised
+    on). With more than one process it all-reduces the gradients after the
+    last microbatch: summed over the world, divided by the data ranks."""
+    mesh = mesh or make_lm_mesh(1, 0, 1)
     params = [p for p in model.parameters() if p.requires_grad]
-    return train.make_loss_train_step(loss_fn, params, optimizer, opt_state,
-                                      grad_accum=grad_accum)
+    reduce = None
+    if mesh.world > 1:
+        def reduce(ps, metrics):
+            return train.all_reduce_grads(ps, metrics, mesh.data)
+
+    return train.make_loss_train_step(make_lm_loss(model, mesh, sp_layout),
+                                      params, optimizer, opt_state,
+                                      grad_accum=grad_accum, reduce=reduce)
 
 
-def build(args, device=None) -> Built:
+def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
     """Model (seeded init, gradients on), optimizer and its state, step
     and host batches for the flags. ``device`` defaults to ``--device``
-    (CUDA unless it says ``cpu``)."""
+    (CUDA unless it says ``cpu``); ``mesh`` to the (data, seq) mesh of the
+    job's process group at ``--seq-parallel``."""
     check_ported(args)
     compute.lm_block(args)  # the plain DecoderBlock; raises under --remat
-    if args.grad_accum < 1 or args.batch % args.grad_accum:
-        raise ValueError(f"--batch {args.batch} must divide by "
+    mesh = mesh or make_lm_mesh(seq_parallel=args.seq_parallel)
+    if mesh.seq_shards != args.seq_parallel:
+        raise ValueError(f"mesh has {mesh.seq_shards} seq shards, "
+                         f"--seq-parallel is {args.seq_parallel}")
+    if args.batch % mesh.data:
+        raise ValueError(f"--batch {args.batch} must split over "
+                         f"{mesh.data} data ranks")
+    rows = args.batch // mesh.data
+    if args.grad_accum < 1 or rows % args.grad_accum:
+        raise ValueError(f"{rows} rows per data rank must divide by "
                          f"--grad-accum {args.grad_accum} >= 1")
     dev = resolve_device(device if device is not None
                          else (args.device or None))
@@ -200,18 +341,20 @@ def build(args, device=None) -> Built:
     model = build_model(args, dev).requires_grad_(True)
     opt_state = optimizer.init(list(model.parameters()))
     step = make_lm_train_step(model, optimizer, opt_state,
-                              grad_accum=args.grad_accum)
+                              grad_accum=args.grad_accum, mesh=mesh,
+                              sp_layout=args.sp_layout)
     return Built(model, optimizer, opt_state, step,
-                 data_mod.lm_batches(args), dev)
+                 data_mod.lm_batches(args, mesh), dev)
 
 
 def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     args = args or parse_args([])
     built = build(args)
     n_params = sum(p.numel() for p in built.model.parameters())
-    log.info("training %d params on %s; batch %d seq %d grad-accum %d",
-             n_params, built.device, args.batch, args.seq_len,
-             args.grad_accum)
+    log.info("training %d params on %s; batch %d seq %d grad-accum %d "
+             "seq-parallel %d (%s)", n_params, built.device, args.batch,
+             args.seq_len, args.grad_accum, args.seq_parallel,
+             args.sp_layout)
     metrics = train.train_loop(
         built.step, built.batches, args.steps, device=built.device,
         log_every=args.log_every,
@@ -223,7 +366,8 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
 
 def main() -> None:
     args = parse_args()
-    bootstrap.main_wrapper(lambda info: run(info, args))
+    bootstrap.main_wrapper(lambda info: run(info, args),
+                           device=args.device or None)
 
 
 if __name__ == "__main__":
