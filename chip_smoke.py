@@ -10,7 +10,10 @@ one JSON line each:
 1. ``device``: the card's name, count and power limit.
 2. ``build``: compiles every ``tpu_operator_torch/kernels/csrc/*.cu`` for
    sm_90a (one nvcc per source, in parallel) and prints ptxas's register
-   and spill report.
+   and spill report, each figure under its entry function. ``sass``: the
+   HGMMA count of every kernel in ``cuobjdump --dump-sass`` of the library
+   and the registers and spills by kernel; the redesigned Hopper kernels
+   (K1, dkv) must run on wgmma and spill nothing.
 3. ``kernels``: each kernel's wrapper on tensors on the card at the serve
    and training paths' shapes, held against its plain PyTorch version on the same
    inputs with the stated bf16 tolerance (per element; the forward kernel
@@ -30,9 +33,12 @@ one JSON line each:
 5. ``kernels`` (backward): the two backward kernels at the training
    shape against the plain backward with a per-element tolerance set from
    the kernels' bf16 roundings, at two ragged cases with offsets, a
-   stride, precomputed D and f32 grads, a zeroed-D negative control that
-   must fail, and a bit-equality check of two launches; timed beside the
-   plain version, the bound and SDPA's backward (a yardstick only).
+   stride, precomputed D and f32 grads, and at the SP ring's shape (B 2,
+   Tq = Tk = 2048, striped (1, 0, 4), given D, f32 grads), a zeroed-D
+   negative control that must fail, and a bit-equality check of two
+   launches; timed at the training and ring shapes beside the bound, and
+   at the training shape beside the plain version and SDPA's backward (a
+   yardstick only).
    ``autograd``: flash_attention's gradients against torch autograd
    through the plain reference attention.
 6. ``ring``: ring attention with 4 shards in one process (K4 forward, K2
@@ -272,6 +278,81 @@ def decode_excess(torch, got, want) -> float:
     return float(((got.float() - want).abs() / limit).max())
 
 
+# --- phase: build -------------------------------------------------------------
+
+# The redesigned kernels: wgmma (HGMMA in their SASS) and no spill.
+HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+
+
+def ptxas_report(log: str):
+    """(the build log's ptxas lines, {kernel: registers, stack and spill
+    bytes}) from the ``-Xptxas -v`` report, each figure under the entry
+    function it belongs to."""
+    import re
+
+    lines, per, cur = [], {}, None
+    for ln in log.splitlines():
+        ln = ln.strip()
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1)
+            per[cur] = {}
+        if m or any(x in ln for x in ("Function properties for", "registers",
+                                      "spill", "error", "warning")):
+            lines.append(ln)
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            per[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            per[cur]["registers"] = int(m.group(1))
+    return lines, per
+
+
+def sass_hgmma(lib_path) -> dict:
+    """{kernel: count of HGMMA instructions} from ``cuobjdump --dump-sass``
+    of the built library."""
+    import re
+    import shutil
+
+    from tpu_operator_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump") or tool
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HGMMA" in ln:
+            counts[cur] += 1
+    return counts
+
+
+def check_hopper_build(per_kernel: dict, hgmma: dict) -> None:
+    """Every instantiation of a redesigned kernel runs on wgmma and spills
+    nothing."""
+    for name in HOPPER_KERNELS:
+        built = [k for k in per_kernel if name in k]
+        require(built, f"build: no ptxas report for {name}")
+        for k in built:
+            spill = per_kernel[k].get("spill_stores", 0) \
+                + per_kernel[k].get("spill_loads", 0)
+            require(spill == 0, f"build: {k} spills ({per_kernel[k]})")
+        sass = {k: n for k, n in hgmma.items() if name in k}
+        require(sass and all(n > 0 for n in sass.values()),
+                f"build: {name} has no HGMMA in its SASS ({sass})")
+
+
 # --- phase: kernels ------------------------------------------------------------
 
 
@@ -373,6 +454,7 @@ def check_flash_fwd(torch, fa, F, gen):
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
             "bound_by": bound_by,
             "tflops": flops / (ms * 1e-3) / 1e12,
+            "share_of_bound": bound_ms / ms,
         }
     return results
 
@@ -544,14 +626,49 @@ def kernel_device_ms(torch, fn, calls: int, names):
             "not measured" for name in names}
 
 
+def bwd_bounds(torch, b, tq, tk, h, kvh, causal, offsets, fused, grad_bytes):
+    """Bound (ms, by) of dq, dkv and the pair for one K2 call, counting the
+    (query, key) pairs these offsets leave unmasked: dq runs three
+    [pairs]-by-D products (S, dP, dQ), dkv four (S, dP, dK, dV). Each reads
+    its inputs once and writes its outputs once: dq reads q, k, v, dO, L
+    and O (fused D, then also writes D) or D; dkv reads q, k, v, dO, L, D."""
+    d = 128
+    if causal:
+        q_off, k_off, stride = offsets
+        q_pos = q_off + stride * torch.arange(tq, device="cuda")
+        k_pos = k_off + stride * torch.arange(tk, device="cuda")
+        pairs = int((q_pos[:, None] >= k_pos[None, :]).sum())
+    else:
+        pairs = tq * tk
+    mac = 2.0 * d * pairs * b * h  # one [pairs]-by-D product
+    q_bytes = 2.0 * b * tq * h * d
+    kv_bytes = 2.0 * b * tk * kvh * d
+    row_bytes = 4.0 * b * h * tq
+    common = 2 * q_bytes + 2 * kv_bytes + row_bytes  # q, dO, k, v, L
+    d_in = q_bytes if fused else row_bytes           # O, or D
+    dq_out = grad_bytes / 2 * q_bytes + (row_bytes if fused else 0)
+    dkv_out = grad_bytes * kv_bytes
+    res = {"pairs": pairs}
+    for name, products, nbytes in (
+            ("dq", 3, common + d_in + dq_out),
+            ("dkv", 4, common + row_bytes + dkv_out),
+            ("pair", 5, common + d_in + grad_bytes / 2 * q_bytes + dkv_out)):
+        res[f"bound_ms_{name}"], res[f"bound_by_{name}"] = bound(
+            nbytes, products * mac, BF16_TC_FLOPS)
+        res[f"flops_{name}"] = products * mac
+    return res
+
+
 def check_flash_bwd(torch, fa, F, gen):
     """The backward kernels (K2) against the plain backward: at the
     training shape (B 8, T 2048, H 16, KVH 4, causal, O and L from K1,
-    fused D, bf16 grads) and at two ragged T 1000 cases with offsets
-    (group 4 with a stride and precomputed D; group 1), f32 grads. A
-    negative control (the plain side with D zeroed) must fail the
-    tolerance, and two launches must be bit-equal. Timed beside the plain
-    version, the bound, and the backward of one SDPA call."""
+    fused D, bf16 grads), at two ragged T 1000 cases with offsets (group 4
+    with a stride and precomputed D; group 1), f32 grads, and at the SP
+    ring's shape (B 2, Tq = Tk = 2048, striped offsets (1, 0, 4), given D,
+    f32 grads). A negative control (the plain side with D zeroed) must
+    fail the tolerance, and two launches must be bit-equal. The training
+    and ring shapes are timed beside the bound; the training shape also
+    beside the plain version and SDPA's backward (a yardstick only)."""
     cases = {
         "train_causal_gqa": (8, 2048, 16, 4, True, (0, 0, 1), True,
                              torch.bfloat16),
@@ -559,7 +676,10 @@ def check_flash_bwd(torch, fa, F, gen):
             2, 1000, 16, 4, True, (0, 3, 2), False, torch.float32),
         "offsets_g1_ragged": (2, 1000, 8, 8, True, (128, 0, 1), True,
                               torch.float32),
+        "sp_ring_striped_given_d": (2, 2048, 16, 4, True, (1, 0, 4), False,
+                                    torch.float32),
     }
+    timed = ("train_causal_gqa", "sp_ring_striped_given_d")
     out = {}
     for label, (b, t, h, kvh, causal, offs, fused, gd) in cases.items():
         inputs, run = bwd_case(torch, fa, gen, b, t, h, kvh, causal, offs,
@@ -587,28 +707,40 @@ def check_flash_bwd(torch, fa, F, gen):
             require(excess <= 1.0, f"flash_bwd {label}: {name} error "
                                    f"{excess} x its tolerance")
         out[label] = res
-        if label != "train_causal_gqa":
-            del inputs, got, want, terms
+        if label == "train_causal_gqa":
+            # Negative control: the plain side with D = 0 must fail.
+            zero_want, _ = bwd_plain_terms(torch, fa, q, k, v, g, L,
+                                           torch.zeros_like(D), offs, causal)
+            control = max(bwd_excess(torch, gg, ww, aa) for gg, ww, aa
+                          in zip(got, zero_want, terms))
+            require(control > 1.0, f"flash_bwd: the zeroed-D control "
+                                   f"passed ({control} x the tolerance)")
+            res["zeroed_d_control_worst_err_over_tol"] = control
+            del zero_want
+            again = run()
+            equal = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+            require(equal, "flash_bwd: two launches differ")
+            res["two_launches_bit_equal"] = equal
+            del again
+        del want, terms, got
+        if label not in timed:
+            del inputs
             continue
-        # Negative control: the plain side with D = 0 must fail.
-        zero_want, _ = bwd_plain_terms(torch, fa, q, k, v, g, L,
-                                       torch.zeros_like(D), offs, causal)
-        control = max(bwd_excess(torch, gg, ww, aa) for gg, ww, aa
-                      in zip(got, zero_want, terms))
-        require(control > 1.0, f"flash_bwd: the zeroed-D control passed "
-                               f"({control} x the tolerance)")
-        res["zeroed_d_control_worst_err_over_tol"] = control
-        del zero_want, want, terms
-        again = run()
-        equal = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
-        require(equal, "flash_bwd: two launches differ")
-        res["two_launches_bit_equal"] = equal
-        del again, got
+        res.update(bwd_bounds(torch, b, t, t, h, kvh, causal, offs, fused,
+                              4 if gd == torch.float32 else 2))
         res["ms_pair"] = time_ms(torch, run, reps=20)
         per_kernel = kernel_device_ms(
             torch, run, 10, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
         res["ms_dq"] = per_kernel["flash_bwd_dq_kernel"]
         res["ms_dkv"] = per_kernel["flash_bwd_dkv_kernel"]
+        for name in ("dq", "dkv"):
+            ms = res[f"ms_{name}"]
+            if isinstance(ms, float):
+                res[f"tflops_{name}"] = res[f"flops_{name}"] / ms / 1e9
+                res[f"share_of_bound_{name}"] = res[f"bound_ms_{name}"] / ms
+        if label != "train_causal_gqa":
+            del inputs
+            continue
         qt, kt, vt, gt = (x.permute(0, 2, 1, 3) for x in (q, k, v, g))
         res["plain_ms"] = time_ms(
             torch, lambda: fa._bwd_ref(qt, kt, vt, gt, L, D, offs, causal),
@@ -634,18 +766,7 @@ def check_flash_bwd(torch, fa, F, gen):
         res["library_ms"] = res["library_fwd_bwd_ms"] - res["library_fwd_ms"]
         res["library_ms_is"] = ("F.scaled_dot_product_attention backward: "
                                 "forward+backward minus forward")
-        pairs = t * (t + 1) // 2
-        mac = 2.0 * 128 * pairs * b * h  # one [T,T]-by-D product
-        in_bytes = 2.0 * (3 * b * t * h * 128 + 2 * b * t * kvh * 128) \
-            + 4.0 * b * h * t  # q, dO, O, k, v, L
-        for name, products, out_bytes in (
-                ("dq", 3, 2.0 * b * t * h * 128),
-                ("dkv", 4, 2.0 * 2 * b * t * kvh * 128),
-                ("pair", 5, 2.0 * (b * t * h + 2 * b * t * kvh) * 128)):
-            bms, by = bound(in_bytes + out_bytes, products * mac,
-                            BF16_TC_FLOPS)
-            res[f"bound_ms_{name}"], res[f"bound_by_{name}"] = bms, by
-        res["flops_pair"] = 5 * mac
+        del inputs, ql, kl, vl, gl
     return out
 
 
@@ -1535,12 +1656,16 @@ def main() -> int:
         emit({"phase": "device", **device, "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda})
         t0 = time.monotonic()
+        lib_path = build.build()
         build.library()
-        log = (build.BUILD_DIR / "build.log").read_text()
+        lines, per_kernel = ptxas_report(
+            (build.BUILD_DIR / "build.log").read_text())
         emit({"phase": "build", "seconds": time.monotonic() - t0,
-              "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln
-                        or "error" in ln.lower()]})
+              "ptxas": lines})
+        hgmma = sass_hgmma(lib_path)
+        emit({"phase": "sass", "hgmma_by_kernel": hgmma,
+              "ptxas_by_kernel": per_kernel})
+        check_hopper_build(per_kernel, hgmma)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
         with torch.inference_mode():
@@ -1576,6 +1701,7 @@ def main() -> int:
         return 1
     serve_fwd, train_fwd = fwd["prefill_causal_gqa"], fwd["train_causal_gqa"]
     main_dec, main_bwd = dec["full"], bwd["train_causal_gqa"]
+    ring_bwd = bwd["sp_ring_striped_given_d"]
     bwd_err = {name: max(r[n]["max_abs_err"] for r in bwd.values()
                          for n in names)
                for name, names in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
@@ -1597,8 +1723,13 @@ def main() -> int:
          "bound_ms": train_fwd["bound_ms"],
          "bound_by": train_fwd["bound_by"],
          "library_ms": train_fwd["library_ms"],
+         "tflops": train_fwd["tflops"],
+         "share_of_bound": train_fwd["share_of_bound"],
          "shape": "train B8 T2048", "serve_prefill_ms": serve_fwd["ms"],
-         "serve_prefill_bound_ms": serve_fwd["bound_ms"]},
+         "serve_prefill_bound_ms": serve_fwd["bound_ms"],
+         "serve_prefill_library_ms": serve_fwd["library_ms"],
+         "serve_prefill_tflops": serve_fwd["tflops"],
+         "serve_prefill_share_of_bound": serve_fwd["share_of_bound"]},
         {"name": "flash_decode", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_decode.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:990",
@@ -1628,11 +1759,19 @@ def main() -> int:
             "bound_ms": main_bwd[f"bound_ms_{name}"],
             "bound_by": main_bwd[f"bound_by_{name}"],
             "library_ms": main_bwd["library_ms"],
+            "tflops": main_bwd.get(f"tflops_{name}"),
+            "share_of_bound": main_bwd.get(f"share_of_bound_{name}"),
             "shape": "train B8 T2048",
             "plain_ms_is": "_bwd_ref: dq, dk and dv together",
             "library_ms_is": main_bwd["library_ms_is"],
             "pair_ms": main_bwd["ms_pair"],
-            "pair_bound_ms": main_bwd["bound_ms_pair"]})
+            "pair_bound_ms": main_bwd["bound_ms_pair"],
+            "sp_ring_shape": "B2 Tq=Tk=2048 H16 KVH4, striped (1, 0, 4), "
+                             "given D, f32 grads",
+            "sp_ring_ms": ring_bwd[f"ms_{name}"],
+            "sp_ring_bound_ms": ring_bwd[f"bound_ms_{name}"],
+            "sp_ring_tflops": ring_bwd.get(f"tflops_{name}"),
+            "sp_ring_share_of_bound": ring_bwd.get(f"share_of_bound_{name}")})
     main_mrg = mrg["striped_r_gt_kv"]
     kernels.append({
         "name": "flash_merge", "route": "cuda",

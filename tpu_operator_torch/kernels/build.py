@@ -46,11 +46,11 @@ SIGNATURES = {
     "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "flash_decode_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                           _P],
-    # q, k, v, dO, L, O, D, dq | B, Tq, Tk, H, KVH, head_dim, causal,
-    # q_off, k_off, stride | scale | out_f32 | stream
-    "flash_bwd_dq_bf16": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
-    # q, k, v, dO, L, O, D, dk, dv | (the same scalars)
-    "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
+    # q, k, v, dO, L, O, D, D_out, dq | B, Tq, Tk, H, KVH, head_dim,
+    # causal, q_off, k_off, stride | scale | out_f32 | stream
+    "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 10 + [_F, _I, _P],
+    # q, k, v, dO, L, D, dk, dv | (the same scalars)
+    "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
     # q, k, v, o_in, l_in, m_in, o_out, l_out, m_out | B, Tq, Tk, H, KVH,
     # head_dim, causal, q_off, k_off, stride | scale | stream
     "flash_merge_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],

@@ -353,8 +353,9 @@ def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     offsets: Tuple[int, int, int], causal: bool,
                     grad_dtype: torch.dtype
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Both backward kernels. Exactly one of ``out`` (fused D) and ``D``
-    ([B,H,Tq,1] f32) is given."""
+    """Both backward kernels. Exactly one of ``out`` (fused D: the dq
+    kernel computes D and hands it to dkv) and ``D`` ([B,H,Tq,1] f32) is
+    given."""
     from tpu_operator_torch.kernels import build
 
     if q.dim() != 4 or k.dim() != 4:
@@ -389,20 +390,24 @@ def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
-    o_ptr = out.data_ptr() if out is not None else None
-    d_ptr = D.data_ptr() if D is not None else None
+    # Fused D: the dq kernel computes it and writes it here for dkv.
+    fused = D is None
+    if fused:
+        D = torch.empty(b, h, tq, 1, dtype=torch.float32, device=q.device)
+    o_ptr = out.data_ptr() if fused else None
     scalars = (b, tq, tk, h, kvh, d, int(bool(causal)), q_off, k_off, stride,
                d ** -0.5, int(grad_dtype == torch.float32))
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_bwd_dq_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   g.data_ptr(), L.data_ptr(), o_ptr, d_ptr,
-                                   dq.data_ptr(), *scalars, stream)
+        rc = lib.flash_bwd_dq_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            L.data_ptr(), o_ptr, None if fused else D.data_ptr(),
+            D.data_ptr() if fused else None, dq.data_ptr(), *scalars, stream)
         build.check(rc, "flash_bwd_dq")
         LAUNCHES["flash_bwd_dq"] += 1
         rc = lib.flash_bwd_dkv_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    g.data_ptr(), L.data_ptr(), o_ptr, d_ptr,
+                                    g.data_ptr(), L.data_ptr(), D.data_ptr(),
                                     dk.data_ptr(), dv.data_ptr(), *scalars,
                                     stream)
         build.check(rc, "flash_bwd_dkv")
