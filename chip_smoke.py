@@ -12,16 +12,20 @@ one JSON line each:
    sm_90a (one nvcc per source, in parallel) and prints ptxas's register
    and spill report, each figure under its entry function. ``sass``: the
    HGMMA count of every kernel in ``cuobjdump --dump-sass`` of the library
-   and the registers and spills by kernel; the redesigned Hopper kernels
-   (K1, dkv) must run on wgmma and spill nothing.
+   and the registers and spills by kernel; the wgmma kernels (K1, and
+   K2's dq and dkv) must run on wgmma and spill nothing.
 3. ``kernels``: each kernel's wrapper on tensors on the card at the serve
    and training paths' shapes, held against its plain PyTorch version on the same
    inputs with the stated bf16 tolerance (per element; the forward kernel
    also against a zeroed-V-tile negative control that must fail), and timed (CUDA events, warm,
    median) beside the plain version and one PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only; the port never
-   calls it). The decode kernel is also run on poisoned (NaN) tails and
-   on a paged gather, which must be bit-equal to the clean dense cache.
+   calls it). The decode kernel (K3) runs at Tq 1 (ragged and full
+   lengths) and Tq 4 (16 query rows; lengths 0, under Tq and inside a
+   chunk) and must be bit-equal across NaN-poisoned tails, a paged
+   gather, a cache of twice the capacity padded with NaN, and a second
+   launch; it and SDPA are timed as device time (torch.profiler) beside
+   the CUDA-event time, which includes host launch overhead.
 4. ``kernels`` (merge): the ring merge kernel (K4) at the long-context
    ring shape (B 2, Tq = Tk = 2048, H 16, KVH 4) and a ragged Tq != Tk,
    against the plain merge per element on the rows that have seen a key:
@@ -35,8 +39,10 @@ one JSON line each:
    the kernels' bf16 roundings, at two ragged cases with offsets, a
    stride, precomputed D and f32 grads, and at the SP ring's shape (B 2,
    Tq = Tk = 2048, striped (1, 0, 4), given D, f32 grads), a zeroed-D
-   negative control that must fail, and a bit-equality check of two
-   launches; timed at the training and ring shapes beside the bound, and
+   negative control that must fail, and bit-equality checks of two
+   launches (of the pair, and of the dq kernel alone: dQ and the fused D
+   it writes, D also held to rowsum(dO O)); timed at the training and
+   ring shapes beside the bound, and
    at the training shape beside the plain version and SDPA's backward (a
    yardstick only).
    ``autograd``: flash_attention's gradients against torch autograd
@@ -281,7 +287,8 @@ def decode_excess(torch, got, want) -> float:
 # --- phase: build -------------------------------------------------------------
 
 # The redesigned kernels: wgmma (HGMMA in their SASS) and no spill.
-HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv_kernel")
 
 
 def ptxas_report(log: str):
@@ -460,17 +467,26 @@ def check_flash_fwd(torch, fa, F, gen):
 
 
 def check_flash_decode(torch, fa, F, gen):
-    """The decode kernel at the serve decode shape: ragged lengths with
-    NaN-poisoned tails (bit-equal to the clean cache), a paged gather
-    (bit-equal to the dense cache), and full-length timing."""
+    """The decode kernel at the serve decode shape (B 8, S 2048, group 4):
+    Tq 1 with ragged and full lengths, and Tq 4 (16 query rows) with
+    ragged lengths that include 0, a length under Tq and lengths that end
+    inside a chunk and a tile. Each case per element against the plain
+    version, and bit-equal across: NaN-poisoned tails, a paged gather of
+    the same keys, the same keys in a cache of capacity 4096 padded with
+    NaN, and a second launch. Tq 1 timed on CUDA events and as device
+    time (torch.profiler) beside the plain version and SDPA with a length
+    mask."""
     dev = "cuda"
-    b, tq, h, kvh, s, d, page = 8, 1, 16, 4, 2048, 128, 16
-    q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
+    b, h, kvh, s, d, page = 8, 16, 4, 2048, 128, 16
     out = {}
     ragged = torch.tensor([1, 17, 1920, 2048, 1000, 513, 64, 2047],
                           dtype=torch.int32, device=dev)
     full = torch.full((b,), s, dtype=torch.int32, device=dev)
-    for label, lengths in (("ragged", ragged), ("full", full)):
+    ragged_tq4 = torch.tensor([0, 3, 300, 2048, 1000, 513, 64, 2047],
+                              dtype=torch.int32, device=dev)
+    for label, tq, lengths in (("ragged", 1, ragged), ("full", 1, full),
+                               ("tq4_ragged", 4, ragged_tq4)):
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
         v = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
         valid = (torch.arange(s, device=dev)[None, :]
@@ -483,9 +499,12 @@ def check_flash_decode(torch, fa, F, gen):
         excess = decode_excess(torch, got, want)
         require(excess <= 1.0, f"flash_decode {label}: error {err}, "
                                f"{excess} x its per-element tolerance")
+        empty = lengths <= 0
+        require(not bool(got[empty].any()),
+                f"flash_decode {label}: a row of length 0 is not 0")
         nan = torch.full((), float("nan"), dtype=k.dtype, device=dev)
-        poisoned = fa.flash_decode(q, torch.where(valid, k, nan),
-                                   torch.where(valid, v, nan), lengths)
+        k_nan, v_nan = torch.where(valid, k, nan), torch.where(valid, v, nan)
+        poisoned = fa.flash_decode(q, k_nan, v_nan, lengths)
         poison_equal = bool(torch.equal(poisoned, got))
         require(poison_equal, f"flash_decode {label}: poisoned tail "
                               f"changed the output")
@@ -498,29 +517,29 @@ def check_flash_decode(torch, fa, F, gen):
         k_pool = torch.full((pool_pages + 1, page, kvh, d), float("nan"),
                             dtype=k.dtype, device=dev)
         v_pool = k_pool.clone()
-        k_pool[tables] = torch.where(valid, k, nan).reshape(
-            b, pages_per_slot, page, kvh, d)
-        v_pool[tables] = torch.where(valid, v, nan).reshape(
-            b, pages_per_slot, page, kvh, d)
+        k_pool[tables] = k_nan.reshape(b, pages_per_slot, page, kvh, d)
+        v_pool[tables] = v_nan.reshape(b, pages_per_slot, page, kvh, d)
         kd = k_pool[tables].reshape(b, s, kvh, d)
         vd = v_pool[tables].reshape(b, s, kvh, d)
         paged = fa.flash_decode(q, kd, vd, lengths)
         paged_equal = bool(torch.equal(paged, got))
         require(paged_equal, f"flash_decode {label}: paged != dense")
-        ms = time_ms(torch, lambda: fa.flash_decode(q, k, v, lengths),
-                     reps=100)
-        plain_ms = time_ms(torch, lambda: fa._decode_ref(q, k, v, lengths))
-        qt = q.permute(0, 2, 1, 3).contiguous()
-        kt, vt = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
-        mask = valid[:, None, None, :, 0, 0]           # [B,1,1,S]
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=100)
-        keys = float(torch.clamp(lengths, 0, s).sum())
-        nbytes = 2.0 * (2 * b * tq * h * d) + 4.0 * b \
-            + 2.0 * 2 * keys * kvh * d
-        flops = 4.0 * keys * h * d * tq
-        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
-        out[label] = {
+        del k_pool, v_pool, kd, vd
+        # Capacity: the same valid keys in a cache twice as long, NaN past
+        # each row's length (more chunks in the grid, the same partials).
+        k_cap = torch.full((b, 2 * s, kvh, d), float("nan"), dtype=k.dtype,
+                           device=dev)
+        v_cap = k_cap.clone()
+        k_cap[:, :s], v_cap[:, :s] = k_nan, v_nan
+        capacity_equal = bool(torch.equal(
+            fa.flash_decode(q, k_cap, v_cap, lengths), got))
+        require(capacity_equal, f"flash_decode {label}: capacity {2 * s} "
+                                f"!= capacity {s}")
+        del k_cap, v_cap, k_nan, v_nan
+        rerun_equal = bool(torch.equal(fa.flash_decode(q, k, v, lengths),
+                                       got))
+        require(rerun_equal, f"flash_decode {label}: two launches differ")
+        res = {
             "shape": {"B": b, "Tq": tq, "H": h, "KVH": kvh, "S": s, "D": d},
             "lengths": [int(x) for x in lengths.tolist()],
             "max_abs_err": err, "max_abs_ref": float(want.float().abs().max()),
@@ -529,11 +548,44 @@ def check_flash_decode(torch, fa, F, gen):
             "worst_err_over_tol": excess,
             "poisoned_tail_bit_equal": poison_equal,
             "paged_vs_dense_bit_equal": paged_equal,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
-            "bound_by": bound_by,
-            "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+            "capacity_4096_vs_2048_bit_equal": capacity_equal,
+            "two_launches_bit_equal": rerun_equal,
         }
+        out[label] = res
+        if tq != 1:
+            continue
+        qt = q.permute(0, 2, 1, 3).contiguous()
+        kt, vt = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
+        mask = valid[:, None, None, :, 0, 0]           # [B,1,1,S]
+
+        def kernel():
+            fa.flash_decode(q, k, v, lengths)
+
+        def library():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           enable_gqa=True)
+
+        res["event_ms"] = time_ms(torch, kernel, reps=100)
+        res["ms"] = kernel_device_ms(torch, kernel, 50,
+                                     ("flash_decode_kernel",))[
+            "flash_decode_kernel"]
+        res["plain_ms"] = time_ms(torch, lambda: fa._decode_ref(
+            q, k, v, lengths))
+        res["library_event_ms"] = time_ms(torch, library, reps=100)
+        res["library_ms"] = kernel_device_ms(torch, library, 50, ())["all"]
+        res["ms_is"] = "device time (torch.profiler), 50 calls"
+        res["library_ms_is"] = ("F.scaled_dot_product_attention with a "
+                                "length mask: device time of every kernel "
+                                "it launches, 50 calls")
+        keys = float(torch.clamp(lengths, 0, s).sum())
+        nbytes = 2.0 * (2 * b * tq * h * d) + 4.0 * b \
+            + 2.0 * 2 * keys * kvh * d
+        flops = 4.0 * keys * h * d * tq
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+        res["bound_us"] = res["bound_ms"] * 1e3
+        if isinstance(res["ms"], float):
+            res["gb_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+            res["share_of_bound"] = res["bound_ms"] / res["ms"]
     return out
 
 
@@ -609,9 +661,10 @@ def bwd_case(torch, fa, gen, b, t, h, kvh, causal, offsets, fused,
 
 
 def kernel_device_ms(torch, fn, calls: int, names):
-    """Device ms per call of each named kernel, from torch.profiler over
-    ``calls`` calls of ``fn`` (one launch of each kernel splits the time
-    a CUDA-event pair around both would lump together)."""
+    """Device ms per call of each named kernel, and of every kernel
+    together under "all", from torch.profiler over ``calls`` calls of
+    ``fn`` (one launch of each kernel splits the time a CUDA-event pair
+    around both would lump together, and leaves out host launch time)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -622,8 +675,46 @@ def kernel_device_ms(torch, fn, calls: int, names):
             fn()
         torch.cuda.synchronize()
     rows = _device_rows(torch, prof, calls)
-    return {name: sum(ms for key, ms, _n in rows if name in key) or
-            "not measured" for name in names}
+    res = {name: sum(ms for key, ms, _n in rows if name in key) or
+           "not measured" for name in names}
+    res["all"] = sum(ms for _key, ms, _n in rows) or "not measured"
+    return res
+
+
+def check_dq_twice(torch, inputs, offsets, causal, grad_dtype):
+    """Two direct launches of the dq kernel with fused D on the same
+    inputs: dQ and the D it writes for dkv must be bit-equal, and D must
+    match rowsum(dO O) in f32 to within 2^-16 of sum |dO O| (twice the
+    f32 error bound of a 128-term sum taken in another order)."""
+    from tpu_operator_torch.kernels import build
+
+    q, k, v, g, L, out, D = inputs
+    b, tq, h, d = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    lib = build.library()
+    runs = []
+    for _ in range(2):
+        dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
+        d_out = torch.empty(b, h, tq, 1, dtype=torch.float32, device=q.device)
+        rc = lib.flash_bwd_dq_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            L.data_ptr(), out.data_ptr(), None, d_out.data_ptr(),
+            dq.data_ptr(), b, tq, tk, h, kvh, d, int(causal), *offsets,
+            d ** -0.5, int(grad_dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream)
+        build.check(rc, "flash_bwd_dq")
+        runs.append((dq, d_out))
+    torch.cuda.synchronize()
+    (dq0, d0), (dq1, d1) = runs
+    equal = bool(torch.equal(dq0, dq1)) and bool(torch.equal(d0, d1))
+    require(equal, "flash_bwd: two dq launches differ in dQ or D")
+    terms = (g.float() * out.float()).abs().sum(-1).permute(0, 2, 1)[..., None]
+    d_excess = float(((d0 - D).abs() / (2.0 ** -16 * terms + 1e-30)).max())
+    require(d_excess <= 1.0, f"flash_bwd: fused D {d_excess} x its tolerance")
+    return {"two_launches_bit_equal_dq_and_d": equal,
+            "d_max_abs_err": max_err(torch, d0, D),
+            "d_worst_err_over_tol": d_excess,
+            "d_tol": "2^-16 * sum |dO O| per row"}
 
 
 def bwd_bounds(torch, b, tq, tk, h, kvh, causal, offsets, fused, grad_bytes):
@@ -722,6 +813,7 @@ def check_flash_bwd(torch, fa, F, gen):
             require(equal, "flash_bwd: two launches differ")
             res["two_launches_bit_equal"] = equal
             del again
+            res["dq_fused_d"] = check_dq_twice(torch, inputs, offs, causal, gd)
         del want, terms, got
         if label not in timed:
             del inputs
@@ -1740,7 +1832,14 @@ def main() -> int:
          "ms": main_dec["ms"], "plain_ms": main_dec["plain_ms"],
          "bound_ms": main_dec["bound_ms"],
          "bound_by": main_dec["bound_by"],
-         "library_ms": main_dec["library_ms"]},
+         "library_ms": main_dec["library_ms"],
+         "share_of_bound": main_dec.get("share_of_bound"),
+         "shape": "serve decode B8 Tq1 S2048, full length",
+         "ms_is": main_dec["ms_is"], "library_ms_is": main_dec["library_ms_is"],
+         "event_ms": main_dec["event_ms"],
+         "library_event_ms": main_dec["library_event_ms"],
+         "ptxas": {k: v for k, v in per_kernel.items()
+                   if "flash_decode_kernel" in k}},
     ]
     for name, line in (("dq", 629), ("dkv", 665)):
         kernels.append({
@@ -1771,7 +1870,9 @@ def main() -> int:
             "sp_ring_ms": ring_bwd[f"ms_{name}"],
             "sp_ring_bound_ms": ring_bwd[f"bound_ms_{name}"],
             "sp_ring_tflops": ring_bwd.get(f"tflops_{name}"),
-            "sp_ring_share_of_bound": ring_bwd.get(f"share_of_bound_{name}")})
+            "sp_ring_share_of_bound": ring_bwd.get(f"share_of_bound_{name}"),
+            "ptxas": {k: v for k, v in per_kernel.items()
+                      if f"flash_bwd_{name}_kernel" in k}})
     main_mrg = mrg["striped_r_gt_kv"]
     kernels.append({
         "name": "flash_merge", "route": "cuda",

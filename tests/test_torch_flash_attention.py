@@ -108,15 +108,16 @@ def test_reference_attention_matches_jax(group):
     _close(got, want)
 
 
-@pytest.mark.parametrize("tq", [1, 3])
+@pytest.mark.parametrize("tq", [1, 3, 4])
 @pytest.mark.parametrize("group", [1, 2, 4])
 def test_flash_decode_matches_jax_pallas(tq, group):
     """Port decode vs the JAX decode kernel (interpret mode): ragged
-    lengths including 1 and S, Tq 1 and 3 (causal within the Tq tail; a
-    row of length 1 at Tq 3 has fully masked query slots)."""
-    b, s, h, d = 4, 32, 4, 16
+    lengths including 0 (O = 0), 1 and S, Tq 1, 3 and 4 (causal within the
+    Tq tail; a row of length 1 at Tq 3 has fully masked query slots;
+    group 4 x Tq 4 is the kernel's most query rows, 16)."""
+    b, s, h, d = 5, 32, 4, 16
     q, k, v = _inputs(20 + tq, b, tq, h, h // group, d, tk=s)
-    lengths = np.array([1, 17, 32, 9], np.int32)
+    lengths = np.array([1, 17, 32, 9, 0], np.int32)
     want = jfa.flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                             jnp.asarray(lengths), use_pallas=True)
     got = tfa.flash_decode(torch.from_numpy(q), torch.from_numpy(k),
@@ -125,6 +126,36 @@ def test_flash_decode_matches_jax_pallas(tq, group):
     want_ref = jfa._decode_ref(jnp.asarray(q), jnp.asarray(k),
                                jnp.asarray(v), jnp.asarray(lengths))
     _close(got, want_ref)
+
+
+def _decode_kernel_args(**over):
+    """Arguments the decode kernel takes (bf16, head dim 128, group 4,
+    int32 lengths, contiguous) except for ``over``; on the CPU, so the
+    wrapper must refuse them before any launch whatever else is right."""
+    b, tq, s, h, kvh, d = 2, 1, 64, 8, 2, 128
+    args = {"q": torch.zeros(b, tq, h, d, dtype=torch.bfloat16),
+            "k": torch.zeros(b, s, kvh, d, dtype=torch.bfloat16),
+            "v": torch.zeros(b, s, kvh, d, dtype=torch.bfloat16),
+            "lengths": torch.full((b,), s, dtype=torch.int32)}
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,why", [
+    ({}, "not CUDA"),  # right in every way but the device
+    ({"q": torch.zeros(2, 1, 8, 128)}, "bfloat16"),
+    ({"lengths": torch.full((2,), 64, dtype=torch.int64)}, "int32"),
+    ({"q": torch.zeros(2, 5, 8, 128, dtype=torch.bfloat16)},
+     "16 query rows"),  # group 4 x Tq 5 = 20 rows
+    ({"k": torch.zeros(2, 64, 3, 128, dtype=torch.bfloat16),
+      "v": torch.zeros(2, 64, 3, 128, dtype=torch.bfloat16)}, "multiple"),
+], ids=["cpu", "f32", "lengths_int64", "rows_20", "kv_heads"])
+def test_decode_kernel_wrapper_refuses_what_the_kernel_cannot_take(over, why):
+    tfa.reset_launch_counts()
+    with pytest.raises(ValueError, match=why):
+        tfa._flash_decode_cuda(**_decode_kernel_args(**over))
+    assert tfa.launch_counts()["flash_decode"] == 0
+    assert not tfa._DECODE_COUNTERS
 
 
 def test_flash_decode_ignores_garbage_past_length():

@@ -44,8 +44,9 @@ _F = ctypes.c_float
 # so ctypes never truncates them to 32 bits).
 SIGNATURES = {
     "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "flash_decode_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                          _P],
+    # q, k, v, lengths, o, workspace, counters | B, Tq, S, H, KVH,
+    # head_dim, workspace floats | scale | stream
+    "flash_decode_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],
     # q, k, v, dO, L, O, D, D_out, dq | B, Tq, Tk, H, KVH, head_dim,
     # causal, q_off, k_off, stride | scale | out_f32 | stream
     "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 10 + [_F, _I, _P],

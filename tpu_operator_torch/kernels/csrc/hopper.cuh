@@ -198,6 +198,19 @@ __device__ __forceinline__ void gemm_rs_64x128x64(float (&o)[64], const uint32_t
   }
 }
 
+// acc + sum_e a[e] b[e] over two rows of 8 bf16 (16 bytes each), in f32.
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 u = __bfloat1622float2(x[e]), w = __bfloat1622float2(y[e]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

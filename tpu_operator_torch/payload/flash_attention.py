@@ -1,7 +1,7 @@
 """Flash attention: CUDA kernels plus their plain PyTorch versions
 (counterpart of ``tpu_operator/payload/flash_attention.py``).
 
-Three kernels, all in ``tpu_operator_torch/kernels/csrc/``:
+Five kernels in four sources, all in ``tpu_operator_torch/kernels/csrc/``:
 
 - :func:`flash_attention` (prefill) launches ``flash_fwd.cu``, the port of
   the TPU kernel ``_fwd_kernel``: exact attention over ``[B, T, H, D]``,
@@ -11,7 +11,10 @@ Three kernels, all in ``tpu_operator_torch/kernels/csrc/``:
 - :func:`flash_decode` (every decode step) launches ``flash_decode.cu``,
   the port of ``_decode_kernel``: ``[B, Tq, H, D]`` new-token queries
   against a ``[B, S, KVH, D]`` cache with per-row int32 ``lengths``; keys
-  at positions ``>= lengths[b]`` are never read.
+  at positions ``>= lengths[b]`` are never read. The kernel splits the
+  key range into chunks of :data:`DECODE_CHUNK` keys; the wrapper gives
+  it a workspace for the chunks' partial states (per call) and arrival
+  counters (once per device and stream).
 - :func:`attention_block_grads` (the backward of every training block)
   launches the two kernels of ``flash_bwd.cu``, the port of
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: dQ, dK, dV from the forward's
@@ -302,6 +305,26 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+# Keys per CTA of the decode kernel (CHUNK in flash_decode.cu): the grid
+# splits the cache capacity S into ceil(S / DECODE_CHUNK) chunks.
+DECODE_CHUNK = 256
+
+# The decode kernel's arrival counters (int32, one per (batch row, KV
+# head)), by (device index, stream): zero before the first launch, and
+# every launch leaves them zero.
+_DECODE_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _decode_counters(device: torch.device, stream: int,
+                     n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    counters = _DECODE_COUNTERS.get(key)
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros(n, dtype=torch.int32, device=device)
+        _DECODE_COUNTERS[key] = counters
+    return counters
+
+
 def _flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        lengths: torch.Tensor) -> torch.Tensor:
     from tpu_operator_torch.kernels import build
@@ -318,20 +341,28 @@ def _flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"got {x.dtype}")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError(f"flash_decode: lengths must be int32 [{b}]")
-    _check_kernel_inputs("flash_decode",
-                         {"q": q, "k": k, "v": v, "lengths": lengths}, d)
-    group = _group_of(h, k.shape[2])
+    s, kvh = k.shape[1], k.shape[2]
+    group = _group_of(h, kvh)
     if group * tq > 16:
         raise ValueError(f"flash_decode: group x Tq = {group * tq} "
                          f"exceeds the kernel's 16 query rows")
+    _check_kernel_inputs("flash_decode",
+                         {"q": q, "k": k, "v": v, "lengths": lengths}, d)
+    # Each chunk's partial state: group x Tq rows of (acc[D], m, l) in f32.
+    ws_floats = b * kvh * -(-s // DECODE_CHUNK) * group * tq * (d + 2)
+    if ws_floats >= 2 ** 31:
+        raise ValueError(f"flash_decode: workspace of {ws_floats} floats "
+                         f"overflows int32")
     out = torch.empty_like(q)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _decode_counters(q.device, stream, b * kvh)
         rc = lib.flash_decode_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   lengths.data_ptr(), out.data_ptr(), b, tq,
-                                   k.shape[1], h, k.shape[2], d, d ** -0.5,
-                                   stream)
+                                   lengths.data_ptr(), out.data_ptr(),
+                                   ws.data_ptr(), counters.data_ptr(), b, tq,
+                                   s, h, kvh, d, ws_floats, d ** -0.5, stream)
     build.check(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out
