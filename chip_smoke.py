@@ -12,8 +12,8 @@ one JSON line each:
    sm_90a (one nvcc per source, in parallel) and prints ptxas's register
    and spill report, each figure under its entry function. ``sass``: the
    HGMMA count of every kernel in ``cuobjdump --dump-sass`` of the library
-   and the registers and spills by kernel; the wgmma kernels (K1, and
-   K2's dq and dkv) must run on wgmma and spill nothing.
+   and the registers and spills by kernel; the wgmma kernels (K1, K2's dq
+   and dkv, and K4) must run on wgmma and spill nothing.
 3. ``kernels``: each kernel's wrapper on tensors on the card at the serve
    and training paths' shapes, held against its plain PyTorch version on the same
    inputs with the stated bf16 tolerance (per element; the forward kernel
@@ -21,8 +21,9 @@ one JSON line each:
    median) beside the plain version and one PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only; the port never
    calls it). The decode kernel (K3) runs at Tq 1 (ragged and full
-   lengths) and Tq 4 (16 query rows; lengths 0, under Tq and inside a
-   chunk) and must be bit-equal across NaN-poisoned tails, a paged
+   lengths), Tq 4 (16 query rows; lengths 0, under Tq and inside a
+   chunk) and Tq 5 (20 query rows: two launches of the wrapper's
+   panels) and must be bit-equal across NaN-poisoned tails, a paged
    gather, a cache of twice the capacity padded with NaN, and a second
    launch; it and SDPA are timed as device time (torch.profiler) beside
    the CUDA-event time, which includes host launch overhead.
@@ -32,8 +33,9 @@ one JSON line each:
    a home block from a fresh carry, a second merge into that live carry,
    a wholly future block (the carry must come back bit-equal), striped
    offsets, non-causal, group 1; two negative controls (a fresh carry on
-   the plain side, a zeroed V tile) must fail. Timed beside the plain
-   merge and the bound; no PyTorch call folds a carry, so no yardstick.
+   the plain side, a zeroed V tile) must fail. Timed on CUDA events and
+   as device time (torch.profiler) beside the plain merge and the bound;
+   no PyTorch call folds a carry, so no yardstick.
 5. ``kernels`` (backward): the two backward kernels at the training
    shape against the plain backward with a per-element tolerance set from
    the kernels' bf16 roundings, at two ragged cases with offsets, a
@@ -288,7 +290,7 @@ def decode_excess(torch, got, want) -> float:
 
 # The redesigned kernels: wgmma (HGMMA in their SASS) and no spill.
 HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                  "flash_bwd_dkv_kernel")
+                  "flash_bwd_dkv_kernel", "flash_merge_kernel")
 
 
 def ptxas_report(log: str):
@@ -468,14 +470,15 @@ def check_flash_fwd(torch, fa, F, gen):
 
 def check_flash_decode(torch, fa, F, gen):
     """The decode kernel at the serve decode shape (B 8, S 2048, group 4):
-    Tq 1 with ragged and full lengths, and Tq 4 (16 query rows) with
-    ragged lengths that include 0, a length under Tq and lengths that end
-    inside a chunk and a tile. Each case per element against the plain
-    version, and bit-equal across: NaN-poisoned tails, a paged gather of
-    the same keys, the same keys in a cache of capacity 4096 padded with
-    NaN, and a second launch. Tq 1 timed on CUDA events and as device
-    time (torch.profiler) beside the plain version and SDPA with a length
-    mask."""
+    Tq 1 with ragged and full lengths, Tq 4 (16 query rows, one launch)
+    and Tq 5 (20 query rows: the wrapper launches the kernel once per
+    panel of 4 query slots) with ragged lengths that include 0, a length
+    under Tq and lengths that end inside a chunk and a tile. Each case per
+    element against the plain version, and bit-equal across: NaN-poisoned
+    tails, a paged gather of the same keys, the same keys in a cache of
+    capacity 4096 padded with NaN, and a second launch. Tq 1 timed on
+    CUDA events and as device time (torch.profiler) beside the plain
+    version and SDPA with a length mask."""
     dev = "cuda"
     b, h, kvh, s, d, page = 8, 16, 4, 2048, 128, 16
     out = {}
@@ -485,7 +488,8 @@ def check_flash_decode(torch, fa, F, gen):
     ragged_tq4 = torch.tensor([0, 3, 300, 2048, 1000, 513, 64, 2047],
                               dtype=torch.int32, device=dev)
     for label, tq, lengths in (("ragged", 1, ragged), ("full", 1, full),
-                               ("tq4_ragged", 4, ragged_tq4)):
+                               ("tq4_ragged", 4, ragged_tq4),
+                               ("tq5_ragged", 5, ragged_tq4)):
         q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
         v = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
@@ -493,7 +497,12 @@ def check_flash_decode(torch, fa, F, gen):
                  < lengths[:, None])[:, :, None, None]
         k = torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=dev))
         v = torch.where(valid, v, torch.zeros((), dtype=v.dtype, device=dev))
+        before = fa.launch_counts()["flash_decode"]
         got = fa.flash_decode(q, k, v, lengths)
+        launches = fa.launch_counts()["flash_decode"] - before
+        panels = len(fa._decode_panels(tq, h // kvh))
+        require(launches == panels, f"flash_decode {label}: {launches} "
+                                    f"launches, wanted {panels}")
         want = fa._decode_ref(q, k, v, lengths)
         err = max_err(torch, got, want)
         excess = decode_excess(torch, got, want)
@@ -542,6 +551,7 @@ def check_flash_decode(torch, fa, F, gen):
         res = {
             "shape": {"B": b, "Tq": tq, "H": h, "KVH": kvh, "S": s, "D": d},
             "lengths": [int(x) for x in lengths.tolist()],
+            "launches_per_call": launches,
             "max_abs_err": err, "max_abs_ref": float(want.float().abs().max()),
             "tol": f"per element {DECODE_REL_TOL} * |ref| + "
                    f"{DECODE_ABS_FLOOR}",
@@ -955,8 +965,9 @@ def check_flash_merge(torch, fa, gen):
     plain merge of the second block into a fresh carry (the kernel must
     seed from the live one), and the home block's plain side with the last
     V tile zeroed. Timed at the striped r > kv case, the training path's
-    merge, beside the plain merge and the bound; no single PyTorch call
-    folds a carry, so there is no library yardstick."""
+    merge, on CUDA events around each call and as device time
+    (torch.profiler), beside the plain merge and the bound; no single
+    PyTorch call folds a carry, so there is no library yardstick."""
     dev, d, c = "cuda", 128, 2048
 
     def qkv(b, tq, tk, h, kvh):
@@ -1052,8 +1063,15 @@ def check_flash_merge(torch, fa, gen):
         kept[label] = (q, got)
         del want, terms
         if label == "striped_r_gt_kv":
-            res["ms"] = time_ms(torch, lambda: fa.merge_kv_block(
-                q, k, v, carry, offs, causal=causal), reps=50)
+            def kernel():
+                fa.merge_kv_block(q, k, v, carry, offs, causal=causal)
+
+            res["ms"] = time_ms(torch, kernel, reps=50)
+            res["ms_is"] = "CUDA events around each call, median of 50"
+            res["device_ms"] = kernel_device_ms(
+                torch, kernel, 50, ("flash_merge_kernel",))[
+                "flash_merge_kernel"]
+            res["device_ms_is"] = "device time (torch.profiler), 50 calls"
             res["plain_ms"] = time_ms(torch, lambda: fa._merge_ref(
                 *(x.permute(0, 2, 1, 3) for x in (q, k, v)), *carry,
                 fa._normalize_offsets(offs), causal), reps=10)
@@ -1069,6 +1087,12 @@ def check_flash_merge(torch, fa, gen):
             res["library"] = "none: no single PyTorch call folds a carry"
             res["pairs"] = pairs
             res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+            res["share_of_bound"] = res["bound_ms"] / res["ms"]
+            if isinstance(res["device_ms"], float):
+                res["device_tflops"] = flops / (res["device_ms"] * 1e-3) \
+                    / 1e12
+                res["device_share_of_bound"] = (res["bound_ms"]
+                                                / res["device_ms"])
     return out
 
 
@@ -1889,8 +1913,16 @@ def main() -> int:
         "ms": main_mrg["ms"], "plain_ms": main_mrg["plain_ms"],
         "bound_ms": main_mrg["bound_ms"], "bound_by": main_mrg["bound_by"],
         "library_ms": None, "library": main_mrg["library"],
+        "tflops": main_mrg["tflops"],
+        "share_of_bound": main_mrg["share_of_bound"],
+        "ms_is": main_mrg["ms_is"], "device_ms": main_mrg["device_ms"],
+        "device_ms_is": main_mrg["device_ms_is"],
+        "device_tflops": main_mrg.get("device_tflops"),
+        "device_share_of_bound": main_mrg.get("device_share_of_bound"),
         "shape": "train_sp ring B2 Tq=Tk=2048 H16 KVH4, striped (1, 0, 4), "
-                 "live carry"})
+                 "live carry",
+        "ptxas": {k: v for k, v in per_kernel.items()
+                  if "flash_merge_kernel" in k}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -145,17 +145,48 @@ def _decode_kernel_args(**over):
     ({}, "not CUDA"),  # right in every way but the device
     ({"q": torch.zeros(2, 1, 8, 128)}, "bfloat16"),
     ({"lengths": torch.full((2,), 64, dtype=torch.int64)}, "int32"),
-    ({"q": torch.zeros(2, 5, 8, 128, dtype=torch.bfloat16)},
-     "16 query rows"),  # group 4 x Tq 5 = 20 rows
+    ({"q": torch.zeros(2, 1, 34, 128, dtype=torch.bfloat16)},
+     "16 query rows"),  # group 17: one query slot is 17 rows
     ({"k": torch.zeros(2, 64, 3, 128, dtype=torch.bfloat16),
       "v": torch.zeros(2, 64, 3, 128, dtype=torch.bfloat16)}, "multiple"),
-], ids=["cpu", "f32", "lengths_int64", "rows_20", "kv_heads"])
+], ids=["cpu", "f32", "lengths_int64", "group_17", "kv_heads"])
 def test_decode_kernel_wrapper_refuses_what_the_kernel_cannot_take(over, why):
     tfa.reset_launch_counts()
     with pytest.raises(ValueError, match=why):
         tfa._flash_decode_cuda(**_decode_kernel_args(**over))
     assert tfa.launch_counts()["flash_decode"] == 0
     assert not tfa._DECODE_COUNTERS
+
+
+@pytest.mark.parametrize("tq,panels", [(5, [(0, 4), (4, 1)]),
+                                       (8, [(0, 4), (4, 4)])],
+                         ids=["tq5", "tq8"])
+def test_decode_panels_give_the_whole_tq_decode(tq, panels):
+    """The decode kernel takes at most 16 query rows (group x Tq) a launch,
+    so its wrapper splits Tq into panels of 16 // group slots
+    (``_decode_by_panels``). Applied to the plain decode, the panels give
+    the whole-Tq result bit-equal (every query row is computed alone, from
+    the same keys), at group 4 with lengths 0, 3 (< Tq: slots before
+    position 0 see no key) and S; and the whole-Tq result matches the JAX
+    reference at TOL."""
+    b, s, h, kvh, d = 5, 32, 8, 2, 16
+    assert tfa._decode_panels(tq, h // kvh) == panels
+    q, k, v = _inputs(40 + tq, b, tq, h, kvh, d, tk=s)
+    lengths = np.array([0, 3, s, 17, 9], np.int32)
+    args = [torch.from_numpy(x) for x in (q, k, v, lengths)]
+    calls = []
+
+    def attend(*a):
+        calls.append(a[0].shape[1])
+        return tfa._decode_ref(*a)
+
+    got = tfa._decode_by_panels(attend, *args)
+    assert calls == [n for _a, n in panels]
+    want = tfa._decode_ref(*args)
+    assert torch.equal(got, want)
+    assert not bool(got[0].any())  # length 0: every slot sees no key
+    _close(want, jfa._decode_ref(*(jnp.asarray(x)
+                                   for x in (q, k, v, lengths))))
 
 
 def test_flash_decode_ignores_garbage_past_length():

@@ -13,8 +13,10 @@ Five kernels in four sources, all in ``tpu_operator_torch/kernels/csrc/``:
   against a ``[B, S, KVH, D]`` cache with per-row int32 ``lengths``; keys
   at positions ``>= lengths[b]`` are never read. The kernel splits the
   key range into chunks of :data:`DECODE_CHUNK` keys; the wrapper gives
-  it a workspace for the chunks' partial states (per call) and arrival
-  counters (once per device and stream).
+  it a workspace for the chunks' partial states (per launch) and arrival
+  counters (once per device and stream). A launch takes at most
+  :data:`DECODE_ROWS` query rows (group x Tq); the wrapper launches it
+  once per panel of ``DECODE_ROWS // group`` query slots, so any Tq works.
 - :func:`attention_block_grads` (the backward of every training block)
   launches the two kernels of ``flash_bwd.cu``, the port of
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: dQ, dK, dV from the forward's
@@ -45,7 +47,7 @@ count), so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -325,10 +327,40 @@ def _decode_counters(device: torch.device, stream: int,
     return counters
 
 
+# Query rows (group x Tq) of one decode-kernel launch: a longer Tq is
+# split into panels of DECODE_ROWS // group query slots, one launch each.
+DECODE_ROWS = 16
+
+
+def _decode_panels(tq: int, group: int) -> List[Tuple[int, int]]:
+    """(first slot, slots) of each decode-kernel launch over ``tq`` query
+    slots: panels of ``DECODE_ROWS // group`` slots."""
+    per = DECODE_ROWS // group
+    if per == 0:
+        raise ValueError(f"flash_decode: group {group} exceeds the kernel's "
+                         f"{DECODE_ROWS} query rows")
+    return [(a, min(per, tq - a)) for a in range(0, tq, per)]
+
+
+def _decode_by_panels(attend: Callable[..., torch.Tensor], q: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """``attend(q, k, v, lengths)`` over [B,Tq,H,D] queries, one call per
+    panel of :func:`_decode_panels`. The panel [a, a + n) passes lengths
+    - (Tq - a - n), so its slot j sits at lengths - Tq + a + j, where the
+    whole-Tq call places it; a length that falls below 0 masks every key,
+    as it does for those slots in the whole-Tq call."""
+    tq = q.shape[1]
+    panels = _decode_panels(tq, _group_of(q.shape[2], k.shape[2]))
+    if len(panels) == 1:
+        return attend(q, k, v, lengths)
+    return torch.cat([attend(q[:, a:a + n].contiguous(), k, v,
+                             lengths - (tq - a - n))
+                      for a, n in panels], dim=1)
+
+
 def _flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        lengths: torch.Tensor) -> torch.Tensor:
-    from tpu_operator_torch.kernels import build
-
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_decode: q [B,Tq,H,D], k/v [B,S,KVH,D]")
     b, tq, h, d = q.shape
@@ -341,13 +373,21 @@ def _flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"got {x.dtype}")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError(f"flash_decode: lengths must be int32 [{b}]")
-    s, kvh = k.shape[1], k.shape[2]
-    group = _group_of(h, kvh)
-    if group * tq > 16:
-        raise ValueError(f"flash_decode: group x Tq = {group * tq} "
-                         f"exceeds the kernel's 16 query rows")
+    _decode_panels(tq, _group_of(h, k.shape[2]))
     _check_kernel_inputs("flash_decode",
                          {"q": q, "k": k, "v": v, "lengths": lengths}, d)
+    return _decode_by_panels(_decode_launch, q, k, v, lengths)
+
+
+def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+    """One launch of the decode kernel on checked inputs with group x Tq
+    <= DECODE_ROWS."""
+    from tpu_operator_torch.kernels import build
+
+    b, tq, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
     # Each chunk's partial state: group x Tq rows of (acc[D], m, l) in f32.
     ws_floats = b * kvh * -(-s // DECODE_CHUNK) * group * tq * (d + 2)
     if ws_floats >= 2 ** 31:
