@@ -78,7 +78,21 @@ one JSON line each:
    the bf16 O shows how much of the gap to autograd that alone makes.
    ``profile_train``: one training step and one adam update under
    torch.profiler.
-10. ``train_sp``: the long-context flagship (bench.py:661, dim 2048,
+10. ``checkpoint``: the training phase's flagship at full width and
+    depth, checkpointed and resumed through ``checkpoint.Checkpointer``
+    in a ``tempfile.mkdtemp()`` directory (it fails with fewer than 3 x
+    4.9 GB free there): an unbroken 6-step run; run A, 3 steps ending
+    with step 3 verified; run B, a fresh build at attempt 1 that
+    restores step 3 (bit-equal to A's state), trains steps 4-6 (K1, dq
+    and dkv layers x microbatches x 3 times, K4 never) and saves step 6,
+    its losses and final params bit-equal to the unbroken run's; a
+    ServeLoop over the directory that loads step 6's params (bit-equal
+    to B's in its storage dtype) and answers an HTTP decode with nothing
+    shed or failed; last, one flipped byte in step 6's params, which the
+    next restore quarantines, falling back to step 3. Prints each file's
+    bytes, the step loop's CHECKPOINT laps, the background write and
+    hash rates, the restore's and the server's load times.
+11. ``train_sp``: the long-context flagship (bench.py:661, dim 2048,
     8 layers, 16 / 4 heads, vocab 32768, global batch 8 x 8192 as 4
     microbatches) with ``--seq-parallel 4 --sp-layout striped``, the whole
     ring in this process, 4 steps through ``transformer.build`` and
@@ -1489,6 +1503,287 @@ def run_train(torch, fa, transformer, train, data):
     }, built
 
 
+# --- phase: checkpoint --------------------------------------------------------
+
+
+# One flagship training checkpoint: f32 params (1.96 GB) + bf16 adam mu
+# (0.98 GB) + f32 nu (1.96 GB). Three are kept (max_to_keep).
+CKPT_BYTES = 4.9e9
+CKPT_MIN_FREE = 3 * CKPT_BYTES
+
+
+def _ckpt_drive(torch, train, steptrace, built, steps, ck):
+    """``built`` through train.train_loop to ``steps`` total, with the
+    checkpointer ``ck`` (or none) and a flight recorder; returns the
+    losses of the steps this run trained (host floats, bit-exact), the
+    loop's seconds and the recorder's rows."""
+    losses = []
+
+    def step(batch):
+        metrics = built.step(batch)
+        losses.append(metrics["loss"])  # stays on the card until the end
+        return metrics
+
+    rec = steptrace.StepRecorder()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train.train_loop(step, built.batches, steps, device=built.device,
+                     heartbeat=None, steptrace=rec, checkpointer=ck,
+                     state=built.state)
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], time.perf_counter() - t0, \
+        rec.snapshot()
+
+
+def _state_mismatches(torch, got, want) -> list:
+    """Names of the tensors (params, mu.<i>, nu.<i>, count) that are not
+    bit-equal between two TrainStates."""
+    bad = [n for n, p in want.params.items()
+           if not torch.equal(got.params[n], p)]
+    for name in ("mu", "nu"):
+        for i, (a, b) in enumerate(zip(getattr(got.opt, name),
+                                       getattr(want.opt, name))):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                bad.append(f"{name}.{i}")
+    if got.opt.count != want.opt.count:
+        bad.append("count")
+    return bad
+
+
+def _save_reading(timings: dict) -> dict:
+    """One save's stages, with the background write's and hash's rates."""
+    out = dict(timings)
+    total = sum(out.get("bytes", {}).values())
+    if total and out.get("write_s"):
+        out["write_gb_per_s"] = total / 1e9 / out["write_s"]
+    if total and out.get("manifest_s"):
+        out["hash_gb_per_s"] = total / 1e9 / out["manifest_s"]
+    return out
+
+
+def run_checkpoint(torch, fa, transformer, train, serve, bootstrap,
+                   checkpoint, steptrace):
+    """Checkpoint, resume and serve restore of the flagship at full width
+    and depth (TRAIN_ARGV), in a ``tempfile.mkdtemp()`` directory:
+
+    - U, an unbroken 6-step run from the seeded init, no checkpointer;
+    - A, a fresh build, 3 steps with a Checkpointer (save_every 3): saves
+      1 (the attempt's first) and 3, ends with step 3 verified;
+    - B, a fresh build at TPUJOB_ATTEMPT=1 to step 6: restores 3 (gated
+      bit-equal to A's state in memory), fast-forwards 3 batches, trains
+      4-6 (launch counts zeroed just before and read just after: K1 and
+      K2 layers x microbatches x 3, K4 never) and saves 6; its losses and
+      final params are gated bit-equal to U's;
+    - a ServeLoop over the directory at the serve phase's widths: it must
+      load step 6 with params bit-equal to B's (in its bf16 / f32
+      storage) and answer one HTTP decode and a short synthetic load with
+      nothing shed or failed;
+    - last, one byte flipped in step 6's params: the next restore must
+      quarantine it (6.corrupt-0), fall back to step 3 and count one
+      fallback."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    attempt_env = os.environ.get("TPUJOB_ATTEMPT")
+    try:
+        free = shutil.disk_usage(ckdir).free
+        require(free >= CKPT_MIN_FREE,
+                f"checkpoint phase: {free / 1e9:.1f} GB free under "
+                f"{os.path.dirname(ckdir)}, needs {CKPT_MIN_FREE / 1e9:.1f} "
+                f"GB (three {CKPT_BYTES / 1e9} GB steps); set TMPDIR to a "
+                f"larger volume")
+        args = transformer.parse_args(TRAIN_ARGV)
+        total, first = args.steps, args.steps // 2
+
+        unbroken = transformer.build(args)
+        u_losses, u_seconds, _rows = _ckpt_drive(torch, train, steptrace,
+                                                 unbroken, total, None)
+        u_params = {n: p.detach().clone()
+                    for n, p in unbroken.model.named_parameters()}
+        del unbroken
+        torch.cuda.empty_cache()
+
+        os.environ["TPUJOB_ATTEMPT"] = "0"
+        run_a = transformer.build(args)
+        ck_a = checkpoint.Checkpointer(ckdir, save_every=first)
+        a_losses, a_seconds, a_rows = _ckpt_drive(torch, train, steptrace,
+                                                  run_a, first, ck_a)
+        ck_a.close()
+        require(ck_a.last_verified_step() == first,
+                f"run A: last verified step {ck_a.last_verified_step()}, "
+                f"wanted {first}")
+        require(a_losses == u_losses[:first],
+                f"run A's losses {a_losses} != the unbroken run's "
+                f"{u_losses[:first]}")
+        run_a.model.zero_grad(set_to_none=True)
+
+        os.environ["TPUJOB_ATTEMPT"] = "1"
+        run_b = transformer.build(args)
+        ck_b = checkpoint.Checkpointer(ckdir, save_every=first)
+        restored = {}
+        real_restore = ck_b.restore
+
+        def restore_and_compare(state):
+            state, start = real_restore(state)
+            torch.cuda.synchronize()
+            restored["start"] = start
+            restored["mismatches"] = _state_mismatches(torch, state,
+                                                       run_a.state)
+            return state, start
+
+        ck_b.restore = restore_and_compare
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        b_losses, b_seconds, b_rows = _ckpt_drive(torch, train, steptrace,
+                                                  run_b, total, ck_b)
+        counts = fa.launch_counts()
+        ck_b.close()
+        require(restored.get("start") == first,
+                f"run B restored step {restored.get('start')}, wanted "
+                f"{first}")
+        require(not restored["mismatches"],
+                f"run B's restored state differs from run A's at step "
+                f"{first}: {restored['mismatches'][:8]}")
+        require(ck_b.last_verified_step() == total,
+                f"run B: last verified step {ck_b.last_verified_step()}")
+        require(b_losses == u_losses[first:],
+                f"resumed losses {b_losses} != the unbroken run's "
+                f"{u_losses[first:]} (bit-equal gate)")
+        params_off = [n for n, p in run_b.model.named_parameters()
+                      if not torch.equal(p, u_params[n])]
+        require(not params_off,
+                f"resumed final params differ from the unbroken run's: "
+                f"{params_off[:8]}")
+        per_path = args.layers * args.grad_accum * (total - first)
+        for name, want in (("flash_fwd", per_path),
+                           ("flash_bwd_dq", per_path),
+                           ("flash_bwd_dkv", per_path),
+                           ("flash_merge", 0)):
+            require(counts[name] == want,
+                    f"run B: {name} launched {counts[name]} times, wanted "
+                    f"{want}")
+        del run_a, u_params
+        torch.cuda.empty_cache()
+
+        # The server reads step 6's params, at the serve phase's widths
+        # (its position table, window + decode tokens, is the trainer's
+        # sequence).
+        port = free_port()
+        sargs = serve.parse_args([
+            "--batch", "8", "--window", "1920", "--decode-tokens", "128",
+            "--page-size", "16", "--vocab", "32768", "--dim", "2048",
+            "--heads", "16", "--kv-heads", "4", "--layers", "8",
+            "--load", "2:1", "--queue-deadline", "600", "--seed", "0",
+            "--http-port", str(port), "--device", "cuda",
+            "--checkpoint-dir", ckdir])
+        loop = serve.ServeLoop(sargs, bootstrap.process_info_from_env({}),
+                               heartbeat=None, recorder=None)
+        serve_restore = {}
+        real_weights = loop._restore_weights
+
+        def timed_restore_weights():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step = real_weights()
+            torch.cuda.synchronize()
+            serve_restore["seconds"] = time.perf_counter() - t0
+            return step
+
+        loop._restore_weights = timed_restore_weights
+        rng = np.random.default_rng(11)
+        http_prompt = [int(x) for x in rng.integers(
+            0, sargs.vocab, min(500, sargs.window))]
+        http_new = min(16, sargs.decode_tokens)
+        http_result: dict = {}
+        poster = threading.Thread(
+            target=post_decode,
+            args=(port, http_prompt, http_new, http_result), daemon=True)
+        poster.start()
+        summary = loop.run()
+        poster.join(timeout=60)
+        require(summary["loadedStep"] == total
+                and loop.serving_wire()["loadedStep"] == total,
+                f"server loaded step {summary['loadedStep']}, wanted "
+                f"{total}")
+        require(http_result.get("status") == 200
+                and len(http_result["body"]["tokens"]) == http_new,
+                f"HTTP decode from the restored server failed: "
+                f"{http_result}")
+        require(summary["shed"] == 0 and summary["failedSteps"] == 0,
+                f"server shed {summary['shed']}, failed steps "
+                f"{summary['failedSteps']}")
+        trained = dict(run_b.model.named_parameters())
+        served_off = [n for n, p in loop.model.named_parameters()
+                      if not torch.equal(p, trained[n].detach().to(p.dtype))]
+        require(not served_off,
+                f"served params differ from run B's: {served_off[:8]}")
+        served_dtypes = sorted({str(p.dtype) for p in
+                                loop.model.parameters()})
+        del loop
+        torch.cuda.empty_cache()
+
+        # Negative control, last: one flipped byte in step 6's params.
+        victim = os.path.join(ckdir, str(total), checkpoint.PARAMS_FILE)
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        ck_n = checkpoint.Checkpointer(ckdir)
+        _state, back = ck_n.restore(run_b.state)
+        require(back == first and ck_n.restore_fallbacks == 1
+                and os.path.isdir(os.path.join(
+                    ckdir, f"{total}{checkpoint.QUARANTINE_SUFFIX}-0")),
+                f"corrupted step {total}: restore came back at {back} with "
+                f"{ck_n.restore_fallbacks} fallbacks")
+        left = sorted(os.listdir(ckdir))
+        del run_b
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        if attempt_env is None:
+            os.environ.pop("TPUJOB_ATTEMPT", None)
+        else:
+            os.environ["TPUJOB_ATTEMPT"] = attempt_env
+
+    def stalls(rows):
+        return {r["step"] + 1: r["checkpoint"] * 1e3 for r in rows
+                if "checkpoint" in r}
+
+    return {
+        "model": "lm_flagship_gqa_kv4 (bench.py:636), no remat",
+        "argv": TRAIN_ARGV,
+        "dir_free_gb_before": free / 1e9,
+        "loss_trajectory_unbroken": u_losses,
+        "loss_trajectory_resumed": b_losses,
+        "losses_and_params_bit_equal": True,
+        "restored_state_bit_equal": True,
+        "launches_run_b": counts,
+        "saves": {"run_a": [_save_reading(t) for t in ck_a.save_timings],
+                  "run_b": [_save_reading(t) for t in ck_b.save_timings]},
+        "step_loop_checkpoint_lap_ms": {"run_a": stalls(a_rows),
+                                        "run_b": stalls(b_rows)},
+        "loop_seconds": {"unbroken_6": u_seconds, "run_a_3": a_seconds,
+                         "run_b_4_to_6": b_seconds},
+        "restore_run_b": ck_b.restore_timings,
+        "serve": {"loaded_step": summary["loadedStep"],
+                  "params_only_load_s": serve_restore.get("seconds"),
+                  "param_dtypes": served_dtypes,
+                  "completed": summary["completed"],
+                  "arrivals": summary["arrivals"], "shed": summary["shed"],
+                  "failed_steps": summary["failedSteps"],
+                  "http_tokens": len(http_result["body"]["tokens"])},
+        "negative_control": {"restored_step": back,
+                             "restore_fallbacks": ck_n.restore_fallbacks,
+                             "dir_after": left,
+                             "restore": ck_n.restore_timings},
+        "nvidia_smi": nvidia_smi_line(),
+    }
+
+
 SP_TRAIN_ARGV = ["--steps", "4", "--batch", "8", "--seq-len", "8192",
                  "--grad-accum", "4", "--adam-mu-dtype", "bf16",
                  "--vocab", "32768", "--dim", "2048", "--heads", "16",
@@ -1753,10 +2048,12 @@ def main() -> int:
 
         from tpu_operator_torch.kernels import build
         from tpu_operator_torch.payload import bootstrap
+        from tpu_operator_torch.payload import checkpoint
         from tpu_operator_torch.payload import data
         from tpu_operator_torch.payload import flash_attention as fa
         from tpu_operator_torch.payload import ring_attention as ring_mod
         from tpu_operator_torch.payload import serve
+        from tpu_operator_torch.payload import steptrace
         from tpu_operator_torch.payload import train
         from tpu_operator_torch.payload import transformer
     except ImportError as e:
@@ -1808,6 +2105,10 @@ def main() -> int:
         emit({"phase": "profile_train", **profile_train(torch, built)})
         del built
         torch.cuda.empty_cache()
+        ckp = run_checkpoint(torch, fa, transformer, train, serve, bootstrap,
+                             checkpoint, steptrace)
+        emit({"phase": "checkpoint", **ckp})
+        torch.cuda.empty_cache()
         sp, built = run_train_sp(torch, fa, transformer, train, data)
         emit({"phase": "train_sp", **sp})
         emit({"phase": "profile_train_sp", **profile_train(torch, built)})
@@ -1831,7 +2132,9 @@ def main() -> int:
          "replaces": "tpu_operator/payload/flash_attention.py:462",
          "launches": tr["launches"]["flash_fwd"],
          "launches_by_path": {"train": tr["launches"]["flash_fwd"],
-                              "serve": sv["launches"]["flash_fwd"]},
+                              "serve": sv["launches"]["flash_fwd"],
+                              "checkpoint_resume":
+                                  ckp["launches_run_b"]["flash_fwd"]},
          "max_abs_err": max(r["max_abs_err_O"] for r in fwd.values()),
          "worst_err_over_tol": max(r["worst_err_over_tol_O"]
                                    for r in fwd.values()),
@@ -1874,6 +2177,8 @@ def main() -> int:
             "launches_by_path": {
                 "train_sp": sp["launches"][f"flash_bwd_{name}"],
                 "train": tr["launches"][f"flash_bwd_{name}"],
+                "checkpoint_resume":
+                    ckp["launches_run_b"][f"flash_bwd_{name}"],
                 "ring_check": rng["striped"]["launches"][f"flash_bwd_{name}"]},
             "max_abs_err": bwd_err[name],
             "worst_err_over_tol": bwd_excess_of[name],

@@ -148,12 +148,6 @@ def test_reforward_engine_serves_the_same_load():
     assert summary["shed"] == 0 and summary["failedSteps"] == 0
 
 
-def test_checkpoint_dir_is_refused_not_ignored():
-    with pytest.raises(NotImplementedError):
-        serve.ServeLoop(serve_args(checkpoint_dir="/nonexistent"), info(),
-                        heartbeat=None, recorder=None)
-
-
 def test_load_schedule_and_generator():
     sched = serve.LoadSchedule.parse("4:1,2:1")
     assert sched.rate_at(0.5) == 4 and sched.rate_at(1.5) == 2

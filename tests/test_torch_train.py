@@ -27,6 +27,7 @@ from tpu_operator.payload import heartbeat as jheartbeat
 from tpu_operator.payload import train as jtrain
 from tpu_operator.payload import transformer as jtransformer
 from tpu_operator_torch.payload import bootstrap
+from tpu_operator_torch.payload import checkpoint
 from tpu_operator_torch.payload import data
 from tpu_operator_torch.payload import heartbeat
 from tpu_operator_torch.payload import optimizers
@@ -285,8 +286,7 @@ def test_build_without_cuda_raises(monkeypatch):
     ["--seq-parallel", "2", "--sp-mode", "ulysses"],
     ["--tensor-parallel", "2"], ["--sp-mode", "ulysses"],
     ["--split-qkv", "on"], ["--fsdp"], ["--loss-chunk", "32"],
-    ["--remat"], ["--checkpoint-dir", "/tmp/ckpt"],
-    ["--profile-dir", "/tmp/prof"], ["--optimizer", "adam8"],
+    ["--remat"], ["--profile-dir", "/tmp/prof"], ["--optimizer", "adam8"],
 ], ids=lambda f: f[0])
 def test_unported_flags_raise(flag):
     """Sequence parallelism itself is ported (tests/test_torch_ring_
@@ -294,6 +294,23 @@ def test_unported_flags_raise(flag):
     args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.build(args)
+
+
+def test_checkpoint_dir_now_builds_a_checkpointer(tmp_path, monkeypatch):
+    """``--checkpoint-dir`` is ported: build takes it, and run saves
+    verified steps there on the interval and at the end."""
+    monkeypatch.delenv("TPUJOB_STORE_URI", raising=False)
+    ckdir = str(tmp_path / "ckpt")
+    args = transformer.parse_args(TINY + [
+        "--device", "cpu", "--steps", "3", "--checkpoint-dir", ckdir,
+        "--checkpoint-every", "2"])
+    transformer.check_ported(args)
+    transformer.build(args)
+    metrics = transformer.run(bootstrap.process_info_from_env({}), args)
+    assert math.isfinite(metrics["loss"])
+    ck = checkpoint.from_env_or_args(args.checkpoint_dir)
+    assert isinstance(ck, checkpoint.Checkpointer)
+    assert ck.all_steps() == [1, 2, 3]
 
 
 @pytest.mark.parametrize("flag,match", [

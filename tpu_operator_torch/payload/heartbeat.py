@@ -27,9 +27,11 @@ beat carries ``loss`` (finite only) and ``tokensPerSec`` (from
 ACK body and its ``drainAck`` one-shot rides every beat until a post
 succeeds. In a multi-process job only process 0 sends that stream; every
 other process sends the cadence-only flavour (identity, step cadence and
-the ``stepTiming`` digest, for the operator's straggler detector). The
-profile and startup channels and the checkpoint fields come with the
-slices that port those features.
+the ``stepTiming`` digest, for the operator's straggler detector). A
+training beat also carries the checkpointer's durability counters
+(``lastCheckpointStep``, ``checkpointSaveFailures``,
+``checkpointRestoreFallbacks``). The profile and startup channels come
+with the slices that port those features.
 """
 
 from __future__ import annotations
@@ -114,7 +116,8 @@ class HeartbeatReporter:
 
     def report(self, step: int, metrics: Optional[Dict[str, Any]] = None,
                steptiming: Optional[Dict[str, Any]] = None,
-               serving: Optional[Dict[str, Any]] = None) -> bool:
+               serving: Optional[Dict[str, Any]] = None,
+               checkpoint: Optional[Dict[str, Any]] = None) -> bool:
         """Post one heartbeat; returns True when the post succeeded. Step
         time is averaged over the steps since the previous post, so it is
         meaningful at any reporting interval.
@@ -122,7 +125,10 @@ class HeartbeatReporter:
         ``metrics`` are the training step's host values (its ``loss`` is
         sent when finite); ``steptiming`` is the flight recorder's
         windowed phase digest (``StepRecorder.summary()``); ``serving`` is
-        the replica's serving state (``ServeLoop.serving_wire()``)."""
+        the replica's serving state (``ServeLoop.serving_wire()``);
+        ``checkpoint`` is the checkpointer's ``stats()``, mapped onto
+        ``lastCheckpointStep`` / ``checkpointSaveFailures`` /
+        ``checkpointRestoreFallbacks`` (not on cadence-only beats)."""
         now = self._clock()
         body: Dict[str, Any] = {
             "namespace": self.namespace,
@@ -146,6 +152,15 @@ class HeartbeatReporter:
         if self.cadence_only:
             self._last_post, self._last_step = now, int(step)
             return self._post(body)
+        if checkpoint:
+            if checkpoint.get("lastCheckpointStep") is not None:
+                body["lastCheckpointStep"] = int(
+                    checkpoint["lastCheckpointStep"])
+            for src, dst in (("saveFailures", "checkpointSaveFailures"),
+                             ("restoreFallbacks",
+                              "checkpointRestoreFallbacks")):
+                if checkpoint.get(src) is not None:
+                    body[dst] = int(checkpoint[src])
         loss = (metrics or {}).get("loss")
         if loss is not None:
             try:

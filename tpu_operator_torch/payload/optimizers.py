@@ -17,12 +17,16 @@ bf16 beside f32 params. Per step, with count the step number from 1:
 
 ``adam8`` (the int8 block-quantized moments) is still to port (ROADMAP
 Queue A 1): ``--optimizer adam8`` raises.
+
+:meth:`AdamState.state_dict` names the live state for a checkpoint and
+:meth:`AdamState.load_state_dict` copies a saved one back in place, so
+the step function's moment lists stay the same tensors across a restore.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +41,37 @@ class AdamState:
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The state by name: ``count`` (a 0-d int64 CPU tensor) and the
+        live moment tensors ``mu.<i>`` / ``nu.<i>`` in parameter order,
+        each in its own dtype (a bf16 mu stays bf16)."""
+        out = {"count": torch.tensor(self.count, dtype=torch.int64)}
+        for name, moments in (("mu", self.mu), ("nu", self.nu)):
+            out.update((f"{name}.{i}", t) for i, t in enumerate(moments))
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: Mapping[str, torch.Tensor]) -> None:
+        """Copy ``saved`` (as :meth:`state_dict` names it) into the live
+        moments in place. Raises ValueError, before copying anything, when
+        a name, shape or dtype differs."""
+        live = self.state_dict()
+        if set(saved) != set(live):
+            missing = sorted(set(live) - set(saved))
+            extra = sorted(set(saved) - set(live))
+            raise ValueError(f"adam state names differ: missing "
+                             f"{missing[:4]}, extra {extra[:4]}")
+        for name, t in live.items():
+            got = saved[name]
+            if got.shape != t.shape or got.dtype != t.dtype:
+                raise ValueError(
+                    f"adam state {name}: saved {got.dtype}{list(got.shape)}, "
+                    f"live {t.dtype}{list(t.shape)}")
+        for name, t in live.items():
+            if name != "count":
+                t.copy_(saved[name])
+        self.count = int(saved["count"])
 
 
 class Adam:

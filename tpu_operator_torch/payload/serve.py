@@ -21,10 +21,14 @@ service:
 - **Readiness.** A replica posts ``ready: true`` after its weights are
   built and both engine paths ran once (kernels built and loaded).
 
-Weights come from a seeded init on the device (``--seed``). Checkpoint
-restore, hot reload from the warm-start store and the store watcher are
-not ported yet: a non-empty ``--checkpoint-dir`` (or
-``$TPU_CHECKPOINT_DIR``) raises instead of being ignored.
+Weights come from a seeded init on the device (``--seed``), replaced
+before warm-up by the newest verified checkpoint's params when
+``--checkpoint-dir`` (or ``$TPU_CHECKPOINT_DIR``) holds one: the verified
+restore walk of ``checkpoint.py``, reading the params file only, cast to
+the server's bf16 weights (the cast the trainer's forward makes).
+``loadedStep`` on the heartbeat reports the step (0 = the seeded init).
+Hot reload from the remote warm-start store and its watcher are not
+ported yet (ROADMAP Queue A 3): ``reloads`` stays 0.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 
 from tpu_operator_torch.device import resolve_device
 from tpu_operator_torch.payload import bootstrap
+from tpu_operator_torch.payload import checkpoint as checkpoint_mod
 from tpu_operator_torch.payload import flash_attention as fa
 from tpu_operator_torch.payload import heartbeat as heartbeat_mod
 from tpu_operator_torch.payload import kvcache
@@ -52,7 +57,7 @@ log = logging.getLogger(__name__)
 
 # Operator env contract (injected when spec.mode is serve).
 ENV_SERVE_PORT = "TPUJOB_SERVE_PORT"
-ENV_CHECKPOINT_DIR = "TPU_CHECKPOINT_DIR"
+ENV_CHECKPOINT_DIR = checkpoint_mod.ENV_VAR
 
 # Idle poll when no request slot is active: the loop must not spin.
 IDLE_SLEEP = 0.002
@@ -107,8 +112,9 @@ def parse_args(argv=None):
                         "/healthz (default $TPUJOB_SERVE_PORT; 0 = none)")
     p.add_argument("--checkpoint-dir",
                    default=os.environ.get(ENV_CHECKPOINT_DIR, ""),
-                   help="weight source; checkpoint restore is not ported "
-                        "yet, so a non-empty value raises")
+                   help="weight source: the newest verified step's params "
+                        "(default $TPU_CHECKPOINT_DIR; empty or no step = "
+                        "the seeded init)")
     p.add_argument("--device", default="",
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "PyTorch attention path)")
@@ -394,10 +400,6 @@ class ServeLoop:
                  recorder: Optional[Any] = "auto",
                  clock: Callable[[], float] = time.monotonic,
                  device=None):
-        if args.checkpoint_dir:
-            raise NotImplementedError(
-                "serve: checkpoint restore is not yet ported to the "
-                f"PyTorch payload (--checkpoint-dir {args.checkpoint_dir!r})")
         self.args = args
         self.info = info
         self._clock = clock
@@ -422,8 +424,20 @@ class ServeLoop:
         self._ingress_lock = threading.Lock()
         self._queue: List[Request] = []  # guarded-by: _ingress_lock
         self._shed = 0  # guarded-by: _ingress_lock
+        # The loaded step is read by heartbeat and HTTP threads.
+        self._reload_lock = threading.Lock()
+        self._loaded_step = 0  # guarded-by: _reload_lock
         self._stop = threading.Event()
         self._http: Optional[Any] = None
+
+    @property
+    def loaded_step(self) -> int:
+        with self._reload_lock:
+            return self._loaded_step
+
+    def _set_loaded_step(self, step: int) -> None:
+        with self._reload_lock:
+            self._loaded_step = int(step)
 
     @property
     def shed(self) -> int:
@@ -444,7 +458,7 @@ class ServeLoop:
             "tokensPerSecond": round(stats["tokensPerSecond"], 3),
             "queueDepth": self.queue_depth(),
             "kvCacheUtilization": round(self.engine.utilization(), 4),
-            "loadedStep": 0,
+            "loadedStep": self.loaded_step,
             "reloads": 0,
         }
         if "p50" in stats:
@@ -589,6 +603,24 @@ class ServeLoop:
             rec.lap(steptrace_mod.HOST)
             rec.commit()
 
+    def _restore_weights(self) -> int:
+        """Load the newest verified checkpoint's params into the serving
+        model and return its step (0 = the seeded init: no directory, or
+        nothing in it). A fresh reader Checkpointer per load walks,
+        verifies and quarantines as the trainer's restore does, and reads
+        only the params file."""
+        directory = self.args.checkpoint_dir \
+            or os.environ.get(checkpoint_mod.ENV_VAR, "")
+        if not directory:
+            return 0
+        ck = checkpoint_mod.Checkpointer(directory, save_every=1)
+        try:
+            _state, step = ck.restore(checkpoint_mod.TrainState(
+                dict(self.model.named_parameters())))
+        finally:
+            ck.close()
+        return int(step)
+
     def _warmup(self) -> None:
         """Run the engine's paths once before readiness. A failure counts
         like a failed decode step (the replica does not go ready)."""
@@ -616,6 +648,7 @@ class ServeLoop:
         returns a summary."""
         schedule = LoadSchedule.parse(self.args.load)
         gen = LoadGenerator(schedule)
+        self._set_loaded_step(self._restore_weights())
         self._warmup()
         self.steps += 1
         self._set_ready(self._consecutive_failures == 0)
@@ -663,6 +696,7 @@ class ServeLoop:
             "completed": self.completed,
             "arrivals": gen.total_arrivals,
             "failedSteps": self.failed_steps,
+            "loadedStep": self.loaded_step,
             "shed": self.shed,
             "tokensGenerated": self.tokens_generated,
             "elapsedSeconds": elapsed,
@@ -751,10 +785,10 @@ def run(info: bootstrap.ProcessInfo, args=None) -> Dict[str, Any]:
     loop = ServeLoop(args, info)
     summary = loop.run()
     log.info("serve: %d steps, %d/%d requests completed (%d shed), "
-             "%.0f tokens/sec, %d failed steps",
+             "%.0f tokens/sec, %d failed steps, weights of step %d",
              summary["steps"], summary["completed"], summary["arrivals"],
              summary["shed"], summary["tokensPerSecond"],
-             summary["failedSteps"])
+             summary["failedSteps"], summary["loadedStep"])
     return summary
 
 

@@ -16,8 +16,7 @@ times the phases:
   histograms without double counting.
 
 Phases (one step, in loop order; the serve loop times DATA, COMPUTE and
-HOST, the training loop DATA, DISPATCH, COMPUTE and HOST, and CHECKPOINT
-keeps its wire name for the slice that ports checkpoints):
+HOST, the training loop DATA, DISPATCH, COMPUTE, CHECKPOINT and HOST):
 
 - ``DATA`` — input wait before the step.
 - ``DISPATCH`` — the launch of the step's device work, where a loop
@@ -32,14 +31,16 @@ This is the PyTorch payload's own copy of the part of
 ``tpu_operator/payload/steptrace.py`` that the two loops use (stdlib
 only; a plain ``threading.Lock`` where the original takes a
 lock-order-witnessed one). The wire format is the same, so the operator
-reads both payloads' digests alike. The ring buffer and its postmortem
-dump, keyed on a checkpoint dir, come with the slice that ports
-checkpoints.
+reads both payloads' digests alike. The recorder also keeps the last
+``capacity`` steps in a ring buffer, which :func:`postmortem_dump` writes
+next to the checkpoint dir on a retryable exit
+(``steptrace-attempt<N>-p<P>.json``, :func:`postmortem_path`).
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import logging
 import math
 import os
@@ -120,6 +121,9 @@ class StepRecorder:
         self._clock = clock
         self.capacity = max(8, int(capacity))
         self._lock = threading.Lock()
+        # The last `capacity` committed steps, for the postmortem dump.
+        self._ring: collections.deque = collections.deque(
+            maxlen=self.capacity)  # guarded-by: _lock
         # Since-last-summary window: phase -> samples, whole-step totals,
         # and per-step LOCAL time (total minus the COMPUTE wait) — the
         # straggler detector's signal. Drained and reset by summary();
@@ -161,6 +165,7 @@ class StepRecorder:
         self._cur = None
         cur["seconds"] = self._clock() - self._t0
         with self._lock:
+            self._ring.append(cur)
             self._window_steps.append(cur["seconds"])
             # Local time = everything the COMPUTE fence did NOT cover. In
             # a synchronous gang every member's step (and compute wait)
@@ -217,6 +222,38 @@ class StepRecorder:
             out["phases"] = phases
         return out
 
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """The ring buffer's records, oldest first, with wire-format phase
+        names: the postmortem artifact body."""
+        with self._lock:
+            ring = list(self._ring)
+        out = []
+        for rec in ring:
+            row: Dict[str, Any] = {"step": rec["step"],
+                                   "stepSeconds": round(rec["seconds"], 6)}
+            for phase in PHASES:
+                if phase in rec:
+                    row[PHASE_FIELDS[phase]] = round(rec[phase], 6)
+            out.append(row)
+        return out
+
+    def dump(self, path: str, meta: Optional[Dict[str, Any]] = None) -> str:
+        """Write the ring buffer as a JSON artifact (atomic tmp+rename).
+        Raises OSError on an unwritable destination: callers on exit
+        paths use :func:`postmortem_dump`, which never raises."""
+        body: Dict[str, Any] = {
+            "kind": "tpujob-steptrace",
+            "capacity": self.capacity,
+            "stepsRecorded": self.steps_recorded,
+            **(meta or {}),
+            "steps": self.snapshot(),
+        }
+        tmp = f"{path}.tmp-{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(body, f)
+        os.replace(tmp, path)
+        return path
+
 
 def from_env(env: Optional[Dict[str, str]] = None) -> Optional[StepRecorder]:
     """Recorder from the operator's env contract. Default ON (absent env):
@@ -232,3 +269,72 @@ def from_env(env: Optional[Dict[str, str]] = None) -> Optional[StepRecorder]:
         log.warning("ignoring malformed %s=%r", ENV_BUFFER, e.get(ENV_BUFFER))
         capacity = DEFAULT_BUFFER_STEPS
     return StepRecorder(capacity=capacity)
+
+
+def postmortem_path(checkpoint_dir: str, attempt: int,
+                    process_id: int) -> str:
+    """The artifact path for one attempt's trace: a sibling of the
+    checkpoint dir (same volume, so it survives the pod exactly as long
+    as the checkpoints do), named by attempt and process so successive
+    attempts and gang members never clobber each other. When the
+    checkpoint dir IS a top-level mount point (``checkpointDir: /ckpt``
+    with the volume at /ckpt), its parent is the container's root file
+    system, outside the volume, so the artifact goes INSIDE the
+    checkpoint dir instead (a non-numeric file there is invisible to the
+    step walk and the quarantine scan)."""
+    name = f"steptrace-attempt{int(attempt)}-p{int(process_id)}.json"
+    ckpt = os.path.abspath(checkpoint_dir.rstrip("/") or "/")
+    base = os.path.dirname(ckpt)
+    if base == os.path.dirname(base):  # parent of a top-level dir: rootfs
+        return os.path.join(ckpt, name)
+    return os.path.join(base, name)
+
+
+def postmortem_dump(recorder: StepRecorder, checkpoint_dir: str,
+                    env: Optional[Dict[str, str]] = None) -> Optional[str]:
+    """Best-effort ring-buffer dump on a retryable exit: writes the
+    artifact next to the checkpoint dir and returns its path, or None
+    (logged) when there is nowhere to write or the write failed; a
+    postmortem aid must never turn a retryable exit into a permanent
+    one."""
+    e = env if env is not None else os.environ
+    if not checkpoint_dir:
+        log.debug("steptrace: no checkpoint dir; skipping postmortem dump")
+        return None
+
+    def _num(var: str) -> int:
+        try:
+            return int(e.get(var) or 0)
+        except ValueError:
+            return 0
+
+    attempt, process_id = _num("TPUJOB_ATTEMPT"), _num("JAX_PROCESS_ID")
+    path = postmortem_path(checkpoint_dir, attempt, process_id)
+    meta = {
+        "job": e.get("TPUJOB_NAME", ""),
+        "namespace": e.get("TPUJOB_NAMESPACE", "default"),
+        "attempt": attempt,
+        "processId": process_id,
+    }
+    try:
+        recorder.dump(path, meta=meta)
+    except OSError as err:
+        # The sibling slot can be unwritable (a read-only parent, the
+        # checkpoint dir deeper than the mount): fall back INSIDE the
+        # checkpoint dir, which the payload provably writes.
+        fallback = os.path.join(os.path.abspath(checkpoint_dir),
+                                os.path.basename(path))
+        if fallback == path:
+            log.warning("steptrace: postmortem dump to %s failed: %s",
+                        path, err)
+            return None
+        try:
+            recorder.dump(fallback, meta=meta)
+            path = fallback
+        except OSError as err2:
+            log.warning("steptrace: postmortem dump failed (%s: %s; "
+                        "%s: %s)", path, err, fallback, err2)
+            return None
+    log.info("steptrace: dumped last %d step timings to %s",
+             min(recorder.steps_recorded, recorder.capacity), path)
+    return path

@@ -20,7 +20,11 @@ part of ``tpu_operator/payload/train.py`` that one process per card uses).
   a drain directive -> exit 160, both at a step boundary). In a
   multi-process job every process takes the world's largest drain code at
   each step boundary (one ``all_reduce(MAX)``), so all of them exit at the
-  same step with the same code; one process does no collective.
+  same step with the same code; one process does no collective. With a
+  checkpointer (``checkpoint.py``) it restores the newest verified step
+  first and fast-forwards the host batches past it, saves on the
+  interval, at a drain boundary and at the end, and exits 143 when the
+  final step is not durable.
 
 The fence: each step's metrics are copied to pinned host memory behind
 the step's work, and a CUDA event is recorded after the copy. After
@@ -33,6 +37,7 @@ dispatched (``.item()``) would stall the host for a whole step.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
@@ -191,13 +196,26 @@ def agreed_drain_code() -> int:
     return int(agreed.item())
 
 
+def _dump_steptrace(recorder: Optional[steptrace_mod.StepRecorder],
+                    checkpointer) -> None:
+    """Retryable-exit postmortem: dump the flight recorder's ring buffer
+    next to the checkpoint dir. Best-effort on every branch."""
+    if recorder is None:
+        return
+    recorder.abandon()
+    ckpt_dir = getattr(checkpointer, "directory", "") \
+        or os.environ.get("TPU_CHECKPOINT_DIR", "")
+    steptrace_mod.postmortem_dump(recorder, ckpt_dir)
+
+
 def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
                device, log_every: int = 0,
                log_fn: Optional[Callable[[int, dict], None]] = None,
                prefetch: int = 2, heartbeat="auto",
-               steptrace="auto") -> Dict[str, float]:
-    """Drive ``train_step(*device_batch)`` for ``steps`` steps; returns the
-    last step's metrics as host floats.
+               steptrace="auto", checkpointer=None,
+               state=None) -> Dict[str, float]:
+    """Drive ``train_step(*device_batch)`` up to ``steps`` total steps;
+    returns the last step's metrics as host floats.
 
     ``heartbeat`` posts step telemetry (``"auto"``: from the operator's env
     contract, a no-op unless TPUJOB_STATUS_URL is set; or a reporter, or
@@ -205,10 +223,30 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
     TPUJOB_STEPTRACE_ENABLED=0; or a StepRecorder, or None); its digests
     ride due heartbeats. SIGTERM inside the loop (via
     ``bootstrap.run_payload``) and a drain directive from a heartbeat ACK
-    end the loop at the next step boundary with SystemExit 143 / 160."""
+    end the loop at the next step boundary with SystemExit 143 / 160.
+
+    With a ``checkpointer`` (``checkpoint.Checkpointer``, owned and closed
+    by the caller) and the ``state`` that ``train_step`` updates in place
+    (``checkpoint.TrainState``), the loop first restores the newest
+    verified step into ``state`` and skips as many host batches, so a
+    restarted attempt runs steps ``start..steps-1`` on the batches it
+    would have seen unbroken. It saves on the checkpointer's interval, at
+    a drain boundary past the first step, and at the end; a final step
+    that is not durable exits 143 after dumping the flight recorder next
+    to the checkpoint dir."""
+    if checkpointer is not None and state is None:
+        raise ValueError("train_loop: a checkpointer needs the state it "
+                         "saves and restores")
     if heartbeat == "auto":
         heartbeat = heartbeat_mod.from_env()
     recorder = steptrace_mod.from_env() if steptrace == "auto" else steptrace
+    start = 0
+    batches = iter(batches)
+    if checkpointer is not None:
+        state, start = checkpointer.restore(state)
+        for _ in range(start):
+            next(batches)
+    # Prefetch wraps the stream only after the fast-forward above.
     dev_batches: Iterator = data_mod.device_prefetch(batches, device,
                                                      depth=prefetch)
     fence: Optional[_Fenced] = None
@@ -216,17 +254,33 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
     metrics: Metrics = {}
     bootstrap_mod.enter_step_loop()  # SIGTERM now defers to a step boundary
     try:
-        for i in range(steps):
+        for i in range(start, steps):
             if recorder is not None:
                 recorder.begin(i)
             code = agreed_drain_code()
             if code:
-                log.info("drain: exiting %d at step %d", code, i)
+                # Persist the i completed steps, then exit: the restarted
+                # attempt resumes here. Every process of a gang reaches
+                # this at the same i and saves collectively. A failed save
+                # still exits with the drain code: the restart resumes
+                # from the last verified step.
+                if checkpointer is not None and i > start:
+                    try:
+                        checkpointer.save(i, state)
+                        log.info("drain: checkpointed step %d, exiting %d",
+                                 i, code)
+                    except Exception:  # noqa: BLE001 — drain code regardless
+                        log.exception(
+                            "drain: checkpoint save of step %d failed; "
+                            "exiting %d anyway (resume falls back to the "
+                            "last verified step)", i, code)
+                else:
+                    log.info("drain: exiting %d at step %d", code, i)
                 raise SystemExit(code)
             batch_args = next(dev_batches)
             if recorder is not None:
                 recorder.lap(steptrace_mod.DATA)
-            if heartbeat is not None and i == 0 \
+            if heartbeat is not None and i == start \
                     and heartbeat.tokens_per_batch == 0:
                 heartbeat.tokens_per_batch = _infer_tokens_per_batch(
                     batch_args)
@@ -234,7 +288,7 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
             current = _Fenced(metrics)
             if recorder is not None:
                 recorder.lap(steptrace_mod.DISPATCH)
-            if i == 0:
+            if i == start:
                 # The first step runs to completion (kernel builds, the
                 # allocator's first touch): one fence, paid once.
                 current.wait()
@@ -245,6 +299,12 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
             if recorder is not None:
                 recorder.lap(steptrace_mod.COMPUTE)
             fence = current
+            if checkpointer is not None:
+                # The host copy is queued behind this step's update on the
+                # stream: no fence on the step just dispatched.
+                checkpointer.maybe_save(i + 1, state)
+                if recorder is not None:
+                    recorder.lap(steptrace_mod.CHECKPOINT)
             if log_every and log_fn and (i + 1) % log_every == 0:
                 log_fn(i + 1, ready.values())
             if heartbeat is not None and heartbeat.due(i + 1):
@@ -252,7 +312,10 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
                 heartbeat.report(
                     i + 1, None if cadence else ready.values(),
                     steptiming=(recorder.summary()
-                                if recorder is not None else None))
+                                if recorder is not None else None),
+                    checkpoint=(checkpointer.stats()
+                                if checkpointer is not None and not cadence
+                                else None))
             if recorder is not None:
                 recorder.lap(steptrace_mod.HOST)
                 recorder.commit()
@@ -265,13 +328,31 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
                     bootstrap_mod.request_planned_drain()
                     heartbeat.attach_drain_ack({"id": str(directive["id"]),
                                                 "step": i + 1})
-    except SystemExit:
-        if recorder is not None:
+    except SystemExit as e:
+        # A retryable or planned exit is when a postmortem wants the last
+        # steps' phase timings.
+        if getattr(e, "code", None) in (bootstrap_mod.EXIT_RETRYABLE,
+                                        bootstrap_mod.EXIT_PLANNED):
+            _dump_steptrace(recorder, checkpointer)
+        elif recorder is not None:
             recorder.abandon()
         raise
     finally:
         bootstrap_mod.exit_step_loop()
         dev_batches.close()
+    if checkpointer is not None and steps > start:
+        # The final save is load-bearing: a run must not end with its end
+        # state unpersisted. If it is still not durable after the flush,
+        # exit retryable so the restart re-earns a durable finish.
+        checkpointer.save(steps, state)
+        checkpointer.flush()
+        if checkpointer.last_verified_step() != steps:
+            log.error(
+                "final checkpoint of step %d is not durable (last verified "
+                "step: %s); exiting retryable so the restart re-earns it",
+                steps, checkpointer.last_verified_step())
+            _dump_steptrace(recorder, checkpointer)
+            raise SystemExit(bootstrap_mod.EXIT_RETRYABLE)
     if fence is None:
         return {}
     fence.wait()

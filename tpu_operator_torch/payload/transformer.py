@@ -20,10 +20,14 @@ consecutive shards, so one process runs the whole ring and four processes
 one shard each. The step takes the reference's striped step for both
 layouts (the identity permutation for contiguous).
 
+``--checkpoint-dir`` (or ``$TPU_CHECKPOINT_DIR``) checkpoints every
+``--checkpoint-every`` steps, at a drain and at the end, and a restarted
+attempt resumes from the newest verified step (``checkpoint.py``).
+
 The flags of the reference that are not ported yet (tensor parallelism,
-Ulysses, FSDP, remat, chunked loss, checkpoints, profiling, adam8) parse
-with the reference's defaults and raise NotImplementedError when set away
-from them; ROADMAP Queue A lists them.
+Ulysses, FSDP, remat, chunked loss, profiling, adam8) parse with the
+reference's defaults and raise NotImplementedError when set away from
+them; ROADMAP Queue A lists them.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 
 from tpu_operator_torch.device import resolve_device
 from tpu_operator_torch.payload import bootstrap
+from tpu_operator_torch.payload import checkpoint
 from tpu_operator_torch.payload import compute
 from tpu_operator_torch.payload import data as data_mod
 from tpu_operator_torch.payload import flash_attention as fa
@@ -100,8 +105,8 @@ def parse_args(argv=None):
                         "synthetic recurrence")
     p.add_argument("--checkpoint-dir",
                    default=os.environ.get("TPU_CHECKPOINT_DIR", ""),
-                   help="checkpoint/resume dir (not ported: a non-empty "
-                        "value raises)")
+                   help="checkpoint/resume dir (default "
+                        "$TPU_CHECKPOINT_DIR; empty = no checkpoints)")
     p.add_argument("--checkpoint-every", type=int, default=100)
     p.add_argument("--profile-dir",
                    default=os.environ.get("TPU_PROFILE_DIR", ""),
@@ -133,7 +138,6 @@ _NOT_PORTED = {
     "split_qkv": ("auto", "7"),
     "fsdp": (False, "7"),
     "loss_chunk": (0, "1"),
-    "checkpoint_dir": ("", "2"),
     "profile_dir": ("", "9"),
 }
 
@@ -233,6 +237,13 @@ class Built(NamedTuple):
     step: Callable[[torch.Tensor], train.Metrics]
     batches: Iterator[Tuple]
     device: torch.device
+
+    @property
+    def state(self) -> checkpoint.TrainState:
+        """The params and adam state the step updates in place: what a
+        checkpoint saves and a restore copies back."""
+        return checkpoint.TrainState(dict(self.model.named_parameters()),
+                                     self.opt_state)
 
 
 def build_model(args, device) -> TransformerLM:
@@ -355,11 +366,21 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
              "seq-parallel %d (%s)", n_params, built.device, args.batch,
              args.seq_len, args.grad_accum, args.seq_parallel,
              args.sp_layout)
-    metrics = train.train_loop(
-        built.step, built.batches, args.steps, device=built.device,
-        log_every=args.log_every,
-        log_fn=lambda i, m: log.info("step %d loss %.4f", i, m["loss"]),
-        prefetch=prefetch_depth(args))
+    ckpt = checkpoint.from_env_or_args(args.checkpoint_dir,
+                                       save_every=args.checkpoint_every)
+    if ckpt is not None and ckpt.latest_step() is not None:
+        log.info("attempt %d: resuming from %s (latest step: %d)",
+                 info.attempt, ckpt.directory, ckpt.latest_step())
+    try:
+        metrics = train.train_loop(
+            built.step, built.batches, args.steps, device=built.device,
+            log_every=args.log_every,
+            log_fn=lambda i, m: log.info("step %d loss %.4f", i, m["loss"]),
+            prefetch=prefetch_depth(args), checkpointer=ckpt,
+            state=built.state)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
     log.info("final: loss %.4f", metrics.get("loss", float("nan")))
     return metrics
 
