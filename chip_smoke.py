@@ -64,20 +64,22 @@ one JSON line each:
 8. ``profile``: one full-width admission and ten 8-slot decode steps
    under torch.profiler: device time by kernel, device-busy time and the
    idle share beside the host clock.
-9. ``train``: the same LM trained at full width for 6 steps (global batch
-   32 x 2048 tokens as 4 microbatches, adam with a bf16 first moment)
-   through ``transformer.build`` and ``train.train_loop``. Launch counters
-   are zeroed just before the loop and read just after: every kernel of
-   the step must have run layers x microbatches x steps times. Every loss
-   finite, the first within [ln V, ln V + 2]; the loss trajectory, a smoke
-   tokens/s and the peak memory are printed. Before the loop (seeded
-   init) and after it (trained weights), one 2-row microbatch's loss and
-   every parameter's gradient through the kernels are held against plain
-   attention under autograd (the gradients at init only) and against K1's
-   forward with the plain backward (both times); a plain side with D from
-   the bf16 O shows how much of the gap to autograd that alone makes.
-   ``profile_train``: one training step and one adam update under
-   torch.profiler.
+9. ``train``: the same LM trained at full width for 6 steps as its bench
+   row is written (bench.py:636: global batch 32 x 2048 tokens as 4
+   microbatches, adam with a bf16 first moment, ``--remat --remat-policy
+   dots_attn``) through ``transformer.build`` and ``train.train_loop``.
+   Launch counters are zeroed just before the loop and read just after:
+   every kernel of the step must have run layers x microbatches x steps
+   times (dots_attn saves K1's outputs, so the backward does not re-run
+   it). Every loss finite, the first within [ln V, ln V + 2]; the loss
+   trajectory, a smoke tokens/s and the peak memory are printed. Before
+   the loop (seeded init) and after it (trained weights), one 2-row
+   microbatch's loss and every parameter's gradient through the kernels
+   are held against plain attention under autograd (the gradients at
+   init only) and against K1's forward with the plain backward (both
+   times); a plain side with D from the bf16 O shows how much of the gap
+   to autograd that alone makes. ``profile_train``: one training step and
+   one adam update under torch.profiler.
 10. ``checkpoint``: the training phase's flagship at full width and
     depth, checkpointed and resumed through ``checkpoint.Checkpointer``
     in a ``tempfile.mkdtemp()`` directory (it fails with fewer than 3 x
@@ -92,14 +94,43 @@ one JSON line each:
     next restore quarantines, falling back to step 3. Prints each file's
     bytes, the step loop's CHECKPOINT laps, the background write and
     hash rates, the restore's and the server's load times.
-11. ``train_sp``: the long-context flagship (bench.py:661, dim 2048,
-    8 layers, 16 / 4 heads, vocab 32768, global batch 8 x 8192 as 4
-    microbatches) with ``--seq-parallel 4 --sp-layout striped``, the whole
-    ring in this process, 4 steps through ``transformer.build`` and
-    ``train.train_loop``: K4, dq and dkv each launched layers x
-    microbatches x steps x 16 times and K1 never; before the loop one
-    row's loss and gradients on the ring are held against the single-shard
-    kernel path. ``profile_train_sp``: one such step under torch.profiler.
+11. ``train_sp``: the long-context flagship as its bench row is written
+    (bench.py:661, dim 2048, 8 layers, 16 / 4 heads, vocab 32768, global
+    batch 8 x 8192 as 4 microbatches, remat under dots_attn) with
+    ``--seq-parallel 4 --sp-layout striped``, the whole ring in this
+    process, 4 steps through ``transformer.build`` and
+    ``train.train_loop``: dq and dkv each launched layers x microbatches
+    x steps x 16 times, K4 twice that (no policy names the ring's
+    outputs, so the backward re-runs the forward ring) and K1 never;
+    before the loop one row's loss and gradients on the ring are held
+    against the single-shard kernel path. ``profile_train_sp``: one such
+    step under torch.profiler.
+12. ``remat``: lm_flagship_gqa_kv4 for 2 steps without remat and under
+    each of the six ``--remat-policy`` values, each a fresh build from
+    the same seeded init: losses and the params after step 2 bit-equal
+    to no remat under every policy; K1 launched twice per layer and
+    microbatch under ``full`` and ``dots``, once under the others; the
+    peak memory and step time of each (``full`` must peak below no
+    remat).
+13. ``adam8``: lm_flagship_gqa_kv4_adam8 as written (bench.py:647), 6
+    steps: losses finite and within the reference's drop-in bound (rtol
+    5e-2, atol 5e-3) of an f32 adam run from the same init and batches;
+    the optimizer state's bytes beside f32 adam's; a save at step 3 and a
+    restore through ``checkpoint.Checkpointer`` resume bit-equal.
+14. ``longctx``: lm_longctx_T32768_gqa as written (bench.py:675: B 2 x
+    T 32768 as 2 microbatches of one row, remat under attn, adam8,
+    ``--loss-chunk 2048``), full width and depth, 3 steps; on one row the
+    chunked loss within 1e-4 of the unchunked loss (forward only); K1
+    and K2 once per layer and microbatch; the step time, tokens/s and
+    peak memory. ``profile_longctx``: one such step under torch.profiler.
+15. ``classifier``: ``payload.cifar`` at its defaults (ResNet-20, batch
+    1024, sgd 0.1 / 0.9) for 20 steps (the loss descends; the first 5
+    losses against a CPU run of the same port from the same weights and
+    batches within 2e-2; images/s); a kill and resume through
+    ``checkpoint.Checkpointer``, bit-equal; ``python -m
+    tpu_operator_torch.payload.linear --steps 200`` in a subprocess on
+    the card exits 0. ``profile_classifier``: one cifar step under
+    torch.profiler.
 
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` name/power
 line, and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -300,7 +331,7 @@ def decode_excess(torch, got, want) -> float:
     return float(((got.float() - want).abs() / limit).max())
 
 
-# --- phase: build -------------------------------------------------------------
+# --- phase: build ------------------------------------------------------------
 
 # The redesigned kernels: wgmma (HGMMA in their SASS) and no spill.
 HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
@@ -376,7 +407,7 @@ def check_hopper_build(per_kernel: dict, hgmma: dict) -> None:
                 f"build: {name} has no HGMMA in its SASS ({sass})")
 
 
-# --- phase: kernels ------------------------------------------------------------
+# --- phase: kernels ----------------------------------------------------------
 
 
 def fwd_plain_terms(torch, fa, qt, kt, vt, causal):
@@ -1203,7 +1234,7 @@ def check_ring(torch, fa, ring_mod, gen):
     return out
 
 
-# --- phase: serve --------------------------------------------------------------
+# --- phase: serve ------------------------------------------------------------
 
 
 def free_port() -> int:
@@ -1407,15 +1438,18 @@ def profile_engine(torch, loop, steps: int = 10):
                             "steps": steps, **decode}}
 
 
-# --- phase: train --------------------------------------------------------------
+# --- phase: train ------------------------------------------------------------
 
 
-TRAIN_ARGV = ["--steps", "6", "--batch", "32", "--seq-len", "2048",
-              "--grad-accum", "4", "--adam-mu-dtype", "bf16",
-              "--vocab", "32768", "--dim", "2048", "--heads", "16",
-              "--kv-heads", "4", "--layers", "8", "--seed", "0",
-              "--log-every", "0", "--device", "cuda",
-              "--checkpoint-dir", "", "--profile-dir", ""]
+# The flagship GQA LM's widths and batch (bench.py:636-647), full depth.
+FLAGSHIP_ARGV = ["--batch", "32", "--seq-len", "2048", "--grad-accum", "4",
+                 "--vocab", "32768", "--dim", "2048", "--heads", "16",
+                 "--kv-heads", "4", "--layers", "8", "--seed", "0",
+                 "--log-every", "0", "--device", "cuda",
+                 "--checkpoint-dir", "", "--profile-dir", ""]
+# bench.py:636 lm_flagship_gqa_kv4 as written.
+TRAIN_ARGV = ["--steps", "6", *FLAGSHIP_ARGV, "--remat", "--remat-policy",
+              "dots_attn", "--adam-mu-dtype", "bf16"]
 
 
 def drive_train(torch, fa, train, built, args, label, wanted):
@@ -1465,13 +1499,15 @@ def drive_train(torch, fa, train, built, args, label, wanted):
 
 
 def run_train(torch, fa, transformer, train, data):
-    """The flagship GQA LM at full width (bench.py:636, without remat),
-    6 steps of global batch 32 x 2048 as 4 microbatches of 8, through
+    """The flagship GQA LM at full width (bench.py:636 as written: remat
+    under dots_attn), 6 steps of global batch 32 x 2048 as 4 microbatches
+    of 8, through
     transformer.build and train.train_loop. The plain cross-check runs
     before the loop, on the seeded init, and after it, on the trained
     weights (see gate_train_plain for what each gates). Launch counters
     are zeroed just before the loop and read just after: K1 and K2 once
-    per layer per microbatch, the merge kernel never."""
+    per layer per microbatch (dots_attn saves K1's outputs, so the
+    backward does not re-run it), the merge kernel never."""
     args = transformer.parse_args(TRAIN_ARGV)
     built = transformer.build(args)
     # Two rows from another seed, so the training stream is untouched.
@@ -1489,7 +1525,7 @@ def run_train(torch, fa, transformer, train, data):
                                 tokens)
     gate_train_plain(trained, at_init=False)
     return {
-        "model": "lm_flagship_gqa_kv4 (bench.py:636), no remat",
+        "model": "lm_flagship_gqa_kv4 (bench.py:636), as written",
         "argv": TRAIN_ARGV,
         "params": sum(p.numel() for p in built.model.parameters()),
         **loop,
@@ -1503,7 +1539,7 @@ def run_train(torch, fa, transformer, train, data):
     }, built
 
 
-# --- phase: checkpoint --------------------------------------------------------
+# --- phase: checkpoint -------------------------------------------------------
 
 
 # One flagship training checkpoint: f32 params (1.96 GB) + bf16 adam mu
@@ -1519,8 +1555,8 @@ def _ckpt_drive(torch, train, steptrace, built, steps, ck):
     loop's seconds and the recorder's rows."""
     losses = []
 
-    def step(batch):
-        metrics = built.step(batch)
+    def step(*batch):
+        metrics = built.step(*batch)
         losses.append(metrics["loss"])  # stays on the card until the end
         return metrics
 
@@ -1536,17 +1572,14 @@ def _ckpt_drive(torch, train, steptrace, built, steps, ck):
 
 
 def _state_mismatches(torch, got, want) -> list:
-    """Names of the tensors (params, mu.<i>, nu.<i>, count) that are not
-    bit-equal between two TrainStates."""
+    """Names of the tensors (params, the optimizer state's entries) that
+    are not bit-equal between two TrainStates."""
     bad = [n for n, p in want.params.items()
            if not torch.equal(got.params[n], p)]
-    for name in ("mu", "nu"):
-        for i, (a, b) in enumerate(zip(getattr(got.opt, name),
-                                       getattr(want.opt, name))):
-            if a.dtype != b.dtype or not torch.equal(a, b):
-                bad.append(f"{name}.{i}")
-    if got.opt.count != want.opt.count:
-        bad.append("count")
+    mine, theirs = got.opt.state_dict(), want.opt.state_dict()
+    bad += [n for n, t in theirs.items()
+            if n not in mine or mine[n].dtype != t.dtype
+            or not torch.equal(mine[n], t)]
     return bad
 
 
@@ -1754,7 +1787,7 @@ def run_checkpoint(torch, fa, transformer, train, serve, bootstrap,
                 if "checkpoint" in r}
 
     return {
-        "model": "lm_flagship_gqa_kv4 (bench.py:636), no remat",
+        "model": "lm_flagship_gqa_kv4 (bench.py:636), as written",
         "argv": TRAIN_ARGV,
         "dir_free_gb_before": free / 1e9,
         "loss_trajectory_unbroken": u_losses,
@@ -1784,8 +1817,10 @@ def run_checkpoint(torch, fa, transformer, train, serve, bootstrap,
     }
 
 
+# bench.py:661 lm_longctx_T8192_gqa as written, plus the ring.
 SP_TRAIN_ARGV = ["--steps", "4", "--batch", "8", "--seq-len", "8192",
                  "--grad-accum", "4", "--adam-mu-dtype", "bf16",
+                 "--remat", "--remat-policy", "dots_attn",
                  "--vocab", "32768", "--dim", "2048", "--heads", "16",
                  "--kv-heads", "4", "--layers", "8", "--seq-parallel", "4",
                  "--sp-layout", "striped", "--seed", "0", "--log-every", "0",
@@ -1829,13 +1864,15 @@ def check_sp_vs_single(torch, transformer, model, tokens, mesh, layout):
 
 def run_train_sp(torch, fa, transformer, train, data):
     """The long-context flagship (bench.py:661 lm_longctx_T8192_gqa,
-    without remat) with --seq-parallel 4 --sp-layout striped: 4 steps of
-    global batch 8 x 8192 as 4 microbatches of 2, the whole ring of 4
-    shards in this one process, through transformer.build and
-    train.train_loop. Before the loop, one row's loss and gradients on the
-    ring are held against the single-shard kernel path. Launch counters
-    are zeroed just before the loop and read just after: the merge kernel
-    and both backward kernels N^2 = 16 times per layer per microbatch, K1
+    as written, remat under dots_attn) with --seq-parallel 4 --sp-layout
+    striped: 4 steps of global batch 8 x 8192 as 4 microbatches of 2, the
+    whole ring of 4 shards in this one process, through transformer.build
+    and train.train_loop. Before the loop, one row's loss and gradients on
+    the ring are held against the single-shard kernel path. Launch
+    counters are zeroed just before the loop and read just after: both
+    backward kernels N^2 = 16 times per layer per microbatch, the merge
+    kernel twice that (no policy names the ring's outputs, so the
+    backward re-runs the forward ring, as the reference's does), K1
     never."""
     args = transformer.parse_args(SP_TRAIN_ARGV)
     built = transformer.build(args)
@@ -1848,10 +1885,11 @@ def run_train_sp(torch, fa, transformer, train, data):
     n = args.seq_parallel
     per_path = args.layers * args.grad_accum * args.steps * n * n
     loop = drive_train(torch, fa, train, built, args, "train_sp",
-                       {"flash_merge": per_path, "flash_bwd_dq": per_path,
+                       {"flash_merge": 2 * per_path,
+                        "flash_bwd_dq": per_path,
                         "flash_bwd_dkv": per_path, "flash_fwd": 0})
     return {
-        "model": "lm_longctx_T8192_gqa (bench.py:661), no remat",
+        "model": "lm_longctx_T8192_gqa (bench.py:661), as written",
         "argv": SP_TRAIN_ARGV,
         "mesh": {"world": mesh.world, "seq_procs": mesh.seq_procs,
                  "seq_shards": mesh.seq_shards, "data": mesh.data},
@@ -1994,6 +2032,367 @@ def gate_train_plain(check, *, at_init: bool) -> None:
             f"its norm against K1 + the plain backward")
 
 
+# --- phase: remat ------------------------------------------------------------
+
+
+# How many times each policy runs K1 per layer and microbatch: the forward,
+# and again in the backward unless the policy saves the flash_fwd op's
+# outputs.
+REMAT_K1_RUNS = {None: 1, "full": 2, "dots": 2, "dots_attn": 1,
+                 "dots_attn_gelu": 1, "attn": 1, "attn_block": 1}
+
+
+def run_remat(torch, fa, transformer, train, models):
+    """lm_flagship_gqa_kv4 as written (bench.py:636) but for its policy,
+    2 steps without remat and under each of the six --remat-policy
+    values, each a fresh transformer.build from the same seeded init, on
+    the same batches, through train.train_loop with the counters zeroed
+    just before each loop and read just after. Gates: the losses and the
+    params after step 2 bit-equal to the no-remat run's under every
+    policy; K1 launched REMAT_K1_RUNS x layers x microbatches x steps
+    times, K2 once per layer and microbatch; ``full`` peaks lower than no
+    remat. Prints each run's peak memory and step time."""
+    steps = 2
+    runs, ref_params = {}, None
+    for policy in (None,) + models.REMAT_POLICIES:
+        argv = ["--steps", str(steps), *FLAGSHIP_ARGV, "--adam-mu-dtype",
+                "bf16"]
+        if policy is not None:
+            argv += ["--remat", "--remat-policy", policy]
+        args = transformer.parse_args(argv)
+        built = transformer.build(args)
+        per = args.layers * args.grad_accum * steps
+        label = f"remat {policy or 'off'}"
+        loop = drive_train(torch, fa, train, built, args, label,
+                           {"flash_fwd": REMAT_K1_RUNS[policy] * per,
+                            "flash_bwd_dq": per, "flash_bwd_dkv": per,
+                            "flash_merge": 0})
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in built.model.parameters()])
+        if policy is None:
+            ref_params, ref_losses = flat, loop["loss_trajectory"]
+        else:
+            require(loop["loss_trajectory"] == ref_losses,
+                    f"{label}: losses {loop['loss_trajectory']} are not "
+                    f"bit-equal to no remat's {ref_losses}")
+            require(torch.equal(flat, ref_params),
+                    f"{label}: params after step {steps} are not bit-equal "
+                    f"to no remat's ({int((flat != ref_params).sum())} "
+                    f"elements differ)")
+            del flat
+        runs[policy or "off"] = {
+            "launches": loop["launches"],
+            "loss_trajectory": loop["loss_trajectory"],
+            "peak_memory_gb": loop["peak_memory_gb"],
+            "step_seconds": loop["step_seconds"]}
+        del built
+        torch.cuda.empty_cache()
+    require(runs["full"]["peak_memory_gb"] < runs["off"]["peak_memory_gb"],
+            f"remat full peaks at {runs['full']['peak_memory_gb']} GB, not "
+            f"below no remat's {runs['off']['peak_memory_gb']} GB")
+    return {"model": "lm_flagship_gqa_kv4 (bench.py:636), by policy",
+            "argv": FLAGSHIP_ARGV + ["--steps", str(steps),
+                                     "--adam-mu-dtype", "bf16"],
+            "runs": runs, "bit_equal_to_no_remat": True,
+            "smoke_reading": "2 steps of a fresh build each; the second "
+                             "step's host time, not a throughput "
+                             "measurement",
+            "nvidia_smi": nvidia_smi_line()}
+
+
+# --- phase: adam8 ------------------------------------------------------------
+
+
+# bench.py:647 lm_flagship_gqa_kv4_adam8 as written.
+ADAM8_ARGV = ["--steps", "6", *FLAGSHIP_ARGV, "--remat", "--remat-policy",
+              "dots_attn", "--optimizer", "adam8"]
+# tests/test_optimizers.py:100, the reference's drop-in bound.
+ADAM8_RTOL, ADAM8_ATOL = 5e-2, 5e-3
+
+
+def _opt_bytes(state) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in state.state_dict().values() if t.dim())
+
+
+def run_adam8(torch, fa, transformer, train, checkpoint, steptrace):
+    """lm_flagship_gqa_kv4_adam8 as written (bench.py:647), 6 steps, with
+    the counters zeroed just before the loop and read just after (K1 and
+    K2 once per layer and microbatch): every loss finite and within the
+    reference's drop-in bound (rtol 5e-2, atol 5e-3) of an f32 adam run
+    from the same init on the same batches. Then a save and restore
+    through checkpoint.Checkpointer in a ``tempfile.mkdtemp()`` directory:
+    run A trains 3 steps and saves step 3; run B, a fresh build, restores
+    it (bit-equal to A's state) and trains 4-6: its losses and final
+    params and int8 moments bit-equal to the unbroken run's. Prints the
+    optimizer state's bytes beside f32 adam's."""
+    import shutil
+    import tempfile
+
+    args = transformer.parse_args(ADAM8_ARGV)
+    per = args.layers * args.grad_accum * args.steps
+    built = transformer.build(args)
+    loop = drive_train(torch, fa, train, built, args, "adam8",
+                       {"flash_fwd": per, "flash_bwd_dq": per,
+                        "flash_bwd_dkv": per, "flash_merge": 0})
+    bytes8 = _opt_bytes(built.opt_state)
+    u_params = {n: p.detach().clone()
+                for n, p in built.model.named_parameters()}
+    u_opt = {n: t.clone() for n, t in built.opt_state.state_dict().items()}
+    del built
+    torch.cuda.empty_cache()
+
+    adam_args = transformer.parse_args(
+        [a if a != "adam8" else "adam" for a in ADAM8_ARGV])
+    adam = transformer.build(adam_args)
+    adam_loop = drive_train(torch, fa, train, adam, adam_args, "adam",
+                            {"flash_fwd": per, "flash_bwd_dq": per,
+                             "flash_bwd_dkv": per, "flash_merge": 0})
+    bytes_adam = _opt_bytes(adam.opt_state)
+    del adam
+    torch.cuda.empty_cache()
+    got, want = loop["loss_trajectory"], adam_loop["loss_trajectory"]
+    worst = max(abs(a - b) - ADAM8_RTOL * abs(b) for a, b in zip(got, want))
+    require(worst <= ADAM8_ATOL,
+            f"adam8 losses {got} leave the drop-in bound (rtol "
+            f"{ADAM8_RTOL}, atol {ADAM8_ATOL}) of adam's {want}")
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_adam8_")
+    first = args.steps // 2
+    try:
+        run_a = transformer.build(args)
+        ck_a = checkpoint.Checkpointer(ckdir, save_every=first)
+        a_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_a,
+                                          first, ck_a)
+        ck_a.close()
+        require(ck_a.last_verified_step() == first
+                and a_losses == got[:first],
+                f"adam8 run A: verified {ck_a.last_verified_step()}, losses "
+                f"{a_losses} against {got[:first]}")
+        run_b = transformer.build(args)
+        ck_b = checkpoint.Checkpointer(ckdir, save_every=first)
+        state_b, start = ck_b.restore(run_b.state)
+        mismatches = _state_mismatches(torch, state_b, run_a.state)
+        require(start == first and not mismatches,
+                f"adam8 run B restored step {start}, differing from run A "
+                f"in {mismatches[:8]}")
+        del run_a
+        torch.cuda.empty_cache()
+        b_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_b,
+                                          args.steps, ck_b)
+        ck_b.close()
+        require(b_losses == got[first:],
+                f"adam8 resumed losses {b_losses} != the unbroken run's "
+                f"{got[first:]} (bit-equal gate)")
+        off = [n for n, p in run_b.model.named_parameters()
+               if not torch.equal(p, u_params[n])]
+        off += [n for n, t in run_b.opt_state.state_dict().items()
+                if not torch.equal(t, u_opt[n])]
+        require(not off, f"adam8 resumed state differs from the unbroken "
+                         f"run's: {off[:8]}")
+        saved_bytes = ck_b.save_timings[-1].get("bytes", {}) \
+            if ck_b.save_timings else {}
+        del run_b, u_params, u_opt
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {"model": "lm_flagship_gqa_kv4_adam8 (bench.py:647), as written",
+            "argv": ADAM8_ARGV, **loop,
+            "adam_loss_trajectory": want,
+            "bound": f"every step within rtol {ADAM8_RTOL}, atol "
+                     f"{ADAM8_ATOL} of adam (tests/test_optimizers.py:100)",
+            "worst_excess_over_rtol": worst,
+            "optimizer_state_bytes": {"adam8": bytes8, "adam_f32": bytes_adam},
+            "resume_from_step": first, "resumed_losses": b_losses,
+            "resume_bit_equal": True, "saved_file_bytes": saved_bytes,
+            "nvidia_smi": nvidia_smi_line()}
+
+
+# --- phase: longctx ----------------------------------------------------------
+
+
+# bench.py:675 lm_longctx_T32768_gqa as written (3 steps).
+LONGCTX_ARGV = ["--steps", "3", "--batch", "2", "--seq-len", "32768",
+                "--grad-accum", "2", "--vocab", "32768", "--dim", "2048",
+                "--heads", "16", "--kv-heads", "4", "--layers", "8",
+                "--remat", "--remat-policy", "attn", "--optimizer", "adam8",
+                "--loss-chunk", "2048", "--seed", "0", "--log-every", "0",
+                "--device", "cuda", "--checkpoint-dir", "",
+                "--profile-dir", ""]
+# tests/test_loss_chunk.py:81: the chunked loss against the unchunked.
+CHUNK_REL_TOL = 1e-4
+
+
+def run_longctx(torch, fa, transformer, train, data):
+    """lm_longctx_T32768_gqa as written (bench.py:675: B 2 x T 32768 as 2
+    microbatches of one row, remat under attn, adam8, --loss-chunk 2048),
+    full width and depth, 3 steps through transformer.build and
+    train.train_loop, the counters zeroed just before the loop and read
+    just after: K1 and K2 once per layer and microbatch (attn saves K1's
+    outputs). Before the loop, on one row from another seed, the chunked
+    loss (forward only) against the unchunked loss of the same model,
+    within CHUNK_REL_TOL. Every loss finite; prints the step time,
+    tokens/s and the peak memory. Returns the readings and the build (for
+    its profile)."""
+    args = transformer.parse_args(LONGCTX_ARGV)
+    built = transformer.build(args)
+    (rows,) = next(data.synthetic_lm(args.seed + 1, 1, args.seq_len,
+                                     vocab=args.vocab))
+    tokens = torch.from_numpy(rows).to(built.device)
+    with torch.no_grad():
+        chunked = float(transformer.make_lm_loss(
+            built.model, loss_chunk=args.loss_chunk)(tokens)[0])
+        dense = float(transformer.make_lm_loss(built.model)(tokens)[0])
+    rel = abs(chunked - dense) / abs(dense)
+    require(rel <= CHUNK_REL_TOL,
+            f"longctx: chunked loss {chunked} vs unchunked {dense}, rel "
+            f"{rel} > {CHUNK_REL_TOL}")
+    del tokens
+    torch.cuda.empty_cache()
+    per = args.layers * args.grad_accum * args.steps
+    loop = drive_train(torch, fa, train, built, args, "longctx",
+                       {"flash_fwd": per, "flash_bwd_dq": per,
+                        "flash_bwd_dkv": per, "flash_merge": 0})
+    step_s = statistics.median(loop["step_seconds"][1:])
+    out = {"model": "lm_longctx_T32768_gqa (bench.py:675), as written",
+           "argv": LONGCTX_ARGV,
+           "params": sum(p.numel() for p in built.model.parameters()),
+           **loop, "smoke_step_seconds_median_steps_2_to_3": step_s,
+           "smoke_tokens_per_s": args.batch * args.seq_len / step_s,
+           "chunked_vs_unchunked_loss": {"chunked": chunked,
+                                         "unchunked": dense, "rel": rel,
+                                         "tol": CHUNK_REL_TOL},
+           "optimizer_state_bytes": _opt_bytes(built.opt_state),
+           "smoke_reading": "3 steps from a cold start; not a throughput "
+                            "measurement",
+           "nvidia_smi": nvidia_smi_line()}
+    return out, built
+
+
+# --- phase: classifier -------------------------------------------------------
+
+
+# cifar at its defaults (ResNet-20, widths 16/32/64, batch 1024, sgd 0.1 /
+# 0.9), 20 steps.
+CIFAR_ARGV = ["--steps", "20", "--log-every", "0", "--seed", "0",
+              "--device", "cuda", "--checkpoint-dir", "",
+              "--profile-dir", ""]
+CIFAR_CPU_STEPS = 5
+# Card against CPU, the same port from the same weights on the same
+# batches: bf16 convolutions round apart (cuDNN and oneDNN), and sgd at lr
+# 0.1 carries it on; the CPU tests see 1.3e-3 over 5 steps between the
+# port and the reference.
+CIFAR_CPU_LOSS_TOL = 2e-2
+
+
+def run_classifier(torch, cifar, train, checkpoint, steptrace):
+    """The classifier payloads on the card:
+
+    - ``cifar`` at its defaults, 20 steps through cifar.build and
+      train.train_loop: every loss finite, the last below the first; the
+      first CIFAR_CPU_STEPS losses against a CPU run of the same port from
+      the same weights on the same batches, within CIFAR_CPU_LOSS_TOL;
+      images/s over steps 6-20;
+    - a kill and resume through checkpoint.Checkpointer (6 steps unbroken;
+      run A 3 steps, saved; run B restores 3 and trains 4-6): B's losses,
+      params, BatchNorm statistics and sgd trace bit-equal to the unbroken
+      run's;
+    - ``python -m tpu_operator_torch.payload.linear --steps 200`` in a
+      subprocess on the card exits 0.
+
+    Returns the readings and the 20-step build (for its profile)."""
+    import shutil
+    import tempfile
+
+    args = cifar.parse_args(CIFAR_ARGV)
+    built = cifar.build(args)
+    init = {k: v.detach().cpu().clone()
+            for k, v in built.model.state_dict().items()}
+    losses, seconds, _rows = _ckpt_drive(torch, train, steptrace, built,
+                                         args.steps, None)
+    require(all(x == x and abs(x) < float("inf") for x in losses)
+            and losses[-1] < losses[0],
+            f"cifar: losses {losses} are not finite or do not descend")
+    step_times = []
+    x, y = (torch.from_numpy(a).to(built.device)
+            for a in next(built.batches))
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built.step(x, y)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+
+    cpu = cifar.build(cifar.parse_args(
+        [a if a != "cuda" else "cpu" for a in CIFAR_ARGV]))
+    cpu.model.load_state_dict(init)
+    cpu_losses, cpu_seconds, _rows = _ckpt_drive(torch, train, steptrace,
+                                                 cpu, CIFAR_CPU_STEPS, None)
+    gaps = [abs(a - b) for a, b in zip(losses, cpu_losses)]
+    require(max(gaps) <= CIFAR_CPU_LOSS_TOL,
+            f"cifar: card losses {losses[:CIFAR_CPU_STEPS]} vs CPU "
+            f"{cpu_losses}: gap {max(gaps)} > {CIFAR_CPU_LOSS_TOL}")
+    del cpu
+
+    resume_argv = ["--steps", "6", *CIFAR_ARGV[2:]]
+    rargs = cifar.parse_args(resume_argv)
+    whole = cifar.build(rargs)
+    w_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, whole,
+                                      rargs.steps, None)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_cifar_")
+    try:
+        run_a = cifar.build(rargs)
+        ck_a = checkpoint.Checkpointer(ckdir, save_every=3)
+        a_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_a, 3,
+                                          ck_a)
+        ck_a.close()
+        run_b = cifar.build(rargs)
+        ck_b = checkpoint.Checkpointer(ckdir, save_every=3)
+        b_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_b,
+                                          rargs.steps, ck_b)
+        ck_b.close()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    require(a_losses == w_losses[:3] and b_losses == w_losses[3:],
+            f"cifar resume: losses A {a_losses} B {b_losses} vs unbroken "
+            f"{w_losses}")
+    def tensors(state):
+        return {**state.params, **state.batch_stats,
+                **state.opt.state_dict()}
+
+    want, got = tensors(whole.state), tensors(run_b.state)
+    off = [n for n, t in want.items() if not torch.equal(t, got[n])]
+    require(not off, f"cifar resume: state differs from the unbroken "
+                     f"run's: {off[:8]}")
+    del whole, run_a, run_b
+    torch.cuda.empty_cache()
+
+    env = {k: v for k, v in os.environ.items() if k != "TPUJOB_STATUS_URL"}
+    t0 = time.perf_counter()
+    lin = subprocess.run(
+        [sys.executable, "-m", "tpu_operator_torch.payload.linear",
+         "--steps", "200"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    lin_s = time.perf_counter() - t0
+    final = [ln for ln in lin.stderr.splitlines() if "final loss" in ln]
+    require(lin.returncode == 0,
+            f"linear exited {lin.returncode}: {lin.stderr[-2000:]}")
+    median = statistics.median(step_times)
+    return {"model": "cifar ResNet-20 (payload.cifar defaults), 20 steps",
+            "argv": CIFAR_ARGV, "loss_trajectory": losses,
+            "loop_seconds": seconds,
+            "fenced_step_seconds": step_times,
+            "images_per_s": args.batch / median,
+            "cpu_check": {"steps": CIFAR_CPU_STEPS, "cpu_losses": cpu_losses,
+                          "gaps": gaps, "tol": CIFAR_CPU_LOSS_TOL,
+                          "cpu_seconds": cpu_seconds},
+            "resume": {"unbroken": w_losses, "run_a": a_losses,
+                       "run_b": b_losses, "bit_equal": True},
+            "linear": {"exit_code": lin.returncode, "seconds": lin_s,
+                       "final": final[-1] if final else ""},
+            "nvidia_smi": nvidia_smi_line()}, built
+
+
 def _classify(op: str) -> str:
     if "flash_merge" in op:
         return "K4 flash_merge"
@@ -2001,24 +2400,27 @@ def _classify(op: str) -> str:
         return "K1 flash_fwd"
     if "flash_bwd" in op:
         return "K2 flash_bwd"
+    if any(s in op for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn")):
+        return "cuDNN convolutions"
     if any(s in op for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
         return "cuBLAS"
     return "other (elementwise, reductions, copies)"
 
 
 def profile_train(torch, built):
-    """One full training step (4 microbatches + the adam update) under
-    torch.profiler, and the adam update alone, beside the host clock."""
+    """One full training step (its microbatches + the optimizer update)
+    under torch.profiler, and the optimizer update alone, beside the host
+    clock."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    (host,) = next(built.batches)
-    tokens = torch.from_numpy(host).to(built.device)
-    built.step(tokens)  # one unprofiled step
+    batch = [torch.from_numpy(a).to(built.device)
+             for a in next(built.batches)]
+    built.step(*batch)  # one unprofiled step
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        built.step(tokens)
+        built.step(*batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = _device_rows(torch, prof, 1)
@@ -2049,8 +2451,10 @@ def main() -> int:
         from tpu_operator_torch.kernels import build
         from tpu_operator_torch.payload import bootstrap
         from tpu_operator_torch.payload import checkpoint
+        from tpu_operator_torch.payload import cifar
         from tpu_operator_torch.payload import data
         from tpu_operator_torch.payload import flash_attention as fa
+        from tpu_operator_torch.payload import models
         from tpu_operator_torch.payload import ring_attention as ring_mod
         from tpu_operator_torch.payload import serve
         from tpu_operator_torch.payload import steptrace
@@ -2113,6 +2517,21 @@ def main() -> int:
         emit({"phase": "train_sp", **sp})
         emit({"phase": "profile_train_sp", **profile_train(torch, built)})
         del built
+        torch.cuda.empty_cache()
+        rmt = run_remat(torch, fa, transformer, train, models)
+        emit({"phase": "remat", **rmt})
+        a8 = run_adam8(torch, fa, transformer, train, checkpoint, steptrace)
+        emit({"phase": "adam8", **a8})
+        lc, built = run_longctx(torch, fa, transformer, train, data)
+        emit({"phase": "longctx", **lc})
+        emit({"phase": "profile_longctx", **profile_train(torch, built)})
+        del built
+        torch.cuda.empty_cache()
+        cls, built = run_classifier(torch, cifar, train, checkpoint,
+                                    steptrace)
+        emit({"phase": "classifier", **cls})
+        emit({"phase": "profile_classifier", **profile_train(torch, built)})
+        del built
     except SmokeFailure as e:
         emit({"phase": "failed", "error": str(e)})
         return 1
@@ -2134,7 +2553,11 @@ def main() -> int:
          "launches_by_path": {"train": tr["launches"]["flash_fwd"],
                               "serve": sv["launches"]["flash_fwd"],
                               "checkpoint_resume":
-                                  ckp["launches_run_b"]["flash_fwd"]},
+                                  ckp["launches_run_b"]["flash_fwd"],
+                              "adam8": a8["launches"]["flash_fwd"],
+                              "longctx": lc["launches"]["flash_fwd"],
+                              **{f"remat_{k}": r["launches"]["flash_fwd"]
+                                 for k, r in rmt["runs"].items()}},
          "max_abs_err": max(r["max_abs_err_O"] for r in fwd.values()),
          "worst_err_over_tol": max(r["worst_err_over_tol_O"]
                                    for r in fwd.values()),
@@ -2179,7 +2602,11 @@ def main() -> int:
                 "train": tr["launches"][f"flash_bwd_{name}"],
                 "checkpoint_resume":
                     ckp["launches_run_b"][f"flash_bwd_{name}"],
-                "ring_check": rng["striped"]["launches"][f"flash_bwd_{name}"]},
+                "ring_check": rng["striped"]["launches"][f"flash_bwd_{name}"],
+                "adam8": a8["launches"][f"flash_bwd_{name}"],
+                "longctx": lc["launches"][f"flash_bwd_{name}"],
+                **{f"remat_{k}": r["launches"][f"flash_bwd_{name}"]
+                   for k, r in rmt["runs"].items()}},
             "max_abs_err": bwd_err[name],
             "worst_err_over_tol": bwd_excess_of[name],
             "ms": main_bwd[f"ms_{name}"],

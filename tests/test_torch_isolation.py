@@ -101,3 +101,20 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_classifier_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    """cifar and linear default to the CUDA device too: without a card
+    their builds raise unless the caller asks for the CPU."""
+    from tpu_operator_torch.payload import bootstrap, cifar, linear
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cifar.build(cifar.parse_args(["--checkpoint-dir", "",
+                                      "--profile-dir", ""]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        linear.run(bootstrap.process_info_from_env({}),
+                   linear.parse_args(["--profile-dir", ""]))
+    tiny = ["--device", "cpu", "--batch", "8", "--widths", "4", "4", "4",
+            "--blocks", "1", "--checkpoint-dir", "", "--profile-dir", ""]
+    assert cifar.build(cifar.parse_args(tiny)).device == torch.device("cpu")

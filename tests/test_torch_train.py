@@ -123,8 +123,10 @@ def test_optimizer_flags():
     opt = optimizers.from_args(args)
     assert opt.mu_dtype == torch.bfloat16 and opt.lr == 3e-3
     assert optimizers.from_args(transformer.parse_args([])).mu_dtype is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.from_args(transformer.parse_args(["--optimizer", "adam8"]))
+    opt8 = optimizers.from_args(transformer.parse_args(
+        ["--optimizer", "adam8", "--seed", "5"]))
+    assert isinstance(opt8, optimizers.Adam8)
+    assert opt8.lr == 3e-3 and opt8.seed == 5
 
 
 # --- data ----------------------------------------------------------------------
@@ -285,8 +287,7 @@ def test_build_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("flag", [
     ["--seq-parallel", "2", "--sp-mode", "ulysses"],
     ["--tensor-parallel", "2"], ["--sp-mode", "ulysses"],
-    ["--split-qkv", "on"], ["--fsdp"], ["--loss-chunk", "32"],
-    ["--remat"], ["--profile-dir", "/tmp/prof"], ["--optimizer", "adam8"],
+    ["--split-qkv", "on"], ["--fsdp"], ["--profile-dir", "/tmp/prof"],
 ], ids=lambda f: f[0])
 def test_unported_flags_raise(flag):
     """Sequence parallelism itself is ported (tests/test_torch_ring_
@@ -294,6 +295,22 @@ def test_unported_flags_raise(flag):
     args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.build(args)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--loss-chunk", "32"], ["--remat"], ["--optimizer", "adam8"],
+    ["--remat", "--remat-policy", "attn", "--optimizer", "adam8",
+     "--loss-chunk", "16"],
+], ids=["loss_chunk", "remat", "adam8", "longctx_row_flags"])
+def test_flags_ported_in_this_slice_build_and_train(flag):
+    """--remat, --optimizer adam8 and --loss-chunk build and take a step
+    (tests/test_torch_remat.py, test_torch_adam8.py and
+    test_torch_loss_chunk.py hold them against the reference)."""
+    args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
+    built = transformer.build(args)
+    (tokens,) = next(built.batches)
+    loss = float(built.step(torch.from_numpy(tokens))["loss"])
+    assert 3 < loss < 7
 
 
 def test_checkpoint_dir_now_builds_a_checkpointer(tmp_path, monkeypatch):

@@ -172,6 +172,16 @@ def world_size() -> int:
     return 1
 
 
+def rank() -> int:
+    """This process's rank in the job's group (0 when no group was
+    formed)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def shutdown() -> None:
     """Leave the process group, if one was formed."""
     import torch.distributed as dist

@@ -17,10 +17,14 @@ The on-disk format is the port's own (orbax checkpoints are not read). A
 step is the directory ``<dir>/<step>/`` holding
 
 - ``params.pt``: the named params, ``torch.save`` of CPU tensors;
-- ``opt.pt``: the optimizer state (``count``, ``mu.<i>``, ``nu.<i>``,
-  :meth:`AdamState.state_dict`), absent for a params-only state;
-- ``meta.json``: the step, every tensor's shape and dtype, and adam's mu
-  dtype;
+- ``opt.pt``: the optimizer state under its own names (adam's
+  ``count``, ``mu.<i>``, ``nu.<i>``; adam8's ``count``, ``seed`` and the
+  int8 moments with their scales; sgd's ``trace.<i>``: each state's
+  ``state_dict``), absent for a params-only state;
+- ``batch_stats.pt``: a classifier's BatchNorm running statistics, when
+  the state has them;
+- ``meta.json``: the step, every tensor's shape and dtype, the optimizer
+  (``optimizer``) and adam's mu dtype (``adamMuDtype``);
 - ``manifest.tpuop.json``: every other file's size and sha256, written
   last.
 
@@ -88,7 +92,6 @@ import torch
 import torch.distributed as dist
 
 from tpu_operator_torch.payload import bootstrap
-from tpu_operator_torch.payload.optimizers import AdamState
 
 log = logging.getLogger(__name__)
 
@@ -109,6 +112,7 @@ DEFAULT_FAIL_AFTER = 3
 
 PARAMS_FILE = "params.pt"
 OPT_FILE = "opt.pt"
+STATS_FILE = "batch_stats.pt"
 META_FILE = "meta.json"
 FORMAT_VERSION = 1
 
@@ -120,12 +124,15 @@ ENV_STORE_URI = "TPUJOB_STORE_URI"
 
 
 class TrainState(NamedTuple):
-    """What a checkpoint holds: the named params and, for a trainer, the
-    optimizer state. A restore copies into these tensors in place, so a
-    step function built on them needs no rebuild."""
+    """What a checkpoint holds: the named params, for a trainer the
+    optimizer state (``optimizers.AdamState``, ``Adam8State`` or
+    ``SGDState``), and a classifier's BatchNorm running statistics by
+    buffer name. A restore copies into these tensors in place, so a step
+    function built on them needs no rebuild."""
 
     params: Dict[str, torch.Tensor]
-    opt: Optional[AdamState] = None
+    opt: Optional[Any] = None
+    batch_stats: Optional[Dict[str, torch.Tensor]] = None
 
 
 class CheckpointError(Exception):
@@ -148,10 +155,6 @@ def _fsync(path: str) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
-
-
-def _rank() -> int:
-    return dist.get_rank() if bootstrap.world_size() > 1 else 0
 
 
 def gang_agree_step(candidate: Optional[int]) -> Optional[int]:
@@ -180,6 +183,8 @@ def _parts(state: TrainState) -> Dict[str, Dict[str, torch.Tensor]]:
     parts = {PARAMS_FILE: dict(state.params)}
     if state.opt is not None:
         parts[OPT_FILE] = state.opt.state_dict()
+    if state.batch_stats:
+        parts[STATS_FILE] = dict(state.batch_stats)
     return parts
 
 
@@ -217,7 +222,7 @@ class Checkpointer:
         # policy's memory (the same on every process of a gang).
         self._last_saved: Optional[int] = None
         self._pending: Optional[int] = None  # issued, not yet finalized
-        self._writer = _rank() == 0
+        self._writer = bootstrap.rank() == 0
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
         # The writer thread's (step, error-or-None) handoff.
@@ -379,8 +384,11 @@ class Checkpointer:
                         for f, ts in parts.items()},
         }
         if state.opt is not None:
-            mu = state.opt.mu[0].dtype if state.opt.mu else torch.float32
-            meta["adamMuDtype"] = "bf16" if mu == torch.bfloat16 else "f32"
+            meta["optimizer"] = state.opt.kind
+            if state.opt.kind == "adam":
+                mu = state.opt.mu[0].dtype if state.opt.mu else torch.float32
+                meta["adamMuDtype"] = ("bf16" if mu == torch.bfloat16
+                                       else "f32")
         return _Snapshot(host, meta, event)
 
     def _write_worker(self, step: int, snap: _Snapshot,
@@ -649,9 +657,9 @@ class Checkpointer:
     def _load(self, step: int, state: TrainState) -> None:
         """Read the step's files for ``state`` and copy them in place.
         Every file is read and checked against the live tensors (names,
-        shapes; the optimizer's dtypes too) before anything is copied, so
-        a failed load leaves the state as it was. Params copy into the
-        live dtype (a server keeps bf16 weights)."""
+        shapes; the optimizer's kind and dtypes too) before anything is
+        copied, so a failed load leaves the state as it was. Params copy
+        into the live dtype (a server keeps bf16 weights)."""
         root = self._step_dir(step)
         with open(os.path.join(root, META_FILE), encoding="utf-8") as f:
             meta = json.load(f)
@@ -659,24 +667,38 @@ class Checkpointer:
             raise CheckpointError(
                 f"{META_FILE} of step {step}: format {meta.get('format')}, "
                 f"step {meta.get('step')} (wanted {FORMAT_VERSION}, {step})")
+        if state.opt is not None:
+            # A step saved before the optimizer was named holds adam's.
+            saved_kind = meta.get("optimizer", "adam")
+            if saved_kind != state.opt.kind:
+                raise CheckpointError(
+                    f"step {step} holds {saved_kind} state; the optimizer "
+                    f"is {state.opt.kind} (a restore across a change of "
+                    f"--optimizer is refused)")
         saved = {fname: torch.load(os.path.join(root, fname),
                                    map_location="cpu", weights_only=True)
                  for fname in _parts(state)}
-        params = saved[PARAMS_FILE]
-        if set(params) != set(state.params):
-            missing = sorted(set(state.params) - set(params))
-            extra = sorted(set(params) - set(state.params))
-            raise CheckpointError(f"params differ from the model: missing "
-                                  f"{missing[:4]}, extra {extra[:4]}")
-        for name, live in state.params.items():
-            if params[name].shape != live.shape:
-                raise CheckpointError(
-                    f"param {name}: saved shape {list(params[name].shape)}, "
-                    f"model {list(live.shape)}")
+        named = [(PARAMS_FILE, "param", state.params)]
+        if state.batch_stats:
+            named.append((STATS_FILE, "batch stat", state.batch_stats))
+        for fname, what, live_tensors in named:
+            got = saved[fname]
+            if set(got) != set(live_tensors):
+                missing = sorted(set(live_tensors) - set(got))
+                extra = sorted(set(got) - set(live_tensors))
+                raise CheckpointError(f"{what}s differ from the model: "
+                                      f"missing {missing[:4]}, extra "
+                                      f"{extra[:4]}")
+            for name, live in live_tensors.items():
+                if got[name].shape != live.shape:
+                    raise CheckpointError(
+                        f"{what} {name}: saved shape "
+                        f"{list(got[name].shape)}, model {list(live.shape)}")
         if state.opt is not None:
             state.opt.load_state_dict(saved[OPT_FILE])  # checks, then copies
-        for name, live in state.params.items():
-            live.copy_(params[name])
+        for fname, _what, live_tensors in named:
+            for name, live in live_tensors.items():
+                live.copy_(saved[fname][name])
 
     def restore(self, state: TrainState) -> Tuple[TrainState, int]:
         """``(state, start_step)``: the newest valid step agreed across the

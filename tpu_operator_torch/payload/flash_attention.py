@@ -21,14 +21,19 @@ Five kernels in four sources, all in ``tpu_operator_torch/kernels/csrc/``:
   launches the two kernels of ``flash_bwd.cu``, the port of
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: dQ, dK, dV from the forward's
   O and L, with D = rowsum(dO * O) fused or given, causal offsets with a
-  stride, and grads in bf16 or f32. :class:`FlashAttention` (the custom
-  VJP of the reference's ``_attn``) pairs it with the forward, so
-  :func:`flash_attention` is differentiable.
+  stride, and grads in bf16 or f32.
 - :func:`merge_kv_block` (every step of the forward ring,
   ``ring_attention.py``) launches ``flash_merge.cu``, the port of
   ``_merge_kernel``: one visiting K/V block folded into the f32 (o, l, m)
   carry of the resident queries, causal offsets with a stride, no
   finalize. It writes a new carry and leaves the one it was given intact.
+
+K1 and K2 are reached through two torch custom ops,
+``tpu_operator_torch::flash_fwd`` and ``tpu_operator_torch::flash_bwd``
+(:func:`flash_fwd_op`, :func:`flash_bwd_op`): the forward op's autograd
+pairs them (the custom VJP of the reference's ``_attn``), so
+:func:`flash_attention` is differentiable, and a selective-checkpoint
+policy can save the forward's two outputs by op (``models.remat_policy``).
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor goes to
 the kernel (bf16, head dim 128, contiguous) or the call raises; a CPU
@@ -249,7 +254,7 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-# --- kernel wrappers -----------------------------------------------------------
+# --- kernel wrappers ---------------------------------------------------------
 
 
 def _check_kernel_inputs(name: str, tensors: Dict[str, torch.Tensor],
@@ -538,19 +543,100 @@ def _route(q: torch.Tensor) -> str:
     raise ValueError(f"no attention path for device {q.device}")
 
 
-# --- public entry points -------------------------------------------------------
+# --- K1 and K2 as torch custom ops -------------------------------------------
+#
+# A ctypes call is not a torch op: no TorchDispatchMode sees it, so a
+# selective-checkpoint policy (models.remat_policy) could not save the
+# forward kernel's outputs. The two ops below are what every
+# differentiable attention (flash_attention) and every prefill
+# (flash_attention_with_lse) dispatch. Each has a CUDA implementation (the
+# kernels, or raise), a CPU one (the plain versions) and a fake one
+# (shapes and dtypes only). Launches are counted inside the CUDA wrappers,
+# so a fake or CPU call never counts.
+
+
+@torch.library.custom_op("tpu_operator_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B,T,H,D] in q.dtype, L [B,H,T,1] f32): K1 on CUDA."""
+    return _flash_fwd_cuda(q, k, v, causal)
+
+
+@flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, causal):
+    out, lse = _attn_ref(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                         v.permute(0, 2, 1, 3), causal)
+    return out.permute(0, 2, 1, 3).contiguous(), lse
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal):
+    b, t, h, _d = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, t, 1), dtype=torch.float32))
+
+
+@torch.library.custom_op("tpu_operator_torch::flash_bwd", mutates_args=(),
+                         device_types="cuda")
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 g: torch.Tensor, L: torch.Tensor, out: torch.Tensor,
+                 causal: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_fwd_op` at offsets (0, 0, 1), D fused,
+    grads in q's dtype: K2's two kernels on CUDA."""
+    return _flash_bwd_cuda(q, k, v, g, L, out, None, (0, 0, 1), causal,
+                           q.dtype)
+
+
+@flash_bwd_op.register_kernel("cpu")
+def _flash_bwd_cpu(q, k, v, g, L, out, causal):
+    return tuple(x.contiguous() for x in attention_block_grads(
+        q, k, v, g, L, out, (0, 0, 1), causal=causal, grad_dtype=q.dtype))
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, g, L, out, causal):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
+
+
+def _flash_fwd_setup(ctx, inputs, output) -> None:
+    q, k, v, causal = inputs
+    out, lse = output
+    # L is a residual of the backward, as in the reference's custom VJP:
+    # it carries no gradient.
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal = causal
+
+
+def _flash_fwd_backward(ctx, g, _g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd_op(q, k, v, g.contiguous(), lse, out, ctx.causal)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_flash_fwd_backward,
+                               setup_context=_flash_fwd_setup)
+
+# The overload a TorchDispatchMode (a remat policy) sees.
+FLASH_FWD = torch.ops.tpu_operator_torch.flash_fwd.default
+
+
+# --- public entry points -----------------------------------------------------
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B,T,H,D] in q.dtype, L [B,H,T,1] f32). K/V may carry fewer
-    (grouped) heads. CUDA: the fused kernel; CPU: the plain version."""
-    if _route(q) == "cuda":
-        return _flash_fwd_cuda(q, k, v, causal)
-    out, lse = _attn_ref(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
-                         v.permute(0, 2, 1, 3), causal)
-    return out.permute(0, 2, 1, 3), lse
+    (grouped) heads. CUDA: the fused kernel; CPU: the plain version; both
+    through the ``flash_fwd`` op. Differentiable in ``out`` (L carries no
+    gradient)."""
+    _route(q)
+    return flash_fwd_op(q, k, v, causal)
 
 
 def attention_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -569,7 +655,8 @@ def attention_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fused into the kernels; a caller reusing one dO/O across many blocks
     passes ``D`` [B,H,Tq,1] f32 instead (``out`` is then unused). Grads
     come in ``grad_dtype``. CUDA: the two backward kernels; CPU: the plain
-    version."""
+    version. A direct call, not an op: the ring's backward (given D, f32
+    grads) runs it, and no remat policy saves its outputs."""
     offs = _normalize_offsets(offsets)
     if _route(q) == "cuda":
         if D is not None:
@@ -585,34 +672,14 @@ def attention_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(x.permute(0, 2, 1, 3).to(grad_dtype) for x in (dq, dk, dv))
 
 
-class FlashAttention(torch.autograd.Function):
-    """Exact attention with the flash backward (the reference's ``_attn``
-    custom VJP): the forward saves (q, k, v, O, L); the backward runs
-    :func:`attention_block_grads` at offsets (0, 0, 1) with fused D and
-    grads in the input dtype."""
-
-    @staticmethod
-    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool) -> torch.Tensor:
-        out, lse = flash_attention_with_lse(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
-        return out
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = attention_block_grads(
-            q, k, v, g.contiguous(), lse, out, (0, 0, 1), causal=ctx.causal,
-            grad_dtype=q.dtype)
-        return dq, dk, dv, None
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Single-device exact attention, [B,T,H,D] in and out; differentiable
-    through :class:`FlashAttention`."""
-    return FlashAttention.apply(q, k, v, causal)
+    through the ``flash_fwd`` op's autograd (the reference's ``_attn``
+    custom VJP): the forward saves (q, k, v, O, L) and the backward is the
+    ``flash_bwd`` op at offsets (0, 0, 1) with fused D and grads in the
+    input dtype."""
+    return flash_attention_with_lse(q, k, v, causal=causal)[0]
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,7 +3,15 @@ part of ``tpu_operator/payload/train.py`` that one process per card uses).
 
 - :func:`next_token_nll` / :func:`next_token_nll_masked`: the reference's
   loss, the logsumexp over an f32 cast of the bf16 logits minus the target
-  logit gathered from the bf16 logits.
+  logit gathered from the bf16 logits; :func:`chunked_next_token_nll`
+  (``--loss-chunk``) computes it with the ``lm_head`` product chunk by
+  chunk over T, each chunk recomputed in the backward, so the
+  [B, T, vocab] logits never exist whole. :func:`cross_entropy` and
+  :func:`fused_cross_entropy` are the classifier's.
+- :func:`make_classifier_train_step` / :func:`make_regression_train_step`:
+  the classifier (loss and accuracy; BatchNorm statistics folded in after
+  the update; ``--remat-policy`` other than ``full`` checkpoints the
+  forward) and the linear regression (MSE).
 - :func:`make_loss_train_step`: the counterpart of ``make_loss_train_step``
   (``train.py:397``). With ``grad_accum`` K, each of K microbatches runs a
   backward of ``loss / K`` into the f32 ``.grad`` of the params, then one
@@ -44,9 +52,13 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+import torch.nn.functional as F
+from torch.utils import checkpoint as checkpoint_mod
+
 from tpu_operator_torch.payload import bootstrap as bootstrap_mod
 from tpu_operator_torch.payload import data as data_mod
 from tpu_operator_torch.payload import heartbeat as heartbeat_mod
+from tpu_operator_torch.payload import models as models_mod
 from tpu_operator_torch.payload import steptrace as steptrace_mod
 
 log = logging.getLogger(__name__)
@@ -77,6 +89,69 @@ def next_token_nll_masked(logits: torch.Tensor, targets: torch.Tensor,
     if count is not None:
         return total / max(int(count), 1)
     return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def _chunk_nll_sum(xc: torch.Tensor, w_head: torch.Tensor,
+                   tc: torch.Tensor, mc: torch.Tensor) -> torch.Tensor:
+    # The cast sits inside the chunk: its backward hands the f32 head
+    # weight one gradient per chunk, summed in f32 (a cast hoisted out
+    # would sum them in bf16; the reference measured 3.3x the error).
+    logits = F.linear(xc, w_head.to(xc.dtype))
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = logits.gather(-1, tc.long()[..., None])[..., 0].float()
+    return ((lse - tgt) * mc).sum()
+
+
+def chunked_next_token_nll_masked(hidden: torch.Tensor, w_head: torch.Tensor,
+                                  targets: torch.Tensor, mask: torch.Tensor,
+                                  chunk: int) -> torch.Tensor:
+    """:func:`next_token_nll_masked` without the [B, T, vocab] logits:
+    ``hidden`` [B, T, d] (bf16) times the head weight ``w_head``
+    [vocab, d] (``lm_head.weight``, cast to hidden's dtype inside each
+    chunk) and the loss, chunk by chunk over T, each chunk under
+    ``torch.utils.checkpoint`` so the backward recomputes its logits. The
+    per-chunk sums add in f32; equal to the unchunked loss to f32
+    summation order."""
+    b, t, _d = hidden.shape
+    if chunk <= 0 or t % chunk != 0:
+        raise ValueError(
+            f"loss chunk {chunk} must be positive and divide T={t}")
+    mask = torch.broadcast_to(mask.float(), (b, t))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for xc, tc, mc in zip(hidden.split(chunk, dim=1),
+                          targets.split(chunk, dim=1),
+                          mask.split(chunk, dim=1)):
+        total = total + checkpoint_mod.checkpoint(
+            _chunk_nll_sum, xc, w_head, tc, mc, use_reentrant=False,
+            preserve_rng_state=False)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def chunked_next_token_nll(hidden: torch.Tensor, w_head: torch.Tensor,
+                           tokens: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The chunked :func:`next_token_nll`: position i's target is token
+    i + 1, the last position masked out."""
+    b, t = tokens.shape
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros(b, 1)], dim=1)
+    mask = torch.arange(t, device=tokens.device) < t - 1
+    return chunked_next_token_nll_masked(hidden, w_head, targets, mask,
+                                         chunk)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy from an f32 log-softmax (the reference's)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()
+
+
+def fused_cross_entropy(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """:func:`cross_entropy` as logsumexp minus the target logit, in f32:
+    no [B, classes] log-prob tensor; equal to summation order."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(1, labels.long()[:, None])[:, 0]
+    return (lse - tgt).mean()
 
 
 def all_reduce_grads(params: Sequence[torch.Tensor], metrics: Metrics,
@@ -133,6 +208,79 @@ def make_loss_train_step(loss_fn: Callable[[torch.Tensor],
             micro_metrics.append({k: v.detach() for k, v in metrics.items()})
         metrics = {k: torch.stack([m[k] for m in micro_metrics]).mean()
                    for k in micro_metrics[0]}
+        if reduce is not None:
+            metrics = reduce(params, metrics)
+        optimizer.step(params, opt_state)
+        return metrics
+
+    return step
+
+
+def make_classifier_train_step(model, optimizer, opt_state,
+                               remat_policy: str = "full",
+                               fused_loss: bool = False,
+                               reduce: Optional[Callable[
+                                   [Sequence[torch.Tensor], Metrics],
+                                   Metrics]] = None
+                               ) -> Callable[[torch.Tensor, torch.Tensor],
+                                             Metrics]:
+    """``step(images, labels) -> {"loss", "accuracy"}`` for a model whose
+    ``forward(images, train=True)`` returns (logits, new running
+    statistics) (``models.CifarResNet``): the loss (:func:`cross_entropy`,
+    or :func:`fused_cross_entropy` with ``fused_loss``) backpropagated
+    into the params' ``.grad``, ``reduce(params, metrics)`` when given
+    (the multi-process all-reduce), the optimizer update, then the new
+    statistics copied into the model's buffers. The statistics come out
+    of the forward as values, so with ``remat_policy`` other than
+    ``full`` (the forward under ``torch.utils.checkpoint`` with that
+    policy, the reference's step-level remat) the recompute cannot apply
+    them twice."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    loss_of = fused_cross_entropy if fused_loss else cross_entropy
+    models_mod.remat_policy(remat_policy)  # validates the mode
+
+    def forward(images):
+        return model(images, train=True)
+
+    def step(images: torch.Tensor, labels: torch.Tensor) -> Metrics:
+        for p in params:
+            p.grad = None
+        if remat_policy != "full":
+            logits, stats = models_mod.checkpointed(forward, remat_policy,
+                                                    images)
+        else:
+            logits, stats = forward(images)
+        loss = loss_of(logits, labels)
+        loss.backward()
+        with torch.no_grad():
+            accuracy = (logits.argmax(dim=1) == labels).float().mean()
+        metrics = {"loss": loss.detach(), "accuracy": accuracy}
+        if reduce is not None:
+            metrics = reduce(params, metrics)
+        optimizer.step(params, opt_state)
+        model.load_batch_stats(stats)
+        return metrics
+
+    return step
+
+
+def make_regression_train_step(model, optimizer, opt_state,
+                               reduce: Optional[Callable[
+                                   [Sequence[torch.Tensor], Metrics],
+                                   Metrics]] = None
+                               ) -> Callable[[torch.Tensor, torch.Tensor],
+                                             Metrics]:
+    """``step(x, y) -> {"loss"}``: the mean squared error of ``model(x)``
+    against ``y``, one optimizer update (``reduce`` as in
+    :func:`make_classifier_train_step`)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(x: torch.Tensor, y: torch.Tensor) -> Metrics:
+        for p in params:
+            p.grad = None
+        loss = ((model(x) - y) ** 2).mean()
+        loss.backward()
+        metrics = {"loss": loss.detach()}
         if reduce is not None:
             metrics = reduce(params, metrics)
         optimizer.step(params, opt_state)

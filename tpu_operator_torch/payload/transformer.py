@@ -10,7 +10,13 @@ the synthetic recurrence; ``--device cpu`` with small widths runs the
 plain PyTorch path. The numerics follow the reference: f32 master params,
 bf16 compute (``models.py``), the differentiable flash attention (the
 forward and backward kernels on the card), the f32 next-token loss, and
-adam with an optional bf16 first moment (``optimizers.py``).
+adam with an optional bf16 first moment or adam8 (``optimizers.py``).
+
+``--remat [--remat-policy P]`` recomputes each block in the backward under
+the policy's selective checkpoint (``models.remat_block``);
+``--loss-chunk C`` runs the ``lm_head`` product and the loss in chunks of
+C tokens (``train.chunked_next_token_nll``). The long-context row
+(``bench.py:675`` ``lm_longctx_T32768_gqa``) takes both, with adam8.
 
 ``--seq-parallel N [--sp-layout striped]`` shards the sequence into N
 ring shards (``ring_attention.py``: the merge kernel forward, the backward
@@ -25,9 +31,8 @@ layouts (the identity permutation for contiguous).
 attempt resumes from the newest verified step (``checkpoint.py``).
 
 The flags of the reference that are not ported yet (tensor parallelism,
-Ulysses, FSDP, remat, chunked loss, profiling, adam8) parse with the
-reference's defaults and raise NotImplementedError when set away from
-them; ROADMAP Queue A lists them.
+Ulysses, FSDP, profiling) parse with the reference's defaults and raise
+NotImplementedError when set away from them; ROADMAP Queue A lists them.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-from typing import Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,8 +58,7 @@ from tpu_operator_torch.payload.models import TransformerLM
 
 log = logging.getLogger(__name__)
 
-ENV_PREFETCH_DEPTH = "TPUJOB_DATAPLANE_PREFETCH_DEPTH"
-DEFAULT_PREFETCH_DEPTH = 2
+prefetch_depth = data_mod.prefetch_depth
 
 
 def parse_args(argv=None):
@@ -86,7 +90,11 @@ def parse_args(argv=None):
                         "microbatches (activation-memory knob; the "
                         "optimizer sees the full-batch gradient)")
     p.add_argument("--loss-chunk", type=int, default=0,
-                   help="sequence-chunked lm_head + loss (not ported: 0)")
+                   help="compute the lm_head product + loss in sequence "
+                        "chunks of this many tokens, each recomputed in the "
+                        "backward: the [B, T, vocab] logits never exist "
+                        "whole. 0 = off. Must divide --seq-len; "
+                        "--seq-parallel 1 only")
     p.add_argument("--fsdp", action="store_true",
                    help="param and optimizer sharding (not ported)")
     p.add_argument("--adam-mu-dtype", choices=("f32", "bf16"), default="f32",
@@ -112,23 +120,11 @@ def parse_args(argv=None):
                    default=os.environ.get("TPU_PROFILE_DIR", ""),
                    help="profiler trace dir (not ported: a non-empty value "
                         "raises)")
-    p.add_argument("--prefetch-depth", type=int,
-                   default=_env_int(ENV_PREFETCH_DEPTH, 0),
-                   help="batches in flight to the device ahead of the step "
-                        "(0 = auto, the default depth "
-                        f"{DEFAULT_PREFETCH_DEPTH})")
+    data_mod.add_prefetch_argument(p)
     p.add_argument("--device", default="",
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "PyTorch path)")
     return p.parse_args(argv)
-
-
-def _env_int(var: str, default: int) -> int:
-    try:
-        return int(os.environ.get(var) or default)
-    except ValueError:
-        log.warning("ignoring malformed %s=%r", var, os.environ.get(var))
-        return default
 
 
 # flag -> (its default, the ROADMAP Queue A item that ports it)
@@ -137,7 +133,6 @@ _NOT_PORTED = {
     "sp_mode": ("ring", "7"),
     "split_qkv": ("auto", "7"),
     "fsdp": (False, "7"),
-    "loss_chunk": (0, "1"),
     "profile_dir": ("", "9"),
 }
 
@@ -157,24 +152,19 @@ def check_ported(args) -> None:
             raise ValueError(
                 "--sp-layout striped requires --seq-parallel > 1 (the "
                 "layout exists to balance the ring)")
-    if getattr(args, "loss_chunk", 0) and shards > 1:
+    chunk = getattr(args, "loss_chunk", 0)
+    if chunk and shards > 1:
         raise ValueError("--loss-chunk requires --seq-parallel 1: sequence "
                          "parallelism already shards the logits over T")
+    if chunk and (chunk < 0 or args.seq_len % chunk):
+        raise ValueError(f"--loss-chunk {chunk} must divide --seq-len "
+                         f"{args.seq_len}")
     for name, (default, item) in _NOT_PORTED.items():
         if getattr(args, name, default) != default:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} {getattr(args, name)!r} is not "
                 f"ported to the PyTorch payload yet (ROADMAP Queue A "
                 f"{item}); leave it at {default!r}")
-
-
-def prefetch_depth(args) -> int:
-    """The prefetch depth: > 0 as given, 0 = auto (the default depth)."""
-    depth = int(args.prefetch_depth)
-    if depth < 0:
-        raise ValueError(f"prefetch depth must be >= 0 (0 = auto), "
-                         f"got {depth}")
-    return depth or DEFAULT_PREFETCH_DEPTH
 
 
 def _causal_attend(_i):
@@ -232,37 +222,42 @@ def make_lm_mesh(world: Optional[int] = None, rank: Optional[int] = None,
 
 class Built(NamedTuple):
     model: TransformerLM
-    optimizer: optimizers.Adam
-    opt_state: optimizers.AdamState
+    optimizer: Any
+    opt_state: Any
     step: Callable[[torch.Tensor], train.Metrics]
     batches: Iterator[Tuple]
     device: torch.device
 
     @property
     def state(self) -> checkpoint.TrainState:
-        """The params and adam state the step updates in place: what a
-        checkpoint saves and a restore copies back."""
+        """The params and optimizer state the step updates in place: what
+        a checkpoint saves and a restore copies back."""
         return checkpoint.TrainState(dict(self.model.named_parameters()),
                                      self.opt_state)
 
 
 def build_model(args, device) -> TransformerLM:
-    """The LM at the flags' widths with f32 master params, from a seeded
+    """The LM at the flags' widths with f32 master params and the block of
+    ``compute.lm_block`` (rematerialized under ``--remat``), from a seeded
     init on ``device``."""
     model = TransformerLM(args.vocab, args.dim, args.heads, args.layers,
                           args.seq_len, kv_heads=args.kv_heads,
-                          param_dtype=torch.float32, device=device)
+                          param_dtype=torch.float32, device=device,
+                          block=compute.lm_block(args))
     gen = torch.Generator(device=device)
     gen.manual_seed(int(args.seed))
     return model.init_weights(gen)
 
 
 def make_lm_loss(model: TransformerLM, mesh: Optional[LMMesh] = None,
-                 sp_layout: str = "contiguous"):
+                 sp_layout: str = "contiguous", loss_chunk: int = 0):
     """``loss_fn(tokens) -> (loss, metrics)`` of one microbatch on ``mesh``
     (default: one process, one shard).
 
-    One shard: flash attention over the whole sequence. More: the
+    One shard: flash attention over the whole sequence; with
+    ``loss_chunk`` the model returns its final hidden state and the head
+    and loss run chunk by chunk (``train.chunked_next_token_nll``, the
+    reference's ``transformer.py:287-300``). More: the
     reference's striped step (``transformer.py:337-359``) for either layout.
     Every process holds its data rank's ``[b, T]`` tokens and takes its
     slots' tokens, positions (``perm``), targets (``(perm + 1) % T``) and
@@ -270,6 +265,19 @@ def make_lm_loss(model: TransformerLM, mesh: Optional[LMMesh] = None,
     the whole sequence's count of valid targets, b·(T - 1), so the sum over
     a seq group is the reference's loss, and so is its gradient."""
     mesh = mesh or make_lm_mesh(1, 0, 1)
+    if loss_chunk:
+        if mesh.seq_shards > 1:
+            raise ValueError(
+                "--loss-chunk requires --seq-parallel 1: sequence "
+                "parallelism already shards the logits over T")
+
+        def loss_fn(tokens):
+            hidden = model(tokens, None, _causal_attend, return_hidden=True)
+            loss = train.chunked_next_token_nll(
+                hidden, model.lm_head.weight, tokens, loss_chunk)
+            return loss, {"loss": loss.detach()}
+
+        return loss_fn
     if mesh.seq_shards == 1:
         def loss_fn(tokens):
             loss = train.next_token_nll(model(tokens, None, _causal_attend),
@@ -311,7 +319,7 @@ def make_lm_loss(model: TransformerLM, mesh: Optional[LMMesh] = None,
 
 def make_lm_train_step(model: TransformerLM, optimizer, opt_state,
                        grad_accum: int = 1, mesh: Optional[LMMesh] = None,
-                       sp_layout: str = "contiguous"):
+                       sp_layout: str = "contiguous", loss_chunk: int = 0):
     """Next-token cross-entropy step (:func:`make_lm_loss`) over
     ``model``'s trainable params (the ones ``opt_state`` was initialised
     on). With more than one process it all-reduces the gradients after the
@@ -323,7 +331,8 @@ def make_lm_train_step(model: TransformerLM, optimizer, opt_state,
         def reduce(ps, metrics):
             return train.all_reduce_grads(ps, metrics, mesh.data)
 
-    return train.make_loss_train_step(make_lm_loss(model, mesh, sp_layout),
+    return train.make_loss_train_step(make_lm_loss(model, mesh, sp_layout,
+                                                   loss_chunk),
                                       params, optimizer, opt_state,
                                       grad_accum=grad_accum, reduce=reduce)
 
@@ -334,7 +343,6 @@ def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
     (CUDA unless it says ``cpu``); ``mesh`` to the (data, seq) mesh of the
     job's process group at ``--seq-parallel``."""
     check_ported(args)
-    compute.lm_block(args)  # the plain DecoderBlock; raises under --remat
     mesh = mesh or make_lm_mesh(seq_parallel=args.seq_parallel)
     if mesh.seq_shards != args.seq_parallel:
         raise ValueError(f"mesh has {mesh.seq_shards} seq shards, "
@@ -353,7 +361,8 @@ def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
     opt_state = optimizer.init(list(model.parameters()))
     step = make_lm_train_step(model, optimizer, opt_state,
                               grad_accum=args.grad_accum, mesh=mesh,
-                              sp_layout=args.sp_layout)
+                              sp_layout=args.sp_layout,
+                              loss_chunk=args.loss_chunk)
     return Built(model, optimizer, opt_state, step,
                  data_mod.lm_batches(args, mesh), dev)
 
@@ -363,9 +372,11 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     built = build(args)
     n_params = sum(p.numel() for p in built.model.parameters())
     log.info("training %d params on %s; batch %d seq %d grad-accum %d "
-             "seq-parallel %d (%s)", n_params, built.device, args.batch,
-             args.seq_len, args.grad_accum, args.seq_parallel,
-             args.sp_layout)
+             "seq-parallel %d (%s); remat %s; optimizer %s; loss chunk %d",
+             n_params, built.device, args.batch, args.seq_len,
+             args.grad_accum, args.seq_parallel, args.sp_layout,
+             args.remat_policy if args.remat else "off", args.optimizer,
+             args.loss_chunk)
     ckpt = checkpoint.from_env_or_args(args.checkpoint_dir,
                                        save_every=args.checkpoint_every)
     if ckpt is not None and ckpt.latest_step() is not None:
