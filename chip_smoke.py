@@ -132,8 +132,39 @@ one JSON line each:
     the card exits 0. ``profile_classifier``: one cifar step under
     torch.profiler.
 
-Then one JSON line of per-kernel numbers, the ``nvidia-smi`` name/power
-line, and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
+16. ``warm_restart`` (after ``checkpoint``): the train cell as two
+    attempts of ``python -m tpu_operator_torch.payload.transformer`` with
+    the operator's store, cache and heartbeat env and a local status
+    server. Attempt 0 (empty cache dir, ``localfs`` store) builds the
+    kernel library with nvcc, saves steps 1 and 3 and ships them and the
+    library through the write-behind uploader. Attempt 1 on a fresh node
+    (empty checkpoint and cache dirs, ``NVCC`` a failing command) must
+    prefetch step 3 and the library during the rendezvous, report
+    ``cacheHit`` and ``prefetchHit`` true, resume at step 3 and train to
+    6, its beats' losses and its step-6 params and optimizer state
+    bit-equal to the checkpoint phase's unbroken run; K1 and K2 layers x
+    microbatches x 3 in each attempt (from its log). Both startup
+    breakdowns are printed.
+17. ``serve_reload``: a ServeLoop at the serve cell's flags with
+    ``TPUJOB_SERVE`` and that store, starting on step 3, under a steady
+    load; step 6 is uploaded mid-run. One reload to step 6, nothing shed
+    or failed, every request completed, the live KV pages untouched by
+    the swap, K1 and K3 launched; the greedy tokens of a fixed prompt
+    equal a fresh server's at step 6. The readiness gap is printed.
+18. ``autotune``: ``payload.cifar`` at its defaults, 20 steps with the
+    autotune env (a window of 8: two windows), beside a static run: the
+    losses bit-equal, every ``dataPlane`` body acceptable to the
+    reference's sanitizer; adjustments and images/s of both printed.
+19. ``profile_directive``: the train cell for 9 steps with a
+    ``--profile-dir`` window over steps 2-3 and a local status server
+    answering with a profile directive of 4 steps: the artifact holds 4
+    laps merged with the recorder's rows, the next beat carries the
+    result, and both torch.profiler traces name the port's flash_fwd
+    and flash_bwd kernels.
+
+Then the total wall time, one JSON line of per-kernel numbers, the
+``nvidia-smi`` name/power line, and, last, ``{"ok": true, "device":
+{...}}``. Any failed check exits
 non-zero. Without a CUDA device, or outside a checkout, it exits 1 or 2
 and prints no result.
 """
@@ -1636,6 +1667,11 @@ def run_checkpoint(torch, fa, transformer, train, serve, bootstrap,
                                                  unbroken, total, None)
         u_params = {n: p.detach().clone()
                     for n, p in unbroken.model.named_parameters()}
+        # The unbroken run's end state on the host, for warm_restart.
+        u_state = {"losses": u_losses,
+                   "params": {n: p.cpu() for n, p in u_params.items()},
+                   "opt": {n: t.detach().cpu().clone() for n, t in
+                           unbroken.opt_state.state_dict().items()}}
         del unbroken
         torch.cuda.empty_cache()
 
@@ -1814,7 +1850,7 @@ def run_checkpoint(torch, fa, transformer, train, serve, bootstrap,
                              "dir_after": left,
                              "restore": ck_n.restore_timings},
         "nvidia_smi": nvidia_smi_line(),
-    }
+    }, u_state
 
 
 # bench.py:661 lm_longctx_T8192_gqa as written, plus the ring.
@@ -2393,6 +2429,614 @@ def run_classifier(torch, cifar, train, checkpoint, steptrace):
             "nvidia_smi": nvidia_smi_line()}, built
 
 
+# --- the warm-restart and operator-runtime phases ----------------------------
+
+
+class HeartbeatListener:
+    """A local status server: collects every ``POST /api/heartbeat`` body
+    and answers with ``respond(body)`` (a JSON object)."""
+
+    def __init__(self, respond=None):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.bodies = []
+        self._lock = threading.Lock()
+        self._respond = respond or (lambda _body: {})
+        listener = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — http.server API
+                length = int(self.headers.get("Content-Length") or 0)
+                body = json.loads(self.rfile.read(length) or b"{}")
+                with listener._lock:
+                    listener.bodies.append(body)
+                    ack = listener._respond(body)
+                data = json.dumps(ack).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *_args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def beats(self):
+        with self._lock:
+            return list(self.bodies)
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self._thread.join(timeout=10)
+
+
+def _flag(argv, flag):
+    return argv[argv.index(flag) + 1]
+
+
+def with_flag(argv, flag, value):
+    """``argv`` with ``flag``'s value replaced (appended when absent)."""
+    out = list(argv)
+    if flag in out:
+        out[out.index(flag) + 1] = value
+    else:
+        out += [flag, value]
+    return out
+
+
+# One flagship step holds 4.9 GB; the warm-restart phase keeps at most two
+# per directory and two in the store at once.
+WARM_MIN_FREE = 4 * CKPT_BYTES
+WARM_JOB = {"TPUJOB_NAMESPACE": "smoke", "TPUJOB_NAME": "warm"}
+
+
+def _attempt(argv, env, timeout=900):
+    """One attempt of the transformer payload in a fresh process: exit
+    code, wall seconds and its log."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_operator_torch.payload.transformer",
+         *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=timeout)
+    return proc.returncode, time.perf_counter() - t0, \
+        proc.stdout + proc.stderr
+
+
+def _logged_launches(log: str) -> dict:
+    lines = [ln for ln in log.splitlines() if "kernel launches: " in ln]
+    require(lines, "the attempt logged no kernel launch counts")
+    return json.loads(lines[-1].split("kernel launches: ", 1)[1])
+
+
+def _payload_env(extra: dict) -> dict:
+    """The caller's environment without any operator variable, plus
+    ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPUJOB_", "TPU_", "JAX_"))}
+    env.update(extra)
+    return env
+
+
+def run_warm_restart(torch, build, checkpoint, store_mod, unbroken):
+    """Attempt 0 and attempt 1 of the train cell (TRAIN_ARGV) as
+    ``python -m tpu_operator_torch.payload.transformer`` processes, with
+    the operator's store, cache and heartbeat env, a local listener as
+    the status server:
+
+    - attempt 0: an empty cache dir and a ``localfs`` store; 3 steps,
+      saves 1 and 3 (the write-behind uploader ships them and the kernel
+      library it built with nvcc), exits 0;
+    - a fresh node: attempt 1 (TPUJOB_ATTEMPT=1) with an empty local
+      checkpoint dir, an empty cache dir and ``NVCC`` pointed at a command
+      that fails: it must prefetch step 3 and the library during the
+      rendezvous, report ``cacheHit`` true (no nvcc: a build would have
+      failed the attempt), resume at step 3, train 4-6 and exit 0; the
+      losses its beats carry and its final params and optimizer state
+      (step 6 on disk) bit-equal to the checkpoint phase's unbroken run.
+
+    Prints both attempts' startup breakdowns. Returns the readings and
+    the phase's directory (the serve_reload phase reads its store)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_warm_")
+    free = shutil.disk_usage(root).free
+    require(free >= WARM_MIN_FREE,
+            f"warm_restart: {free / 1e9:.1f} GB free under "
+            f"{os.path.dirname(root)}, needs {WARM_MIN_FREE / 1e9:.1f} GB; "
+            f"set TMPDIR to a larger volume")
+    store_uri = os.path.join(root, "store")
+    listener = HeartbeatListener()
+    failing_nvcc = shutil.which("false") or "/bin/false"
+    readings = {}
+    try:
+        for attempt, steps in ((0, 3), (1, 6)):
+            ckdir = os.path.join(root, f"ckpt{attempt}")
+            cache = os.path.join(root, f"cache{attempt}")
+            os.makedirs(ckdir)
+            os.makedirs(cache)
+            extra = {**WARM_JOB, "TPUJOB_STORE_URI": store_uri,
+                     "TPUJOB_STORE_KEEP": "1",
+                     "TPUJOB_STORE_PARALLELISM": "8",
+                     "TPUJOB_STATUS_URL": listener.url,
+                     # Every step's beat is due (a step takes ~0.55 s),
+                     # while the startup ticker posts at 5 Hz, not 100.
+                     "TPUJOB_HEARTBEAT_INTERVAL": "0.2",
+                     "TPUJOB_ATTEMPT": str(attempt),
+                     "TPU_CHECKPOINT_DIR": ckdir,
+                     "JAX_COMPILATION_CACHE_DIR": cache}
+            if attempt == 1:
+                extra["NVCC"] = failing_nvcc
+            argv = with_flag(with_flag(
+                with_flag(TRAIN_ARGV, "--steps", str(steps)),
+                "--checkpoint-dir", ckdir), "--checkpoint-every", "3")
+            seen = len(listener.beats())
+            torch.cuda.empty_cache()
+            code, wall, log = _attempt(argv, _payload_env(extra))
+            require(code == 0, f"warm_restart attempt {attempt} exited "
+                               f"{code}: {log[-4000:]}")
+            beats = [b for b in listener.beats()[seen:]
+                     if b.get("attempt") == attempt]
+            breakdowns = [b["startup"] for b in beats if "startup" in b]
+            require(len(breakdowns) == 1,
+                    f"attempt {attempt}: {len(breakdowns)} startup "
+                    f"breakdowns on its beats")
+            readings[f"attempt{attempt}"] = {
+                "wall_s": wall, "startup": breakdowns[0],
+                "startup_stages_posted": sorted(
+                    {b["startupStage"] for b in beats
+                     if "startupStage" in b}),
+                "launches": _logged_launches(log),
+                "restored": [ln.split(" - ")[-1] for ln in log.splitlines()
+                             if "restored checkpoint step" in ln],
+                "beats": [{k: b[k] for k in ("step", "loss") if k in b}
+                          for b in beats if "step" in b],
+            }
+            if attempt == 0:
+                store = store_mod.WarmStartStore(
+                    store_mod.blob.from_uri(store_uri), prefix="smoke/warm")
+                require(store.last_uploaded_step() == 3,
+                        f"attempt 0 left step {store.last_uploaded_step()} "
+                        f"in the store, wanted 3")
+                libs = [k for k in store.backend.list("smoke/warm/cache/")
+                        if k.endswith(build.lib_name(build.source_digest()))]
+                require(libs, "attempt 0 shipped no kernel library")
+                readings["store_after_attempt0"] = store.summary()
+                # A fresh node: nothing of attempt 0 stays local.
+                shutil.rmtree(ckdir)
+                shutil.rmtree(cache)
+        first, second = readings["attempt0"], readings["attempt1"]
+        require(first["startup"].get("cacheHit") is False,
+                f"attempt 0 startup {first['startup']}: wanted a cold "
+                f"build (cacheHit false)")
+        require(second["startup"].get("cacheHit") is True
+                and second["startup"].get("prefetchHit") is True,
+                f"attempt 1 startup {second['startup']}: wanted cacheHit "
+                f"and prefetchHit true")
+        require(any("step 3" in r for r in second["restored"]),
+                f"attempt 1 did not restore step 3: {second['restored']}")
+        per_path = (int(_flag(TRAIN_ARGV, "--layers"))
+                    * int(_flag(TRAIN_ARGV, "--grad-accum")) * 3)
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            for key in ("attempt0", "attempt1"):
+                require(readings[key]["launches"][name] == per_path,
+                        f"warm_restart {key}: {name} launched "
+                        f"{readings[key]['launches'][name]} times, wanted "
+                        f"{per_path}")
+        # A beat at step s carries the newest fenced loss: step s - 1's,
+        # the first step's own on the first beat (the loop's fence).
+        start, mismatched = 3, []
+        for b in second["beats"]:
+            index = start if b["step"] == start + 1 else b["step"] - 2
+            if "loss" in b and b["loss"] != unbroken["losses"][index]:
+                mismatched.append((b["step"], b["loss"],
+                                   unbroken["losses"][index]))
+        require(len(second["beats"]) >= 3 and not mismatched,
+                f"attempt 1 losses differ from the unbroken run's: "
+                f"{mismatched}")
+        step6 = os.path.join(root, "ckpt1", "6")
+        params = torch.load(os.path.join(step6, checkpoint.PARAMS_FILE),
+                            weights_only=True)
+        opt = torch.load(os.path.join(step6, checkpoint.OPT_FILE),
+                         weights_only=True)
+        off = [n for n, t in unbroken["params"].items()
+               if not torch.equal(params[n], t)]
+        off += [n for n, t in unbroken["opt"].items()
+                if n not in opt or not torch.equal(opt[n], t)]
+        require(not off, f"attempt 1's step 6 differs from the unbroken "
+                         f"run's state: {off[:8]}")
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    finally:
+        listener.close()
+    for key in ("attempt0", "attempt1"):
+        readings[key].pop("beats")
+    return {
+        "model": "lm_flagship_gqa_kv4 (bench.py:636), as written",
+        "argv": TRAIN_ARGV, "env": sorted(WARM_JOB) + [
+            "TPUJOB_STORE_URI (localfs)", "TPUJOB_STORE_KEEP=1",
+            "JAX_COMPILATION_CACHE_DIR", "TPU_CHECKPOINT_DIR",
+            "TPUJOB_STATUS_URL"],
+        **readings,
+        "resumed_bit_equal": True,
+        "nvidia_smi": nvidia_smi_line(),
+    }, root
+
+
+# The serve cell's flags (the serve phase's), under a steady load.
+SERVE_ARGV = ["--batch", "8", "--window", "1920", "--decode-tokens", "128",
+              "--page-size", "16", "--vocab", "32768", "--dim", "2048",
+              "--heads", "16", "--kv-heads", "4", "--layers", "8",
+              "--queue-deadline", "600", "--seed", "0", "--device", "cuda",
+              "--reload-poll", "0.5", "--reload-stagger", "0"]
+RELOAD_LOAD = "2:40"
+GREEDY_TOKENS = 16
+
+
+def greedy(loop, prompt, new_tokens):
+    """The replica's greedy tokens for ``prompt`` decoded alone in slot 0
+    (the loop must be idle)."""
+    import numpy as np
+
+    admitted, token = loop.engine.admit(0, prompt, new_tokens, loop.model)
+    require(admitted, "greedy: the engine refused the prompt")
+    out = [int(token)]
+    active = np.zeros(loop.args.batch, bool)
+    active[0] = True
+    while len(out) < new_tokens:
+        out.append(int(loop.engine.step(loop.model, active)[0]))
+    loop.engine.release(0)
+    return out
+
+
+def run_serve_reload(torch, fa, serve, bootstrap, store_mod, root):
+    """A ServeLoop at the serve cell's flags with ``TPUJOB_SERVE`` set and
+    the warm_restart phase's store (its ``localfs`` root, the serving
+    job's prefix), under a steady load (RELOAD_LOAD): it starts on step
+    3 in its local dir; once it has served a few steps, attempt 1's
+    verified step 6 is uploaded to the store. Gates: one reload, loaded
+    step 6, nothing shed or failed, every request completed, the live KV
+    pages of in-flight requests untouched by the swap, K1 and K3
+    launched; then the greedy tokens of a fixed prompt equal a fresh
+    server's loaded at step 6. Prints the readiness gap."""
+    import shutil
+
+    import numpy as np
+
+    local = os.path.join(root, "replica")
+    os.makedirs(local)
+    os.rename(os.path.join(root, "ckpt1", "3"), os.path.join(local, "3"))
+    step6 = os.path.join(root, "ckpt1", "6")
+    env = {"TPUJOB_SERVE": "1",
+           "TPUJOB_STORE_URI": os.path.join(root, "store"),
+           "TPUJOB_NAMESPACE": "smoke", "TPUJOB_NAME": "warm-serve"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        args = serve.parse_args(SERVE_ARGV + ["--load", RELOAD_LOAD,
+                                              "--checkpoint-dir", local])
+        loop = serve.ServeLoop(args, bootstrap.process_info_from_env({}),
+                               heartbeat=None, recorder=None)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(loop.store is not None and loop.store.prefix
+            == "smoke/warm-serve", "serve_reload: no store from the env")
+    swaps = []
+    real_reload = loop._maybe_reload
+
+    def watched_reload():
+        before = {s: loop.engine.cache.slot_pages(s)
+                  for s in range(args.batch)}
+        if all(p is None for p in before.values()):
+            # Hold the armed target for a boundary with requests in
+            # flight: those are the pages the swap must leave alone.
+            return False
+        ran = real_reload()
+        if ran:
+            swaps.append((before, {s: loop.engine.cache.slot_pages(s)
+                                   for s in range(args.batch)}))
+        return ran
+
+    loop._maybe_reload = watched_reload
+    uploaded = {}
+
+    def upload_mid_run():
+        while loop.steps < 50:
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        store_mod.WarmStartStore(
+            store_mod.blob.from_uri(env["TPUJOB_STORE_URI"]),
+            prefix="smoke/warm-serve", upload_parallelism=8
+        ).upload_checkpoint(step6, 6)
+        uploaded["seconds"] = time.perf_counter() - t0
+        uploaded["at_step"] = loop.steps
+
+    uploader = threading.Thread(target=upload_mid_run, daemon=True)
+    uploader.start()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    uploader.join(timeout=600)
+    require(summary["reloads"] == 1 and summary["loadedStep"] == 6,
+            f"serve_reload: {summary['reloads']} reloads, loaded step "
+            f"{summary['loadedStep']} (wanted 1 reload to step 6; upload "
+            f"{uploaded})")
+    require(summary["shed"] == 0 and summary["failedSteps"] == 0
+            and summary["completed"] == summary["arrivals"] > 0,
+            f"serve_reload: {summary['completed']}/{summary['arrivals']} "
+            f"completed, {summary['shed']} shed, {summary['failedSteps']} "
+            f"failed steps")
+    require(len(summary["reloadGapSeconds"]) == 1,
+            f"serve_reload: {len(summary['reloadGapSeconds'])} readiness "
+            f"drops for one newer step")
+    require(len(swaps) == 1 and swaps[0][0] == swaps[0][1]
+            and any(p is not None for p in swaps[0][0].values()),
+            "serve_reload: the swap changed live KV pages (or ran with "
+            "no request in flight)")
+    require(counts["flash_fwd"] > 0 and counts["flash_decode"] > 0,
+            f"serve_reload: kernel launches {counts}")
+    rng = np.random.default_rng(23)
+    prompt = rng.integers(0, args.vocab, min(700, args.window)).astype(
+        np.int32)
+    with torch.inference_mode():
+        after = greedy(loop, prompt, GREEDY_TOKENS)
+    del loop
+    torch.cuda.empty_cache()
+    fresh = serve.ServeLoop(
+        serve.parse_args(SERVE_ARGV + ["--load", "0:0", "--checkpoint-dir",
+                                       local]),
+        bootstrap.process_info_from_env({}), heartbeat=None, recorder=None,
+        store=None)
+    require(fresh._restore_weights() == 6,
+            "serve_reload: the fresh server did not load step 6")
+    with torch.inference_mode():
+        want = greedy(fresh, prompt, GREEDY_TOKENS)
+    del fresh
+    torch.cuda.empty_cache()
+    require(after == want, f"serve_reload: tokens after the reload {after} "
+                           f"!= a fresh server's at step 6 {want}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"argv": SERVE_ARGV, "load": RELOAD_LOAD,
+            "reloads": summary["reloads"],
+            "loaded_step": summary["loadedStep"],
+            "readiness_gap_s": summary["reloadGapSeconds"],
+            "upload_s": uploaded.get("seconds"),
+            "upload_at_decode_step": uploaded.get("at_step"),
+            "completed": summary["completed"],
+            "arrivals": summary["arrivals"], "shed": summary["shed"],
+            "failed_steps": summary["failedSteps"], "wall_s": wall,
+            "tokens_per_s": summary["tokensPerSecond"],
+            "launches": counts, "greedy_tokens": after,
+            "greedy_equal_to_fresh_server": True,
+            "nvidia_smi": nvidia_smi_line()}
+
+
+# cifar at its defaults with autotune on: two windows of 8 steps close.
+AUTOTUNE_STEPS = 20
+AUTOTUNE_ENV = {"TPUJOB_DATAPLANE_PREFETCH_DEPTH": "0",
+                "TPUJOB_DATAPLANE_AUTOTUNE": "1",
+                "TPUJOB_DATAPLANE_WINDOW_STEPS": "8"}
+
+
+def dataplane_problems(dp, adjustment_keys) -> list:
+    """What the reference's status server (``_sanitize_dataplane``) would
+    refuse or drop in a ``dataPlane`` body: unknown keys, non-integer or
+    negative knobs, a non-boolean hostAsync, unknown adjustment keys."""
+    bad = []
+    if not isinstance(dp, dict):
+        return ["not an object"]
+    for key, value in dp.items():
+        if key in ("prefetchDepth", "hostDropped", "checkpointIntervalSteps"):
+            floor = 1 if key == "checkpointIntervalSteps" else 0
+            if isinstance(value, bool) or not isinstance(value, int) \
+                    or value < floor:
+                bad.append(f"{key}={value!r}")
+        elif key == "hostAsync":
+            if not isinstance(value, bool):
+                bad.append(f"hostAsync={value!r}")
+        elif key == "adjustments":
+            for k, v in value.items():
+                if k not in adjustment_keys or isinstance(v, bool) \
+                        or not isinstance(v, int) or v < 0:
+                    bad.append(f"adjustments.{k}={v!r}")
+        else:
+            bad.append(f"unknown key {key}")
+    return bad
+
+
+def run_autotune(torch, cifar, train, autotune, heartbeat, steptrace, fa):
+    """``payload.cifar`` at its defaults, AUTOTUNE_STEPS steps with the
+    operator's autotune env (a window of 8 steps: two windows close) and,
+    beside it, a static run from the same seeded init: the losses
+    bit-equal (the knobs move timing only), every ``dataPlane`` body the
+    run posted acceptable to the reference's sanitizer; the adjustments
+    and images/s of both runs printed (no gate on speed)."""
+    listener = HeartbeatListener()
+    runs = {}
+    try:
+        for name in ("static", "autotune"):
+            args = cifar.parse_args(with_flag(CIFAR_ARGV, "--steps",
+                                              str(AUTOTUNE_STEPS)))
+            built = cifar.build(args)
+            runtime = None
+            if name == "autotune":
+                runtime = autotune.from_env(prefetch=2, env=AUTOTUNE_ENV)
+            rep = heartbeat.HeartbeatReporter(
+                listener.url, "smoke-autotune", interval=0.0)
+            losses, starts = [], []
+
+            def step(images, labels, built=built):
+                starts.append(time.perf_counter())
+                metrics = built.step(images, labels)
+                losses.append(metrics["loss"])
+                return metrics
+
+            seen = len(listener.beats())
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            train.train_loop(step, built.batches, AUTOTUNE_STEPS,
+                             device=built.device, heartbeat=rep,
+                             steptrace=steptrace.StepRecorder(),
+                             dataplane=runtime)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            sent = [b["dataPlane"] for b in listener.beats()[seen:]
+                    if "dataPlane" in b]
+            steady = starts[8:] + [end]
+            runs[name] = {
+                "losses": [float(x) for x in losses],
+                "images_per_s": args.batch * (len(steady) - 1)
+                / (steady[-1] - steady[0]),
+                "dataplane_beats": len(sent),
+                "last_dataplane": sent[-1] if sent else None,
+                "launches": fa.launch_counts(),
+                "windows": (runtime.controller.windows_evaluated
+                            if runtime is not None else 0)}
+            problems = [p for dp in sent
+                        for p in dataplane_problems(
+                            dp, autotune.ADJUSTMENT_KEYS)]
+            require(not problems, f"autotune: dataPlane bodies the "
+                                  f"reference would refuse: {problems}")
+            del built
+            torch.cuda.empty_cache()
+    finally:
+        listener.close()
+    require(runs["autotune"]["losses"] == runs["static"]["losses"],
+            "autotune: losses differ from the static run's")
+    require(runs["autotune"]["windows"] == 2
+            and runs["autotune"]["dataplane_beats"] == AUTOTUNE_STEPS
+            and runs["static"]["dataplane_beats"] == 0,
+            f"autotune: windows {runs['autotune']['windows']}, dataPlane "
+            f"beats {runs['autotune']['dataplane_beats']} / static "
+            f"{runs['static']['dataplane_beats']}")
+    for r in runs.values():
+        r["loss_first_last"] = [r["losses"][0], r["losses"][-1]]
+        r.pop("losses")
+    return {"model": "cifar ResNet-20 (payload.cifar defaults)",
+            "steps": AUTOTUNE_STEPS, "env": AUTOTUNE_ENV, **runs,
+            "losses_bit_equal": True, "nvidia_smi": nvidia_smi_line()}
+
+
+PROFILE_STEPS = 9
+PROFILE_WINDOW = (1, 3)
+PROFILE_DIRECTIVE = {"id": "smoke-profile", "steps": 4}
+
+
+def _trace_kernels(path: str) -> dict:
+    """Device kernel names in a Chrome trace, counted by K1 / K2."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    return {"kernel_events": len(kernels),
+            "flash_fwd": sum("flash_fwd" in k for k in kernels),
+            "flash_bwd": sum("flash_bwd" in k for k in kernels)}
+
+
+def run_profile(torch, fa, transformer, train, heartbeat, steptrace,
+                profile):
+    """The train cell (TRAIN_ARGV) for PROFILE_STEPS steps with the loop's
+    own ``--profile-dir`` window over steps 2-3, and a local status server
+    that answers the beats after step 4 with a profile directive of 4
+    steps (the window is closed by then, so the capture may trace). Gates:
+    the window's trace and the capture's trace name the port's flash_fwd
+    and flash_bwd kernels; the artifact holds 4 laps merged with the
+    recorder's rows; the next beat carries the result; K1 and K2 launched
+    layers x microbatches x steps times."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    listener = HeartbeatListener(
+        lambda body: {"profile": PROFILE_DIRECTIVE}
+        if body.get("step", 0) >= 4 else {})
+    saved = os.environ.get("TPU_CHECKPOINT_DIR")
+    os.environ["TPU_CHECKPOINT_DIR"] = os.path.join(root, "artifacts")
+    try:
+        args = transformer.parse_args(with_flag(TRAIN_ARGV, "--steps",
+                                                str(PROFILE_STEPS)))
+        built = transformer.build(args)
+        rep = heartbeat.HeartbeatReporter(listener.url, "smoke-profile",
+                                          interval=0.0)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        train.train_loop(built.step, built.batches, PROFILE_STEPS,
+                         device=built.device, heartbeat=rep,
+                         steptrace=steptrace.StepRecorder(),
+                         profile_dir=os.path.join(root, "window"),
+                         profile_range=PROFILE_WINDOW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        del built
+        torch.cuda.empty_cache()
+        beats = listener.beats()
+        results = [(b["step"], b["profile"]) for b in beats
+                   if "profile" in b]
+        artifact_path = os.path.join(root, "artifacts",
+                                     "profile-smoke-profile.json")
+        require(os.path.isfile(artifact_path),
+                "profile: no artifact written")
+        with open(artifact_path) as f:
+            artifact = json.load(f)
+        laps = artifact["steps"]
+        require(len(laps) == 4 and all(
+            {"wallSeconds", "dataWait", "compute", "stepSeconds"} <= set(r)
+            for r in laps), f"profile: the artifact's laps {laps}")
+        require(len(results) == 1 and results[0][1] == {
+            "id": PROFILE_DIRECTIVE["id"], "capturedSteps": 4}
+            and results[0][0] == laps[-1]["step"] + 1,
+            f"profile: results on the beats {results}")
+        (window_trace,) = os.listdir(os.path.join(root, "window"))
+        window = _trace_kernels(os.path.join(root, "window", window_trace))
+        capture = _trace_kernels(os.path.join(
+            artifact["jaxTraceDir"], profile.TRACE_FILE))
+        for name, seen in (("window", window), ("capture", capture)):
+            require(seen["flash_fwd"] > 0 and seen["flash_bwd"] > 0,
+                    f"profile: the {name} trace names no flash kernel: "
+                    f"{seen}")
+        per_path = args.layers * args.grad_accum * PROFILE_STEPS
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            require(counts[name] == per_path,
+                    f"profile: {name} launched {counts[name]} times, "
+                    f"wanted {per_path}")
+        trace_bytes = os.path.getsize(os.path.join(
+            artifact["jaxTraceDir"], profile.TRACE_FILE))
+    finally:
+        listener.close()
+        if saved is None:
+            os.environ.pop("TPU_CHECKPOINT_DIR", None)
+        else:
+            os.environ["TPU_CHECKPOINT_DIR"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    return {"argv": with_flag(TRAIN_ARGV, "--steps", str(PROFILE_STEPS)),
+            "profile_range": list(PROFILE_WINDOW),
+            "directive": PROFILE_DIRECTIVE, "result_beat": results[0],
+            "laps": [{k: r[k] for k in ("step", "wallSeconds", "compute")}
+                     for r in laps],
+            "window_trace": window, "capture_trace": capture,
+            "capture_trace_mb": trace_bytes / 1e6, "loop_s": wall,
+            "launches": counts, "nvidia_smi": nvidia_smi_line()}
+
+
 def _classify(op: str) -> str:
     if "flash_merge" in op:
         return "K4 flash_merge"
@@ -2449,15 +3093,19 @@ def main() -> int:
         import torch.nn.functional as F
 
         from tpu_operator_torch.kernels import build
+        from tpu_operator_torch.payload import autotune
         from tpu_operator_torch.payload import bootstrap
         from tpu_operator_torch.payload import checkpoint
         from tpu_operator_torch.payload import cifar
         from tpu_operator_torch.payload import data
         from tpu_operator_torch.payload import flash_attention as fa
+        from tpu_operator_torch.payload import heartbeat
         from tpu_operator_torch.payload import models
+        from tpu_operator_torch.payload import profile
         from tpu_operator_torch.payload import ring_attention as ring_mod
         from tpu_operator_torch.payload import serve
         from tpu_operator_torch.payload import steptrace
+        from tpu_operator_torch.payload import store as store_mod
         from tpu_operator_torch.payload import train
         from tpu_operator_torch.payload import transformer
     except ImportError as e:
@@ -2469,6 +3117,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
+    started = time.monotonic()
     try:
         emit({"phase": "device", **device, "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -2476,7 +3125,7 @@ def main() -> int:
         lib_path = build.build()
         build.library()
         lines, per_kernel = ptxas_report(
-            (build.BUILD_DIR / "build.log").read_text())
+            build.log_path(build.BUILD_DIR).read_text())
         emit({"phase": "build", "seconds": time.monotonic() - t0,
               "ptxas": lines})
         hgmma = sass_hgmma(lib_path)
@@ -2509,9 +3158,17 @@ def main() -> int:
         emit({"phase": "profile_train", **profile_train(torch, built)})
         del built
         torch.cuda.empty_cache()
-        ckp = run_checkpoint(torch, fa, transformer, train, serve, bootstrap,
-                             checkpoint, steptrace)
+        ckp, unbroken = run_checkpoint(torch, fa, transformer, train, serve,
+                                       bootstrap, checkpoint, steptrace)
         emit({"phase": "checkpoint", **ckp})
+        torch.cuda.empty_cache()
+        warm, warm_root = run_warm_restart(torch, build, checkpoint,
+                                           store_mod, unbroken)
+        del unbroken
+        emit({"phase": "warm_restart", **warm})
+        rld = run_serve_reload(torch, fa, serve, bootstrap, store_mod,
+                               warm_root)
+        emit({"phase": "serve_reload", **rld})
         torch.cuda.empty_cache()
         sp, built = run_train_sp(torch, fa, transformer, train, data)
         emit({"phase": "train_sp", **sp})
@@ -2532,6 +3189,13 @@ def main() -> int:
         emit({"phase": "classifier", **cls})
         emit({"phase": "profile_classifier", **profile_train(torch, built)})
         del built
+        torch.cuda.empty_cache()
+        atn = run_autotune(torch, cifar, train, autotune, heartbeat,
+                           steptrace, fa)
+        emit({"phase": "autotune", **atn})
+        prf = run_profile(torch, fa, transformer, train, heartbeat,
+                          steptrace, profile)
+        emit({"phase": "profile_directive", **prf})
     except SmokeFailure as e:
         emit({"phase": "failed", "error": str(e)})
         return 1
@@ -2556,6 +3220,11 @@ def main() -> int:
                                   ckp["launches_run_b"]["flash_fwd"],
                               "adam8": a8["launches"]["flash_fwd"],
                               "longctx": lc["launches"]["flash_fwd"],
+                              "warm_restart_attempt1":
+                                  warm["attempt1"]["launches"]["flash_fwd"],
+                              "serve_reload": rld["launches"]["flash_fwd"],
+                              "profile_directive":
+                                  prf["launches"]["flash_fwd"],
                               **{f"remat_{k}": r["launches"]["flash_fwd"]
                                  for k, r in rmt["runs"].items()}},
          "max_abs_err": max(r["max_abs_err_O"] for r in fwd.values()),
@@ -2576,6 +3245,9 @@ def main() -> int:
          "source": "tpu_operator_torch/kernels/csrc/flash_decode.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:990",
          "launches": sv["launches"]["flash_decode"],
+         "launches_by_path": {"serve": sv["launches"]["flash_decode"],
+                              "serve_reload":
+                                  rld["launches"]["flash_decode"]},
          "max_abs_err": max(r["max_abs_err"] for r in dec.values()),
          "worst_err_over_tol": max(r["worst_err_over_tol"]
                                    for r in dec.values()),
@@ -2605,6 +3277,9 @@ def main() -> int:
                 "ring_check": rng["striped"]["launches"][f"flash_bwd_{name}"],
                 "adam8": a8["launches"][f"flash_bwd_{name}"],
                 "longctx": lc["launches"][f"flash_bwd_{name}"],
+                "warm_restart_attempt1":
+                    warm["attempt1"]["launches"][f"flash_bwd_{name}"],
+                "profile_directive": prf["launches"][f"flash_bwd_{name}"],
                 **{f"remat_{k}": r["launches"][f"flash_bwd_{name}"]
                    for k, r in rmt["runs"].items()}},
             "max_abs_err": bwd_err[name],
@@ -2655,6 +3330,7 @@ def main() -> int:
                  "live carry",
         "ptxas": {k: v for k, v in per_kernel.items()
                   if "flash_merge_kernel" in k}})
+    emit({"phase": "total", "wall_s": time.monotonic() - started})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -144,17 +144,29 @@ def test_from_env_or_args_env_fallback(tmp_path):
     ck.close()
 
 
-def test_from_env_or_args_runs_without_a_store_and_says_so(tmp_path,
-                                                          caplog):
-    """The remote warm-start store is not ported: with TPUJOB_STORE_URI
-    set the checkpointer still works, and one warning names the item."""
-    ck = checkpoint.from_env_or_args(
-        str(tmp_path / "ck"), env={"TPUJOB_STORE_URI": "file:///store"})
-    assert ck is not None and ck.maybe_save(1, tiny_state(1))
+def test_from_env_or_args_attaches_the_store_uploader(tmp_path):
+    """With the operator's store env, process 0's checkpointer gets the
+    write-behind uploader: a verified save lands in the store, and its
+    counters ride stats(); any other process gets none."""
+    from tpu_operator_torch.payload.store import WarmStartStore, blob
+
+    env = {"TPUJOB_STORE_URI": str(tmp_path / "store"),
+           "TPUJOB_NAMESPACE": "ns", "TPUJOB_NAME": "jb"}
+    ck = checkpoint.from_env_or_args(str(tmp_path / "ck"), save_every=1,
+                                     env=env)
+    assert ck is not None and ck.uploader is not None
+    assert ck.maybe_save(1, tiny_state(1))
+    ck.flush()
+    assert ck.uploader.flush(30.0)
+    assert ck.stats()["lastUploadedStep"] == 1
     ck.close()
-    assert ck.last_verified_step() == 1
-    warned = [r for r in caplog.records if "Queue A 3" in r.getMessage()]
-    assert len(warned) == 1
+    remote = WarmStartStore(blob.from_uri(str(tmp_path / "store")),
+                            prefix="ns/jb")
+    assert remote.checkpoint_steps() == [1]
+    other = checkpoint.from_env_or_args(
+        str(tmp_path / "ck2"), env={**env, "JAX_PROCESS_ID": "1"})
+    assert other.uploader is None
+    other.close()
 
 
 # --- save / restore ----------------------------------------------------------

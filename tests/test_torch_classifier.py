@@ -200,15 +200,11 @@ def test_classifier_flags_and_defaults():
     assert (lin.steps, lin.batch, lin.dim, lin.lr, lin.target_loss,
             lin.optimizer) == (200, 1024, 8, 0.1, 1e-3, "sgd")
     assert compute.make_optimizer(lin).momentum is None
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        compute.classifier_step_options(cifar.parse_args(["--aot"]))
 
 
 @pytest.mark.parametrize("flag,match", [
     (["--model-parallel", "2"], "Queue A 7"),
-    (["--profile-dir", "/tmp/prof"], "Queue A 9"),
-    (["--aot"], "Queue A 3"),
-], ids=["model_parallel", "profile_dir", "aot"])
+], ids=["model_parallel"])
 def test_cifar_unported_flags_raise(flag, match):
     args = cifar.parse_args(TINY + flag + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match=match):

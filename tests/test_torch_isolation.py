@@ -49,6 +49,40 @@ def test_no_forbidden_import_in_source():
     assert not bad, bad
 
 
+# The warm-restart and operator-runtime modules, with the port's own copy
+# of the reference's store package.
+RUNTIME_MODULES = (
+    "tpu_operator_torch.payload.store",
+    "tpu_operator_torch.payload.store.blob",
+    "tpu_operator_torch.payload.store.transfer",
+    "tpu_operator_torch.payload.store.warmstart",
+    "tpu_operator_torch.payload.store.writebehind",
+    "tpu_operator_torch.payload.startup",
+    "tpu_operator_torch.payload.warmstore",
+    "tpu_operator_torch.payload.autotune",
+    "tpu_operator_torch.payload.profile",
+)
+
+
+def test_the_walk_covers_the_runtime_modules():
+    """The scans above and below walk the store package and the startup,
+    warm-store, autotune and profile modules too."""
+    names = {name for name, _path in _modules()}
+    missing = [m for m in RUNTIME_MODULES if m not in names]
+    assert not missing, missing
+
+
+def test_no_lock_witness_of_the_reference():
+    """The port's copies take plain ``threading`` locks where the
+    reference takes its lock-order witness (``util/lockdep``) and its
+    interleaving hooks (``util/yieldpoints``): neither is named in any
+    module of the port."""
+    bad = [str(path.relative_to(REPO)) for _name, path in _modules()
+           if "lockdep" in path.read_text()
+           or "yieldpoints" in path.read_text()]
+    assert not bad, bad
+
+
 def test_importing_the_port_loads_no_jax_module():
     """A fresh interpreter (this one already holds jax, via conftest)
     imports every module of the port and chip_smoke, then lists what got

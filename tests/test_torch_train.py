@@ -287,7 +287,7 @@ def test_build_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("flag", [
     ["--seq-parallel", "2", "--sp-mode", "ulysses"],
     ["--tensor-parallel", "2"], ["--sp-mode", "ulysses"],
-    ["--split-qkv", "on"], ["--fsdp"], ["--profile-dir", "/tmp/prof"],
+    ["--split-qkv", "on"], ["--fsdp"],
 ], ids=lambda f: f[0])
 def test_unported_flags_raise(flag):
     """Sequence parallelism itself is ported (tests/test_torch_ring_

@@ -1,40 +1,59 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-``_build/libkernels.so`` at first use, one ``nvcc`` per source, all
-started together, then linked into one shared library with a plain C
-interface and loaded with ``ctypes``. The library is rebuilt when the hash
-of the sources, the ``csrc/*.cuh`` headers they include, and the flags
-changes. Nothing here runs at import time: the
-CPU-only tests import every module of the port.
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first use,
+one ``nvcc`` per source, all started together, then linked into one
+shared library with a plain C interface and loaded with ``ctypes``.
+Nothing here runs at import time: the CPU-only tests import every module
+of the port.
+
+The library is the payload's compilation cache. It is content-named,
+``libkernels-<digest>.so``, by the hash of the sources, the
+``csrc/*.cuh`` headers they include and the flags
+(:func:`source_digest`), with the sha256 of its bytes beside it in
+``libkernels-<digest>.sha256``. It lives in ``<cache>/kernels/`` when
+``bootstrap.enable_compilation_cache`` enabled the operator's cache dir
+(``JAX_COMPILATION_CACHE_DIR`` / ``TPUJOB_CACHE_PATH``), else in
+``kernels/_build/``. A library whose name matches the digest and whose
+bytes match the recorded sha256 loads with no ``nvcc`` run: a cache hit.
+A library that fails that check (torn, corrupt, or the sha256 file lost)
+is deleted and rebuilt from the sources, never loaded; a source change
+gives another name, so a store that syncs the cache by file name never
+hands out a stale library.
 
 A failed build raises RuntimeError with the compiler's output; so does a
 kernel whose C entry point returns a non-zero ``cudaError_t``
-(:func:`check`).
+(:func:`check`). Nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+log = logging.getLogger(__name__)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-LIB_NAME = "libkernels.so"
+# The compilation cache's subdirectory that holds the library.
+CACHE_SUBDIR = "kernels"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                  "-lineinfo"]
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[ctypes.CDLL] = None  # guarded-by: _lock
+# How this process got its library: path, seconds, whether nvcc ran.
+_load: Dict[str, Any] = {}  # guarded-by: _lock
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -88,46 +107,117 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
-def build(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile (if the sources changed) and return the library's path.
-    The compiler's output, ptxas register and spill report included, is
-    kept in ``build.log`` beside the library."""
-    digest = source_digest()
-    lib_path = build_dir / LIB_NAME
-    stamp = build_dir / "libkernels.sha256"
-    if lib_path.exists() and stamp.exists() \
-            and stamp.read_text().strip() == digest:
-        return lib_path
-    build_dir.mkdir(parents=True, exist_ok=True)
+def lib_name(digest: str) -> str:
+    """The library's content name for a :func:`source_digest`."""
+    return f"libkernels-{digest[:32]}.so"
+
+
+def kernel_dir() -> Path:
+    """Where the library is built and loaded: the compilation cache's
+    ``kernels/`` when bootstrap enabled one, else ``kernels/_build/``."""
+    from tpu_operator_torch.payload import startup
+
+    cache = startup.cache_dir()
+    return Path(cache) / CACHE_SUBDIR if cache else BUILD_DIR
+
+
+def log_path(build_dir: Optional[Path] = None) -> Path:
+    """The compiler's output (ptxas's register and spill report
+    included) of the build of the current sources."""
+    d = Path(build_dir) if build_dir is not None else kernel_dir()
+    return d / (lib_name(source_digest())[:-3] + ".log")
+
+
+def _sha256_file(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def verified(lib_path: Path) -> bool:
+    """True when ``lib_path`` and its ``.sha256`` file both exist and the
+    library's bytes hash to the recorded value."""
+    try:
+        want = lib_path.with_suffix(".sha256").read_text().strip()
+        return bool(want) and _sha256_file(lib_path) == want
+    except OSError:
+        return False
+
+
+def _nvcc_build(out: Path, log_file: Path) -> None:
+    """Compile every source (one nvcc each, in parallel) into a private
+    temporary directory and link the library to ``out``."""
     nvcc = nvcc_path()
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+    with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-c", str(src),
                    "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            try:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+            except OSError as e:
+                for _s, _o, p in procs:
+                    p.kill()
+                    p.wait()
+                raise RuntimeError(f"nvcc ({nvcc}) did not start: {e}") \
+                    from e
+            procs.append((src, obj, proc))
         log_parts, failed = [], []
         for src, _obj, proc in procs:
-            out, _ = proc.communicate()
-            log_parts.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+            out_text, _ = proc.communicate()
+            log_parts.append(
+                f"== {src.name} (rc {proc.returncode})\n{out_text}")
             if proc.returncode != 0:
                 failed.append(src.name)
-        log = "\n".join(log_parts)
-        (build_dir / "build.log").write_text(log)
+        text = "\n".join(log_parts)
+        log_file.write_text(text)
         if failed:
-            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
-        tmp_lib = Path(tmp) / LIB_NAME
+            raise RuntimeError(f"nvcc failed for {failed}:\n{text}")
         link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
              *[str(obj) for _src, obj, _p in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+
+
+def build(build_dir: Optional[Path] = None,
+          compiler: Optional[Callable[[Path, Path], None]] = None) -> Path:
+    """Return the path of a verified library for the current sources,
+    building it when none is there (``build_dir`` defaults to
+    :func:`kernel_dir`). ``compiler(out, log_file)`` writes the library
+    to ``out`` (default: nvcc; injectable for tests). A library under the
+    digest's name that fails :func:`verified` is removed and rebuilt."""
+    d = Path(build_dir) if build_dir is not None else kernel_dir()
+    lib_path = d / lib_name(source_digest())
+    stamp = lib_path.with_suffix(".sha256")
+    if verified(lib_path):
+        return lib_path
+    if lib_path.exists() or stamp.exists():
+        log.warning("kernel library %s fails its sha256 check; rebuilding "
+                    "it from the sources", lib_path)
+        for stale in (lib_path, stamp):
+            try:
+                stale.unlink()
+            except FileNotFoundError:
+                pass
+    d.mkdir(parents=True, exist_ok=True)
+    # ``*.tmp`` names: the store's cache sync never ships a partial file.
+    tmp_lib = d / f"{lib_path.name}.{os.getpid()}.tmp"
+    try:
+        (compiler or _nvcc_build)(tmp_lib, log_path(d))
+        digest = _sha256_file(tmp_lib)
         os.replace(tmp_lib, lib_path)
-    stamp.write_text(digest)
+    finally:
+        if tmp_lib.exists():
+            tmp_lib.unlink()
+    tmp_stamp = d / f"{stamp.name}.{os.getpid()}.tmp"
+    tmp_stamp.write_text(digest + "\n")
+    os.replace(tmp_stamp, stamp)
     return lib_path
 
 
@@ -136,15 +226,30 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            t0 = time.perf_counter()
+            cached = verified(kernel_dir() / lib_name(source_digest()))
+            path = build()
+            lib = ctypes.CDLL(str(path))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.kernels_error_string.argtypes = [ctypes.c_int]
             lib.kernels_error_string.restype = ctypes.c_char_p
+            _load.update(path=str(path), ranNvcc=not cached,
+                         seconds=time.perf_counter() - t0)
+            from tpu_operator_torch.payload import startup
+
+            startup.record_kernel_load(ran_nvcc=not cached)
             _lib = lib
         return _lib
+
+
+def load_info() -> Dict[str, Any]:
+    """How this process got its library (``path``, ``seconds``,
+    ``ranNvcc``); empty before :func:`library` loaded it."""
+    with _lock:
+        return dict(_load)
 
 
 def check(rc: int, name: str) -> None:

@@ -1,3 +1,7 @@
 """The PyTorch payload: the serve path (``serve`` -> ``kvcache`` ->
-``models`` -> ``flash_attention``) with its bootstrap, heartbeat and step
-recorder. Each module mirrors its namesake in ``tpu_operator.payload``."""
+``models`` -> ``flash_attention``), training (``transformer``, ``cifar``,
+``linear`` -> ``train``), and the runtime the operator talks to
+(``bootstrap``, ``heartbeat``, ``steptrace``, ``checkpoint``, ``startup``,
+``warmstore`` and ``store``, ``autotune``, ``profile``). Each module
+mirrors its namesake in ``tpu_operator.payload`` (``store`` mirrors
+``tpu_operator.store``)."""

@@ -16,11 +16,19 @@ falls back to gloo; beside NCCL a gloo group carries the host-side
 agreement of the drain code). A one-process job (a serve replica, the
 one-card trainer) forms no group.
 
+The remote warm-start store's prefetch (``warmstore.py``) starts before
+the rendezvous and is joined after it, so the download overlaps the wait
+(the RENDEZVOUS and PREFETCH startup stages). :func:`enable_compilation_cache`
+points the kernel library at the operator's cache volume
+(``JAX_COMPILATION_CACHE_DIR`` / ``TPUJOB_CACHE_PATH``, the operator's
+names): ``kernels/build.py`` then builds into and loads from it.
+
 ``run_payload`` maps clean completion -> 0, an application error -> 1
 (permanent), SIGTERM (preemption/eviction) -> 143 (retryable), and an
 operator-directed drain -> ``EXIT_PLANNED`` (160), the signals the
-operator's restart machinery classifies. While a training step loop runs,
-SIGTERM defers to the next step boundary through the drain latch below.
+operator's restart machinery classifies; on 0, 143 and 160 it ships the
+cache to the store. While a training step loop runs, SIGTERM defers to
+the next step boundary through the drain latch below.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ import threading
 import time
 from datetime import timedelta
 from typing import Callable, Optional
+
+from tpu_operator_torch.payload import startup as startup_mod
+from tpu_operator_torch.payload import warmstore
 
 log = logging.getLogger(__name__)
 
@@ -119,11 +130,18 @@ def initialize(info: Optional[ProcessInfo] = None,
     """Form the process group of a multi-process job; a one-process job
     forms none. ``device`` is the device the entry point runs on (default
     CUDA): CUDA takes NCCL and the card ``process_id % device_count``, the
-    CPU takes gloo."""
+    CPU takes gloo. The DNS wait and the rendezvous are the RENDEZVOUS
+    stage; the store prefetch starts first and is joined last, so only
+    its tail beyond the rendezvous is the PREFETCH stage."""
     info = info or process_info_from_env()
+    prefetching = warmstore.start_prefetch()
     if info.num_processes <= 1:
         log.info("single-process job; no process group")
+        startup_mod.record_rendezvous(0.0)
+        if prefetching:
+            warmstore.finish_prefetch()
         return info
+    t0 = time.perf_counter()
     import torch
     import torch.distributed as dist
 
@@ -149,12 +167,47 @@ def initialize(info: Optional[ProcessInfo] = None,
     # reading it never waits on the card's stream.
     _host_group = dist.new_group(backend="gloo") if backend == "nccl" \
         else None
+    startup_mod.record_rendezvous(time.perf_counter() - t0)
+    if prefetching:
+        warmstore.finish_prefetch()
     log.info("process %d/%d joined the %s group at %s", info.process_id,
              info.num_processes, backend, info.coordinator_address)
     return info
 
 
 _host_group = None
+
+
+def enable_compilation_cache(env: Optional[dict] = None) -> str:
+    """Point the kernel library at the operator-mounted cache volume
+    (``JAX_COMPILATION_CACHE_DIR``, or its mirror ``TPUJOB_CACHE_PATH``;
+    ``TPUJOB_CACHE_ENABLED=0`` turns it off): ``kernels/build.py`` then
+    builds into and loads from ``<dir>/kernels/``. Returns the dir, or ""
+    when caching is off or the dir is unusable.
+
+    Best-effort: a read-only or otherwise unwritable dir logs a warning
+    and the attempt builds cold in ``kernels/_build/``; a broken cache
+    volume degrades warm restarts, never fails them."""
+    e = env if env is not None else os.environ
+    path = warmstore.cache_dir_from_env(e)
+    if not path:
+        return ""
+    if e.get("TPUJOB_CACHE_ENABLED", "1").lower() in ("0", "false"):
+        return ""
+    try:
+        os.makedirs(path, exist_ok=True)
+        probe = os.path.join(path, f".tpujob-cache-probe-{os.getpid()}")
+        with open(probe, "w", encoding="utf-8") as f:
+            f.write("ok")
+        os.remove(probe)
+    except OSError as err:
+        log.warning("compilation cache dir %s unusable (%s); proceeding "
+                    "with a cold kernel build", path, err)
+        return ""
+    startup_mod.set_cache_dir(path)
+    log.info("persistent compilation cache at %s (medium %s)",
+             path, e.get("TPUJOB_CACHE_MEDIUM", "unset"))
+    return path
 
 
 def host_group():
@@ -251,7 +304,8 @@ def run_payload(fn: Callable[[ProcessInfo], None],
     (retryable; inside a training step loop, at the next step boundary),
     a planned drain 160, any other exception 1 (permanent), a clean
     return 0. ``device`` picks the process group's backend
-    (:func:`initialize`)."""
+    (:func:`initialize`). The compilation cache is enabled after the
+    group forms, and synced to the store on exits 0, 143 and 160."""
 
     def _sigterm(_signum, _frame):
         if _drain.is_set() or not _in_step_loop.is_set():
@@ -263,6 +317,7 @@ def run_payload(fn: Callable[[ProcessInfo], None],
     signal.signal(signal.SIGTERM, _sigterm)
     try:
         info = initialize(device=device)
+        enable_compilation_cache()
         fn(info)
         code = 0
     except SystemExit as e:
@@ -272,6 +327,11 @@ def run_payload(fn: Callable[[ProcessInfo], None],
         code = 1
     finally:
         shutdown()
+    if code in (0, EXIT_RETRYABLE, EXIT_PLANNED):
+        # Ship this attempt's kernel library to the store on the clean and
+        # drain exits: a job without checkpoints has no write-behind
+        # uploader, and an attempt may drain before its first save.
+        warmstore.upload_cache_once()
     return code
 
 

@@ -69,10 +69,17 @@ Durability, as in the reference:
   advance the same verified step and escalate together. The restore
   walk's renames (quarantine, orphan sweep) run on every process, as in
   the reference: on a shared directory the first rename wins.
-
-Not ported yet (ROADMAP Queue A 3): the remote warm-start store's
-write-behind uploader and the autotune cadence multiplier (the
-configured interval always applies).
+- **Remote write-behind.** With the operator's warm-start store
+  (``TPUJOB_STORE_*``, ``warmstore.uploader_from_env``, process 0 only)
+  every verified save is queued for an asynchronous upload, a quarantine
+  condemns the remote copy too, :meth:`stats` carries the uploader's
+  counters, and persistent upload failures exit 143 like persistent save
+  failures.
+- **Live cadence.** ``cadence_multiplier`` (the autotune knob) stretches
+  the interval to ``save_every * cadence_multiplier``, never below the
+  configured one. In a gang, :meth:`enable_gang_cadence` makes it a
+  proposal: each base-interval boundary takes the gang's MIN through
+  ``agree_fn``, so the save barrier always matches.
 """
 
 from __future__ import annotations
@@ -118,9 +125,6 @@ FORMAT_VERSION = 1
 
 # A save in progress: ``<step>.tmp-<pid>-<n>``.
 TMP_MARK = ".tmp-"
-
-# The remote warm-start store's env (the reference's warmstore.ENV_URI).
-ENV_STORE_URI = "TPUJOB_STORE_URI"
 
 
 class TrainState(NamedTuple):
@@ -202,15 +206,24 @@ class Checkpointer:
     walk and save-failure tolerance over one directory of steps.
 
     ``agree_fn`` (default :func:`gang_agree_step`) is injectable for
-    tests, as in the reference."""
+    tests, as in the reference. ``uploader`` is the write-behind store
+    uploader (``store.WriteBehindUploader``) or None."""
 
     def __init__(self, directory: str, save_every: int = 100,
                  max_to_keep: int = 3,
                  fail_after: int = DEFAULT_FAIL_AFTER,
                  agree_fn: Optional[Callable[[Optional[int]],
-                                             Optional[int]]] = None):
+                                             Optional[int]]] = None,
+                 uploader: Optional[Any] = None):
         self.directory = os.path.abspath(directory)
         self.save_every = max(1, int(save_every))
+        # The autotune knob: the effective interval is save_every times
+        # this (only ever coarser); a proposal agreed across the gang
+        # after enable_gang_cadence().
+        self.cadence_multiplier = 1
+        self._cadence_gang_agreed = False
+        self._agreed_multiplier = 1  # the gang's last agreement
+        self._uploader = uploader
         self.max_to_keep = max(1, int(max_to_keep))
         self.fail_after = max(1, int(fail_after))
         self._agree = agree_fn or gang_agree_step
@@ -264,12 +277,21 @@ class Checkpointer:
         from."""
         return self._last_verified
 
+    @property
+    def uploader(self) -> Optional[Any]:
+        """The write-behind store uploader (None without a store, or off
+        process 0): exit paths ship artifacts through it."""
+        return self._uploader
+
     def stats(self) -> Dict[str, int]:
-        """Durability counters for the heartbeat body."""
+        """Durability counters for the heartbeat body, the store
+        uploader's (``uploadFailures``, ``lastUploadedStep``) merged."""
         out = {"saveFailures": int(self.save_failures),
                "restoreFallbacks": int(self.restore_fallbacks)}
         if self._last_verified is not None:
             out["lastCheckpointStep"] = int(self._last_verified)
+        if self._uploader is not None:
+            out.update(self._uploader.stats())
         return out
 
     # -- save path -------------------------------------------------------------
@@ -284,12 +306,62 @@ class Checkpointer:
         escalating to SystemExit(143) only after ``fail_after``
         consecutive failures."""
         step = int(step)
+        self._check_upload_escalation()
+        mult = self._effective_cadence_multiplier(step)
+        if mult > 1 and step % (self.save_every * mult) != 0:
+            # A stretched cadence saves only every mult'th interval
+            # boundary; the policy below still gates, so it never saves
+            # more often than configured.
+            self._finalize_pending(block=False)
+            return False
         last = self._last_saved
         if last is not None and (step <= last or step % self.save_every):
             self._finalize_pending(block=False)
             return False
         self._finalize_pending(block=True)
         return self._save(step, state)
+
+    def enable_gang_cadence(self) -> None:
+        """Make ``cadence_multiplier`` gang-agreed: from now on each
+        base-interval boundary takes the gang's MIN of the processes'
+        proposals through ``agree_fn``. Every process of the gang must
+        enable it (the autotune runtime does, from the same env)."""
+        self._cadence_gang_agreed = True
+
+    def _effective_cadence_multiplier(self, step: int) -> int:
+        """The multiplier that gates this step. Gang-agreed, the agreement
+        runs only at base-interval boundaries, the same steps on every
+        process, and takes the MIN: a disagreeing gang saves at its most
+        conservative member's cadence. Between boundaries the gang gates
+        on its last agreement, never on a local proposal: a member whose
+        proposal differs would otherwise skip a save (the attempt's first,
+        which the policy takes at once) that its peers make, and the save
+        barrier would mismatch."""
+        mult = max(1, int(self.cadence_multiplier))
+        if not self._cadence_gang_agreed:
+            return mult
+        if step % self.save_every != 0:
+            return self._agreed_multiplier
+        try:
+            agreed = self._agree(mult)
+        except Exception:  # noqa: BLE001 — agreement is best-effort
+            log.exception("gang cadence agreement failed; saving at the "
+                          "configured interval")
+            agreed = None
+        self._agreed_multiplier = max(1, int(agreed)) \
+            if agreed is not None else 1
+        return self._agreed_multiplier
+
+    def _check_upload_escalation(self) -> None:
+        """A store that failed ``fail_after`` consecutive uploads is
+        treated like persistently failing local storage: exit retryable
+        at this save boundary, on the step-loop thread."""
+        if self._uploader is not None and self._uploader.escalated():
+            log.error(
+                "remote warm-start store failing persistently (%d upload "
+                "failures); exiting retryable so the operator restarts "
+                "the group", self._uploader.upload_failures)
+            raise SystemExit(bootstrap.EXIT_RETRYABLE)
 
     def save(self, step: int, state: TrainState) -> bool:
         """Unconditional save (the final state, a drain); a no-op when
@@ -298,6 +370,7 @@ class Checkpointer:
         instead of being written twice, and one that failed is retried
         here."""
         step = int(step)
+        self._check_upload_escalation()
         self._finalize_pending(block=True)
         if self._last_verified == step:
             return False
@@ -495,6 +568,9 @@ class Checkpointer:
         self._last_verified = step
         self.consecutive_save_failures = 0
         log.info("checkpoint step %d verified in %s", step, self.directory)
+        if self._uploader is not None:
+            # Only verified saves ship; enqueue never touches the backend.
+            self._uploader.enqueue(step, self._step_dir(step))
 
     def _record_save_failure(self, step: int, err: Exception) -> None:
         self.save_failures += 1
@@ -606,6 +682,10 @@ class Checkpointer:
         quarantining the same step on a shared filesystem: whoever renames
         first wins."""
         self._condemned.add(int(step))
+        if self._uploader is not None:
+            # Condemn the remote copy too (asynchronous): a fresh node's
+            # prefetch must never prefer a step this walk proved bad.
+            self._uploader.mark_corrupt(int(step))
         src = self._step_dir(step)
         n = 0
         dst = f"{src}{QUARANTINE_SUFFIX}-{n}"
@@ -794,6 +874,13 @@ class Checkpointer:
             pass
         except Exception as e:  # noqa: BLE001
             log.warning("checkpoint flush on close failed: %s", e)
+        if self._uploader is not None:
+            # A bounded drain, so the final step usually lands remotely;
+            # a completed run never fails on its upload tail.
+            try:
+                self._uploader.close(flush=True)
+            except Exception as e:  # noqa: BLE001
+                log.warning("remote store flush on close failed: %s", e)
 
 
 def from_env_or_args(checkpoint_dir: str = "", save_every: int = 100,
@@ -801,18 +888,15 @@ def from_env_or_args(checkpoint_dir: str = "", save_every: int = 100,
                      fail_after: int = DEFAULT_FAIL_AFTER,
                      env: Optional[dict] = None) -> Optional[Checkpointer]:
     """A Checkpointer from an explicit flag, falling back to the
-    operator-injected TPU_CHECKPOINT_DIR; None when neither is set. A
-    remote warm-start store (``TPUJOB_STORE_URI``) is not ported yet: the
-    job runs without one, as the reference does for a store it cannot
-    use."""
+    operator-injected TPU_CHECKPOINT_DIR; None when neither is set. When
+    the operator also wired the remote warm-start store (``TPUJOB_STORE_*``),
+    process 0 gets the write-behind uploader."""
     e = env if env is not None else os.environ
     directory = checkpoint_dir or e.get(ENV_VAR, "")
     if not directory:
         return None
-    if e.get(ENV_STORE_URI):
-        log.warning("%s is set, but the remote warm-start store is not "
-                    "ported to the PyTorch payload yet (ROADMAP Queue A 3); "
-                    "checkpointing to %s without it", ENV_STORE_URI,
-                    directory)
+    from tpu_operator_torch.payload import warmstore
+
     return Checkpointer(directory, save_every=save_every,
-                        max_to_keep=max_to_keep, fail_after=fail_after)
+                        max_to_keep=max_to_keep, fail_after=fail_after,
+                        uploader=warmstore.uploader_from_env(e))

@@ -12,9 +12,15 @@ are all-reduced, so P processes train the model one process would.
 ``--checkpoint-dir`` (or ``$TPU_CHECKPOINT_DIR``) checkpoints params,
 optimizer state and BatchNorm statistics, and a restarted attempt
 resumes (``checkpoint.py``). ``--device cpu`` runs the plain PyTorch path.
+``--profile-dir`` (or ``$TPU_PROFILE_DIR``) writes a ``torch.profiler``
+trace of steps 11-20 of the run. ``--aot`` routes the run through the
+overlapped prologue with the kernel library as its COMPILE work (built or
+loaded through the compilation cache on the card): the classifier
+launches none of the port's kernels, so it only warms or checks the cache
+for the job's other payloads; without it the classifier has no COMPILE
+stage.
 
-``--model-parallel`` > 1 (ROADMAP Queue A 7), ``--profile-dir`` (A9) and
-``--aot`` (A3) raise NotImplementedError.
+``--model-parallel`` > 1 (ROADMAP Queue A 7) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Any, Callable, Iterator, NamedTuple, Tuple
 import torch
 
 from tpu_operator_torch.device import resolve_device
+from tpu_operator_torch.payload import autotune
 from tpu_operator_torch.payload import bootstrap
 from tpu_operator_torch.payload import checkpoint
 from tpu_operator_torch.payload import compute
@@ -62,9 +69,10 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-every", type=int, default=100)
     p.add_argument("--profile-dir",
                    default=os.environ.get("TPU_PROFILE_DIR", ""),
-                   help="profiler trace dir (not ported: a non-empty value "
-                        "raises)")
-    data_mod.add_prefetch_argument(p)
+                   help="torch.profiler trace dir (default "
+                        "$TPU_PROFILE_DIR): a trace of steps 11-20 of the "
+                        "run")
+    autotune.add_prefetch_argument(p)
     compute.add_classifier_compute_flags(p)
     p.add_argument("--device", default="",
                    help="torch device (default: cuda; 'cpu' runs the plain "
@@ -77,10 +85,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel} is not ported to the "
             f"PyTorch payload yet (ROADMAP Queue A 7); leave it at 1")
-    if getattr(args, "profile_dir", ""):
-        raise NotImplementedError(
-            "--profile-dir is not ported to the PyTorch payload yet (ROADMAP "
-            "Queue A 9); leave it empty")
 
 
 class Built(NamedTuple):
@@ -161,8 +165,11 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
             log_every=args.log_every,
             log_fn=lambda i, m: log.info("step %d loss %.4f acc %.3f", i,
                                          m["loss"], m["accuracy"]),
-            prefetch=data_mod.prefetch_depth(args), checkpointer=ckpt,
-            state=built.state)
+            prefetch=autotune.resolve_prefetch_depth(args.prefetch_depth),
+            checkpointer=ckpt, state=built.state,
+            profile_dir=args.profile_dir,
+            compile_fn=(train.kernel_loader(built.device) if args.aot
+                        else None))
     finally:
         if ckpt is not None:
             ckpt.close()

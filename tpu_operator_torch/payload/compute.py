@@ -58,18 +58,13 @@ def add_classifier_compute_flags(parser) -> None:
              "maps the tree. Checkpoints do not resume across this flip")
     parser.add_argument(
         "--aot", action="store_true",
-        help="compile the step ahead of time through the persistent cache "
-             "(not ported: raises)")
+        help="run the overlapped prologue with the kernel library as its "
+             "COMPILE work (built or loaded through the compilation cache "
+             "on the card; the classifier launches none of its kernels)")
 
 
 def classifier_step_options(args) -> dict:
-    """kwargs of ``train.make_classifier_train_step`` from parsed flags.
-    Raises NotImplementedError under ``--aot``."""
-    if getattr(args, "aot", False):
-        raise NotImplementedError(
-            "--aot is not ported to the PyTorch payload yet (ROADMAP Queue "
-            "A 3: its counterpart is the kernel build directory, and the "
-            "classifier launches no kernel); run without it")
+    """kwargs of ``train.make_classifier_train_step`` from parsed flags."""
     return {"remat_policy": getattr(args, "remat_policy", "full"),
             "fused_loss": bool(getattr(args, "fused_loss", False))}
 

@@ -9,23 +9,19 @@ batch and keeps its data rank's rows (:func:`lm_batches`,
 :func:`data_rank_rows`). :func:`device_prefetch` keeps ``depth``
 batches in flight to the device: each batch is staged in pinned host
 memory and copied with ``non_blocking``, so the copies overlap the
-device's work on earlier steps.
+device's work on earlier steps. Its depth can follow a live knob
+(``control``) and its host work can run on a background thread
+(``pipeline``), both from the data-plane runtime (``autotune.py``); the
+batch order never changes.
 """
 
 from __future__ import annotations
 
-import logging
-import os
 from collections import deque
 from typing import Iterator, Tuple
 
 import numpy as np
 import torch
-
-log = logging.getLogger(__name__)
-
-ENV_PREFETCH_DEPTH = "TPUJOB_DATAPLANE_PREFETCH_DEPTH"
-DEFAULT_PREFETCH_DEPTH = 2
 
 CIFAR_SHAPE = (32, 32, 3)
 
@@ -199,17 +195,37 @@ def lm_batches(args, mesh=None) -> Iterator[Tuple[np.ndarray]]:
     return data_rank_rows(stream, mesh.data_rank, mesh.data)
 
 
-def device_prefetch(batches, device: torch.device,
-                    depth: int = 2) -> Iterator[Tuple[torch.Tensor, ...]]:
+def device_prefetch(batches, device: torch.device, depth: int = 2,
+                    control=None, pipeline: bool = False
+                    ) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Host batches (tuples of numpy arrays) -> device tensors, ``depth``
-    batches ahead of the consumer (0 = one synchronous copy per batch).
-    On CUDA each array is staged in pinned memory and copied with
-    ``non_blocking``: the copy is queued on the current stream, behind the
-    steps already dispatched, and the host returns at once."""
+    batches ahead of the consumer (0 = one synchronous copy per batch;
+    the spec-level 0 = auto is resolved by
+    ``autotune.resolve_prefetch_depth`` before it reaches here). On CUDA
+    each array is staged in pinned memory and copied with
+    ``non_blocking``: the copy is queued on the device's current stream,
+    behind the steps already dispatched, and the host returns at once.
+    Each batch gets its own pinned buffer from PyTorch's pinned-memory
+    allocator, which hands a buffer out again only after the event
+    recorded for its copy has completed.
+
+    ``control`` (``autotune.PrefetchControl``) makes the depth live: it
+    is re-read before each refill, so a deeper target fills ahead and a
+    shallower one stops refilling until the buffer drains down.
+    ``pipeline=True`` runs the iterator's ``next()`` and the staging on
+    a background thread (``autotune.HostPipeline``); one worker, so the
+    stream order is the iterator's, and an error reaches the consumer at
+    its position in the stream."""
     if depth < 0:
-        raise ValueError(f"device_prefetch depth must be >= 0, got {depth}")
+        raise ValueError(
+            f"device_prefetch depth must be >= 0, got {depth} (spec-level "
+            f"0=auto is resolved by autotune.resolve_prefetch_depth)")
     device = torch.device(device)
     pinned = device.type == "cuda"
+    if pinned and device.index is None:
+        # Resolved on the caller's thread: a pipeline worker's current
+        # device is its own.
+        device = torch.device("cuda", torch.cuda.current_device())
 
     def place(arrs):
         out = []
@@ -221,14 +237,30 @@ def device_prefetch(batches, device: torch.device,
         return tuple(out)
 
     it = iter(batches)
-    if depth == 0:
+    if pipeline:
+        from tpu_operator_torch.payload import autotune as autotune_mod
+
+        pl = autotune_mod.HostPipeline(
+            fill=lambda: place(next(it)), control=control,
+            depth=max(1, depth))
+        try:
+            while True:
+                try:
+                    item = pl.get()
+                except StopIteration:
+                    return
+                yield item
+        finally:
+            pl.close()
+    if control is None and depth == 0:
         for arrs in it:
             yield place(arrs)
         return
     buf: deque = deque()
     exhausted = False
     while True:
-        while not exhausted and len(buf) < depth:
+        target = depth if control is None else max(1, control.depth)
+        while not exhausted and len(buf) < target:
             try:
                 buf.append(place(next(it)))
             except StopIteration:
@@ -236,29 +268,3 @@ def device_prefetch(batches, device: torch.device,
         if not buf:
             return
         yield buf.popleft()
-
-
-def _env_int(var: str, default: int) -> int:
-    try:
-        return int(os.environ.get(var) or default)
-    except ValueError:
-        log.warning("ignoring malformed %s=%r", var, os.environ.get(var))
-        return default
-
-
-def add_prefetch_argument(parser) -> None:
-    """``--prefetch-depth`` (default ``$TPUJOB_DATAPLANE_PREFETCH_DEPTH``,
-    0 = auto), shared by the training payloads."""
-    parser.add_argument(
-        "--prefetch-depth", type=int, default=_env_int(ENV_PREFETCH_DEPTH, 0),
-        help="batches in flight to the device ahead of the step (0 = auto, "
-             f"the default depth {DEFAULT_PREFETCH_DEPTH})")
-
-
-def prefetch_depth(args) -> int:
-    """The prefetch depth: > 0 as given, 0 = auto (the default depth)."""
-    depth = int(args.prefetch_depth)
-    if depth < 0:
-        raise ValueError(f"prefetch depth must be >= 0 (0 = auto), "
-                         f"got {depth}")
-    return depth or DEFAULT_PREFETCH_DEPTH

@@ -18,20 +18,27 @@ trainer/replicas.py when the operator advertises a URL) gates the whole
 feature: unset means ``from_env`` returns None and the payload runs
 exactly as before.
 
-This is the PyTorch payload's own copy of the part of
-``tpu_operator/payload/heartbeat.py`` that the serve loop and the
-one-card training loop use (stdlib only): the same wire format and env
-contract, so the operator reads both payloads' beats alike. A training
-beat carries ``loss`` (finite only) and ``tokensPerSec`` (from
-``tokens_per_batch``); the cooperative-drain directive arrives in the
-ACK body and its ``drainAck`` one-shot rides every beat until a post
-succeeds. In a multi-process job only process 0 sends that stream; every
-other process sends the cadence-only flavour (identity, step cadence and
-the ``stepTiming`` digest, for the operator's straggler detector). A
-training beat also carries the checkpointer's durability counters
+This is the PyTorch payload's own copy of
+``tpu_operator/payload/heartbeat.py`` (stdlib only): the same wire format
+and env contract, so the operator reads both payloads' beats alike. A
+training beat carries ``loss`` (finite only) and ``tokensPerSec`` (from
+``tokens_per_batch``), the checkpointer's durability counters
 (``lastCheckpointStep``, ``checkpointSaveFailures``,
-``checkpointRestoreFallbacks``). The profile and startup channels come
-with the slices that port those features.
+``checkpointRestoreFallbacks``) and the store's
+(``storeLastUploadedStep``, ``storeUploadFailures``), the data plane's
+knobs (``dataPlane``) and, once, the startup breakdown (``startup``);
+:meth:`HeartbeatReporter.report_startup` posts the pre-first-step
+``startupStage`` liveness beats. The ACK body carries the operator's
+directives back: a cooperative drain (``drain``; its ``drainAck``
+one-shot rides every beat until a post succeeds) and an on-demand
+profile (``profile``; the capture's result rides every beat until a post
+succeeds). In a multi-process job only process 0 sends that stream;
+every other process sends the cadence-only flavour (identity, step
+cadence and the ``stepTiming`` digest, for the operator's straggler
+detector). With an ``async_sink`` (the autotune host worker) steady
+beats post off the step thread; a beat carrying ``startup``, ``profile``
+or ``drainAck`` always posts on the caller's thread, since its one-shot
+protocol needs the server's verdict.
 """
 
 from __future__ import annotations
@@ -47,6 +54,24 @@ log = logging.getLogger(__name__)
 
 DEFAULT_INTERVAL = 10.0  # seconds between posts (per process)
 POST_TIMEOUT = 2.0       # socket timeout: never stall a step
+
+# Directive ids remembered per channel (a leak backstop: the operator
+# sends one directive at a time).
+SEEN_IDS_CAP = 64
+
+
+def interval_of(heartbeat: Any) -> float:
+    """The posting cadence of a reporter-shaped object: the one
+    definition the reporter's ``due()``, the startup ticker and the
+    autotune runtime share. A malformed or negative interval resolves
+    to the default; 0 stays 0 (post every step)."""
+    try:
+        interval = float(getattr(heartbeat, "interval", DEFAULT_INTERVAL))
+    except (TypeError, ValueError):
+        return DEFAULT_INTERVAL
+    if not math.isfinite(interval) or interval < 0:
+        return DEFAULT_INTERVAL
+    return interval
 
 
 def _http_post(url: str, body: Dict[str, Any]) -> Optional[Dict[str, Any]]:
@@ -102,6 +127,15 @@ class HeartbeatReporter:
         self._last_post: Optional[float] = None
         self._last_step: Optional[int] = None
         self._failed_once = False
+        # Async host path (``autotune.AsyncHost.submit``): steady posts
+        # hand their serialization and round trip to the worker thread.
+        self.async_sink: Optional[Callable[..., bool]] = None
+        # On-demand profile channel, the drain channel's shape: a
+        # directive from an ACK waits until the train loop takes it; the
+        # capture's result rides every beat until a post succeeds.
+        self._profile_directive: Optional[Dict[str, Any]] = None
+        self._profile_result: Optional[Dict[str, Any]] = None
+        self._profile_seen: set = set()
         # Cooperative-drain channel: a directive from an ACK waits here
         # until the train loop takes it; the loop's ``drainAck {id, step}``
         # rides every beat until a post succeeds. Seen ids dedup the
@@ -115,9 +149,11 @@ class HeartbeatReporter:
             or self._clock() - self._last_post >= self.interval
 
     def report(self, step: int, metrics: Optional[Dict[str, Any]] = None,
+               checkpoint: Optional[Dict[str, Any]] = None,
+               startup: Optional[Dict[str, Any]] = None,
                steptiming: Optional[Dict[str, Any]] = None,
-               serving: Optional[Dict[str, Any]] = None,
-               checkpoint: Optional[Dict[str, Any]] = None) -> bool:
+               dataplane: Optional[Dict[str, Any]] = None,
+               serving: Optional[Dict[str, Any]] = None) -> bool:
         """Post one heartbeat; returns True when the post succeeded. Step
         time is averaged over the steps since the previous post, so it is
         meaningful at any reporting interval.
@@ -128,7 +164,11 @@ class HeartbeatReporter:
         the replica's serving state (``ServeLoop.serving_wire()``);
         ``checkpoint`` is the checkpointer's ``stats()``, mapped onto
         ``lastCheckpointStep`` / ``checkpointSaveFailures`` /
-        ``checkpointRestoreFallbacks`` (not on cadence-only beats)."""
+        ``checkpointRestoreFallbacks`` and the store's
+        ``storeLastUploadedStep`` / ``storeUploadFailures``; ``startup``
+        is the attempt's ``StartupTracker.breakdown()``, sent once after
+        the first step; ``dataplane`` is ``DataPlaneRuntime.wire()`` (the
+        last three not on cadence-only beats)."""
         now = self._clock()
         body: Dict[str, Any] = {
             "namespace": self.namespace,
@@ -141,6 +181,10 @@ class HeartbeatReporter:
             body["stepTiming"] = dict(steptiming)
         if serving:
             body["serving"] = dict(serving)
+        if startup and not self.cadence_only:
+            body["startup"] = dict(startup)
+        if dataplane and not self.cadence_only:
+            body["dataPlane"] = dict(dataplane)
         if self._last_post is not None and self._last_step is not None \
                 and step > self._last_step:
             per_step = (now - self._last_post) / (step - self._last_step)
@@ -158,7 +202,9 @@ class HeartbeatReporter:
                     checkpoint["lastCheckpointStep"])
             for src, dst in (("saveFailures", "checkpointSaveFailures"),
                              ("restoreFallbacks",
-                              "checkpointRestoreFallbacks")):
+                              "checkpointRestoreFallbacks"),
+                             ("lastUploadedStep", "storeLastUploadedStep"),
+                             ("uploadFailures", "storeUploadFailures")):
                 if checkpoint.get(src) is not None:
                     body[dst] = int(checkpoint[src])
         loss = (metrics or {}).get("loss")
@@ -172,9 +218,25 @@ class HeartbeatReporter:
             except (TypeError, ValueError):
                 pass
         self._last_post, self._last_step = now, int(step)
+        if self._profile_result is not None:
+            body["profile"] = dict(self._profile_result)
         if self._drain_ack is not None:
             body["drainAck"] = dict(self._drain_ack)
         return self._post(body)
+
+    def take_profile_directive(self) -> Optional[Dict[str, Any]]:
+        """The pending on-demand profile directive (``{"id", "steps"}``)
+        from a heartbeat ACK, consumed exactly once."""
+        directive, self._profile_directive = self._profile_directive, None
+        return directive
+
+    def attach_profile_result(self, result: Dict[str, Any]) -> None:
+        """Attach a finished capture's result to every later beat until a
+        post succeeds; its id joins the seen set, so the directive the
+        operator resends until it folds this result is never taken
+        again."""
+        self._profile_seen.add(str(result.get("id", "")))
+        self._profile_result = dict(result)
 
     def take_drain_directive(self) -> Optional[Dict[str, Any]]:
         """The pending cooperative-drain directive (``{"id", "reason",
@@ -192,20 +254,31 @@ class HeartbeatReporter:
 
     def _post(self, body: Dict[str, Any]) -> bool:
         """Best-effort POST: never raises, logs the first failure of a
-        streak rather than a stream. A JSON ACK may carry a drain
-        directive."""
+        streak rather than a stream. With an ``async_sink`` a steady beat
+        is handed off (True = accepted for delivery); a beat carrying
+        ``startup``, ``profile`` or ``drainAck`` posts here, since its
+        one-shot protocol needs the server's verdict."""
+        sink = self.async_sink
+        if sink is not None and "startup" not in body \
+                and "profile" not in body and "drainAck" not in body:
+            return bool(sink(self._post_now, body))
+        return self._post_now(body)
+
+    def _post_now(self, body: Dict[str, Any]) -> bool:
         try:
             ack = self._poster(self.url, body)
             self._failed_once = False
+            if "profile" in body:
+                self._profile_result = None  # the one-shot was delivered
             if "drainAck" in body:
                 self._drain_ack = None  # the one-shot was delivered
-            drain = ack.get("drain") if isinstance(ack, dict) else None
-            if isinstance(drain, dict) and drain.get("id") \
-                    and str(drain["id"]) not in self._drain_seen:
-                if len(self._drain_seen) >= 64:
-                    self._drain_seen.clear()  # leak backstop
-                self._drain_seen.add(str(drain["id"]))
-                self._drain_directive = dict(drain)
+            if isinstance(ack, dict):
+                self._profile_directive = _take_new(
+                    ack.get("profile"), self._profile_seen,
+                    self._profile_directive)
+                self._drain_directive = _take_new(
+                    ack.get("drain"), self._drain_seen,
+                    self._drain_directive)
             return True
         except Exception as e:  # noqa: BLE001 — heartbeats never kill a payload
             if not self._failed_once:
@@ -213,9 +286,49 @@ class HeartbeatReporter:
                 self._failed_once = True
             return False
 
+    def report_startup(self, stage: str) -> bool:
+        """Post a pre-first-step liveness beat carrying only the in-flight
+        ``startupStage``: the operator's stall watchdog counts it as
+        liveness, so a long kernel build or restore never reads as a
+        hang. It leaves the step-cadence bookkeeping alone (the first
+        step's report fires at once, and step time never spans startup).
+        Cadence-only reporters send none."""
+        if self.cadence_only:
+            return False
+        return self._post({
+            "namespace": self.namespace,
+            "name": self.job_name,
+            "processId": self.process_id,
+            "attempt": self.attempt,
+            "startupStage": str(stage),
+        })
 
-def from_env(env: Optional[Dict[str, str]] = None
-             ) -> Optional[HeartbeatReporter]:
+    def maybe_report(self, step: int,
+                     metrics: Optional[Dict[str, Any]] = None,
+                     checkpoint: Optional[Dict[str, Any]] = None,
+                     serving: Optional[Dict[str, Any]] = None) -> bool:
+        if not self.due(step):
+            return False
+        return self.report(step, metrics, checkpoint=checkpoint,
+                           serving=serving)
+
+
+def _take_new(directive: Any, seen: set,
+              pending: Optional[Dict[str, Any]]
+              ) -> Optional[Dict[str, Any]]:
+    """A directive from an ACK body that this channel has not seen (its
+    id joins ``seen``), else the one already pending."""
+    if not isinstance(directive, dict) or not directive.get("id") \
+            or str(directive["id"]) in seen:
+        return pending
+    if len(seen) >= SEEN_IDS_CAP:
+        seen.clear()
+    seen.add(str(directive["id"]))
+    return dict(directive)
+
+
+def from_env(env: Optional[Dict[str, str]] = None,
+             tokens_per_batch: int = 0) -> Optional[HeartbeatReporter]:
     """Reporter from the operator's env contract, or None when heartbeats
     are not wired (no TPUJOB_STATUS_URL). Process 0 sends the full stream,
     every other process cadence-only beats; those exist for the straggler
@@ -245,5 +358,6 @@ def from_env(env: Optional[Dict[str, str]] = None
         process_id=process_id,
         attempt=_num("TPUJOB_ATTEMPT", 0, int),
         interval=_num("TPUJOB_HEARTBEAT_INTERVAL", DEFAULT_INTERVAL, float),
+        tokens_per_batch=tokens_per_batch,
         cadence_only=process_id != 0,
     )

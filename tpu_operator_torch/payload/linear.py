@@ -6,7 +6,8 @@
 The exit code follows the operator's contract (``bootstrap.run_payload``):
 0 on convergence (final MSE at or below ``--target-loss``), 1 otherwise or
 on any error, 143 on SIGTERM. ``--device cpu`` runs on the CPU;
-``--profile-dir`` (ROADMAP Queue A 9) raises NotImplementedError.
+``--profile-dir`` (or ``$TPU_PROFILE_DIR``) writes a ``torch.profiler``
+trace of steps 11-20 of the run.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 import torch
 
 from tpu_operator_torch.device import resolve_device
+from tpu_operator_torch.payload import autotune
 from tpu_operator_torch.payload import bootstrap
 from tpu_operator_torch.payload import compute
 from tpu_operator_torch.payload import data as data_mod
@@ -38,13 +40,14 @@ def parse_args(argv=None):
     p.add_argument("--target-loss", type=float, default=1e-3,
                    help="exit nonzero unless the final MSE is at or below "
                         "this")
-    data_mod.add_prefetch_argument(p)
+    autotune.add_prefetch_argument(p)
     optimizers.add_optimizer_flag(
         p, choices=optimizers.CLASSIFIER_OPTIMIZERS, default="sgd")
     p.add_argument("--profile-dir",
                    default=os.environ.get("TPU_PROFILE_DIR", ""),
-                   help="profiler trace dir (not ported: a non-empty value "
-                        "raises)")
+                   help="torch.profiler trace dir (default "
+                        "$TPU_PROFILE_DIR): a trace of steps 11-20 of the "
+                        "run")
     p.add_argument("--device", default="",
                    help="torch device (default: cuda; 'cpu' runs on the CPU)")
     return p.parse_args(argv)
@@ -52,10 +55,6 @@ def parse_args(argv=None):
 
 def run(info: bootstrap.ProcessInfo, args=None) -> float:
     args = args or parse_args([])
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir is not ported to the PyTorch payload yet (ROADMAP "
-            "Queue A 9); leave it empty")
     dev = resolve_device(args.device or None)
     world, rank = bootstrap.world_size(), bootstrap.rank()
     gen = torch.Generator(device=dev)
@@ -77,7 +76,8 @@ def run(info: bootstrap.ProcessInfo, args=None) -> float:
         step, batches, args.steps, device=dev,
         log_every=max(1, args.steps // 10),
         log_fn=lambda i, m: log.info("step %d loss %.6f", i, m["loss"]),
-        prefetch=data_mod.prefetch_depth(args))
+        prefetch=autotune.resolve_prefetch_depth(args.prefetch_depth),
+        profile_dir=args.profile_dir)
     loss = float(metrics["loss"])
     log.info("final loss %.6f over %d process(es) on %s", loss, world, dev)
     if loss > args.target_loss:

@@ -27,8 +27,19 @@ before warm-up by the newest verified checkpoint's params when
 restore walk of ``checkpoint.py``, reading the params file only, cast to
 the server's bf16 weights (the cast the trainer's forward makes).
 ``loadedStep`` on the heartbeat reports the step (0 = the seeded init).
-Hot reload from the remote warm-start store and its watcher are not
-ported yet (ROADMAP Queue A 3): ``reloads`` stays 0.
+
+**Hot weight reload.** With ``TPUJOB_SERVE`` set and the operator's
+warm-start store wired (``TPUJOB_STORE_*``), a watcher thread polls the
+store every ``--reload-poll`` seconds (``$TPUJOB_SERVE_RELOAD_POLL``) for
+a verified step newer than the loaded one. The decode loop runs the
+reload at a step boundary: readiness drops (a forced beat), replica k
+waits k x ``--reload-stagger`` seconds so the fleet rolls, the step is
+prefetched into the local checkpoint dir, and the verified restore
+copies its params into the live weights in place (on the decode thread,
+so the copy is ordered with the decode stream); ``reloads`` counts it
+and readiness returns. Live KV pages are left alone: in-flight requests
+go on decoding on the new weights. A failed restore keeps the old
+weights and re-readies.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from tpu_operator_torch.payload import flash_attention as fa
 from tpu_operator_torch.payload import heartbeat as heartbeat_mod
 from tpu_operator_torch.payload import kvcache
 from tpu_operator_torch.payload import steptrace as steptrace_mod
+from tpu_operator_torch.payload import warmstore
 from tpu_operator_torch.payload.models import TransformerLM
 
 log = logging.getLogger(__name__)
@@ -58,6 +70,12 @@ log = logging.getLogger(__name__)
 # Operator env contract (injected when spec.mode is serve).
 ENV_SERVE_PORT = "TPUJOB_SERVE_PORT"
 ENV_CHECKPOINT_DIR = checkpoint_mod.ENV_VAR
+ENV_SERVE = "TPUJOB_SERVE"
+ENV_RELOAD_POLL = "TPUJOB_SERVE_RELOAD_POLL"
+
+# Default stagger between replica reloads (x replicaIndex): the fleet
+# rolls through a reload instead of dropping every Service at once.
+DEFAULT_RELOAD_STAGGER = 0.5
 
 # Idle poll when no request slot is active: the loop must not spin.
 IDLE_SLEEP = 0.002
@@ -114,7 +132,16 @@ def parse_args(argv=None):
                    default=os.environ.get(ENV_CHECKPOINT_DIR, ""),
                    help="weight source: the newest verified step's params "
                         "(default $TPU_CHECKPOINT_DIR; empty or no step = "
-                        "the seeded init)")
+                        "the seeded init); hot-reloaded when the remote "
+                        "store commits a newer step")
+    p.add_argument("--reload-poll", type=float,
+                   default=float(os.environ.get(ENV_RELOAD_POLL) or 0) or 10.0,
+                   help="seconds between remote-store newer-step polls "
+                        "(default $TPUJOB_SERVE_RELOAD_POLL, else 10)")
+    p.add_argument("--reload-stagger", type=float,
+                   default=DEFAULT_RELOAD_STAGGER,
+                   help="seconds x replicaIndex to delay a reload so the "
+                        "fleet rolls (0 = reload at once)")
     p.add_argument("--device", default="",
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "PyTorch attention path)")
@@ -393,13 +420,16 @@ class ServeLoop:
 
     Single-threaded decode (the step loop owns the model and the engine);
     HTTP ingress threads touch only the queue (under ``_ingress_lock``)
-    and each Request's ``done`` event."""
+    and each Request's ``done`` event; the store watcher only arms the
+    reload target (under ``_reload_lock``), which the loop consumes at a
+    step boundary. ``store`` is the warm-start store (``"auto"``: from the
+    env when ``TPUJOB_SERVE`` is set; or a WarmStartStore, or None)."""
 
     def __init__(self, args, info: bootstrap.ProcessInfo,
                  heartbeat: Optional[Any] = "auto",
                  recorder: Optional[Any] = "auto",
                  clock: Callable[[], float] = time.monotonic,
-                 device=None):
+                 device=None, store: Optional[Any] = "auto"):
         self.args = args
         self.info = info
         self._clock = clock
@@ -409,10 +439,17 @@ class ServeLoop:
         self.heartbeat = heartbeat
         self.recorder = steptrace_mod.from_env() if recorder == "auto" \
             else recorder
+        if store == "auto":
+            store = warmstore.store_from_env() \
+                if os.environ.get(ENV_SERVE) else None
+        self.store = store
         self.model = build_model(args, self.device)
         self.engine = make_engine(args, self.device)
         self.window = LatencyWindow(clock=clock)
         self.ready = False
+        self.reloads = 0
+        # Seconds each reload kept the replica unready.
+        self.reload_gaps: List[float] = []
         self.failed_steps = 0
         self._consecutive_failures = 0
         self.completed = 0
@@ -424,10 +461,13 @@ class ServeLoop:
         self._ingress_lock = threading.Lock()
         self._queue: List[Request] = []  # guarded-by: _ingress_lock
         self._shed = 0  # guarded-by: _ingress_lock
-        # The loaded step is read by heartbeat and HTTP threads.
+        # The loaded step and the pending reload target: the watcher
+        # compares and arms, the decode loop consumes at a step boundary.
         self._reload_lock = threading.Lock()
         self._loaded_step = 0  # guarded-by: _reload_lock
+        self._reload_target: Optional[int] = None  # guarded-by: _reload_lock
         self._stop = threading.Event()
+        self._watcher: Optional[threading.Thread] = None
         self._http: Optional[Any] = None
 
     @property
@@ -459,7 +499,7 @@ class ServeLoop:
             "queueDepth": self.queue_depth(),
             "kvCacheUtilization": round(self.engine.utilization(), 4),
             "loadedStep": self.loaded_step,
-            "reloads": 0,
+            "reloads": int(self.reloads),
         }
         if "p50" in stats:
             out["p50LatencySeconds"] = round(stats["p50"], 6)
@@ -476,11 +516,80 @@ class ServeLoop:
                                   if self.recorder is not None else None))
 
     def _set_ready(self, ready: bool) -> None:
-        """Readiness transitions post a forced beat."""
+        """Readiness transitions post a forced beat: the operator's
+        Service gate learns at once that a reload started."""
         if self.ready == ready:
             return
         self.ready = ready
         self._post_beat(force=True)
+
+    # -- hot reload ------------------------------------------------------------
+
+    def _watch_store(self) -> None:
+        """Watcher thread: a newer verified remote step (a committed
+        manifest) arms the reload target; the decode loop runs it."""
+        while not self._stop.wait(max(0.1, float(self.args.reload_poll))):
+            try:
+                newest = self.store.last_uploaded_step()
+            except Exception as e:  # noqa: BLE001 — the watch is best-effort
+                log.warning("serve: store poll failed: %s", e)
+                continue
+            with self._reload_lock:
+                if newest is not None and newest > self._loaded_step:
+                    self._reload_target = int(newest)
+
+    def _maybe_reload(self) -> bool:
+        """Step-boundary reload: drop readiness, stagger, prefetch the
+        newer step, restore it into the live weights in place, re-ready.
+        True when a reload ran. Live KV pages are not touched."""
+        with self._reload_lock:
+            target, self._reload_target = self._reload_target, None
+            loaded = self._loaded_step
+        if target is None or target <= loaded:
+            # The watcher re-arms the same step while a reload of it is
+            # still running (the loaded step moves only at its end): that
+            # step is loaded now, and a second reload would drop
+            # readiness again for nothing.
+            return False
+        log.info("serve: newer verified step %d (loaded %d); rolling "
+                 "reload", target, self.loaded_step)
+        t0 = self._clock()
+        self._set_ready(False)
+        stagger = float(self.args.reload_stagger) * self.info.replica_index
+        if stagger > 0:
+            self._stop.wait(stagger)
+        self._prefetch_newer()
+        try:
+            step = self._restore_weights()
+        except Exception:  # noqa: BLE001 — keep serving the old weights
+            log.exception("serve: reload restore failed; continuing on "
+                          "loaded step %d", self.loaded_step)
+            self._set_ready(True)
+            return False
+        if step > self.loaded_step:
+            self._set_loaded_step(step)
+            self.reloads += 1
+            log.info("serve: weights hot-reloaded at step %d (reload %d, "
+                     "no restart)", step, self.reloads)
+        self._set_ready(True)
+        self.reload_gaps.append(self._clock() - t0)
+        return True
+
+    def _checkpoint_dir(self) -> str:
+        return self.args.checkpoint_dir \
+            or os.environ.get(checkpoint_mod.ENV_VAR, "")
+
+    def _prefetch_newer(self) -> None:
+        """Materialize the newest healthy remote step in the local
+        checkpoint dir, where the verified walk finds it. Best-effort: a
+        broken store makes the reload a no-op, never kills the service."""
+        directory = self._checkpoint_dir()
+        if self.store is None or not directory:
+            return
+        try:
+            self.store.prefetch_checkpoint(directory)
+        except Exception as e:  # noqa: BLE001 — the reload is best-effort
+            log.warning("serve: step prefetch failed: %s", e)
 
     # -- ingress ---------------------------------------------------------------
 
@@ -609,8 +718,7 @@ class ServeLoop:
         nothing in it). A fresh reader Checkpointer per load walks,
         verifies and quarantines as the trainer's restore does, and reads
         only the params file."""
-        directory = self.args.checkpoint_dir \
-            or os.environ.get(checkpoint_mod.ENV_VAR, "")
+        directory = self._checkpoint_dir()
         if not directory:
             return 0
         ck = checkpoint_mod.Checkpointer(directory, save_every=1)
@@ -652,6 +760,11 @@ class ServeLoop:
         self._warmup()
         self.steps += 1
         self._set_ready(self._consecutive_failures == 0)
+        if self.store is not None:
+            self._watcher = threading.Thread(target=self._watch_store,
+                                             daemon=True,
+                                             name="serve-reload-watch")
+            self._watcher.start()
         self._start_http()
         t0 = self._clock()
         try:
@@ -667,6 +780,7 @@ class ServeLoop:
                     self._synthetic_request(now)
                 self._shed_expired(now)
                 self._admit_from_queue()
+                self._maybe_reload()
                 if any(r is not None for r in self._requests):
                     self._decode_step()
                     self.steps += 1
@@ -690,12 +804,16 @@ class ServeLoop:
             if self._http is not None:
                 self._http.shutdown()
                 self._http.server_close()
+            if self._watcher is not None:
+                self._watcher.join(timeout=2.0)
         elapsed = max(1e-9, self._clock() - t0)
         summary: Dict[str, Any] = {
             "steps": self.steps,
             "completed": self.completed,
             "arrivals": gen.total_arrivals,
             "failedSteps": self.failed_steps,
+            "reloads": self.reloads,
+            "reloadGapSeconds": list(self.reload_gaps),
             "loadedStep": self.loaded_step,
             "shed": self.shed,
             "tokensGenerated": self.tokens_generated,
@@ -785,9 +903,10 @@ def run(info: bootstrap.ProcessInfo, args=None) -> Dict[str, Any]:
     loop = ServeLoop(args, info)
     summary = loop.run()
     log.info("serve: %d steps, %d/%d requests completed (%d shed), "
-             "%.0f tokens/sec, %d failed steps, weights of step %d",
-             summary["steps"], summary["completed"], summary["arrivals"],
-             summary["shed"], summary["tokensPerSecond"],
+             "%.0f tokens/sec, %d reloads, %d failed steps, weights of "
+             "step %d", summary["steps"], summary["completed"],
+             summary["arrivals"], summary["shed"],
+             summary["tokensPerSecond"], summary["reloads"],
              summary["failedSteps"], summary["loadedStep"])
     return summary
 

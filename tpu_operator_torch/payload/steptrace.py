@@ -142,6 +142,11 @@ class StepRecorder:
         self._t0 = 0.0
         self._tlast = 0.0
         self.steps_recorded = 0
+        # Optional per-step observer (the autotune controller): called on
+        # the step-loop thread with each committed record, after the ring
+        # bookkeeping and outside the lock. A raising observer is logged
+        # and detached; it never breaks the loop.
+        self.on_commit: Optional[Callable[[Dict[str, Any]], None]] = None
 
     # -- step path (timestamps only) -------------------------------------------
 
@@ -182,6 +187,13 @@ class StepRecorder:
                             maxlen=self.capacity)
                     self._window[phase].append(cur[phase])
         self.steps_recorded += 1
+        observer = self.on_commit
+        if observer is not None:
+            try:
+                observer(cur)
+            except Exception:  # noqa: BLE001 — observers never kill the loop
+                log.exception("steptrace commit observer failed; detaching")
+                self.on_commit = None
 
     def abandon(self) -> None:
         """Drop the in-flight step (loop exiting mid-step): a partial

@@ -32,7 +32,12 @@ part of ``tpu_operator/payload/train.py`` that one process per card uses).
   checkpointer (``checkpoint.py``) it restores the newest verified step
   first and fast-forwards the host batches past it, saves on the
   interval, at a drain boundary and at the end, and exits 143 when the
-  final step is not durable.
+  final step is not durable. The reference's warm-restart and operator
+  runtime ride along: the overlapped prologue (COMPILE, the kernel
+  library's build or load, on a worker thread beside RESTORE), the
+  startup breakdown and its liveness beats (``startup.py``), the
+  data-plane runtime (``autotune.py``), the ``--profile-dir`` window and
+  the on-demand profile capture (``profile.py``).
 
 The fence: each step's metrics are copied to pinned host memory behind
 the step's work, and a CUDA event is recorded after the copy. After
@@ -44,10 +49,14 @@ dispatched (``.item()``) would stall the host for a whole step.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import logging
 import os
+import threading
 import time
-from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -55,10 +64,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils import checkpoint as checkpoint_mod
 
+from tpu_operator_torch.payload import autotune as autotune_mod
 from tpu_operator_torch.payload import bootstrap as bootstrap_mod
 from tpu_operator_torch.payload import data as data_mod
 from tpu_operator_torch.payload import heartbeat as heartbeat_mod
 from tpu_operator_torch.payload import models as models_mod
+from tpu_operator_torch.payload import profile as profile_mod
+from tpu_operator_torch.payload import startup as startup_mod
 from tpu_operator_torch.payload import steptrace as steptrace_mod
 
 log = logging.getLogger(__name__)
@@ -347,13 +359,129 @@ def agreed_drain_code() -> int:
 def _dump_steptrace(recorder: Optional[steptrace_mod.StepRecorder],
                     checkpointer) -> None:
     """Retryable-exit postmortem: dump the flight recorder's ring buffer
-    next to the checkpoint dir. Best-effort on every branch."""
+    next to the checkpoint dir and, with the warm-start store wired, ship
+    it through the write-behind uploader (the caller's
+    ``checkpointer.close()`` drains it). Best-effort on every branch."""
     if recorder is None:
         return
     recorder.abandon()
     ckpt_dir = getattr(checkpointer, "directory", "") \
         or os.environ.get("TPU_CHECKPOINT_DIR", "")
-    steptrace_mod.postmortem_dump(recorder, ckpt_dir)
+    path = steptrace_mod.postmortem_dump(recorder, ckpt_dir)
+    uploader = getattr(checkpointer, "uploader", None)
+    if path is not None and uploader is not None:
+        uploader.enqueue_artifact(path)
+
+
+def _finish_profile(capture: profile_mod.ProfileCapture,
+                    recorder: Optional[steptrace_mod.StepRecorder],
+                    checkpointer, heartbeat) -> None:
+    """Close a completed on-demand capture: write the artifact, ship it
+    through the write-behind ``artifacts/`` path, and attach the result
+    to the heartbeat, so the operator folds ``status.profile`` to
+    Captured. Best-effort: a profile never takes down the step loop."""
+    try:
+        path, result = capture.finish(recorder)
+    except Exception:  # noqa: BLE001 — capture teardown is observability only
+        log.exception("profile %s: finish failed", capture.id)
+        return
+    uploader = getattr(checkpointer, "uploader", None)
+    if path and uploader is not None:
+        uploader.enqueue_artifact(path)
+        result["artifactKey"] = "artifacts/" + os.path.basename(path)
+    heartbeat.attach_profile_result(result)
+    log.info("profile %s: captured %d step(s)%s", capture.id,
+             result.get("capturedSteps", 0),
+             " -> " + result["artifactKey"] if "artifactKey" in result
+             else "")
+
+
+def kernel_loader(device) -> Optional[Callable[[], bool]]:
+    """The COMPILE work of a payload that launches the port's kernels:
+    on a CUDA device, build or load the kernel library
+    (``kernels/build.py``, through the compilation cache when bootstrap
+    enabled one) and return whether that was a cache hit (no nvcc ran in
+    this process). None on the CPU, where the plain versions need no
+    build. A failed build or load raises."""
+    if torch.device(device).type != "cuda":
+        return None
+
+    def load() -> bool:
+        from tpu_operator_torch.kernels import build
+
+        build.library()
+        return not build.load_info().get("ranNvcc", True)
+
+    return load
+
+
+def _compile(tracker: startup_mod.StartupTracker,
+             compile_fn: Callable[[], Optional[bool]]) -> None:
+    """Run the COMPILE work under its stage and record its cache hit."""
+    with tracker.stage(startup_mod.COMPILE):
+        hit = compile_fn()
+    if hit is not None:
+        tracker.cache_hit = bool(hit)
+
+
+def _overlapped_prologue(batches, checkpointer, state,
+                         tracker: startup_mod.StartupTracker,
+                         compile_fn: Optional[Callable[[], Optional[bool]]]
+                         ) -> Tuple[Any, int, Iterator]:
+    """The attempt's prologue with COMPILE (``compile_fn`` on a worker
+    thread: the kernel library's build or load) concurrent with RESTORE
+    (``checkpointer.restore`` on this thread, its gloo collectives
+    included). Returns (state, start, stream).
+
+    The same result as the serial prologue: batch 0 is peeked and
+    re-chained in order, so a fresh start trains on it and a resume
+    skips it as the serial fast-forward would. The worker touches no
+    tensor; it is joined on every exit, failures included, and its
+    failure raises here (no fallback: without its kernels the step
+    cannot run on the card)."""
+    it = iter(batches)
+    try:
+        first = [next(it)]
+    except StopIteration:
+        first = []
+    failure: List[BaseException] = []
+
+    def compile_worker() -> None:
+        try:
+            _compile(tracker, compile_fn)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+            failure.append(e)
+
+    worker = None
+    if compile_fn is not None:
+        worker = threading.Thread(target=compile_worker, daemon=True,
+                                  name="kernel-compile")
+        worker.start()
+    start = 0
+    try:
+        if checkpointer is not None:
+            with tracker.stage(startup_mod.RESTORE):
+                state, start = checkpointer.restore(state)
+    finally:
+        if worker is not None:
+            worker.join()
+    if failure:
+        raise failure[0]
+    stream = itertools.chain(first, it)
+    for _ in range(start):
+        next(stream)
+    return state, start, stream
+
+
+def _startup_heartbeat_ticker(tracker: startup_mod.StartupTracker,
+                              heartbeat, stop: threading.Event) -> None:
+    """Pre-first-step liveness: until the first step lands there are no
+    step beats, so a long kernel build or restore would read as a hang.
+    Post the in-flight ``startupStage`` on the heartbeat's cadence."""
+    while not stop.wait(max(0.01, heartbeat_mod.interval_of(heartbeat))):
+        stage = tracker.current_stage()
+        if stage is not None:
+            heartbeat.report_startup(stage)
 
 
 def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
@@ -361,7 +489,11 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
                log_fn: Optional[Callable[[int, dict], None]] = None,
                prefetch: int = 2, heartbeat="auto",
                steptrace="auto", checkpointer=None,
-               state=None) -> Dict[str, float]:
+               state=None, startup=None, overlap: bool = True,
+               dataplane="auto", profile_dir: str = "",
+               profile_range: Tuple[int, int] = (10, 20),
+               compile_fn: Optional[Callable[[], Optional[bool]]] = None
+               ) -> Dict[str, float]:
     """Drive ``train_step(*device_batch)`` up to ``steps`` total steps;
     returns the last step's metrics as host floats.
 
@@ -381,22 +513,87 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
     would have seen unbroken. It saves on the checkpointer's interval, at
     a drain boundary past the first step, and at the end; a final step
     that is not durable exits 143 after dumping the flight recorder next
-    to the checkpoint dir."""
+    to the checkpoint dir.
+
+    Startup: ``startup`` (default a fresh ``startup.StartupTracker``)
+    times RESTORE, COMPILE and FIRST_STEP. ``compile_fn`` is the COMPILE
+    work (:func:`kernel_loader`: the kernel library); with ``overlap``
+    (default) it runs on a worker thread while the restore runs here. The
+    breakdown rides the first beat after step 1, and until then the
+    in-flight ``startupStage`` posts on the heartbeat's cadence.
+
+    ``dataplane`` is the data-plane runtime (``autotune.py``; ``"auto"``:
+    from the operator's env, inert without it; None: the static
+    ``prefetch`` depth): the live prefetch depth, the background host
+    pipeline, the autotune controller and the async host path; its knobs
+    ride the heartbeat as ``dataPlane``.
+
+    Profiling: ``profile_dir`` (``--profile-dir`` / ``TPU_PROFILE_DIR``)
+    writes a ``torch.profiler`` trace of steps ``profile_range`` counted
+    from this run's first step. A profile directive from a heartbeat ACK
+    starts an on-demand ``profile.ProfileCapture`` (one at a time), which
+    traces only when the ``profile_dir`` window is neither armed nor
+    running: one profiler owner."""
     if checkpointer is not None and state is None:
         raise ValueError("train_loop: a checkpointer needs the state it "
                          "saves and restores")
+    device = torch.device(device)
+    cuda = device.type == "cuda"
     if heartbeat == "auto":
         heartbeat = heartbeat_mod.from_env()
     recorder = steptrace_mod.from_env() if steptrace == "auto" else steptrace
+    if dataplane == "auto":
+        runtime = autotune_mod.from_env(prefetch=prefetch)
+    elif dataplane is None:
+        runtime = autotune_mod.DataPlaneRuntime.static(prefetch)
+    else:
+        runtime = dataplane
+    # A gang's save is a collective: the cadence knob of a multi-process
+    # job goes through the checkpointer's gang-agreed mode.
+    runtime.attach(recorder=recorder, heartbeat=heartbeat,
+                   checkpointer=checkpointer,
+                   processes=bootstrap_mod.world_size())
+    tracker = startup if startup is not None else startup_mod.new_tracker()
+    ticker_stop = threading.Event()
+    if heartbeat is not None and not heartbeat.cadence_only:
+        threading.Thread(target=_startup_heartbeat_ticker,
+                         args=(tracker, heartbeat, ticker_stop),
+                         daemon=True, name="startup-heartbeat").start()
     start = 0
-    batches = iter(batches)
-    if checkpointer is not None:
-        state, start = checkpointer.restore(state)
-        for _ in range(start):
-            next(batches)
+    try:
+        if overlap:
+            state, start, batches = _overlapped_prologue(
+                batches, checkpointer, state, tracker, compile_fn)
+        else:
+            batches = iter(batches)
+            if compile_fn is not None:
+                _compile(tracker, compile_fn)
+            if checkpointer is not None:
+                with tracker.stage(startup_mod.RESTORE):
+                    state, start = checkpointer.restore(state)
+            for _ in range(start):
+                next(batches)
+    except BaseException:
+        ticker_stop.set()
+        runtime.close()
+        raise
     # Prefetch wraps the stream only after the fast-forward above.
-    dev_batches: Iterator = data_mod.device_prefetch(batches, device,
-                                                     depth=prefetch)
+    dev_batches: Iterator = data_mod.device_prefetch(
+        batches, device, depth=runtime.depth, control=runtime.control,
+        pipeline=runtime.pipeline)
+    trace_from = start + profile_range[0]
+    trace_to = start + profile_range[1]
+    trace_path = os.path.join(
+        profile_dir or ".",
+        f"trace-p{bootstrap_mod.rank()}-from-step-{trace_from + 1}.json")
+    if profile_dir and trace_from >= steps:
+        log.warning("profile window [%d, %d) lies beyond the run's last "
+                    "step %d; no trace will be captured", trace_from,
+                    trace_to, steps)
+    window = None  # the --profile-dir window's running profiler
+    profiled = False
+    capture: Optional[profile_mod.ProfileCapture] = None
+    pending_startup: Optional[dict] = None
     fence: Optional[_Fenced] = None
     ready: Optional[_Fenced] = None
     metrics: Metrics = {}
@@ -425,6 +622,9 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
                 else:
                     log.info("drain: exiting %d at step %d", code, i)
                 raise SystemExit(code)
+            if profile_dir and window is None and not profiled \
+                    and i >= trace_from:
+                window = profile_mod.start_profiler(cuda)
             batch_args = next(dev_batches)
             if recorder is not None:
                 recorder.lap(steptrace_mod.DATA)
@@ -432,21 +632,35 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
                     and heartbeat.tokens_per_batch == 0:
                 heartbeat.tokens_per_batch = _infer_tokens_per_batch(
                     batch_args)
-            metrics = train_step(*batch_args)
-            current = _Fenced(metrics)
-            if recorder is not None:
-                recorder.lap(steptrace_mod.DISPATCH)
+            # The first step runs to completion (the allocator's first
+            # touch, any residual setup): the FIRST_STEP stage, one fence
+            # paid once.
+            with (tracker.stage(startup_mod.FIRST_STEP) if i == start
+                  else contextlib.nullcontext()):
+                metrics = train_step(*batch_args)
+                current = _Fenced(metrics)
+                if recorder is not None:
+                    recorder.lap(steptrace_mod.DISPATCH)
+                if i == start:
+                    current.wait()
+                    ready = current
             if i == start:
-                # The first step runs to completion (kernel builds, the
-                # allocator's first touch): one fence, paid once.
-                current.wait()
-                ready = current
+                ticker_stop.set()
+                pending_startup = tracker.breakdown()
             elif fence is not None:
                 fence.wait()
                 ready = fence
             if recorder is not None:
                 recorder.lap(steptrace_mod.COMPUTE)
             fence = current
+            if window is not None and i + 1 >= trace_to:
+                profile_mod.stop_profiler(window, trace_path, cuda)
+                window, profiled = None, True
+                log.info("profile window: trace of steps %d-%d in %s",
+                         trace_from + 1, i + 1, trace_path)
+                if recorder is not None:
+                    # The stop's synchronize is one-off bookkeeping.
+                    recorder.lap(steptrace_mod.HOST)
             if checkpointer is not None:
                 # The host copy is queued behind this step's update on the
                 # stream: no fence on the step just dispatched.
@@ -454,20 +668,46 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
                 if recorder is not None:
                     recorder.lap(steptrace_mod.CHECKPOINT)
             if log_every and log_fn and (i + 1) % log_every == 0:
-                log_fn(i + 1, ready.values())
-            if heartbeat is not None and heartbeat.due(i + 1):
-                cadence = getattr(heartbeat, "cadence_only", False)
-                heartbeat.report(
-                    i + 1, None if cadence else ready.values(),
-                    steptiming=(recorder.summary()
-                                if recorder is not None else None),
-                    checkpoint=(checkpointer.stats()
-                                if checkpointer is not None and not cadence
-                                else None))
+                runtime.submit_host(log_fn, i + 1, ready.values())
+            # The first step's report is forced: it carries the startup
+            # breakdown, which then rides due beats until a post succeeds.
+            if heartbeat is not None and (heartbeat.due(i + 1)
+                                          or (i == start
+                                              and pending_startup)):
+                cadence = heartbeat.cadence_only
+                if heartbeat.report(
+                        i + 1, None if cadence else ready.values(),
+                        checkpoint=(checkpointer.stats()
+                                    if checkpointer is not None
+                                    and not cadence else None),
+                        startup=pending_startup,
+                        steptiming=(recorder.summary()
+                                    if recorder is not None else None),
+                        dataplane=runtime.wire()):
+                    pending_startup = None
             if recorder is not None:
                 recorder.lap(steptrace_mod.HOST)
                 recorder.commit()
             if heartbeat is not None:
+                # After commit, so this step's recorder row is in the ring
+                # when a full window merges it.
+                directive = heartbeat.take_profile_directive()
+                if directive and capture is None:
+                    capture = profile_mod.ProfileCapture(
+                        directive,
+                        base_dir=(getattr(checkpointer, "directory", "")
+                                  or os.environ.get("TPU_CHECKPOINT_DIR",
+                                                    "")),
+                        # The --profile-dir window owns the profiler while
+                        # armed or running.
+                        allow_trace=(window is None
+                                     and (not profile_dir or profiled)),
+                        cuda=cuda)
+                    capture.start(i + 1)
+                if capture is not None and capture.tick(i + 1):
+                    _finish_profile(capture, recorder, checkpointer,
+                                    heartbeat)
+                    capture = None
                 directive = heartbeat.take_drain_directive()
                 if directive and directive.get("id"):
                     log.info("drain directive %s (%s): draining at next "
@@ -486,8 +726,22 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
             recorder.abandon()
         raise
     finally:
+        ticker_stop.set()
         bootstrap_mod.exit_step_loop()
         dev_batches.close()
+        runtime.close()
+        if capture is not None:
+            # An exit mid-capture must not leave the profiler running; the
+            # directive is one-shot and the partial window is dropped.
+            capture.abandon()
+        if window is not None:
+            # Close the window's trace on every exit path, so the steps it
+            # holds are written.
+            try:
+                profile_mod.stop_profiler(window, trace_path, cuda)
+            except Exception:  # noqa: BLE001 — a broken device; the exit wins
+                log.warning("profile window: trace stop failed",
+                            exc_info=True)
     if checkpointer is not None and steps > start:
         # The final save is load-bearing: a run must not end with its end
         # state unpersisted. If it is still not durable after the flush,

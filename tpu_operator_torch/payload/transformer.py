@@ -28,16 +28,24 @@ layouts (the identity permutation for contiguous).
 
 ``--checkpoint-dir`` (or ``$TPU_CHECKPOINT_DIR``) checkpoints every
 ``--checkpoint-every`` steps, at a drain and at the end, and a restarted
-attempt resumes from the newest verified step (``checkpoint.py``).
+attempt resumes from the newest verified step (``checkpoint.py``); with
+the operator's warm-start store (``TPUJOB_STORE_*``) the verified steps
+and the kernel library also go to the store, and a fresh node prefetches
+both during the rendezvous. The kernel library is built or loaded
+(COMPILE) on a worker thread while the checkpoint restores.
+``--profile-dir`` (or ``$TPU_PROFILE_DIR``) writes a ``torch.profiler``
+trace of steps 11-20 of the run; ``--prefetch-depth`` and the
+``TPUJOB_DATAPLANE_*`` env drive the data plane (``autotune.py``).
 
 The flags of the reference that are not ported yet (tensor parallelism,
-Ulysses, FSDP, profiling) parse with the reference's defaults and raise
+Ulysses, FSDP) parse with the reference's defaults and raise
 NotImplementedError when set away from them; ROADMAP Queue A lists them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
@@ -46,6 +54,7 @@ import numpy as np
 import torch
 
 from tpu_operator_torch.device import resolve_device
+from tpu_operator_torch.payload import autotune
 from tpu_operator_torch.payload import bootstrap
 from tpu_operator_torch.payload import checkpoint
 from tpu_operator_torch.payload import compute
@@ -58,7 +67,10 @@ from tpu_operator_torch.payload.models import TransformerLM
 
 log = logging.getLogger(__name__)
 
-prefetch_depth = data_mod.prefetch_depth
+
+def prefetch_depth(args) -> int:
+    """``--prefetch-depth`` through the 0 = auto convention."""
+    return autotune.resolve_prefetch_depth(args.prefetch_depth)
 
 
 def parse_args(argv=None):
@@ -118,9 +130,10 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-every", type=int, default=100)
     p.add_argument("--profile-dir",
                    default=os.environ.get("TPU_PROFILE_DIR", ""),
-                   help="profiler trace dir (not ported: a non-empty value "
-                        "raises)")
-    data_mod.add_prefetch_argument(p)
+                   help="torch.profiler trace dir (default "
+                        "$TPU_PROFILE_DIR): a trace of steps 11-20 of the "
+                        "run")
+    autotune.add_prefetch_argument(p)
     p.add_argument("--device", default="",
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "PyTorch path)")
@@ -133,7 +146,6 @@ _NOT_PORTED = {
     "sp_mode": ("ring", "7"),
     "split_qkv": ("auto", "7"),
     "fsdp": (False, "7"),
-    "profile_dir": ("", "9"),
 }
 
 
@@ -388,11 +400,14 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
             log_every=args.log_every,
             log_fn=lambda i, m: log.info("step %d loss %.4f", i, m["loss"]),
             prefetch=prefetch_depth(args), checkpointer=ckpt,
-            state=built.state)
+            state=built.state, profile_dir=args.profile_dir,
+            compile_fn=train.kernel_loader(built.device))
     finally:
         if ckpt is not None:
             ckpt.close()
     log.info("final: loss %.4f", metrics.get("loss", float("nan")))
+    if built.device.type == "cuda":
+        log.info("kernel launches: %s", json.dumps(fa.launch_counts()))
     return metrics
 
 
