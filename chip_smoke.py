@@ -123,6 +123,19 @@ one JSON line each:
     chunked loss within 1e-4 of the unchunked loss (forward only); K1
     and K2 once per layer and microbatch; the step time, tokens/s and
     peak memory. ``profile_longctx``: one such step under torch.profiler.
+14a. ``moe``: moe_e8_top2_single_chip as written (bench.py:730: dim 1024,
+    8 layers, 8 / 4 heads, 8 experts top-2 in every odd layer, batch
+    8 x 2048, capacity factor 1.25, bf16, adam, einsum dispatch) through
+    ``moe.build`` and ``train.train_loop``, 6 steps: at init the loss and
+    gradients through K1 + K2 against plain attention (the train phase's
+    gates at init); block 1's MoE layer in both dispatch modes (the same
+    routing, outputs within a stated bf16 tolerance); K1, dq and dkv
+    layers x steps each in the loop; every loss finite, drop_frac in
+    [0, 1], aux in (0, E], router_z finite; a save at step 3 resumed to
+    step 6 bit-equal to the unbroken run. Printed: step ms, tokens/s,
+    peak memory and one step's device time by group (K1, K2, cuBLAS with
+    the dispatch / combine einsums apart, the rest). The kernels phases
+    check K1 and K2 at this row's 8 / 4 heads too.
 15. ``classifier``: ``payload.cifar`` at its defaults (ResNet-20, batch
     1024, sgd 0.1 / 0.9) for 20 steps (the loss descends; the first 5
     losses against a CPU run of the same port from the same weights and
@@ -471,9 +484,18 @@ def fwd_excess(torch, got, want, terms) -> float:
     return float(((got.float() - want).abs() / limit).max())
 
 
+def moe_generator(torch):
+    """The MoE row's kernel cases draw from a generator of their own, so
+    the earlier cases see the inputs they saw before those were added."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    return gen
+
+
 def check_flash_fwd(torch, fa, F, gen):
-    """The forward kernel at the serve prefill shape and the training shape
-    (causal GQA) and at a non-causal MHA shape with a ragged T, per element
+    """The forward kernel at the serve prefill shape, the training shape
+    and the MoE row's (8 / 4 heads; causal GQA) and at a non-causal MHA
+    shape with a ragged T, per element
     against the plain version in f32. At the training shape, a negative
     control: the plain side with V's last key tile zeroed (a fault that
     leaves L intact and touches only the last 64 rows) must fail."""
@@ -482,11 +504,13 @@ def check_flash_fwd(torch, fa, F, gen):
     for label, (b, t, h, kvh, causal) in {
             "prefill_causal_gqa": (1, 1920, 16, 4, True),
             "train_causal_gqa": (8, 2048, 16, 4, True),
-            "noncausal_mha_ragged": (2, 1000, 16, 16, False)}.items():
+            "noncausal_mha_ragged": (2, 1000, 16, 16, False),
+            "moe_causal_gqa": (8, 2048, 8, 4, True)}.items():
         d = 128
-        q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
-        k = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
-        v = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
+        g = moe_generator(torch) if label.startswith("moe") else gen
+        q = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16()
+        k = torch.randn(b, t, kvh, d, generator=g, device=dev).bfloat16()
+        v = torch.randn(b, t, kvh, d, generator=g, device=dev).bfloat16()
         out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         qt, kt, vt = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
@@ -839,13 +863,15 @@ def bwd_bounds(torch, b, tq, tk, h, kvh, causal, offsets, fused, grad_bytes):
 def check_flash_bwd(torch, fa, F, gen):
     """The backward kernels (K2) against the plain backward: at the
     training shape (B 8, T 2048, H 16, KVH 4, causal, O and L from K1,
-    fused D, bf16 grads), at two ragged T 1000 cases with offsets (group 4
+    fused D, bf16 grads) and the MoE row's (H 8, KVH 4), at two ragged
+    T 1000 cases with offsets (group 4
     with a stride and precomputed D; group 1), f32 grads, and at the SP
     ring's shape (B 2, Tq = Tk = 2048, striped offsets (1, 0, 4), given D,
     f32 grads). A negative control (the plain side with D zeroed) must
     fail the tolerance, and two launches must be bit-equal. The training
-    and ring shapes are timed beside the bound; the training shape also
-    beside the plain version and SDPA's backward (a yardstick only)."""
+    and ring shapes are timed beside the bound; the training and MoE
+    shapes also beside the plain version and SDPA's backward (a
+    yardstick only)."""
     cases = {
         "train_causal_gqa": (8, 2048, 16, 4, True, (0, 0, 1), True,
                              torch.bfloat16),
@@ -855,12 +881,16 @@ def check_flash_bwd(torch, fa, F, gen):
                               torch.float32),
         "sp_ring_striped_given_d": (2, 2048, 16, 4, True, (1, 0, 4), False,
                                     torch.float32),
+        "moe_causal_gqa": (8, 2048, 8, 4, True, (0, 0, 1), True,
+                           torch.bfloat16),
     }
-    timed = ("train_causal_gqa", "sp_ring_striped_given_d")
+    timed = ("train_causal_gqa", "moe_causal_gqa", "sp_ring_striped_given_d")
+    beside_plain = ("train_causal_gqa", "moe_causal_gqa")
     out = {}
     for label, (b, t, h, kvh, causal, offs, fused, gd) in cases.items():
-        inputs, run = bwd_case(torch, fa, gen, b, t, h, kvh, causal, offs,
-                               fused, gd)
+        inputs, run = bwd_case(
+            torch, fa, moe_generator(torch) if label.startswith("moe")
+            else gen, b, t, h, kvh, causal, offs, fused, gd)
         q, k, v, g, L, o, D = inputs
         got = run()
         torch.cuda.synchronize()
@@ -916,7 +946,7 @@ def check_flash_bwd(torch, fa, F, gen):
             if isinstance(ms, float):
                 res[f"tflops_{name}"] = res[f"flops_{name}"] / ms / 1e9
                 res[f"share_of_bound_{name}"] = res[f"bound_ms_{name}"] / ms
-        if label != "train_causal_gqa":
+        if label not in beside_plain:
             del inputs
             continue
         qt, kt, vt, gt = (x.permute(0, 2, 1, 3) for x in (q, k, v, g))
@@ -1490,12 +1520,12 @@ def drive_train(torch, fa, train, built, args, label, wanted):
     the first within [ln V, ln V + 2]. Returns the loop's readings."""
     import math
 
-    losses, starts = [], []
+    kept, starts = [], []
 
     def step(batch):
         starts.append(time.perf_counter())
         metrics = built.step(batch)
-        losses.append(metrics["loss"])  # stays on the card until the end
+        kept.append(metrics)  # stays on the card until the end
         return metrics
 
     torch.cuda.empty_cache()
@@ -1509,7 +1539,9 @@ def drive_train(torch, fa, train, built, args, label, wanted):
     end = time.perf_counter()
     counts = fa.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    trajectory = [float(x) for x in losses]
+    trajectory = [float(m["loss"]) for m in kept]
+    others = {k: [float(m[k]) for m in kept] for k in kept[0]
+              if k != "loss"} if kept else {}
     require(len(trajectory) == args.steps, f"{label}: wrong number of steps")
     require(all(math.isfinite(x) for x in trajectory),
             f"{label}: non-finite loss {trajectory}")
@@ -1523,6 +1555,7 @@ def drive_train(torch, fa, train, built, args, label, wanted):
                 f"{label}: {name} launched {counts[name]} times, wanted "
                 f"{want}")
     return {"launches": counts, "loss_trajectory": trajectory,
+            **({"metric_trajectories": others} if others else {}),
             "loop_seconds": end - t0,
             "step_seconds": [b - a for a, b in zip(starts,
                                                     starts[1:] + [end])],
@@ -1991,7 +2024,18 @@ def compare_grads(got, want):
             "_ratios": ratios}
 
 
-def check_train_plain(torch, fa, transformer, train, model, tokens):
+def plain_attend(fa):
+    """Per-layer plain attention (``_attn_ref``) on [B,T,H,D] tensors."""
+    def attend(q, k, v):
+        out, _ = fa._attn_ref(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                              v.permute(0, 2, 1, 3), True)
+        return out.permute(0, 2, 1, 3)
+
+    return lambda _i: attend
+
+
+def check_train_plain(torch, fa, transformer, train, model, tokens,
+                      pin=None):
     """One microbatch (``tokens``, 2 rows), on the card: the loss and every
     parameter's gradient of four sides on the same weights:
     - ``kernels``: K1 forward, K2 backward (the training path);
@@ -2000,29 +2044,27 @@ def check_train_plain(torch, fa, transformer, train, model, tokens):
       from its bf16 O: against ``plain``, the part of the gap that comes
       from taking D from the bf16 O, in plain arithmetic;
     - ``k1_plain_bwd``: K1's forward and the plain backward with D from
-      K1's bf16 O: against ``kernels``, K2's own roundings alone."""
+      K1's bf16 O: against ``kernels``, K2's own roundings alone.
+    ``pin(side)``, when given, is a context each side runs in (the MoE
+    phase's :class:`RoutePin`: the first side's routes for all four)."""
+    import contextlib
 
-    def plain_attend(_i):
-        def attend(q, k, v):
-            out, _ = fa._attn_ref(q.permute(0, 2, 1, 3),
-                                  k.permute(0, 2, 1, 3),
-                                  v.permute(0, 2, 1, 3), True)
-            return out.permute(0, 2, 1, 3)
-        return attend
-
-    def loss_and_grads(attend_for_layer):
+    def loss_and_grads(name, attend_for_layer):
         model.zero_grad(set_to_none=True)
-        loss = train.next_token_nll(model(tokens, None, attend_for_layer),
-                                    tokens)
-        loss.backward()
+        with pin(name) if pin else contextlib.nullcontext():
+            loss = train.next_token_nll(
+                model(tokens, None, attend_for_layer), tokens)
+            loss.backward()
         grads = {n: p.grad for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
         return float(loss.detach()), grads
 
-    sides = {"kernels": transformer._causal_attend, "plain": plain_attend,
+    sides = {"kernels": transformer._causal_attend,
+             "plain": plain_attend(fa),
              "plain_bf16_d": plain_backward_attend(torch, fa, False),
              "k1_plain_bwd": plain_backward_attend(torch, fa, True)}
-    runs = {name: loss_and_grads(attend) for name, attend in sides.items()}
+    runs = {name: loss_and_grads(name, attend)
+            for name, attend in sides.items()}
     pairs = {"kernels_vs_plain": ("kernels", "plain"),
              "plain_bf16_d_vs_plain": ("plain_bf16_d", "plain"),
              "k1_plain_bwd_vs_plain": ("k1_plain_bwd", "plain"),
@@ -2303,6 +2345,381 @@ def run_longctx(torch, fa, transformer, train, data):
                             "measurement",
            "nvidia_smi": nvidia_smi_line()}
     return out, built
+
+
+# --- phase: moe --------------------------------------------------------------
+
+
+# bench.py:730 moe_e8_top2_single_chip as written (bf16, adam, einsum
+# dispatch, no gradient accumulation), 6 steps.
+MOE_ARGV = ["--steps", "6", "--dim", "1024", "--layers", "8", "--heads",
+            "8", "--kv-heads", "4", "--experts", "8", "--batch", "8",
+            "--seq-len", "2048", "--vocab", "32768", "--capacity-factor",
+            "1.25", "--seed", "0", "--log-every", "0", "--device", "cuda",
+            "--checkpoint-dir", "", "--profile-dir", ""]
+# One MoE training checkpoint: f32 params (~1.6 GB) and f32 adam mu and nu
+# (~3.2 GB); run A keeps 2, run B adds one.
+MOE_CKPT_BYTES = 4.8e9
+# - gather against einsum dispatch on one MoE layer (bf16, the same weights
+#   and input): both read one routing and put the same bf16 values into the
+#   expert slots (a one-hot product sums one nonzero term, exactly), so the
+#   expert products are equal; only the combine differs: the einsum sums
+#   g1 y1 + g2 y2 in f32 and rounds once, the gather path rounds each gated
+#   product and then their sum. Each rounding moves a value by at most 2^-8
+#   of it, so an element may differ by 2^-8 (A + |out|), A = g1 |y1| +
+#   g2 |y2| the sum of its absolute terms; the tolerance is twice that,
+#   with a floor of 2^-16 of the largest |out| where the terms cancel. A
+#   token in a wrong slot or with a lost gate moves its element by O(A).
+MOE_DISPATCH_REL_TOL = 2.0 ** -7
+MOE_DISPATCH_ABS_FLOOR = 2.0 ** -16
+
+
+class RoutePin:
+    """The MoE layers' discrete routing held fixed across the sides of a
+    cross-check. bf16 rounds the residual stream differently on each side
+    (K1 and the plain attention round P and O apart), so a router logit
+    near a tie can pick another expert, and one such token shifts the
+    slots of every later token of its expert and moves the capacity cut:
+    at init on the MoE row, on an H100, 13-92 first choices a layer
+    differed and the gradients parted by 10% of their norm (a sum over
+    4096 positions that mostly cancels, against the changed terms of ~100
+    tokens). So the
+    gradient gates compare sides that route alike: ``side("kernels")``
+    records each ``moe.top2_routing`` call's decisions (experts, slots,
+    keeps, drop_frac) and every other side replays them in call order,
+    with gates, aux and z-loss from its own logits. The losses are also
+    compared unpinned (``free()``), which is what the loss gate holds."""
+
+    DISCRETE = ("idx1", "idx2", "slot1", "slot2", "keep1", "keep2",
+                "kept1", "kept2", "pos1", "pos2", "drop_frac")
+
+    def __init__(self, torch, F, moe):
+        self.torch, self.F, self.moe = torch, F, moe
+        self.real = moe.top2_routing
+        self.calls: list = []
+
+    def _record(self, logits, capacity):
+        r = self.real(logits, capacity)
+        self.calls.append({k: r[k].detach().clone() for k in self.DISCRETE})
+        return r
+
+    def _replay(self, at):
+        torch, F = self.torch, self.F
+
+        def routing(logits, _capacity):
+            rec = self.calls[at[0]]
+            at[0] += 1
+            logits = logits.float()
+            probs = torch.softmax(logits, dim=-1)
+            e = probs.shape[-1]
+            mask1 = F.one_hot(rec["idx1"], e).float()
+            z = torch.logsumexp(logits, dim=-1)
+            gate1 = (probs * rec["keep1"]).sum(dim=-1)
+            gate2 = (probs * rec["keep2"]).sum(dim=-1)
+            denom = torch.clamp(gate1 + gate2, min=1e-9)
+            return {**rec, "gate1": gate1 / denom, "gate2": gate2 / denom,
+                    "aux": e * (mask1.mean(dim=1) * probs.mean(dim=1))
+                    .sum(dim=-1).mean(),
+                    "z_loss": (z * z).mean()}
+
+        return routing
+
+    def side(self, name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            at = [0]
+            if name == "kernels":
+                self.calls = []
+                self.moe.top2_routing = self._record
+            else:
+                self.moe.top2_routing = self._replay(at)
+            try:
+                yield
+            finally:
+                self.moe.top2_routing = self.real
+            require(name == "kernels" or at[0] == len(self.calls),
+                    f"route pin: side {name} routed {at[0]} times, the "
+                    f"kernels side {len(self.calls)}")
+
+        return ctx()
+
+    def free(self, fn):
+        """``fn()`` with routing of its own; returns (its result, the
+        count of first choices that differ from the recorded side's, by
+        layer)."""
+        mine: list = []
+
+        def routing(logits, capacity):
+            r = self.real(logits, capacity)
+            mine.append(r["idx1"].detach())
+            return r
+
+        self.moe.top2_routing = routing
+        try:
+            out = fn()
+        finally:
+            self.moe.top2_routing = self.real
+        return out, [int((a != b["idx1"]).sum())
+                     for a, b in zip(mine, self.calls)]
+
+
+def check_moe_dispatch(torch, F, moe, built, args, tokens):
+    """Block 1's MoE layer at full width, in both dispatch modes, on its
+    own input (the ``ln_mlp`` output of a full batch of ``tokens`` through
+    the model at init, so routes crowd and some drop): the routing's
+    scalars (drop_frac, aux) equal, the outputs per element within
+    MOE_DISPATCH_REL_TOL, each mode's forward timed (CUDA events, warm,
+    median)."""
+    from tpu_operator_torch.payload import transformer
+
+    layer, dev = built.model.blocks[1].moe, built.device
+    seen = []
+    hook = layer.register_forward_pre_hook(
+        lambda _m, inp: seen.append(inp[0].detach()))
+    try:
+        with torch.no_grad():
+            built.model(tokens, None, transformer._causal_attend)
+    finally:
+        hook.remove()
+    x = seen[0]
+    twin = moe.MoEMLP(args.dim, args.experts, args.capacity_factor,
+                      dispatch="gather", compute_dtype=torch.bfloat16,
+                      device=dev)
+    twin.load_state_dict(layer.state_dict())
+    dt = torch.bfloat16
+    with torch.no_grad():
+        with moe.sown() as sown_e:
+            out_e = layer(x)
+        with moe.sown() as sown_g:
+            out_g = twin(x)
+        # The einsum layer's pieces again, for each element's A.
+        cap = moe.capacity_of(args.seq_len, args.experts,
+                              args.capacity_factor)
+        r = moe.top2_routing(F.linear(x, layer.router.weight), cap)
+        disp, comb, _aux, _drop = moe.onehot_tensors(r, cap)
+        xin = torch.einsum("gnec,gnd->egcd", disp.to(dt), x.to(dt))
+        del disp
+        y = torch.einsum("egcf,efd->egcd", F.gelu(torch.einsum(
+            "egcd,edf->egcf", xin, layer.w1.to(dt)), approximate="tanh"),
+            layer.w2.to(dt))
+        terms = torch.einsum("gnec,egcd->gnd", comb.to(dt).float(),
+                             y.float().abs())
+        del comb, xin, y
+        diff = (out_g.float() - out_e.float()).abs()
+        ref = out_e.float().abs()
+        limit = MOE_DISPATCH_REL_TOL * (terms + ref) \
+            + MOE_DISPATCH_ABS_FLOOR * float(ref.max())
+        excess = float((diff / limit).max())
+        drop_e, drop_g = float(sown_e[0][2]), float(sown_g[0][2])
+        aux_e, aux_g = float(sown_e[0][0]), float(sown_g[0][0])
+        res = {"shape": list(x.shape), "capacity": cap,
+               "drop_frac": {"einsum": drop_e, "gather": drop_g},
+               "aux": {"einsum": aux_e, "gather": aux_g},
+               "max_abs_err": float(diff.max()),
+               "max_abs_ref": float(ref.max()),
+               "worst_err_over_tol": excess,
+               "tol": f"per element {MOE_DISPATCH_REL_TOL} * (A + |ref|) + "
+                      f"{MOE_DISPATCH_ABS_FLOOR} * max |ref|, A = g1 |y1| "
+                      f"+ g2 |y2|",
+               "einsum_fwd_ms": time_ms(torch, lambda: layer(x), reps=10),
+               "gather_fwd_ms": time_ms(torch, lambda: twin(x), reps=10)}
+        del diff, ref, limit, terms, out_e, out_g
+    require(drop_e == drop_g and aux_e == aux_g,
+            f"moe dispatch: the modes routed apart ({res})")
+    require(excess <= 1.0, f"moe dispatch: gather against einsum {excess} "
+                           f"x the tolerance ({res})")
+    return res
+
+
+def _bmm_device_ms(torch, prof, dim: int):
+    """(device ms, calls) of the ``aten::bmm`` calls with ``dim`` among
+    their operands' sizes, from a profile recorded with shapes."""
+    ms, calls = 0.0, 0
+    for evt in prof.key_averages(group_by_input_shape=True):
+        if evt.key != "aten::bmm":
+            continue
+        shapes = [tuple(sh) for sh in (evt.input_shapes or []) if sh]
+        if not any(dim in sh for sh in shapes):
+            continue
+        for attr in ("device_time_total", "cuda_time_total"):
+            if hasattr(evt, attr):
+                ms += float(getattr(evt, attr)) / 1e3
+                break
+        calls += evt.count
+    return ms, calls
+
+
+def profile_moe(torch, built, args):
+    """One MoE training step under torch.profiler (shapes recorded): device
+    time by group (K1, K2, cuBLAS, the rest) beside the host clock, with
+    cuBLAS split into the dispatch / combine einsums (the ``aten::bmm``
+    calls with the sequence length among their operands' sizes: the
+    one-hot products contract or keep n; the expert products' operands
+    are [E, G C, D] by [E, D, 4D] and their transposes) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    batch = torch.from_numpy(next(built.batches)[0]).to(built.device)
+    built.step(batch)  # one unprofiled step
+    torch.cuda.synchronize()
+    with profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        built.step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(torch, prof, 1)
+    groups: dict = {}
+    for key, ms, _n in rows:
+        groups[_classify(key)] = groups.get(_classify(key), 0.0) + ms
+    einsum_ms, einsum_calls = _bmm_device_ms(torch, prof, args.seq_len)
+    if "cuBLAS" in groups:
+        groups["cuBLAS"] -= einsum_ms
+    groups["cuBLAS dispatch/combine einsums"] = einsum_ms
+    return {**_breakdown(rows, wall), "by_group_ms": groups,
+            "dispatch_combine_bmm_calls": einsum_calls}
+
+
+def run_moe(torch, F, fa, moe, transformer, train, checkpoint, steptrace,
+            data):
+    """moe_e8_top2_single_chip as written (bench.py:730: dim 1024, 8
+    layers, 8 / 4 heads, 8 experts top-2 in every odd layer, batch 8 x
+    2048, capacity factor 1.25, bf16, adam, einsum dispatch) through
+    moe.build and train.train_loop:
+
+    - at init, one 2-row microbatch's loss through K1 and K2 against
+      plain attention, each side routing its own way (TRAIN_LOSS_TOL), and
+      its loss and every parameter's gradient with the routes pinned
+      (``RoutePin``; ``check_train_plain``, gated as the train phase gates
+      its own at init);
+    - block 1's MoE layer in both dispatch modes (``check_moe_dispatch``);
+    - 6 steps, launch counters zeroed just before the loop and read just
+      after: K1, dq and dkv each layers x microbatches x steps, K3 and K4
+      never; every loss finite, the first within [ln V, ln V + 2];
+      drop_frac in [0, 1], aux_loss in (0, E] (E times a sum of dispatch
+      fractions times mean probabilities), router_z finite;
+    - ``profile_moe``: one more step's device time by group;
+    - a save at step 3 and a resume to step 6 through
+      ``checkpoint.Checkpointer`` in a ``tempfile.mkdtemp()`` directory
+      (as the adam8 phase does): the resumed losses, params and adam state
+      bit-equal to the unbroken run's.
+    Printed: the step times, tokens/s and peak memory of the loop (cold
+    smoke readings), the breakdown and the nvidia-smi line."""
+    import math
+    import shutil
+    import tempfile
+
+    args = moe.parse_args(MOE_ARGV)
+    built = moe.build(args)
+    (rows,) = next(data.synthetic_lm(args.seed + 1, 2, args.seq_len,
+                                     vocab=args.vocab))
+    tokens = torch.from_numpy(rows).to(built.device)
+    pin = RoutePin(torch, F, moe)
+    at_init = check_train_plain(torch, fa, transformer, train, built.model,
+                                tokens, pin=pin.side)
+    with torch.no_grad():
+        plain_loss, flips = pin.free(lambda: float(train.next_token_nll(
+            built.model(tokens, None, plain_attend(fa)), tokens)))
+    at_init["unpinned"] = {
+        "loss_plain": plain_loss,
+        "loss_abs_err": abs(at_init["loss"]["kernels"] - plain_loss),
+        "first_choices_apart_by_moe_layer": flips,
+        "tokens_a_layer": int(tokens.numel())}
+    require(at_init["unpinned"]["loss_abs_err"] <= TRAIN_LOSS_TOL,
+            f"moe cross-check at init: the loss with K1/K2 against plain "
+            f"attention, each routing its own way: {at_init['unpinned']}")
+    gate_train_plain(at_init, at_init=True)
+    (batch,) = next(data.synthetic_lm(args.seed + 1, args.batch,
+                                      args.seq_len, vocab=args.vocab))
+    dispatch = check_moe_dispatch(torch, F, moe, built, args,
+                                  torch.from_numpy(batch).to(built.device))
+    per = args.layers * args.grad_accum * args.steps
+    loop = drive_train(torch, fa, train, built, args, "moe",
+                       {"flash_fwd": per, "flash_bwd_dq": per,
+                        "flash_bwd_dkv": per, "flash_merge": 0,
+                        "flash_decode": 0})
+    mt = loop["metric_trajectories"]
+    require(all(0.0 <= d <= 1.0 for d in mt["drop_frac"]),
+            f"moe: drop_frac outside [0, 1]: {mt['drop_frac']}")
+    require(all(0.0 < a <= args.experts for a in mt["aux_loss"]),
+            f"moe: aux_loss outside (0, {args.experts}]: {mt['aux_loss']}")
+    require(all(math.isfinite(z) for z in mt["router_z"]),
+            f"moe: router_z not finite: {mt['router_z']}")
+    u_losses = loop["loss_trajectory"]
+    u_params = {n: p.detach().clone()
+                for n, p in built.model.named_parameters()}
+    u_opt = {n: t.clone() for n, t in built.opt_state.state_dict().items()}
+    prof = profile_moe(torch, built, args)
+    n_params = sum(p.numel() for p in built.model.parameters())
+    del built
+    torch.cuda.empty_cache()
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    first = args.steps // 2
+    try:
+        free = shutil.disk_usage(ckdir).free
+        require(free >= 3 * MOE_CKPT_BYTES,
+                f"moe phase: {free / 1e9:.1f} GB free under "
+                f"{os.path.dirname(ckdir)}, needs "
+                f"{3 * MOE_CKPT_BYTES / 1e9:.1f} GB; set TMPDIR to a larger "
+                f"volume")
+        run_a = moe.build(args)
+        ck_a = checkpoint.Checkpointer(ckdir, save_every=first)
+        a_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_a,
+                                          first, ck_a)
+        ck_a.close()
+        require(ck_a.last_verified_step() == first
+                and a_losses == u_losses[:first],
+                f"moe run A: verified {ck_a.last_verified_step()}, losses "
+                f"{a_losses} against {u_losses[:first]}")
+        run_b = moe.build(args)
+        ck_b = checkpoint.Checkpointer(ckdir, save_every=first)
+        state_b, start = ck_b.restore(run_b.state)
+        mismatches = _state_mismatches(torch, state_b, run_a.state)
+        require(start == first and not mismatches,
+                f"moe run B restored step {start}, differing from run A in "
+                f"{mismatches[:8]}")
+        del run_a
+        torch.cuda.empty_cache()
+        b_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_b,
+                                          args.steps, ck_b)
+        ck_b.close()
+        require(b_losses == u_losses[first:],
+                f"moe resumed losses {b_losses} != the unbroken run's "
+                f"{u_losses[first:]} (bit-equal gate)")
+        off = [n for n, p in run_b.model.named_parameters()
+               if not torch.equal(p, u_params[n])]
+        off += [n for n, t in run_b.opt_state.state_dict().items()
+                if not torch.equal(t, u_opt[n])]
+        require(not off, f"moe resumed state differs from the unbroken "
+                         f"run's: {off[:8]}")
+        with open(os.path.join(ckdir, str(args.steps), "meta.json")) as f:
+            meta_model = json.load(f).get("model")
+        require(meta_model == {"name": "moe", "experts": args.experts},
+                f"moe meta.json names {meta_model}")
+        del run_b, u_params, u_opt
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    steps = loop["step_seconds"]
+    return {
+        "model": "moe_e8_top2_single_chip (bench.py:730), as written",
+        "argv": MOE_ARGV, "params": n_params,
+        **loop,
+        "smoke_step_ms_median_steps_2_to_5":
+            1e3 * statistics.median(steps[2:6]),
+        "smoke_tokens_per_s_median_steps_2_to_5":
+            args.batch * args.seq_len / statistics.median(steps[2:6]),
+        "smoke_reading": "6 steps from a cold start; not a throughput "
+                         "measurement",
+        "crosscheck_at_init": at_init,
+        "dispatch_modes": dispatch,
+        "profile_step": prof,
+        "resume_from_step": first, "resumed_losses": b_losses,
+        "resume_bit_equal": True,
+        "nvidia_smi": nvidia_smi_line(),
+    }
 
 
 # --- phase: classifier -------------------------------------------------------
@@ -3101,6 +3518,7 @@ def main() -> int:
         from tpu_operator_torch.payload import flash_attention as fa
         from tpu_operator_torch.payload import heartbeat
         from tpu_operator_torch.payload import models
+        from tpu_operator_torch.payload import moe
         from tpu_operator_torch.payload import profile
         from tpu_operator_torch.payload import ring_attention as ring_mod
         from tpu_operator_torch.payload import serve
@@ -3184,6 +3602,10 @@ def main() -> int:
         emit({"phase": "profile_longctx", **profile_train(torch, built)})
         del built
         torch.cuda.empty_cache()
+        mo = run_moe(torch, F, fa, moe, transformer, train, checkpoint,
+                     steptrace, data)
+        emit({"phase": "moe", **mo})
+        torch.cuda.empty_cache()
         cls, built = run_classifier(torch, cifar, train, checkpoint,
                                     steptrace)
         emit({"phase": "classifier", **cls})
@@ -3200,6 +3622,7 @@ def main() -> int:
         emit({"phase": "failed", "error": str(e)})
         return 1
     serve_fwd, train_fwd = fwd["prefill_causal_gqa"], fwd["train_causal_gqa"]
+    moe_fwd, moe_bwd = fwd["moe_causal_gqa"], bwd["moe_causal_gqa"]
     main_dec, main_bwd = dec["full"], bwd["train_causal_gqa"]
     ring_bwd = bwd["sp_ring_striped_given_d"]
     bwd_err = {name: max(r[n]["max_abs_err"] for r in bwd.values()
@@ -3220,6 +3643,7 @@ def main() -> int:
                                   ckp["launches_run_b"]["flash_fwd"],
                               "adam8": a8["launches"]["flash_fwd"],
                               "longctx": lc["launches"]["flash_fwd"],
+                              "moe": mo["launches"]["flash_fwd"],
                               "warm_restart_attempt1":
                                   warm["attempt1"]["launches"]["flash_fwd"],
                               "serve_reload": rld["launches"]["flash_fwd"],
@@ -3240,7 +3664,11 @@ def main() -> int:
          "serve_prefill_bound_ms": serve_fwd["bound_ms"],
          "serve_prefill_library_ms": serve_fwd["library_ms"],
          "serve_prefill_tflops": serve_fwd["tflops"],
-         "serve_prefill_share_of_bound": serve_fwd["share_of_bound"]},
+         "serve_prefill_share_of_bound": serve_fwd["share_of_bound"],
+         "moe_shape": "moe B8 T2048 H8 KVH4",
+         **{f"moe_{k}": moe_fwd[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "tflops",
+             "share_of_bound")}},
         {"name": "flash_decode", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_decode.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:990",
@@ -3277,6 +3705,7 @@ def main() -> int:
                 "ring_check": rng["striped"]["launches"][f"flash_bwd_{name}"],
                 "adam8": a8["launches"][f"flash_bwd_{name}"],
                 "longctx": lc["launches"][f"flash_bwd_{name}"],
+                "moe": mo["launches"][f"flash_bwd_{name}"],
                 "warm_restart_attempt1":
                     warm["attempt1"]["launches"][f"flash_bwd_{name}"],
                 "profile_directive": prf["launches"][f"flash_bwd_{name}"],
@@ -3302,6 +3731,12 @@ def main() -> int:
             "sp_ring_bound_ms": ring_bwd[f"bound_ms_{name}"],
             "sp_ring_tflops": ring_bwd.get(f"tflops_{name}"),
             "sp_ring_share_of_bound": ring_bwd.get(f"share_of_bound_{name}"),
+            "moe_shape": "moe B8 T2048 H8 KVH4",
+            "moe_ms": moe_bwd[f"ms_{name}"],
+            "moe_bound_ms": moe_bwd[f"bound_ms_{name}"],
+            "moe_share_of_bound": moe_bwd.get(f"share_of_bound_{name}"),
+            "moe_plain_ms": moe_bwd["plain_ms"],
+            "moe_library_ms": moe_bwd["library_ms"],
             "ptxas": {k: v for k, v in per_kernel.items()
                       if f"flash_bwd_{name}_kernel" in k}})
     main_mrg = mrg["striped_r_gt_kv"]

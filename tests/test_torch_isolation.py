@@ -61,12 +61,13 @@ RUNTIME_MODULES = (
     "tpu_operator_torch.payload.warmstore",
     "tpu_operator_torch.payload.autotune",
     "tpu_operator_torch.payload.profile",
+    "tpu_operator_torch.payload.moe",
 )
 
 
 def test_the_walk_covers_the_runtime_modules():
-    """The scans above and below walk the store package and the startup,
-    warm-store, autotune and profile modules too."""
+    """The scans above and below walk the store package, the startup,
+    warm-store, autotune and profile modules and the MoE payload too."""
     names = {name for name, _path in _modules()}
     missing = [m for m in RUNTIME_MODULES if m not in names]
     assert not missing, missing
@@ -152,3 +153,17 @@ def test_classifier_entry_points_refuse_to_run_without_cuda(monkeypatch):
     tiny = ["--device", "cpu", "--batch", "8", "--widths", "4", "4", "4",
             "--blocks", "1", "--checkpoint-dir", "", "--profile-dir", ""]
     assert cifar.build(cifar.parse_args(tiny)).device == torch.device("cpu")
+
+
+def test_moe_entry_point_refuses_to_run_without_cuda(monkeypatch):
+    """The MoE payload defaults to the CUDA device: without a card its
+    build raises unless the caller asks for the CPU."""
+    from tpu_operator_torch.payload import moe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = ["--batch", "2", "--seq-len", "8", "--dim", "16", "--heads", "2",
+            "--layers", "2", "--experts", "2"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe.build(moe.parse_args(tiny))
+    assert moe.build(moe.parse_args(tiny + ["--device", "cpu"])).device \
+        == torch.device("cpu")

@@ -34,14 +34,20 @@ TINY = ["--dim", "64", "--layers", "2", "--heads", "4", "--kv-heads", "2",
 
 
 @pytest.fixture(autouse=True)
-def _clean_process_state():
+def _clean_process_state(monkeypatch):
+    """Each test starts with no per-process startup record in either
+    implementation: a rendezvous recorded by an earlier test in this
+    process (``bootstrap.initialize``) would seed every new tracker."""
+    for name in ("_rendezvous_seconds", "_prefetch_seconds",
+                 "_prefetch_hit"):
+        monkeypatch.setattr(jstartup, name, None)
     bootstrap.reset_drain()
     warmstore.reset_prefetch()
-    startup.set_cache_dir("")
+    startup.reset()
     yield
     bootstrap.reset_drain()
     warmstore.reset_prefetch()
-    startup.set_cache_dir("")
+    startup.reset()
 
 
 # --- the tracker ---------------------------------------------------------------
@@ -81,6 +87,18 @@ def test_tracker_times_overlapping_stages_and_the_breakdown():
     assert ours == drive(jstartup)
     assert ours == {"restoreSeconds": 3.0, "compileSeconds": 1.0,
                     "firstStepSeconds": 1.0, "cacheHit": True}
+
+
+def test_a_rendezvous_recorded_earlier_does_not_seed_the_next_tracker():
+    """``bootstrap.initialize`` records the rendezvous in module state
+    (0.0 for a one-process job); the fixture's reset clears it, so a test
+    that runs after one that initialized sees a tracker with no
+    ``rendezvousSeconds``."""
+    bootstrap.initialize(bootstrap.process_info_from_env({}), device="cpu")
+    assert startup.new_tracker().breakdown() == {"rendezvousSeconds": 0.0}
+    startup.reset()
+    assert "rendezvousSeconds" not in startup.new_tracker().breakdown()
+    assert startup.cache_dir() == ""
 
 
 def test_kernel_loads_without_nvcc_count_as_cache_hits():

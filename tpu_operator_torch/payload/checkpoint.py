@@ -24,7 +24,9 @@ step is the directory ``<dir>/<step>/`` holding
 - ``batch_stats.pt``: a classifier's BatchNorm running statistics, when
   the state has them;
 - ``meta.json``: the step, every tensor's shape and dtype, the optimizer
-  (``optimizer``) and adam's mu dtype (``adamMuDtype``);
+  (``optimizer``), adam's mu dtype (``adamMuDtype``) and, when the state
+  names it, the model (``model``: the MoE payload's name and expert
+  count; a restore into another is refused);
 - ``manifest.tpuop.json``: every other file's size and sha256, written
   last.
 
@@ -59,10 +61,14 @@ Durability, as in the reference:
   process's newest intact step (:func:`gang_agree_step`), loads it, then
   runs a confirm round, so a peer whose load failed makes the whole gang
   walk again together.
-- **Any world size.** The port's state is whole on every process (data
-  parallelism all-reduces the gradients; the sequence-parallel ring keeps
-  whole params), so a step saved by a world of N restores into any world:
-  the port's counterpart of the reference's reshard-restore.
+- **Any world size.** A step holds whole tensors. The port's state is
+  whole on every process (data parallelism all-reduces the gradients;
+  the sequence-parallel ring keeps whole params) except the MoE payload's
+  expert stacks under expert parallelism, which each process holds a
+  part of (:class:`Shards`): a save gathers them whole to process 0 and
+  a restore takes this process's part. So a step saved by a world of N
+  restores into any world: the port's counterpart of the reference's
+  reshard-restore.
 - **One writer.** Process 0 writes; every process joins each save as a
   collective at the boundary that finalizes it (process 0 broadcasts the
   outcome on the host group), so all of them count the same failures,
@@ -92,8 +98,8 @@ import os
 import shutil
 import threading
 import time
-from typing import (Any, Callable, Deque, Dict, List, NamedTuple,
-                    Optional, Tuple)
+from typing import (Any, Callable, Deque, Dict, FrozenSet, List,
+                    NamedTuple, Optional, Tuple)
 
 import torch
 import torch.distributed as dist
@@ -127,16 +133,61 @@ FORMAT_VERSION = 1
 TMP_MARK = ".tmp-"
 
 
+class Shards(NamedTuple):
+    """The tensors of a state that each process holds one part of: by
+    file, the names of those split along dim 0 over ``group`` (``size``
+    processes, this one holding part ``rank``): the MoE payload's expert
+    stacks and their optimizer moments under expert parallelism."""
+
+    names: Dict[str, FrozenSet[str]]
+    group: Any
+    size: int
+    rank: int
+
+    def gather(self, parts: Dict[str, Dict[str, torch.Tensor]]
+               ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``parts`` with every split tensor whole: a collective over
+        ``group``, in which every process of it takes part."""
+        out = {}
+        for fname, tensors in parts.items():
+            split = self.names.get(fname, frozenset())
+            whole = {}
+            for name, t in tensors.items():
+                if name in split:
+                    pieces = [torch.empty_like(t) for _ in range(self.size)]
+                    dist.all_gather(pieces, t.contiguous(), group=self.group)
+                    t = torch.cat(pieces)
+                whole[name] = t
+            out[fname] = whole
+        return out
+
+    def local(self, saved: Dict[str, Dict[str, torch.Tensor]]
+              ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``saved`` (whole tensors) with this process's part of every
+        split one."""
+        out = {}
+        for fname, tensors in saved.items():
+            split = self.names.get(fname, frozenset())
+            out[fname] = {n: (t.chunk(self.size)[self.rank] if n in split
+                              else t) for n, t in tensors.items()}
+        return out
+
+
 class TrainState(NamedTuple):
     """What a checkpoint holds: the named params, for a trainer the
     optimizer state (``optimizers.AdamState``, ``Adam8State`` or
     ``SGDState``), and a classifier's BatchNorm running statistics by
     buffer name. A restore copies into these tensors in place, so a step
-    function built on them needs no rebuild."""
+    function built on them needs no rebuild. ``shards`` names the tensors
+    split over processes (:class:`Shards`), ``model`` what the step's
+    ``meta.json`` records of the model (a restore into a model recorded
+    otherwise is refused)."""
 
     params: Dict[str, torch.Tensor]
     opt: Optional[Any] = None
     batch_stats: Optional[Dict[str, torch.Tensor]] = None
+    shards: Optional[Shards] = None
+    model: Optional[Dict[str, Any]] = None
 
 
 class CheckpointError(Exception):
@@ -383,13 +434,17 @@ class Checkpointer:
 
     def _save(self, step: int, state: TrainState) -> bool:
         self._pending = self._last_saved = step
+        parts = _parts(state)
+        if state.shards is not None:
+            # Every process joins the gather; process 0 writes the whole.
+            parts = state.shards.gather(parts)
         if not self._writer:
             return True
         timings: Dict[str, Any] = {"step": step}
         self.save_timings.append(timings)
         t0 = time.perf_counter()
         try:
-            snap = self._snapshot(step, state, timings)
+            snap = self._snapshot(step, parts, state, timings)
         except Exception as e:  # noqa: BLE001 — tolerance: counted at finalize
             with self._lock:
                 self._outcome = (step, e)
@@ -430,12 +485,12 @@ class Checkpointer:
         return host
 
     @torch.no_grad()
-    def _snapshot(self, step: int, state: TrainState,
+    def _snapshot(self, step: int, parts, state: TrainState,
                   timings: Dict[str, Any]) -> _Snapshot:
-        """The step loop's whole share of a save: copies of the state
-        into host buffers, queued on the current stream behind the work
-        that produced it (on the CPU they are done on return)."""
-        parts = _parts(state)
+        """The step loop's whole share of a save: copies of ``parts`` (the
+        state's tensors by file, whole) into host buffers, queued on the
+        current stream behind the work that produced them (on the CPU
+        they are done on return)."""
         t0 = time.perf_counter()
         host = self._host_buffers(parts)
         timings["host_alloc_s"] = time.perf_counter() - t0
@@ -462,6 +517,8 @@ class Checkpointer:
                 mu = state.opt.mu[0].dtype if state.opt.mu else torch.float32
                 meta["adamMuDtype"] = ("bf16" if mu == torch.bfloat16
                                        else "f32")
+        if state.model is not None:
+            meta["model"] = dict(state.model)
         return _Snapshot(host, meta, event)
 
     def _write_worker(self, step: int, snap: _Snapshot,
@@ -755,9 +812,16 @@ class Checkpointer:
                     f"step {step} holds {saved_kind} state; the optimizer "
                     f"is {state.opt.kind} (a restore across a change of "
                     f"--optimizer is refused)")
+        if state.model is not None and meta.get("model") != state.model:
+            raise CheckpointError(
+                f"step {step} holds model {meta.get('model')}; this run's "
+                f"is {state.model} (a restore across a change of the model "
+                f"or of --experts is refused)")
         saved = {fname: torch.load(os.path.join(root, fname),
                                    map_location="cpu", weights_only=True)
                  for fname in _parts(state)}
+        if state.shards is not None:
+            saved = state.shards.local(saved)
         named = [(PARAMS_FILE, "param", state.params)]
         if state.batch_stats:
             named.append((STATS_FILE, "batch stat", state.batch_stats))

@@ -177,9 +177,11 @@ def token_file_lm(path: str, seed: int, batch: int, seq_len: int,
 def lm_batches(args, mesh=None) -> Iterator[Tuple[np.ndarray]]:
     """``--data /path/tokens.npy`` selects the memory-mapped token stream,
     else the synthetic recurrence. Every process draws the same global
-    ``[batch, seq_len]`` stream and keeps the rows of its data rank
-    (``mesh.data_rank`` of ``mesh.data``; all of them without a mesh):
-    whole sequences, which its seq group shares."""
+    ``[batch, seq_len]`` stream and keeps the rows of its batch shard
+    (``mesh.batch_rank`` of ``mesh.batch_ranks``; all of them without a
+    mesh): whole sequences. On the (data, seq) mesh the shard is the data
+    rank, which its seq group shares; on the MoE payload's (data, expert)
+    mesh every process holds a shard of its own."""
     data_path = getattr(args, "data", "")
     if data_path:
         stream = token_file_lm(data_path, args.seed, args.batch,
@@ -189,10 +191,10 @@ def lm_batches(args, mesh=None) -> Iterator[Tuple[np.ndarray]]:
                               vocab=args.vocab)
     if mesh is None:
         return stream
-    if args.batch % mesh.data:
+    if args.batch % mesh.batch_ranks:
         raise ValueError(f"batch {args.batch} does not split over "
-                         f"{mesh.data} data ranks")
-    return data_rank_rows(stream, mesh.data_rank, mesh.data)
+                         f"{mesh.batch_ranks} data ranks")
+    return data_rank_rows(stream, mesh.batch_rank, mesh.batch_ranks)
 
 
 def device_prefetch(batches, device: torch.device, depth: int = 2,

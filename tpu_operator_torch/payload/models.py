@@ -24,6 +24,12 @@ Numerics follow the reference, which decides parity:
 - the residual stream is bf16 (bf16 embeddings, bf16 adds);
 - logits come back in bf16.
 
+A model or block built with ``compute_dtype`` (the MoE payload's
+``--dtype f32``) computes its embeddings, dense layers and logits in that
+dtype instead. A block given ``mlp`` (the reference's
+``DecoderBlock.mlp``, the MoE payload's every odd block) holds that
+module as ``moe`` in place of ``mlp_up`` / ``mlp_down``.
+
 Param layouts: a fused ``qkv`` projection (MHA) or split ``q``/``k``/``v``
 (always under GQA), as the reference's checkpoints hold them.
 
@@ -158,19 +164,23 @@ def checkpointed(fn: Callable, mode: str, *args):
                                      preserve_rng_state=False, **kwargs)
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def _dense(layer: nn.Linear, x: torch.Tensor,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """flax ``Dense(dtype=bf16)``: cast the input and the weight to the
-    compute dtype, matmul, then add the bias in that dtype."""
-    y = F.linear(x.to(COMPUTE_DTYPE), layer.weight.to(COMPUTE_DTYPE))
+    compute dtype (``dtype``, default :data:`COMPUTE_DTYPE`), matmul, then
+    add the bias in that dtype."""
+    dtype = dtype or COMPUTE_DTYPE
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
     if layer.bias is not None:
-        y = y + layer.bias.to(COMPUTE_DTYPE)
+        y = y + layer.bias.to(dtype)
     return y
 
 
-def _embed(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+def _embed(table: nn.Embedding, ids: torch.Tensor,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """flax ``Embed(dtype=bf16)``: the rows of the table in the compute
     dtype (gathered, then cast: the same values as casting the table)."""
-    return table(ids).to(COMPUTE_DTYPE)
+    return table(ids).to(dtype or COMPUTE_DTYPE)
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -179,13 +189,28 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         ln.eps)
 
 
+# A block's MLP in place of the dense FFN: ``mlp(param_dtype, device)``
+# builds the module, which takes the f32 ``ln_mlp`` output and returns the
+# MLP's output in the compute dtype.
+MlpFactory = Callable[[torch.dtype, Optional[torch.device]], nn.Module]
+
+
 class DecoderBlock(nn.Module):
-    """Pre-LN decoder block; ``attend`` is injected per call."""
+    """Pre-LN decoder block; ``attend`` is injected per call.
+
+    ``compute_dtype`` is the dense layers' dtype (default
+    :data:`COMPUTE_DTYPE`, bf16; f32 for the MoE payload's ``--dtype
+    f32``). ``mlp`` (the reference's ``DecoderBlock.mlp``) replaces the
+    dense FFN: the block holds ``moe = mlp(param_dtype, device)`` in place
+    of ``mlp_up`` / ``mlp_down`` and returns ``x + moe(ln_mlp(x))``."""
 
     def __init__(self, dim: int, heads: int, kv_heads: int = 0,
                  split_qkv: Optional[bool] = None,
-                 param_dtype: torch.dtype = torch.bfloat16, device=None):
+                 param_dtype: torch.dtype = torch.bfloat16, device=None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 mlp: Optional[MlpFactory] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         kvh = kv_heads or heads
         if kvh <= 0 or heads % kvh != 0:
             raise ValueError(
@@ -209,34 +234,39 @@ class DecoderBlock(nn.Module):
         self.split_qkv = split
         self.attn_out = nn.Linear(dim, dim, bias=False, **w)
         self.ln_mlp = nn.LayerNorm(dim, eps=LN_EPS, device=device)
-        self.mlp_up = nn.Linear(dim, 4 * dim, bias=True, **w)
-        self.mlp_down = nn.Linear(4 * dim, dim, bias=True, **w)
+        self.moe = mlp(param_dtype, device) if mlp is not None else None
+        if mlp is None:
+            self.mlp_up = nn.Linear(dim, 4 * dim, bias=True, **w)
+            self.mlp_down = nn.Linear(4 * dim, dim, bias=True, **w)
 
     def forward(self, x: torch.Tensor, attend: Attend) -> torch.Tensor:
         b, t, _ = x.shape
         hd = self.head_dim
+        dt = self.compute_dtype
         h = _layer_norm(self.ln_attn, x)
         if self.split_qkv:
             with checkpoint_name("attn_q"):
-                q = _dense(self.q, h).reshape(b, t, self.heads, hd)
+                q = _dense(self.q, h, dt).reshape(b, t, self.heads, hd)
             with checkpoint_name("attn_k"):
-                k = _dense(self.k, h).reshape(b, t, self.kv_heads, hd)
+                k = _dense(self.k, h, dt).reshape(b, t, self.kv_heads, hd)
             with checkpoint_name("attn_v"):
-                v = _dense(self.v, h).reshape(b, t, self.kv_heads, hd)
+                v = _dense(self.v, h, dt).reshape(b, t, self.kv_heads, hd)
         else:
             with checkpoint_name("attn_q", "attn_k", "attn_v"):
-                q, k, v = _dense(self.qkv, h).chunk(3, dim=-1)
+                q, k, v = _dense(self.qkv, h, dt).chunk(3, dim=-1)
                 q = q.reshape(b, t, self.heads, hd)
                 k = k.reshape(b, t, self.kv_heads, hd)
                 v = v.reshape(b, t, self.kv_heads, hd)
         out = attend(q.contiguous(), k.contiguous(), v.contiguous())
         with checkpoint_name("attn_residual"):
-            x = x + _dense(self.attn_out, out.reshape(b, t, self.dim))
+            x = x + _dense(self.attn_out, out.reshape(b, t, self.dim), dt)
         h = _layer_norm(self.ln_mlp, x)
-        h = _dense(self.mlp_up, h)
+        if self.moe is not None:
+            return x + self.moe(h)
+        h = _dense(self.mlp_up, h, dt)
         with checkpoint_name("mlp_gelu"):
             h = F.gelu(h, approximate="tanh")
-        return x + _dense(self.mlp_down, h)
+        return x + _dense(self.mlp_down, h, dt)
 
 
 @functools.lru_cache(maxsize=None)
@@ -261,7 +291,10 @@ class TransformerLM(nn.Module):
     per-layer attention factory (``attend_for_layer(i)`` returns block
     ``i``'s attend callable). Returns [B, T, vocab] bf16 logits.
     ``block`` is the block class (:class:`DecoderBlock`, or
-    :func:`remat_block`'s under ``--remat``).
+    :func:`remat_block`'s under ``--remat``). ``compute_dtype`` is the
+    embeddings', dense layers' and logits' dtype (default
+    :data:`COMPUTE_DTYPE`); ``mlp_for_layer(i)`` gives block ``i``'s MLP
+    factory, or None for the dense FFN (the MoE LM's every odd block).
 
     Params are built with gradients off (the serve path); a trainer turns
     them on with ``requires_grad_(True)``."""
@@ -270,18 +303,24 @@ class TransformerLM(nn.Module):
                  max_seq: int, kv_heads: int = 0,
                  split_qkv: Optional[bool] = None,
                  param_dtype: torch.dtype = torch.bfloat16, device=None,
-                 block: type = None):
+                 block: type = None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 mlp_for_layer: Optional[
+                     Callable[[int], Optional[MlpFactory]]] = None):
         super().__init__()
         self.vocab, self.dim, self.heads = vocab, dim, heads
         self.layers, self.max_seq = layers, max_seq
         self.kv_heads = kv_heads
+        self.compute_dtype = compute_dtype
         w = dict(dtype=param_dtype, device=device)
         self.tok_embed = nn.Embedding(vocab, dim, **w)
         self.pos_embed = nn.Embedding(max_seq, dim, **w)
         block = block or DecoderBlock
         self.blocks = nn.ModuleList(
-            block(dim, heads, kv_heads, split_qkv, param_dtype, device)
-            for _ in range(layers))
+            block(dim, heads, kv_heads, split_qkv, param_dtype, device,
+                  compute_dtype=compute_dtype,
+                  mlp=mlp_for_layer(i) if mlp_for_layer else None)
+            for i in range(layers))
         self.ln_final = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.lm_head = nn.Linear(dim, vocab, bias=False, **w)
         self.requires_grad_(False)
@@ -291,7 +330,8 @@ class TransformerLM(nn.Module):
         """Seeded init drawn from ``generator`` (on the generator's
         device): the reference's scales — dense kernels normal with std
         1/sqrt(fan_in), embeddings std 1/sqrt(dim), zero biases, unit
-        LayerNorm scales."""
+        LayerNorm scales. A block MLP with an ``init_weights(generator)``
+        of its own draws its weights there, in module order."""
         def normal_(p: torch.Tensor, std: float) -> None:
             draw = torch.randn(p.shape, generator=generator,
                                device=generator.device,
@@ -308,6 +348,8 @@ class TransformerLM(nn.Module):
             elif isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+            elif module is not self and hasattr(module, "init_weights"):
+                module.init_weights(generator)
         return self
 
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor],
@@ -319,13 +361,15 @@ class TransformerLM(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
-        x = _embed(self.tok_embed, tokens) + _embed(self.pos_embed, positions)
+        dt = self.compute_dtype
+        x = _embed(self.tok_embed, tokens, dt) \
+            + _embed(self.pos_embed, positions, dt)
         for i, block in enumerate(self.blocks):
             x = block(x, attend_for_layer(i))
         x = _layer_norm(self.ln_final, x)
         if return_hidden:
-            return x.to(COMPUTE_DTYPE)
-        return _dense(self.lm_head, x)
+            return x.to(dt or COMPUTE_DTYPE)
+        return _dense(self.lm_head, x, dt)
 
 
 def add_remat_policy_flag(parser) -> None:

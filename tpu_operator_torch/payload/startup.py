@@ -91,6 +91,17 @@ def reset_prefetch() -> None:
         _prefetch_hit = None
 
 
+def reset() -> None:
+    """Test hook: clear this process's per-process records (the
+    rendezvous, the prefetch and the compilation cache dir), so a new
+    tracker starts with nothing seeded."""
+    global _rendezvous_seconds, _cache_dir
+    reset_prefetch()
+    with _state_lock:
+        _rendezvous_seconds = None
+        _cache_dir = ""
+
+
 def set_cache_dir(path: str) -> None:
     global _cache_dir
     with _state_lock:

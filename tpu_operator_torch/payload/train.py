@@ -167,25 +167,43 @@ def fused_cross_entropy(logits: torch.Tensor,
 
 
 def all_reduce_grads(params: Sequence[torch.Tensor], metrics: Metrics,
-                     data_size: int) -> Metrics:
+                     data_size: int, sharded: Sequence[int] = (),
+                     shard_group: Any = None) -> Metrics:
     """Sum the ``.grad`` of ``params`` and the (scalar) ``metrics`` over the
     world, then divide by ``data_size``: one flat f32 collective. Each
     process's loss is its sequence shard's share of its data rank's mean,
     so the sum over a seq group is that rank's gradient and the division
-    averages the data ranks. Returns the reduced metrics."""
+    averages the data ranks. Returns the reduced metrics.
+
+    ``sharded`` (positions in ``params``) are parameters each process
+    holds a different part of (the MoE payload's expert stacks): their
+    gradients sum only over ``shard_group``, the processes that hold the
+    same part (None: no other process does), with the same division."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
+
+    def reduce(idx, tail, group, collective):
+        flat = torch.cat([grads[i].reshape(-1).float() for i in idx] + tail)
+        if collective:
+            dist.all_reduce(flat, group=group)
+        flat /= data_size
+        offset = 0
+        for i in idx:
+            n = grads[i].numel()
+            params[i].grad = flat[offset:offset + n].view_as(grads[i]).to(
+                grads[i].dtype)
+            offset += n
+        return flat[offset:]
+
+    split = set(sharded)
     keys = sorted(metrics)
-    flat = torch.cat([g.reshape(-1).float() for g in grads]
-                     + [metrics[k].reshape(1).float() for k in keys])
-    dist.all_reduce(flat)
-    flat /= data_size
-    offset = 0
-    for p, g in zip(params, grads):
-        n = g.numel()
-        p.grad = flat[offset:offset + n].view_as(g).to(g.dtype)
-        offset += n
-    return {k: flat[offset + i] for i, k in enumerate(keys)}
+    rest = reduce([i for i in range(len(params)) if i not in split],
+                  [metrics[k].reshape(1).float() for k in keys], None, True)
+    if split:
+        reduce(sorted(split), [], shard_group,
+               shard_group is not None
+               and dist.get_world_size(shard_group) > 1)
+    return {k: rest[j] for j, k in enumerate(keys)}
 
 
 def make_loss_train_step(loss_fn: Callable[[torch.Tensor],

@@ -206,6 +206,16 @@ class LMMesh(NamedTuple):
     def seq_rank(self) -> int:
         return self.rank % self.seq_procs
 
+    # The batch shard this process holds (data.lm_batches): its data
+    # rank's, which its seq group shares.
+    @property
+    def batch_rank(self) -> int:
+        return self.data_rank
+
+    @property
+    def batch_ranks(self) -> int:
+        return self.data
+
     def ring(self) -> ring_mod.SeqRing:
         first = self.data_rank * self.seq_procs
         return ring_mod.SeqRing(self.seq_shards,

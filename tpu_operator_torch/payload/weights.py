@@ -13,6 +13,12 @@ them to bf16 at every apply, with the same rounding), f32 for training
 :func:`to_flax` is the inverse, as f32 numpy arrays, so a test can compare
 parameters leaf by leaf.
 
+The MoE LM (:func:`moe_from_flax`, :func:`moe_to_flax`): the same tree,
+its odd blocks holding ``moe/{router/kernel, w1, w2}`` in place of
+``mlp_up`` / ``mlp_down``; the stacks ``w1`` ``[E, D, 4D]`` and ``w2``
+``[E, 4D, D]`` are the port's layout as they are (an expert-parallel
+model takes its part of them and gives back only that part).
+
 The classifier: conv kernels HWIO <-> OIHW, the dense head ``[in, out]``
 <-> ``Linear.weight [out, in]``, BatchNorm ``scale`` / ``bias`` and the
 ``batch_stats`` ``mean`` / ``var`` as they are. Under ``--scan-blocks``
@@ -53,16 +59,11 @@ def _load_ln(ln: torch.nn.LayerNorm, tree: Mapping[str, Any]) -> None:
     ln.bias.copy_(_t(tree["bias"]))
 
 
-@torch.no_grad()
-def from_flax(params: Mapping[str, Any], *, heads: int, device=None,
-              param_dtype: torch.dtype = torch.bfloat16,
-              block: type = None) -> TransformerLM:
-    """``TransformerLM`` holding the flax tree's weights. ``heads`` is not
-    recoverable from shapes; vocab, dim, layers, max_seq, the K/V head
-    count and the qkv layout are read from the tree. Gradients stay off
-    (the model's default)."""
+def _lm_shape(params: Mapping[str, Any], heads: int) -> Dict[str, Any]:
+    """TransformerLM's arguments read from the tree (``heads`` is not
+    recoverable from shapes): vocab, dim, layers, max_seq, the K/V head
+    count and the qkv layout."""
     vocab, dim = np.shape(params["tok_embed"]["embedding"])
-    max_seq = np.shape(params["pos_embed"]["embedding"])[0]
     layers = 0
     while f"block{layers}" in params:
         layers += 1
@@ -72,22 +73,77 @@ def from_flax(params: Mapping[str, Any], *, heads: int, device=None,
     else:
         kv_dim = np.shape(block0["k"]["kernel"])[1]
         kv_heads, split = kv_dim // (dim // heads), True
-    model = TransformerLM(vocab, dim, heads, layers, max_seq,
-                          kv_heads=kv_heads, split_qkv=split,
-                          param_dtype=param_dtype, device=device,
-                          block=block)
+    return dict(vocab=int(vocab), dim=int(dim), heads=heads, layers=layers,
+                max_seq=int(np.shape(params["pos_embed"]["embedding"])[0]),
+                kv_heads=kv_heads, split_qkv=split)
+
+
+def _load_lm(model: TransformerLM, params: Mapping[str, Any]) -> None:
+    """Copy the tree into ``model``; a block holding ``moe`` takes the
+    router and its part of the expert stacks."""
     model.tok_embed.weight.copy_(_t(params["tok_embed"]["embedding"]))
     model.pos_embed.weight.copy_(_t(params["pos_embed"]["embedding"]))
     for i, block in enumerate(model.blocks):
         tree = params[f"block{i}"]
         _load_ln(block.ln_attn, tree["ln_attn"])
-        names = ("q", "k", "v") if split else ("qkv",)
-        for name in names + ("attn_out", "mlp_up", "mlp_down"):
+        names = ("q", "k", "v") if block.split_qkv else ("qkv",)
+        if block.moe is None:
+            names += ("mlp_up", "mlp_down")
+        for name in names + ("attn_out",):
             _load_dense(getattr(block, name), tree[name])
+        if block.moe is not None:
+            moe, sub = block.moe, tree["moe"]
+            _load_dense(moe.router, sub["router"])
+            for name in ("w1", "w2"):
+                whole = _t(sub[name])
+                part = whole.chunk(moe.shard.size)[moe.shard.rank]
+                live = getattr(moe, name)
+                if tuple(part.shape) != tuple(live.shape):
+                    raise ValueError(f"block{i}/moe/{name} "
+                                     f"{tuple(whole.shape)} does not fit "
+                                     f"{tuple(live.shape)} a process")
+                live.copy_(part)
         _load_ln(block.ln_mlp, tree["ln_mlp"])
     _load_ln(model.ln_final, params["ln_final"])
     _load_dense(model.lm_head, params["lm_head"])
+
+
+@torch.no_grad()
+def from_flax(params: Mapping[str, Any], *, heads: int, device=None,
+              param_dtype: torch.dtype = torch.bfloat16,
+              block: type = None) -> TransformerLM:
+    """``TransformerLM`` holding the flax tree's weights. ``heads`` is not
+    recoverable from shapes; vocab, dim, layers, max_seq, the K/V head
+    count and the qkv layout are read from the tree. Gradients stay off
+    (the model's default)."""
+    model = TransformerLM(**_lm_shape(params, heads),
+                          param_dtype=param_dtype, device=device,
+                          block=block)
+    _load_lm(model, params)
     return model
+
+
+@torch.no_grad()
+def moe_from_flax(params: Mapping[str, Any], args, device=None,
+                  shard=None) -> TransformerLM:
+    """The MoE LM (``moe.build_model``) of the flags ``args`` (heads,
+    capacity factor, dispatch, compute dtype, remat; the widths must fit
+    the tree) holding the reference ``MoELM``'s weights, f32, with
+    ``shard`` (``moe.ExpertShard``, default every expert) of each expert
+    stack. Gradients stay off."""
+    from tpu_operator_torch.payload import moe
+
+    shape = _lm_shape(params, args.heads)
+    experts = int(np.shape(params["block1"]["moe"]["w1"])[0]) \
+        if shape["layers"] > 1 else args.experts
+    if (shape["vocab"], shape["dim"], shape["layers"], shape["max_seq"],
+            experts) != (args.vocab, args.dim, args.layers, args.seq_len,
+                         args.experts):
+        raise ValueError(f"the tree's widths {shape} with {experts} experts "
+                         f"do not fit the flags")
+    model = moe.build_model(args, device, shard or moe.ExpertShard())
+    _load_lm(model, params)
+    return model.requires_grad_(False)
 
 
 def _np(p: torch.Tensor) -> np.ndarray:
@@ -107,15 +163,21 @@ def _ln_tree(ln: torch.nn.LayerNorm) -> Dict[str, np.ndarray]:
 
 def to_flax(model: TransformerLM) -> Dict[str, Any]:
     """The flax param tree of ``model`` as f32 numpy arrays (the inverse
-    of :func:`from_flax`)."""
+    of :func:`from_flax`, and of :func:`moe_from_flax` for a MoE LM:
+    :func:`moe_to_flax`)."""
     tree: Dict[str, Any] = {
         "tok_embed": {"embedding": _np(model.tok_embed.weight)},
         "pos_embed": {"embedding": _np(model.pos_embed.weight)},
     }
     for i, block in enumerate(model.blocks):
         names = ("q", "k", "v") if block.split_qkv else ("qkv",)
+        if block.moe is None:
+            names += ("mlp_up", "mlp_down")
         sub = {name: _dense_tree(getattr(block, name))
-               for name in names + ("attn_out", "mlp_up", "mlp_down")}
+               for name in names + ("attn_out",)}
+        if block.moe is not None:
+            sub["moe"] = {"router": _dense_tree(block.moe.router),
+                          "w1": _np(block.moe.w1), "w2": _np(block.moe.w2)}
         sub["ln_attn"] = _ln_tree(block.ln_attn)
         sub["ln_mlp"] = _ln_tree(block.ln_mlp)
         tree[f"block{i}"] = sub
@@ -266,3 +328,8 @@ def linear_from_flax(params: Mapping[str, Any], device=None
 
 def linear_to_flax(model: LinearRegressor) -> Dict[str, Any]:
     return {"linear": _dense_tree(model.linear)}
+
+
+# The reference ``MoELM`` tree of a MoE LM (the inverse of
+# :func:`moe_from_flax`; the expert stacks are this process's part).
+moe_to_flax = to_flax
