@@ -26,7 +26,11 @@ one JSON line each:
    panels) and must be bit-equal across NaN-poisoned tails, a paged
    gather, a cache of twice the capacity padded with NaN, and a second
    launch; it and SDPA are timed as device time (torch.profiler) beside
-   the CUDA-event time, which includes host launch overhead.
+   the CUDA-event time, which includes host launch overhead. K1 and K2
+   also run at the pipeline row's shape (B 4, T 2048, 16 heads, head dim
+   64: their D 64 build), timed beside the bound, the plain version and
+   SDPA, and at head dim 32, which the wrappers zero-pad to 64; K3 and K4
+   at head dim 64, which theirs pad to 128 (``padded_decode_merge``).
 4. ``kernels`` (merge): the ring merge kernel (K4) at the long-context
    ring shape (B 2, Tq = Tk = 2048, H 16, KVH 4) and a ragged Tq != Tk,
    against the plain merge per element on the rows that have seen a key:
@@ -136,6 +140,23 @@ one JSON line each:
     peak memory and one step's device time by group (K1, K2, cuBLAS with
     the dispatch / combine einsums apart, the rest). The kernels phases
     check K1 and K2 at this row's 8 / 4 heads too.
+14b. ``pipeline``: the pipeline bench row as written (bench.py:840-905:
+    dim 1024, 8 layers, 16 heads, head dim 64, batch 16 x 2048 as 4
+    microbatches, vocab 32768, bf16, adam) through ``pipeline.build`` and
+    ``train.train_loop``: at init K1 + K2 against plain attention (the
+    train phase's gates) and every schedule's loss and gradients against
+    gpipe at S 1; 4 steps each of gpipe, 1f1b with either stash and
+    interleaved V 2 at ``--pipeline 1``, and 1f1b and interleaved V 2 at
+    ``--pipeline 4`` in this process, with launch counts (dq and dkv
+    layers x microbatches x steps, K1 once that or twice under ``--stash
+    input``), the stash peaks, peak memory and the fenced step time
+    beside the dense transformer's at the same shape (a smoke
+    overhead_vs_dense); a save at step 2 resumed to step 4 bit-equal.
+14c. ``defaults``: ``python -m tpu_operator_torch.payload.transformer``,
+    ``.pipeline`` and ``.moe`` at their default flags with ``--steps 3``
+    in fresh processes, and ``serve`` at its defaults under a short load:
+    head dims 64, 64, 32 and 16, the last two through the wrappers' zero
+    padding; exit codes and launch counts gated.
 15. ``classifier``: ``payload.cifar`` at its defaults (ResNet-20, batch
     1024, sgd 0.1 / 0.9) for 20 steps (the loss descends; the first 5
     losses against a CPU run of the same port from the same weights and
@@ -492,22 +513,35 @@ def moe_generator(torch):
     return gen
 
 
+def head_dim_generator(torch):
+    """The same for the cases at head dims other than 128 (the pipeline
+    row's D 64, and the padded D 32 / D 64 cases)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    return gen
+
+
 def check_flash_fwd(torch, fa, F, gen):
-    """The forward kernel at the serve prefill shape, the training shape
-    and the MoE row's (8 / 4 heads; causal GQA) and at a non-causal MHA
-    shape with a ragged T, per element
-    against the plain version in f32. At the training shape, a negative
-    control: the plain side with V's last key tile zeroed (a fault that
-    leaves L intact and touches only the last 64 rows) must fail."""
+    """The forward kernel at the serve prefill shape, the training shape,
+    the MoE row's (8 / 4 heads; causal GQA), the pipeline row's (B 4, 16
+    heads, head dim 64: the kernel's D 64 build) and at a non-causal MHA
+    shape with a ragged T, and at head dim 32 (zero-padded to 64 by the
+    wrapper), per element against the plain version in f32 at the true
+    head dim. At the training shape, a negative control: the plain side
+    with V's last key tile zeroed (a fault that leaves L intact and
+    touches only the last 64 rows) must fail."""
     dev = "cuda"
     results = {}
-    for label, (b, t, h, kvh, causal) in {
-            "prefill_causal_gqa": (1, 1920, 16, 4, True),
-            "train_causal_gqa": (8, 2048, 16, 4, True),
-            "noncausal_mha_ragged": (2, 1000, 16, 16, False),
-            "moe_causal_gqa": (8, 2048, 8, 4, True)}.items():
-        d = 128
-        g = moe_generator(torch) if label.startswith("moe") else gen
+    head_dims = head_dim_generator(torch)
+    for label, (b, t, h, kvh, causal, d) in {
+            "prefill_causal_gqa": (1, 1920, 16, 4, True, 128),
+            "train_causal_gqa": (8, 2048, 16, 4, True, 128),
+            "noncausal_mha_ragged": (2, 1000, 16, 16, False, 128),
+            "moe_causal_gqa": (8, 2048, 8, 4, True, 128),
+            "pipeline_causal_mha_d64": (4, 2048, 16, 16, True, 64),
+            "padded_d32_causal_gqa": (2, 1000, 8, 4, True, 32)}.items():
+        g = moe_generator(torch) if label.startswith("moe") else \
+            head_dims if d != 128 else gen
         q = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16()
         k = torch.randn(b, t, kvh, d, generator=g, device=dev).bfloat16()
         v = torch.randn(b, t, kvh, d, generator=g, device=dev).bfloat16()
@@ -554,6 +588,7 @@ def check_flash_fwd(torch, fa, F, gen):
         results[label] = {
             "shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
                       "causal": causal},
+            "kernel_head_dim": fa.kernel_head_dim("flash_fwd", d),
             "max_abs_err_O": err_o, "max_abs_ref_O": max_ref,
             "tol_O": f"per element {FWD_REL_TOL} * (|ref| + A) + "
                      f"{FWD_ABS_FLOOR} * max |ref|, A = sum_j P_j |V_j|",
@@ -741,11 +776,12 @@ def bwd_excess(torch, got, want, terms) -> float:
 
 
 def bwd_case(torch, fa, gen, b, t, h, kvh, causal, offsets, fused,
-             grad_dtype):
-    """Inputs of one K2 case: q/k/v/dO bf16 from ``gen``; O and L from K1
-    for the aligned causal case (what the training backward sees), else
-    from the plain forward at the case's offsets; D = rowsum(dO O) f32."""
-    dev, d = "cuda", 128
+             grad_dtype, d=128):
+    """Inputs of one K2 case at head dim ``d``: q/k/v/dO bf16 from
+    ``gen``; O and L from K1 for the aligned causal case (what the
+    training backward sees), else from the plain forward at the case's
+    offsets; D = rowsum(dO O) f32."""
+    dev = "cuda"
     q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
     v = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
@@ -771,10 +807,14 @@ def bwd_case(torch, fa, gen, b, t, h, kvh, causal, offsets, fused,
 
 
 def kernel_device_ms(torch, fn, calls: int, names):
-    """Device ms per call of each named kernel, and of every kernel
-    together under "all", from torch.profiler over ``calls`` calls of
-    ``fn`` (one launch of each kernel splits the time a CUDA-event pair
-    around both would lump together, and leaves out host launch time)."""
+    """Device ms of one launch of each named kernel (each launched once a
+    call), and of every kernel of a call together under "all", from
+    torch.profiler over ``calls`` calls of ``fn`` (one launch of each
+    kernel splits the time a CUDA-event pair around both would lump
+    together, and leaves out host launch time). A named kernel's time is
+    its device total over the launches the profiler recorded: late in a
+    long run the profiler has been seen to keep 3 of 10 launches, and a
+    total over the calls made then reads 0.3 of the time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -785,8 +825,12 @@ def kernel_device_ms(torch, fn, calls: int, names):
             fn()
         torch.cuda.synchronize()
     rows = _device_rows(torch, prof, calls)
-    res = {name: sum(ms for key, ms, _n in rows if name in key) or
-           "not measured" for name in names}
+    res = {}
+    for name in names:
+        ms = sum(ms for key, ms, _n in rows if name in key)
+        launches = sum(n for key, _ms, n in rows if name in key)
+        res[name] = ms / launches if launches else "not measured"
+        res[f"{name}_recorded_launches"] = launches * calls
     res["all"] = sum(ms for _key, ms, _n in rows) or "not measured"
     return res
 
@@ -827,13 +871,14 @@ def check_dq_twice(torch, inputs, offsets, causal, grad_dtype):
             "d_tol": "2^-16 * sum |dO O| per row"}
 
 
-def bwd_bounds(torch, b, tq, tk, h, kvh, causal, offsets, fused, grad_bytes):
-    """Bound (ms, by) of dq, dkv and the pair for one K2 call, counting the
-    (query, key) pairs these offsets leave unmasked: dq runs three
-    [pairs]-by-D products (S, dP, dQ), dkv four (S, dP, dK, dV). Each reads
-    its inputs once and writes its outputs once: dq reads q, k, v, dO, L
-    and O (fused D, then also writes D) or D; dkv reads q, k, v, dO, L, D."""
-    d = 128
+def bwd_bounds(torch, b, tq, tk, h, kvh, causal, offsets, fused, grad_bytes,
+               d=128):
+    """Bound (ms, by) of dq, dkv and the pair for one K2 call at head dim
+    ``d``, counting the (query, key) pairs these offsets leave unmasked:
+    dq runs three [pairs]-by-D products (S, dP, dQ), dkv four (S, dP, dK,
+    dV). Each reads its inputs once and writes its outputs once: dq reads
+    q, k, v, dO, L and O (fused D, then also writes D) or D; dkv reads q,
+    k, v, dO, L, D."""
     if causal:
         q_off, k_off, stride = offsets
         q_pos = q_off + stride * torch.arange(tq, device="cuda")
@@ -863,41 +908,52 @@ def bwd_bounds(torch, b, tq, tk, h, kvh, causal, offsets, fused, grad_bytes):
 def check_flash_bwd(torch, fa, F, gen):
     """The backward kernels (K2) against the plain backward: at the
     training shape (B 8, T 2048, H 16, KVH 4, causal, O and L from K1,
-    fused D, bf16 grads) and the MoE row's (H 8, KVH 4), at two ragged
-    T 1000 cases with offsets (group 4
-    with a stride and precomputed D; group 1), f32 grads, and at the SP
-    ring's shape (B 2, Tq = Tk = 2048, striped offsets (1, 0, 4), given D,
-    f32 grads). A negative control (the plain side with D zeroed) must
-    fail the tolerance, and two launches must be bit-equal. The training
-    and ring shapes are timed beside the bound; the training and MoE
-    shapes also beside the plain version and SDPA's backward (a
-    yardstick only)."""
+    fused D, bf16 grads), the MoE row's (H 8, KVH 4) and the pipeline
+    row's (B 4, H = KVH = 16, head dim 64: the kernels' D 64 build), at
+    two ragged T 1000 cases with offsets (group 4 with a stride and
+    precomputed D; group 1), f32 grads, at head dim 32 (zero-padded to 64
+    by the wrapper; offsets with a stride, given D, f32 grads) and at the
+    SP ring's shape (B 2, Tq = Tk = 2048, striped offsets (1, 0, 4), given
+    D, f32 grads). A negative control (the plain side with D zeroed) must
+    fail the tolerance, and two launches must be bit-equal. The training,
+    pipeline and ring shapes are timed beside the bound; the training, MoE
+    and pipeline shapes also beside the plain version and SDPA's backward
+    (a yardstick only)."""
     cases = {
         "train_causal_gqa": (8, 2048, 16, 4, True, (0, 0, 1), True,
-                             torch.bfloat16),
+                             torch.bfloat16, 128),
         "offsets_stride_g4_precomputed_d_ragged": (
-            2, 1000, 16, 4, True, (0, 3, 2), False, torch.float32),
+            2, 1000, 16, 4, True, (0, 3, 2), False, torch.float32, 128),
         "offsets_g1_ragged": (2, 1000, 8, 8, True, (128, 0, 1), True,
-                              torch.float32),
+                              torch.float32, 128),
         "sp_ring_striped_given_d": (2, 2048, 16, 4, True, (1, 0, 4), False,
-                                    torch.float32),
+                                    torch.float32, 128),
         "moe_causal_gqa": (8, 2048, 8, 4, True, (0, 0, 1), True,
-                           torch.bfloat16),
+                           torch.bfloat16, 128),
+        "pipeline_causal_mha_d64": (4, 2048, 16, 16, True, (0, 0, 1), True,
+                                    torch.bfloat16, 64),
+        "padded_d32_offsets_stride_given_d": (
+            2, 1000, 8, 4, True, (0, 3, 2), False, torch.float32, 32),
     }
-    timed = ("train_causal_gqa", "moe_causal_gqa", "sp_ring_striped_given_d")
-    beside_plain = ("train_causal_gqa", "moe_causal_gqa")
+    timed = ("train_causal_gqa", "moe_causal_gqa", "sp_ring_striped_given_d",
+             "pipeline_causal_mha_d64")
+    beside_plain = ("train_causal_gqa", "moe_causal_gqa",
+                    "pipeline_causal_mha_d64")
     out = {}
-    for label, (b, t, h, kvh, causal, offs, fused, gd) in cases.items():
+    head_dims = head_dim_generator(torch)
+    for label, (b, t, h, kvh, causal, offs, fused, gd, d) in cases.items():
         inputs, run = bwd_case(
             torch, fa, moe_generator(torch) if label.startswith("moe")
-            else gen, b, t, h, kvh, causal, offs, fused, gd)
+            else head_dims if d != 128 else gen, b, t, h, kvh, causal, offs,
+            fused, gd, d)
         q, k, v, g, L, o, D = inputs
         got = run()
         torch.cuda.synchronize()
         want, terms = bwd_plain_terms(torch, fa, q, k, v, g, L, D, offs,
                                       causal)
-        res = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": 128,
+        res = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
                          "causal": causal},
+               "kernel_head_dim": fa.kernel_head_dim("flash_bwd", d),
                "offsets": list(offs), "fused_d": fused,
                "grad_dtype": str(gd).replace("torch.", ""),
                "tol": f"per element {BWD_REL_TOL} * (|ref| + A) + "
@@ -935,7 +991,7 @@ def check_flash_bwd(torch, fa, F, gen):
             del inputs
             continue
         res.update(bwd_bounds(torch, b, t, t, h, kvh, causal, offs, fused,
-                              4 if gd == torch.float32 else 2))
+                              4 if gd == torch.float32 else 2, d))
         res["ms_pair"] = time_ms(torch, run, reps=20)
         per_kernel = kernel_device_ms(
             torch, run, 10, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
@@ -960,14 +1016,16 @@ def check_flash_bwd(torch, fa, F, gen):
                       for x in (qt, kt, vt))
         gl = gt.contiguous()
 
+        gqa = kvh != h
+
         def sdpa_fwd():
             with torch.no_grad():
                 F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                               enable_gqa=True)
+                                               enable_gqa=gqa)
 
         def sdpa_fwd_bwd():
             F.scaled_dot_product_attention(
-                ql, kl, vl, is_causal=True, enable_gqa=True).backward(gl)
+                ql, kl, vl, is_causal=True, enable_gqa=gqa).backward(gl)
 
         res["library_fwd_bwd_ms"] = time_ms(torch, sdpa_fwd_bwd, reps=20)
         res["library_fwd_ms"] = time_ms(torch, sdpa_fwd, reps=20)
@@ -1200,6 +1258,72 @@ def check_flash_merge(torch, fa, gen):
                 res["device_share_of_bound"] = (res["bound_ms"]
                                                 / res["device_ms"])
     return out
+
+
+def check_padded_decode_merge(torch, fa):
+    """K3 and K4 at head dim 64, which each runs at 128 through the
+    wrapper's zero padding (``flash_attention.at_kernel_head_dim``), per
+    element against the plain version at head dim 64 with its scale: K3
+    at the serve decode shape (B 8, Tq 1, S 2048, 16 / 4 heads) with
+    ragged lengths (the decode tolerance), K4 at the ring shape (B 2, Tq =
+    Tk = 2048, 16 / 4 heads) folding a striped block (1, 0, 4) into a live
+    carry (the merge tolerances). Returns one entry for each in the form
+    of ``check_flash_decode``'s and ``check_flash_merge``'s."""
+    dev, d = "cuda", 64
+    gen = head_dim_generator(torch)
+    b, h, kvh, s = 8, 16, 4, 2048
+    lengths = torch.tensor([1, 17, 1920, 2048, 1000, 513, 64, 0],
+                           dtype=torch.int32, device=dev)
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+    before = fa.launch_counts()["flash_decode"]
+    got = fa.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    launches = fa.launch_counts()["flash_decode"] - before
+    want = fa._decode_ref(q, k, v, lengths)
+    excess = decode_excess(torch, got, want)
+    require(launches == 1, f"flash_decode padded_d64: {launches} launches")
+    require(excess <= 1.0, f"flash_decode padded_d64: {excess} x its "
+                           f"per-element tolerance")
+    require(not bool(got[lengths <= 0].any()),
+            "flash_decode padded_d64: a row of length 0 is not 0")
+    dec = {"shape": {"B": b, "Tq": 1, "H": h, "KVH": kvh, "S": s, "D": d},
+           "kernel_head_dim": fa.kernel_head_dim("flash_decode", d),
+           "lengths": [int(x) for x in lengths.tolist()],
+           "launches_per_call": launches,
+           "max_abs_err": max_err(torch, got, want),
+           "max_abs_ref": float(want.float().abs().max()),
+           "tol": f"per element {DECODE_REL_TOL} * |ref| + "
+                  f"{DECODE_ABS_FLOOR}",
+           "worst_err_over_tol": excess}
+    del q, k, v, got, want
+    b, c = 2, 2048
+    q, k0, v0, k1, v1 = (
+        torch.randn(b, c, heads, d, generator=gen, device=dev).bfloat16()
+        for heads in (h, kvh, kvh, kvh, kvh))
+    carry = fa.merge_kv_block(q, k0, v0, fa.init_carry(b, h, c, d, device=dev),
+                              (1, 2, 4), causal=True)
+    got = fa.merge_kv_block(q, k1, v1, carry, (1, 0, 4), causal=True)
+    torch.cuda.synchronize()
+    want, terms = merge_plain_terms(torch, fa, q, k1, v1, carry, (1, 0, 4),
+                                    True)
+    o_exc, l_exc, m_exc, rows_agree = merge_excess(torch, fa, q, k1, got,
+                                                   want, terms)
+    seen = want[2] > fa.NEG_INF / 2
+    require(rows_agree and max(o_exc, l_exc, m_exc) <= 1.0,
+            f"flash_merge padded_d64: o {o_exc}, l {l_exc}, m {m_exc} x "
+            f"their tolerances, rows seen agree {rows_agree}")
+    mrg = {"shape": {"B": b, "Tq": c, "Tk": c, "H": h, "KVH": kvh, "D": d,
+                     "causal": True},
+           "kernel_head_dim": fa.kernel_head_dim("flash_merge", d),
+           "offsets": [1, 0, 4], "carry": "a striped (1, 2, 4) merge",
+           "max_abs_err_o": float(torch.where(
+               seen, (got[0] - want[0]).abs(), 0).max()),
+           "max_abs_ref_o": float(torch.where(seen, want[0].abs(), 0).max()),
+           "worst_err_over_tol_o": o_exc, "worst_err_over_tol_l": l_exc,
+           "worst_err_over_bound_m": m_exc, "rows_seen_agree": rows_agree}
+    return dec, mrg
 
 
 def ring_plain_terms(torch, fa, q, k, v):
@@ -2722,6 +2846,300 @@ def run_moe(torch, F, fa, moe, transformer, train, checkpoint, steptrace,
     }
 
 
+# --- phase: pipeline ----------------------------------------------------------
+
+
+# bench.py:840-905 bench_pipeline_overhead's shape (the dense transformer
+# runs it too), as written: bf16, adam at lr 3e-3.
+PIPE_SHAPE = ["--dim", "1024", "--layers", "8", "--heads", "16",
+              "--batch", "16", "--seq-len", "2048", "--vocab", "32768"]
+PIPE_COMMON = ["--seed", "0", "--log-every", "0", "--device", "cuda",
+               "--checkpoint-dir", "", "--profile-dir", ""]
+PIPE_ARGV = [*PIPE_SHAPE, "--microbatches", "4", *PIPE_COMMON]
+# label -> (flags, K1 launches a layer and microbatch: the forward, and
+# the backward's recompute from the stash under --stash input).
+PIPE_RUNS = {
+    "gpipe_s1": (["--schedule", "gpipe"], 1),
+    "1f1b_input_s1": (["--schedule", "1f1b"], 2),
+    "1f1b_residuals_s1": (["--schedule", "1f1b", "--stash", "residuals"], 1),
+    "interleaved_v2_s1": (["--schedule", "1f1b-interleaved",
+                           "--virtual-stages", "2"], 2),
+    "1f1b_input_s4": (["--schedule", "1f1b", "--pipeline", "4"], 2),
+    "interleaved_v2_s4": (["--schedule", "1f1b-interleaved",
+                           "--virtual-stages", "2", "--pipeline", "4"], 2),
+}
+PIPE_STEPS = 4
+# Tolerances of the schedules against gpipe at S 1 on one batch at init
+# (the same seeded weights: the init does not depend on the layout).
+# Every side runs the same kernels on the same microbatches; they differ
+# in the order f32 gradients add over microbatches and in the head: gpipe
+# takes one loss over the whole batch, 1f1b one per microbatch, each
+# [rows, 1024] x [1024, 32768] bf16 product and its f32 logsumexp at
+# another size (cuBLAS may split the bf16 sums otherwise). The loss to
+# 1e-3 (0.01% of ln 32768); the whole gradient to 2^-8 and each
+# parameter's to 2^-6 of its norm (a bf16 rounding moves a value by up to
+# 2^-8 of it; a schedule fault, a microbatch dropped or a stage skipped,
+# moves a gradient by O(10%) or more).
+PIPE_LOSS_TOL = 1e-3
+PIPE_GRAD_GLOBAL_TOL = 2.0 ** -8
+PIPE_GRAD_REL_TOL = 2.0 ** -6
+# One checkpoint of the row: f32 params (0.68 GB) and adam's f32 mu and nu.
+PIPE_CKPT_BYTES = 2.1e9
+
+
+def per_layer(model, tensors):
+    """{name: tensor} of a ``pipeline.PipelineLM``'s params (or their
+    gradients) by layer: the stage stacks' entries as ``layer<l>.<param>``
+    (layer l = (j S + d) blocks + i for block i of chunk (j, d)), whatever
+    the layout; the embedding and head as they are."""
+    out = {n: t for n, t in tensors.items() if not n.startswith("stages.")}
+    for (j, d), _stage in model.chunks.items():
+        c = j * model.S + d
+        for name in model.stage_names:
+            block, rest = name.split(".", 1)
+            layer = c * model.blocks + int(block[len("block"):])
+            out[f"layer{layer}.{rest}"] = model.stack_slot(
+                tensors[f"stages.{name}"], j, d)
+    return out
+
+
+def run_pipeline(torch, fa, pipeline, transformer, train, checkpoint,
+                 steptrace, data):
+    """The pipeline bench row as written (bench.py:840-905: dim 1024, 8
+    layers, 16 heads, head dim 64, batch 16 x 2048 as 4 microbatches,
+    vocab 32768, bf16, adam) through ``pipeline.build`` and
+    ``train.train_loop``:
+
+    - at init, one 4-row batch's loss and every parameter's gradient
+      under gpipe through K1 + K2 against plain attention (the train
+      phase's gates at init), and the row's 16-row batch under every
+      schedule of ``PIPE_RUNS`` (gpipe, 1f1b with either stash and
+      interleaved V 2 at S 1; 1f1b and interleaved V 2 at S 4 in this
+      process, 2 layers a stage) against gpipe at S 1 (PIPE_*_TOL);
+    - each schedule for PIPE_STEPS steps, launch counters zeroed just
+      before the loop and read just after: dq and dkv layers x
+      microbatches x steps, K1 once or twice that (the recompute under
+      --stash input), K3 and K4 never; the fenced step time beside the
+      dense transformer's at the same shape (the row's overhead_vs_dense,
+      a smoke reading) and the peak memory of each;
+    - a save at step 2 of 1f1b at S 1 and a fresh build's resume to step
+      4, its losses, params and adam state bit-equal to the unbroken
+      run's, meta.json naming the layout."""
+    import math
+    import shutil
+    import tempfile
+
+    def args_for(flags):
+        return pipeline.parse_args(PIPE_ARGV + flags
+                                   + ["--steps", str(PIPE_STEPS)])
+
+    ref_args = args_for(PIPE_RUNS["gpipe_s1"][0])
+    (rows,) = next(data.synthetic_lm(ref_args.seed + 1, ref_args.batch,
+                                     ref_args.seq_len, vocab=ref_args.vocab))
+    tokens = torch.from_numpy(rows).to(ref_args.device)
+    built = pipeline.build(ref_args)
+    ref_loss, ref_grads = built.pipeline.loss_and_grads(tokens)
+    ref = (float(ref_loss), per_layer(built.model, ref_grads))
+    n_params = sum(p.numel() for p in built.model.params.values())
+    del built, ref_grads
+    torch.cuda.empty_cache()
+    # Kernels against plain attention on 4 rows (one a microbatch), under
+    # 1f1b so that one microbatch's plain scores are alive at a time.
+    built = pipeline.build(args_for(PIPE_RUNS["1f1b_input_s1"][0]))
+    small = tokens[:4]
+    kernels = built.pipeline.loss_and_grads(small)
+    built.pipeline.attend = plain_attend(fa)(0)
+    plain = built.pipeline.loss_and_grads(small)
+    kp = compare_grads(*((float(loss), per_layer(built.model, g))
+                         for loss, g in (kernels, plain)))
+    del kp["_ratios"], kernels, plain, built
+    torch.cuda.empty_cache()
+    name, worst = kp["worst_grad_rel_err"][0]
+    require(kp["loss_abs_err"] <= TRAIN_LOSS_TOL
+            and kp["grad_rel_err_all"] <= TRAIN_GRAD_GLOBAL_TOL
+            and worst <= TRAIN_GRAD_REL_TOL,
+            f"pipeline at init, K1 + K2 against plain attention: {kp}")
+
+    runs, gates = {}, {}
+    unbroken = None
+    for label, (flags, k1_runs) in PIPE_RUNS.items():
+        args = args_for(flags)
+        built = pipeline.build(args)
+        loss, grads = built.pipeline.loss_and_grads(tokens)
+        gap = compare_grads((float(loss), per_layer(built.model, grads)), ref)
+        del gap["_ratios"], grads
+        name, worst = gap["worst_grad_rel_err"][0]
+        require(gap["loss_abs_err"] <= PIPE_LOSS_TOL
+                and gap["grad_rel_err_all"] <= PIPE_GRAD_GLOBAL_TOL
+                and worst <= PIPE_GRAD_REL_TOL,
+                f"pipeline {label} against gpipe at S 1 at init: {gap}")
+        gates[label] = gap
+        per = args.layers * args.microbatches * args.steps
+        loop = drive_train(torch, fa, train, built, args, f"pipeline {label}",
+                           {"flash_fwd": k1_runs * per, "flash_bwd_dq": per,
+                            "flash_bwd_dkv": per, "flash_merge": 0,
+                            "flash_decode": 0})
+        loop["smoke_step_ms_median_steps_1_to_3"] = 1e3 * statistics.median(
+            loop["step_seconds"][1:])
+        loop["stash_peak"] = dict(built.pipeline.stash_peak)
+        runs[label] = loop
+        if label == "1f1b_input_s1":
+            unbroken = (loop["loss_trajectory"],
+                        {n: p.clone() for n, p in built.model.params.items()},
+                        {n: t.clone() for n, t
+                         in built.opt_state.state_dict().items()})
+            loop["profile_step"] = profile_step(torch, built)
+        del built
+        torch.cuda.empty_cache()
+
+    dense_args = transformer.parse_args(PIPE_SHAPE + PIPE_COMMON
+                                        + ["--steps", str(PIPE_STEPS)])
+    built = transformer.build(dense_args)
+    per = dense_args.layers * dense_args.steps
+    dense = drive_train(torch, fa, train, built, dense_args,
+                        "pipeline dense", {"flash_fwd": per,
+                                           "flash_bwd_dq": per,
+                                           "flash_bwd_dkv": per})
+    dense_ms = 1e3 * statistics.median(dense["step_seconds"][1:])
+    dense["profile_step"] = profile_step(torch, built)
+    del built
+    torch.cuda.empty_cache()
+    for loop in runs.values():
+        loop["smoke_overhead_vs_dense_pct"] = 100.0 * (
+            loop["smoke_step_ms_median_steps_1_to_3"] / dense_ms - 1.0)
+
+    args = args_for(PIPE_RUNS["1f1b_input_s1"][0])
+    u_losses, u_params, u_opt = unbroken
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    first = args.steps // 2
+    try:
+        free = shutil.disk_usage(ckdir).free
+        require(free >= 3 * PIPE_CKPT_BYTES,
+                f"pipeline phase: {free / 1e9:.1f} GB free under "
+                f"{os.path.dirname(ckdir)}, needs "
+                f"{3 * PIPE_CKPT_BYTES / 1e9:.1f} GB; set TMPDIR to a larger "
+                f"volume")
+        run_a = pipeline.build(args)
+        ck_a = checkpoint.Checkpointer(ckdir, save_every=first)
+        a_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_a,
+                                          first, ck_a)
+        ck_a.close()
+        require(ck_a.last_verified_step() == first
+                and a_losses == u_losses[:first],
+                f"pipeline run A: verified {ck_a.last_verified_step()}, "
+                f"losses {a_losses} against {u_losses[:first]}")
+        run_b = pipeline.build(args)
+        ck_b = checkpoint.Checkpointer(ckdir, save_every=first)
+        state_b, start = ck_b.restore(run_b.state)
+        mismatches = _state_mismatches(torch, state_b, run_a.state)
+        require(start == first and not mismatches,
+                f"pipeline run B restored step {start}, differing from run "
+                f"A in {mismatches[:8]}")
+        del run_a
+        torch.cuda.empty_cache()
+        b_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_b,
+                                          args.steps, ck_b)
+        ck_b.close()
+        require(b_losses == u_losses[first:],
+                f"pipeline resumed losses {b_losses} != the unbroken run's "
+                f"{u_losses[first:]} (bit-equal gate)")
+        off = [n for n, p in run_b.model.params.items()
+               if not torch.equal(p, u_params[n])]
+        off += [n for n, t in run_b.opt_state.state_dict().items()
+                if not torch.equal(t, u_opt[n])]
+        require(not off, f"pipeline resumed state differs from the "
+                         f"unbroken run's: {off[:8]}")
+        with open(os.path.join(ckdir, str(args.steps), "meta.json")) as f:
+            meta_model = json.load(f).get("model")
+        want_meta = {"name": "pipeline", "pipeline": 1, "virtualStages": 0,
+                     "zero1": False}
+        require(meta_model == want_meta,
+                f"pipeline meta.json names {meta_model}")
+        del run_b, u_params, u_opt
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    require(all(math.isfinite(x) for r in runs.values()
+                for x in r["loss_trajectory"]), "pipeline: a loss not finite")
+    return {
+        "model": "bench_pipeline_overhead (bench.py:840-905), as written",
+        "argv": PIPE_ARGV, "params": n_params,
+        "head_dim": 1024 // 16,
+        "runs": {label: {"flags": PIPE_RUNS[label][0], **loop}
+                 for label, loop in runs.items()},
+        "dense": {"argv": PIPE_SHAPE, **dense,
+                  "smoke_step_ms_median_steps_1_to_3": dense_ms},
+        "gates_at_init_vs_gpipe_s1": gates,
+        "tol": f"vs gpipe at S 1: loss {PIPE_LOSS_TOL}, whole gradient "
+               f"{PIPE_GRAD_GLOBAL_TOL} and each parameter "
+               f"{PIPE_GRAD_REL_TOL} of the reference norm",
+        "kernels_vs_plain_at_init": kp,
+        "smoke_reading": f"{PIPE_STEPS} steps from a cold start; the "
+                         f"overhead is a smoke reading, not the bench "
+                         f"row's measurement",
+        "resume_from_step": first, "resumed_losses": b_losses,
+        "resume_bit_equal": True,
+        "meta_model": meta_model,
+        "nvidia_smi": nvidia_smi_line(),
+    }
+
+
+# --- phase: defaults ----------------------------------------------------------
+
+
+def run_defaults(torch, fa, transformer, pipeline, moe, serve, bootstrap):
+    """Each LM entry point at its default flags on the card:
+    ``python -m tpu_operator_torch.payload.transformer``, ``.pipeline``
+    and ``.moe`` with ``--steps 3`` in fresh processes (exit 0; the
+    launches each logs at its end: K1, dq and dkv layers x microbatches x
+    steps), and the server at its defaults under a short load in this
+    process (K1 and K3 launched, every request completed). Head dims 64,
+    64, 32 and 16: K1 / K2's own D 64 for the first two, the wrappers'
+    zero padding for the others."""
+    out = {}
+    for name, mod in (("transformer", transformer), ("pipeline", pipeline),
+                      ("moe", moe)):
+        argv = ["--steps", "3", "--log-every", "1", "--checkpoint-dir", "",
+                "--profile-dir", ""]
+        args = mod.parse_args(argv)
+        code, seconds, log = _attempt(argv, _payload_env({}), timeout=300,
+                                      payload=name)
+        require(code == 0, f"defaults {name}: exit {code}\n{log[-3000:]}")
+        counts = _logged_launches(log)
+        micro = args.microbatches if name == "pipeline" else args.grad_accum
+        per = args.layers * micro * args.steps
+        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            require(counts[kernel] == per,
+                    f"defaults {name}: {kernel} launched {counts[kernel]} "
+                    f"times, wanted {per}")
+        final = [ln for ln in log.splitlines() if "final: loss" in ln]
+        out[name] = {"head_dim": args.dim // args.heads,
+                     "kernel_head_dim": fa.kernel_head_dim(
+                         "flash_fwd", args.dim // args.heads),
+                     "launches": counts, "seconds": seconds,
+                     "final": final[-1].split("final: ", 1)[1]
+                     if final else None}
+    args = serve.parse_args(["--load", "2:1", "--device", "cuda",
+                             "--http-port", "0", "--checkpoint-dir", ""])
+    loop = serve.ServeLoop(args, bootstrap.process_info_from_env({}),
+                           heartbeat=None, recorder=None)
+    fa.reset_launch_counts()
+    summary = loop.run()
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    require(counts["flash_fwd"] > 0 and counts["flash_decode"] > 0
+            and summary["completed"] == summary["arrivals"] > 0
+            and not summary["failedSteps"],
+            f"defaults serve: launches {counts}, summary {summary}")
+    out["serve"] = {"head_dim": args.dim // args.heads,
+                    "kernel_head_dims": {
+                        k: fa.kernel_head_dim(k, args.dim // args.heads)
+                        for k in ("flash_fwd", "flash_decode")},
+                    "launches": counts,
+                    "completed": summary["completed"]}
+    return out
+
+
 # --- phase: classifier -------------------------------------------------------
 
 
@@ -2915,12 +3333,12 @@ WARM_MIN_FREE = 4 * CKPT_BYTES
 WARM_JOB = {"TPUJOB_NAMESPACE": "smoke", "TPUJOB_NAME": "warm"}
 
 
-def _attempt(argv, env, timeout=900):
-    """One attempt of the transformer payload in a fresh process: exit
-    code, wall seconds and its log."""
+def _attempt(argv, env, timeout=900, payload="transformer"):
+    """One attempt of a payload (default the transformer) in a fresh
+    process: exit code, wall seconds and its log."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "tpu_operator_torch.payload.transformer",
+        [sys.executable, "-m", f"tpu_operator_torch.payload.{payload}",
          *argv], cwd=ROOT, env=env, capture_output=True, text=True,
         timeout=timeout)
     return proc.returncode, time.perf_counter() - t0, \
@@ -3468,18 +3886,18 @@ def _classify(op: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile_train(torch, built):
-    """One full training step (its microbatches + the optimizer update)
-    under torch.profiler, and the optimizer update alone, beside the host
-    clock."""
+def profile_step(torch, built):
+    """One full training step of ``built`` (its microbatches + the
+    optimizer update) under torch.profiler beside the host clock, after
+    one unprofiled step: the breakdown and the device ms by group."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     batch = [torch.from_numpy(a).to(built.device)
              for a in next(built.batches)]
-    built.step(*batch)  # one unprofiled step
+    built.step(*batch)
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         built.step(*batch)
         torch.cuda.synchronize()
@@ -3488,6 +3906,16 @@ def profile_train(torch, built):
     groups: dict = {}
     for key, ms, _n in rows:
         groups[_classify(key)] = groups.get(_classify(key), 0.0) + ms
+    return {**_breakdown(rows, wall), "by_group_ms": groups}
+
+
+def profile_train(torch, built):
+    """One full training step (:func:`profile_step`), and the optimizer
+    update alone, beside the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    step = profile_step(torch, built)
     params = [p for p in built.model.parameters() if p.requires_grad]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -3495,7 +3923,7 @@ def profile_train(torch, built):
         torch.cuda.synchronize()
         opt_wall = (time.perf_counter() - t0) * 1e3
     opt_rows = _device_rows(torch, prof, 1)
-    return {"train_step": {**_breakdown(rows, wall), "by_group_ms": groups},
+    return {"train_step": step,
             "adam_update": _breakdown(opt_rows, opt_wall)}
 
 
@@ -3519,6 +3947,7 @@ def main() -> int:
         from tpu_operator_torch.payload import heartbeat
         from tpu_operator_torch.payload import models
         from tpu_operator_torch.payload import moe
+        from tpu_operator_torch.payload import pipeline
         from tpu_operator_torch.payload import profile
         from tpu_operator_torch.payload import ring_attention as ring_mod
         from tpu_operator_torch.payload import serve
@@ -3559,6 +3988,11 @@ def main() -> int:
             emit({"phase": "kernels", "kernel": "flash_decode", **dec})
             mrg = check_flash_merge(torch, fa, gen)
             emit({"phase": "kernels", "kernel": "flash_merge", **mrg})
+            dec["padded_d64"], mrg["padded_d64"] = check_padded_decode_merge(
+                torch, fa)
+            emit({"phase": "kernels", "kernel": "padded_decode_merge",
+                  "flash_decode": dec["padded_d64"],
+                  "flash_merge": mrg["padded_d64"]})
         bwd = check_flash_bwd(torch, fa, F, gen)
         emit({"phase": "kernels", "kernel": "flash_bwd", **bwd})
         emit({"phase": "autograd", **check_attention_autograd(torch, fa)})
@@ -3606,6 +4040,14 @@ def main() -> int:
                      steptrace, data)
         emit({"phase": "moe", **mo})
         torch.cuda.empty_cache()
+        pp = run_pipeline(torch, fa, pipeline, transformer, train,
+                          checkpoint, steptrace, data)
+        emit({"phase": "pipeline", **pp})
+        torch.cuda.empty_cache()
+        dft = run_defaults(torch, fa, transformer, pipeline, moe, serve,
+                           bootstrap)
+        emit({"phase": "defaults", **dft})
+        torch.cuda.empty_cache()
         cls, built = run_classifier(torch, cifar, train, checkpoint,
                                     steptrace)
         emit({"phase": "classifier", **cls})
@@ -3625,6 +4067,17 @@ def main() -> int:
     moe_fwd, moe_bwd = fwd["moe_causal_gqa"], bwd["moe_causal_gqa"]
     main_dec, main_bwd = dec["full"], bwd["train_causal_gqa"]
     ring_bwd = bwd["sp_ring_striped_given_d"]
+    pipe_fwd, pipe_bwd = (x["pipeline_causal_mha_d64"] for x in (fwd, bwd))
+    # This slice's path: every schedule of the pipeline phase together.
+    pipe_launches = {k: sum(r["launches"][k] for r in pp["runs"].values())
+                     for k in fa.LAUNCHES}
+    pipe_by_path = {k: {f"pipeline_{label}": r["launches"][k]
+                        for label, r in pp["runs"].items()}
+                    for k in fa.LAUNCHES}
+    for k in pipe_by_path:
+        pipe_by_path[k]["pipeline_dense"] = pp["dense"]["launches"][k]
+        pipe_by_path[k].update({f"defaults_{name}": r["launches"][k]
+                                for name, r in dft.items()})
     bwd_err = {name: max(r[n]["max_abs_err"] for r in bwd.values()
                          for n in names)
                for name, names in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
@@ -3636,8 +4089,9 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_fwd.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:462",
-         "launches": tr["launches"]["flash_fwd"],
-         "launches_by_path": {"train": tr["launches"]["flash_fwd"],
+         "launches": pipe_launches["flash_fwd"],
+         "launches_by_path": {**pipe_by_path["flash_fwd"],
+                              "train": tr["launches"]["flash_fwd"],
                               "serve": sv["launches"]["flash_fwd"],
                               "checkpoint_resume":
                                   ckp["launches_run_b"]["flash_fwd"],
@@ -3668,14 +4122,24 @@ def main() -> int:
          "moe_shape": "moe B8 T2048 H8 KVH4",
          **{f"moe_{k}": moe_fwd[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "tflops",
-             "share_of_bound")}},
+             "share_of_bound")},
+         "pipeline_shape": "pipeline B4 T2048 H16 KVH16 D64 causal",
+         **{f"pipeline_{k}": pipe_fwd[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "tflops", "share_of_bound")},
+         "padded_d32_worst_err_over_tol":
+             fwd["padded_d32_causal_gqa"]["worst_err_over_tol_O"]},
         {"name": "flash_decode", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_decode.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:990",
          "launches": sv["launches"]["flash_decode"],
          "launches_by_path": {"serve": sv["launches"]["flash_decode"],
                               "serve_reload":
-                                  rld["launches"]["flash_decode"]},
+                                  rld["launches"]["flash_decode"],
+                              "defaults_serve":
+                                  dft["serve"]["launches"]["flash_decode"]},
+         "padded_d64_worst_err_over_tol":
+             dec["padded_d64"]["worst_err_over_tol"],
          "max_abs_err": max(r["max_abs_err"] for r in dec.values()),
          "worst_err_over_tol": max(r["worst_err_over_tol"]
                                    for r in dec.values()),
@@ -3696,8 +4160,9 @@ def main() -> int:
             "name": f"flash_bwd_{name}", "route": "cuda",
             "source": "tpu_operator_torch/kernels/csrc/flash_bwd.cu",
             "replaces": f"tpu_operator/payload/flash_attention.py:{line}",
-            "launches": sp["launches"][f"flash_bwd_{name}"],
+            "launches": pipe_launches[f"flash_bwd_{name}"],
             "launches_by_path": {
+                **pipe_by_path[f"flash_bwd_{name}"],
                 "train_sp": sp["launches"][f"flash_bwd_{name}"],
                 "train": tr["launches"][f"flash_bwd_{name}"],
                 "checkpoint_resume":
@@ -3737,6 +4202,19 @@ def main() -> int:
             "moe_share_of_bound": moe_bwd.get(f"share_of_bound_{name}"),
             "moe_plain_ms": moe_bwd["plain_ms"],
             "moe_library_ms": moe_bwd["library_ms"],
+            "pipeline_shape": "pipeline B4 T2048 H16 KVH16 D64 causal",
+            "pipeline_ms": pipe_bwd[f"ms_{name}"],
+            "pipeline_bound_ms": pipe_bwd[f"bound_ms_{name}"],
+            "pipeline_bound_by": pipe_bwd[f"bound_by_{name}"],
+            "pipeline_share_of_bound": pipe_bwd.get(
+                f"share_of_bound_{name}"),
+            "pipeline_tflops": pipe_bwd.get(f"tflops_{name}"),
+            "pipeline_plain_ms": pipe_bwd["plain_ms"],
+            "pipeline_library_ms": pipe_bwd["library_ms"],
+            "padded_d32_worst_err_over_tol": max(
+                bwd["padded_d32_offsets_stride_given_d"][n][
+                    "worst_err_over_tol"]
+                for n in (("dq",) if name == "dq" else ("dk", "dv"))),
             "ptxas": {k: v for k, v in per_kernel.items()
                       if f"flash_bwd_{name}_kernel" in k}})
     main_mrg = mrg["striped_r_gt_kv"]
@@ -3763,6 +4241,8 @@ def main() -> int:
         "device_share_of_bound": main_mrg.get("device_share_of_bound"),
         "shape": "train_sp ring B2 Tq=Tk=2048 H16 KVH4, striped (1, 0, 4), "
                  "live carry",
+        "padded_d64_worst_err_over_tol":
+            mrg["padded_d64"]["worst_err_over_tol_o"],
         "ptxas": {k: v for k, v in per_kernel.items()
                   if "flash_merge_kernel" in k}})
     emit({"phase": "total", "wall_s": time.monotonic() - started})

@@ -27,6 +27,12 @@
 // 0.278 ms), against ~100 MB of q/k/v/dO/O/L reads and dq/dk/dv writes
 // (0.03 ms at 3.35 TB/s).
 //
+// The head dim D is a template parameter of both kernels, built for 64
+// and 128 (the entry points pick by `head_dim`; the wrapper zero-pads any
+// other D <= 128 to the next of them). At D 64 every tile is one 64-column
+// half of the swizzle, S and dP take 4 k16 steps instead of 8, and dQ, dK
+// and dV are 64 columns (32 accumulator registers a thread each).
+//
 // Every accumulator has exactly one owning CTA, so there are no atomics
 // and two launches give bit-equal results. Both kernels are one warpgroup
 // on hopper.cuh (wgmma from 128-byte-swizzled shared-memory tiles filled
@@ -70,22 +76,23 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;     // head dim (the wrapper checks it)
 constexpr int ROWS = 64;   // flattened q-slot x group panel rows
 constexpr int BK = 64;     // keys per tile
 constexpr int NT = 128;    // one warpgroup
-constexpr int PANEL_ELEMS = ROWS * D;
-constexpr int KEY_ELEMS = BK * D;
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(NT == 2 * ROWS, "two threads per panel row");
 // dq: Q, dO, then two stages of (K, V), then the panel's L and D rows;
 // 1024 bytes of slack to align the base.
-constexpr size_t DQ_SMEM_BYTES =
-    1024 + 2 * (2 * (size_t)PANEL_ELEMS + 4 * (size_t)KEY_ELEMS) + 2 * ROWS * 4;
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 1024 + 2 * (2 * (size_t)ROWS * D + 4 * (size_t)BK * D) + 2 * ROWS * 4;
+}
 // dkv: K, V, then two stages of (Q panel, dO panel), then two stages of
 // the panel's L and D rows.
-constexpr size_t DKV_SMEM_BYTES =
-    1024 + 2 * (2 * (size_t)KEY_ELEMS + 4 * (size_t)PANEL_ELEMS) + 2 * 2 * ROWS * 4;
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return 1024 + 2 * (2 * (size_t)BK * D + 4 * (size_t)ROWS * D) + 2 * 2 * ROWS * 4;
+}
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -96,7 +103,7 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
 
 // One CTA per (64-row panel, KV head, batch), one warpgroup; thread rows
 // are panel rows (query slot q0 + r / group of head kvh * group + r % group).
-template <typename OutT>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(NT, 2)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -104,6 +111,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const float* __restrict__ dvec, float* __restrict__ d_out,
                     OutT* __restrict__ dq, int Tq, int Tk, int H, int KVH, int group,
                     int causal, int q_off, int k_off, int stride, float scale) {
+  constexpr int PANEL_ELEMS = ROWS * D;
+  constexpr int KEY_ELEMS = BK * D;
   extern __shared__ unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   bf16* sG = sQ + PANEL_ELEMS;
@@ -125,8 +134,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     : nullptr;
     };
   };
-  load_tile<ROWS, NT>(sQ, tid, panel_row(q), q);
-  load_tile<ROWS, NT>(sG, tid, panel_row(g), g);
+  load_tile<ROWS, NT, D>(sQ, tid, panel_row(q), q);
+  load_tile<ROWS, NT, D>(sG, tid, panel_row(g), g);
   cp_async_commit();
 
   auto load_kv = [&](int kt, int st) {
@@ -138,8 +147,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       };
     };
     bf16* dst = sKV + 2 * st * KEY_ELEMS;
-    load_tile<BK, NT>(dst, tid, row(k), k);
-    load_tile<BK, NT>(dst + KEY_ELEMS, tid, row(v), v);
+    load_tile<BK, NT, D>(dst, tid, row(k), k);
+    load_tile<BK, NT, D>(dst + KEY_ELEMS, tid, row(v), v);
   };
 
   // Key tiles up to the causal limit: the last query position in the panel.
@@ -152,26 +161,30 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   // Row stats: thread pair (2r, 2r + 1) owns panel row r. Fused D sums
-  // dO * O over the pair's two 64-column halves in f32.
+  // dO * O over the pair's two D/2-column halves in f32.
   {
     const int r = tid >> 1, half = tid & 1;
     const int t = q0 + r / group;
     const size_t row = ((size_t)b * H + kvh * group + r % group) * Tq + t;
     float d_row = 0.f;
     if (o != nullptr) {
-      uint4 ov[8];
+      constexpr int HALF_CHUNKS = D / 16;  // 16-byte chunks of D/2 columns
+      uint4 ov[HALF_CHUNKS];
       if (t < Tq) {
-        const bf16* orow = o + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + half * 64;
+        const bf16* orow =
+            o + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + half * (D / 2);
 #pragma unroll
-        for (int ch = 0; ch < 8; ++ch) ov[ch] = *reinterpret_cast<const uint4*>(orow + ch * 8);
+        for (int ch = 0; ch < HALF_CHUNKS; ++ch)
+          ov[ch] = *reinterpret_cast<const uint4*>(orow + ch * 8);
       }
       cp_async_wait<1>();  // this thread's Q and dO copies landed
       __syncthreads();     // ... and every thread's
       if (t < Tq) {
 #pragma unroll
-        for (int ch = 0; ch < 8; ++ch)
-          d_row = dot8(*reinterpret_cast<const uint4*>(sG + swz(ROWS, r, half * 64 + ch * 8)),
-                       ov[ch], d_row);
+        for (int ch = 0; ch < HALF_CHUNKS; ++ch)
+          d_row = dot8(
+              *reinterpret_cast<const uint4*>(sG + swz(ROWS, r, half * (D / 2) + ch * 8)),
+              ov[ch], d_row);
       }
       d_row += __shfl_xor_sync(0xffffffffu, d_row, 1);
       if (t < Tq && half == 0) d_out[row] = d_row;  // the row's only writer
@@ -195,9 +208,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float c = scale * LOG2E;
   const int col0 = 2 * (lane & 3);
 
-  float acc[64];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int st = kt & 1;
@@ -212,8 +225,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float s[32], dp[32];
     wgmma_fence();
-    gemm_nt_64x64x128(s, sQ, ROWS, sK, BK);
-    gemm_nt_64x64x128(dp, sG, ROWS, sV, BK);
+    gemm_nt_64x64<D>(s, sQ, ROWS, sK, BK);
+    gemm_nt_64x64<D>(dp, sG, ROWS, sV, BK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -246,7 +259,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pack_scores(pd, dp);
 
     wgmma_fence();
-    gemm_rs_64x128x64(acc, pd, sK, BK);
+    gemm_rs_64xN<D>(acc, pd, sK, BK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -261,7 +274,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t >= Tq) continue;
     OutT* row = dq + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < D / 8; ++i) {
       const int x = 4 * i + 2 * h;
       store2(row + 8 * i + col0, acc[x] * scale, acc[x + 1] * scale);
     }
@@ -273,7 +286,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // operands in shared memory), P^T and dS^T in registers, then dV += P^T dO
 // and dK += dS^T Q with P^T / dS^T as register operands and the panels
 // MN-major. The contraction over the panel's rows sums the GQA group.
-template <typename OutT>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(NT, 2)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -281,6 +294,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      OutT* __restrict__ dk, OutT* __restrict__ dv, int Tq, int Tk, int H,
                      int KVH, int group, int causal, int q_off, int k_off, int stride,
                      float scale) {
+  constexpr int PANEL_ELEMS = ROWS * D;
+  constexpr int KEY_ELEMS = BK * D;
   extern __shared__ unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   bf16* sV = sK + KEY_ELEMS;
@@ -300,8 +315,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       return t < Tk ? base + (((size_t)b * Tk + t) * KVH + kvh) * D : nullptr;
     };
   };
-  load_tile<BK, NT>(sK, tid, key_row(k), k);
-  load_tile<BK, NT>(sV, tid, key_row(v), v);
+  load_tile<BK, NT, D>(sK, tid, key_row(k), k);
+  load_tile<BK, NT, D>(sV, tid, key_row(v), v);
 
   // Panel row r of q-tile qt: query slot qt * blk_q + r / group of head
   // kvh * group + r % group.
@@ -315,8 +330,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       };
     };
     bf16* dst = sPanel + 2 * st * PANEL_ELEMS;
-    load_tile<ROWS, NT>(dst, tid, row(q), q);
-    load_tile<ROWS, NT>(dst + PANEL_ELEMS, tid, row(g), g);
+    load_tile<ROWS, NT, D>(dst, tid, row(q), q);
+    load_tile<ROWS, NT, D>(dst + PANEL_ELEMS, tid, row(g), g);
     // Thread i < 64 copies row i's L, thread 64 + i its D.
     const int r = tid % ROWS;
     const int t = q0 + r / group;
@@ -340,9 +355,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_last = k_off + stride * (min(k0 + BK, Tk) - 1);
   const float c = scale * LOG2E;
 
-  float acc_k[64], acc_v[64];
+  float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int st = (qt - qt0) & 1;
@@ -359,8 +374,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float s[32], dp[32];
     wgmma_fence();
-    gemm_nt_64x64x128(s, sK, BK, sQ, ROWS);
-    gemm_nt_64x64x128(dp, sV, BK, sG, ROWS);
+    gemm_nt_64x64<D>(s, sK, BK, sQ, ROWS);
+    gemm_nt_64x64<D>(dp, sV, BK, sG, ROWS);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -395,8 +410,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pack_scores(pd, dp);
 
     wgmma_fence();
-    gemm_rs_64x128x64(acc_v, pp, sG, ROWS);
-    gemm_rs_64x128x64(acc_k, pd, sQ, ROWS);
+    gemm_rs_64xN<D>(acc_v, pp, sG, ROWS);
+    gemm_rs_64xN<D>(acc_k, pd, sQ, ROWS);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_v);
@@ -411,7 +426,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t >= Tk) continue;
     const size_t row = (((size_t)b * Tk + t) * KVH + kvh) * D;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < D / 8; ++i) {
       const int x = 4 * i + 2 * h;
       store2(dk + row + 8 * i + col0, acc_k[x] * scale, acc_k[x + 1] * scale);
       store2(dv + row + 8 * i + col0, acc_v[x], acc_v[x + 1]);
@@ -425,32 +440,32 @@ cudaError_t prepare(size_t smem_bytes) {
 }
 
 bool shape_ok(int B, int Tq, int Tk, int H, int KVH, int head_dim, int stride) {
-  return head_dim == D && B > 0 && Tq > 0 && Tk > 0 && KVH > 0 && H % KVH == 0 &&
-         ROWS % (H / KVH) == 0 && stride > 0;
+  return (head_dim == 64 || head_dim == 128) && B > 0 && Tq > 0 && Tk > 0 && KVH > 0 &&
+         H % KVH == 0 && ROWS % (H / KVH) == 0 && stride > 0;
 }
 
-template <typename OutT>
+template <int D, typename OutT>
 cudaError_t launch_dq(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
                       const void* g, const void* L, const void* o, const void* dvec,
                       void* d_out, void* dq, int Tq, int Tk, int H, int KVH, int causal,
                       int q_off, int k_off, int stride, float scale) {
-  cudaError_t err = prepare<flash_bwd_dq_kernel<OutT>>(DQ_SMEM_BYTES);
+  cudaError_t err = prepare<flash_bwd_dq_kernel<D, OutT>>(dq_smem_bytes<D>());
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<OutT><<<grid, NT, DQ_SMEM_BYTES, s>>>(
+  flash_bwd_dq_kernel<D, OutT><<<grid, NT, dq_smem_bytes<D>(), s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
       (const bf16*)o, (const float*)dvec, (float*)d_out, (OutT*)dq, Tq, Tk, H, KVH, H / KVH,
       causal, q_off, k_off, stride, scale);
   return cudaGetLastError();
 }
 
-template <typename OutT>
+template <int D, typename OutT>
 cudaError_t launch_dkv(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
                        const void* g, const void* L, const void* dvec, void* dk, void* dv,
                        int Tq, int Tk, int H, int KVH, int causal, int q_off, int k_off,
                        int stride, float scale) {
-  cudaError_t err = prepare<flash_bwd_dkv_kernel<OutT>>(DKV_SMEM_BYTES);
+  cudaError_t err = prepare<flash_bwd_dkv_kernel<D, OutT>>(dkv_smem_bytes<D>());
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<OutT><<<grid, NT, DKV_SMEM_BYTES, s>>>(
+  flash_bwd_dkv_kernel<D, OutT><<<grid, NT, dkv_smem_bytes<D>(), s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
       (const float*)dvec, (OutT*)dk, (OutT*)dv, Tq, Tk, H, KVH, H / KVH, causal, q_off, k_off,
       stride, scale);
@@ -459,9 +474,9 @@ cudaError_t launch_dkv(dim3 grid, cudaStream_t s, const void* q, const void* k, 
 
 }  // namespace
 
-// C entry points (bound with ctypes). dq: `o` non-null fuses D =
-// rowsum(dO*O) and writes it to `d_out` ([B,H,Tq] f32) for dkv; otherwise
-// `dvec` ([B,H,Tq] f32) is D. dkv always reads D from `dvec`. `out_f32`
+// C entry points (bound with ctypes); head_dim 64 or 128. dq: `o`
+// non-null fuses D = rowsum(dO*O) and writes it to `d_out` ([B,H,Tq] f32)
+// for dkv; otherwise `dvec` ([B,H,Tq] f32) is D. dkv always reads D from `dvec`. `out_f32`
 // picks the gradient dtype (f32, else bf16). Each launches on `stream` and
 // returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* g,
@@ -475,10 +490,15 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
   const int blk_q = ROWS / (H / KVH);
   dim3 grid((Tq + blk_q - 1) / blk_q, KVH, B);
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(out_f32 ? launch_dq<float>(grid, s, q, k, v, g, L, o, dvec, d_out, dq, Tq, Tk,
-                                          H, KVH, causal, q_off, k_off, stride, scale)
-                       : launch_dq<bf16>(grid, s, q, k, v, g, L, o, dvec, d_out, dq, Tq, Tk,
-                                         H, KVH, causal, q_off, k_off, stride, scale));
+#define DQ_ARGS grid, s, q, k, v, g, L, o, dvec, d_out, dq, Tq, Tk, H, KVH, causal, q_off, \
+                k_off, stride, scale
+  cudaError_t err;
+  if (head_dim == 64)
+    err = out_f32 ? launch_dq<64, float>(DQ_ARGS) : launch_dq<64, bf16>(DQ_ARGS);
+  else
+    err = out_f32 ? launch_dq<128, float>(DQ_ARGS) : launch_dq<128, bf16>(DQ_ARGS);
+#undef DQ_ARGS
+  return (int)err;
 }
 
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* g,
@@ -490,8 +510,13 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
     return (int)cudaErrorInvalidValue;
   dim3 grid((Tk + BK - 1) / BK, KVH, B);
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(out_f32 ? launch_dkv<float>(grid, s, q, k, v, g, L, dvec, dk, dv, Tq, Tk, H,
-                                           KVH, causal, q_off, k_off, stride, scale)
-                       : launch_dkv<bf16>(grid, s, q, k, v, g, L, dvec, dk, dv, Tq, Tk, H,
-                                          KVH, causal, q_off, k_off, stride, scale));
+#define DKV_ARGS grid, s, q, k, v, g, L, dvec, dk, dv, Tq, Tk, H, KVH, causal, q_off, k_off, \
+                 stride, scale
+  cudaError_t err;
+  if (head_dim == 64)
+    err = out_f32 ? launch_dkv<64, float>(DKV_ARGS) : launch_dkv<64, bf16>(DKV_ARGS);
+  else
+    err = out_f32 ? launch_dkv<128, float>(DKV_ARGS) : launch_dkv<128, bf16>(DKV_ARGS);
+#undef DKV_ARGS
+  return (int)err;
 }

@@ -22,6 +22,12 @@
 // = 137.5 GFLOP, 0.139 ms at the 989 TFLOP/s bf16 tensor-core peak,
 // against ~50 MB of q/k/v/O/L traffic (0.015 ms at 3.35 TB/s).
 //
+// The head dim D is a template parameter, built for 64 and 128 (the entry
+// point picks by `head_dim`; the wrapper zero-pads any other D <= 128 to
+// the next of them). At D 64 every tile is one 64-column half of the
+// swizzle, S = Q K^T takes 4 k16 steps instead of 8, and O is 64 columns
+// (32 accumulator registers a thread); everything else is as at D 128.
+//
 // The design (hopper.cuh holds the wgmma and cp.async building blocks):
 // - one CTA per (q-tile, KV head, batch), heaviest causal q-tiles first;
 //   the q-tile's `group` query heads are flattened into one 128-row panel,
@@ -59,7 +65,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;      // head dim (the wrapper checks it)
 constexpr int ROWS = 128;   // flattened q-slot x group panel rows
 constexpr int BK = 64;      // keys per tile
 constexpr int NT = 256;     // two warpgroups, 64 panel rows each
@@ -67,10 +72,11 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-constexpr int Q_ELEMS = ROWS * D;
-constexpr int KV_ELEMS = BK * D;
 // Q, then two stages of (K, V); 1024 bytes of slack to align the base.
-constexpr size_t SMEM_BYTES = 1024 + 2 * ((size_t)Q_ELEMS + 4 * (size_t)KV_ELEMS);
+template <int D>
+constexpr size_t smem_bytes() {
+  return 1024 + 2 * ((size_t)ROWS * D + 4 * (size_t)BK * D);
+}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -82,11 +88,14 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int T, int H, int KVH, int group,
                  int causal, float scale) {
+  constexpr int Q_ELEMS = ROWS * D;
+  constexpr int KV_ELEMS = BK * D;
   extern __shared__ unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   bf16* sKV = sQ + Q_ELEMS;  // stage s: K at sKV + 2 s KV_ELEMS, V after it
@@ -99,7 +108,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
 
-  load_tile<ROWS, NT>(sQ, tid, [&](int r) -> const bf16* {
+  load_tile<ROWS, NT, D>(sQ, tid, [&](int r) -> const bf16* {
     const int t = q0 + r / group;
     return t < T ? q + (((size_t)b * T + t) * H + kvh * group + r % group) * D : nullptr;
   }, q);
@@ -112,8 +121,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       };
     };
     bf16* dst = sKV + 2 * st * KV_ELEMS;
-    load_tile<BK, NT>(dst, tid, row(k), k);
-    load_tile<BK, NT>(dst + KV_ELEMS, tid, row(v), v);
+    load_tile<BK, NT, D>(dst, tid, row(k), k);
+    load_tile<BK, NT, D>(dst + KV_ELEMS, tid, row(v), v);
   };
 
   const int q_last = min(q0 + blk_q, T) - 1;
@@ -130,9 +139,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qpos_b = q0 + r_b / group;
   const float c = scale * LOG2E;
 
-  float acc[64];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;  // m in log2 units
 
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -148,7 +157,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float s[32];
     wgmma_fence();
-    gemm_nt_64x64x128(s, sQ + wg * 64 * HALF_COLS, ROWS, sK, BK);
+    gemm_nt_64x64<D>(s, sQ + wg * 64 * HALF_COLS, ROWS, sK, BK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -195,7 +204,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_a = l_a * alpha_a + quad_sum(sum_a);
     l_b = l_b * alpha_b + quad_sum(sum_b);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < D / 8; ++i) {
       acc[4 * i] *= alpha_a;
       acc[4 * i + 1] *= alpha_a;
       acc[4 * i + 2] *= alpha_b;
@@ -205,7 +214,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pack_scores(p, s);
 
     wgmma_fence();
-    gemm_rs_64x128x64(acc, p, sV, BK);
+    gemm_rs_64xN<D>(acc, p, sV, BK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -226,7 +235,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int h = kvh * group + r % group;
     bf16* orow = o + (((size_t)b * T + t) * H + h) * D;
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < D / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + col0) =
           __floats2bfloat162_rn(acc[4 * i + 2 * half] * inv, acc[4 * i + 2 * half + 1] * inv);
     if ((lane & 3) == 0)
@@ -234,25 +243,33 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// C entry point (bound with ctypes). Launches on `stream`; returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                              void* lse, int B, int T, int H, int KVH, int head_dim,
-                              int causal, float scale, void* stream) {
-  if (head_dim != D || B <= 0 || T <= 0 || KVH <= 0 || H % KVH != 0 ||
-      ROWS % (H / KVH) != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem_once<flash_fwd_kernel>(SMEM_BYTES, true);
-  if (err != cudaSuccess) return (int)err;
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                   int T, int H, int KVH, int causal, float scale, cudaStream_t stream) {
+  cudaError_t err = set_smem_once<flash_fwd_kernel<D>>(smem_bytes<D>(), true);
+  if (err != cudaSuccess) return err;
   const int group = H / KVH;
   const int blk_q = ROWS / group;
   dim3 grid((T + blk_q - 1) / blk_q, KVH, B);
-  flash_fwd_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<D><<<grid, NT, smem_bytes<D>(), stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, T, H, KVH,
       group, causal, scale);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes); head_dim 64 or 128. Launches on
+// `stream`; returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                              void* lse, int B, int T, int H, int KVH, int head_dim,
+                              int causal, float scale, void* stream) {
+  if (B <= 0 || T <= 0 || KVH <= 0 || H % KVH != 0 || ROWS % (H / KVH) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (head_dim == 64) return (int)launch<64>(q, k, v, o, lse, B, T, H, KVH, causal, scale, s);
+  if (head_dim == 128) return (int)launch<128>(q, k, v, o, lse, B, T, H, KVH, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* kernels_error_string(int code) {

@@ -174,7 +174,7 @@ flash_merge_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float s[32];
     wgmma_fence();
-    gemm_nt_64x64x128(s, sQ + wg * 64 * HALF_COLS, ROWS, sK, BK);
+    gemm_nt_64x64<D>(s, sQ + wg * 64 * HALF_COLS, ROWS, sK, BK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -235,7 +235,7 @@ flash_merge_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pack_scores(p, s);
 
     wgmma_fence();
-    gemm_rs_64x128x64(acc, p, sV, BK);
+    gemm_rs_64xN<D>(acc, p, sV, BK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);

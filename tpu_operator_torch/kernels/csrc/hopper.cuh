@@ -3,7 +3,8 @@
 // it, and warpgroup matrix multiplies (wgmma) that read it.
 //
 // Tile layout. A bf16 tile of R rows x 128 columns (one head dim) is kept
-// as two 64-column halves, each R rows of 128 bytes, 1024-byte aligned.
+// as two 64-column halves, each R rows of 128 bytes, 1024-byte aligned; a
+// tile of 64 columns (head dim 64) is one such half.
 // Inside a half, the 16-byte chunk c of row r sits at chunk c ^ (r % 8):
 // the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and wgmma's 128-byte
 // swizzle mode reads, so the eight rows of an 8x8 block hit eight banks.
@@ -77,18 +78,21 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Copy one [rows][128] bf16 tile into the swizzled layout with `nthreads`
-// threads (thread `tid`). `src(row)` is the row's global address, or
-// nullptr for a zero-filled row; `fallback` is any valid global address.
-template <int ROWS, int NTHREADS, typename RowFn>
+// Copy one [rows][COLS] bf16 tile (COLS 64 or 128) into the swizzled
+// layout with `nthreads` threads (thread `tid`). `src(row)` is the row's
+// global address, or nullptr for a zero-filled row; `fallback` is any
+// valid global address.
+template <int ROWS, int NTHREADS, int COLS = 128, typename RowFn>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int tid, RowFn src,
                                           const void* fallback) {
-  constexpr int CHUNKS = ROWS * 16;  // 16-byte chunks
+  static_assert(COLS == 64 || COLS == 128, "a tile is one or two halves");
+  constexpr int SHIFT = COLS == 128 ? 4 : 3;  // log2 of a row's 16-byte chunks
+  constexpr int CHUNKS = ROWS << SHIFT;
   static_assert(CHUNKS % NTHREADS == 0, "tile chunks must split evenly");
 #pragma unroll
   for (int i = 0; i < CHUNKS / NTHREADS; ++i) {
     const int c = tid + i * NTHREADS;
-    const int row = c >> 4, ch = c & 15;
+    const int row = c >> SHIFT, ch = c & ((1 << SHIFT) - 1);
     const __nv_bfloat16* g = src(row);
     cp_async_16(dst + swz(ROWS, row, ch * 8), g ? (const void*)(g + ch * 8) : fallback,
                 g != nullptr);
@@ -170,31 +174,54 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64x64] += A[64x16] B[16x64]: A from registers (4 x bf16x2), B
+// MN-major in shared memory (one 64-column half: the LBO is not read).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HP_F8(d, 0), HP_F8(d, 8), HP_F8(d, 16), HP_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef HP_F8
 
-// S[64 x 64] = A[64 rows of a, 128] B[64 rows of b, 128]^T, both swizzled
-// [rows][128] tiles (A's 64 rows start at `a`, whose half holds a_rows
-// rows; likewise b). Issued and committed; the caller waits.
-__device__ __forceinline__ void gemm_nt_64x64x128(float (&s)[32], const __nv_bfloat16* a,
-                                                  int a_rows, const __nv_bfloat16* b,
-                                                  int b_rows) {
+// S[64 x 64] = A[64 rows of a, KD] B[64 rows of b, KD]^T, both swizzled
+// [rows][KD] tiles, KD (the head dim) 64 or 128 (A's 64 rows start at `a`,
+// whose half holds a_rows rows; likewise b). Issued and committed; the
+// caller waits.
+template <int KD>
+__device__ __forceinline__ void gemm_nt_64x64(float (&s)[32], const __nv_bfloat16* a,
+                                              int a_rows, const __nv_bfloat16* b,
+                                              int b_rows) {
+  static_assert(KD == 64 || KD == 128, "one or two 64-column halves");
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
+  for (int k = 0; k < KD / 16; ++k) {
     const int half = k >> 2, off = (k & 3) * 16;  // elements
     wgmma_m64n64k16_ss(s, desc_kmajor(a + half * a_rows * HALF_COLS + off),
                        desc_kmajor(b + half * b_rows * HALF_COLS + off), k > 0);
   }
 }
 
-// O[64 x 128] += P[64 x 64] B[64 rows, 128], P as 4 k16 register
-// fragments (from pack_scores), B a swizzled [b_rows][128] tile whose
-// contraction rows start at `b`.
-__device__ __forceinline__ void gemm_rs_64x128x64(float (&o)[64], const uint32_t (&p)[16],
-                                                  const __nv_bfloat16* b, int b_rows) {
+// O[64 x N] += P[64 x 64] B[64 rows, N], N (the head dim) 64 or 128, P as
+// 4 k16 register fragments (from pack_scores), B a swizzled [b_rows][N]
+// tile whose contraction rows start at `b`.
+template <int N>
+__device__ __forceinline__ void gemm_rs_64xN(float (&o)[N / 2], const uint32_t (&p)[16],
+                                             const __nv_bfloat16* b, int b_rows) {
+  static_assert(N == 64 || N == 128, "one or two 64-column halves");
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const uint32_t a[4] = {p[4 * k], p[4 * k + 1], p[4 * k + 2], p[4 * k + 3]};
-    wgmma_m64n128k16_rs(o, a, desc_mnmajor(b + k * 16 * HALF_COLS, b_rows * 128));
+    const uint64_t db = desc_mnmajor(b + k * 16 * HALF_COLS, b_rows * 128);
+    if constexpr (N == 128)
+      wgmma_m64n128k16_rs(o, a, db);
+    else
+      wgmma_m64n64k16_rs(o, a, db);
   }
 }
 

@@ -98,7 +98,7 @@ import os
 import shutil
 import threading
 import time
-from typing import (Any, Callable, Deque, Dict, FrozenSet, List,
+from typing import (Any, Callable, Deque, Dict, List, Mapping,
                     NamedTuple, Optional, Tuple)
 
 import torch
@@ -135,28 +135,43 @@ TMP_MARK = ".tmp-"
 
 class Shards(NamedTuple):
     """The tensors of a state that each process holds one part of: by
-    file, the names of those split along dim 0 over ``group`` (``size``
-    processes, this one holding part ``rank``): the MoE payload's expert
-    stacks and their optimizer moments under expert parallelism."""
+    file, the names of those split over ``group`` (``size`` processes,
+    this one holding part ``rank``), each along dim 0 (a set of names:
+    the MoE payload's expert stacks and their optimizer moments) or along
+    the dim its name maps to (a dict: the pipeline payload's stage stacks,
+    ``[S, ...]`` or ``[V, S, ...]``). ``inner`` splits this one's parts
+    once more, over another group (the pipeline's ZeRO-1 moments over the
+    data group)."""
 
-    names: Dict[str, FrozenSet[str]]
+    names: Dict[str, Any]
     group: Any
     size: int
     rank: int
+    inner: Optional["Shards"] = None
+
+    def _dims(self, fname: str) -> Dict[str, int]:
+        split = self.names.get(fname, ())
+        if isinstance(split, Mapping):
+            return dict(split)
+        return {name: 0 for name in split}
 
     def gather(self, parts: Dict[str, Dict[str, torch.Tensor]]
                ) -> Dict[str, Dict[str, torch.Tensor]]:
-        """``parts`` with every split tensor whole: a collective over
-        ``group``, in which every process of it takes part."""
+        """``parts`` with every split tensor whole: collectives over
+        ``group`` (and ``inner``'s first), in which every process of it
+        takes part."""
+        if self.inner is not None:
+            parts = self.inner.gather(parts)
         out = {}
         for fname, tensors in parts.items():
-            split = self.names.get(fname, frozenset())
+            dims = self._dims(fname)
             whole = {}
             for name, t in tensors.items():
-                if name in split:
+                if name in dims:
+                    t = t.contiguous()
                     pieces = [torch.empty_like(t) for _ in range(self.size)]
-                    dist.all_gather(pieces, t.contiguous(), group=self.group)
-                    t = torch.cat(pieces)
+                    dist.all_gather(pieces, t, group=self.group)
+                    t = torch.cat(pieces, dim=dims[name])
                 whole[name] = t
             out[fname] = whole
         return out
@@ -167,10 +182,11 @@ class Shards(NamedTuple):
         split one."""
         out = {}
         for fname, tensors in saved.items():
-            split = self.names.get(fname, frozenset())
-            out[fname] = {n: (t.chunk(self.size)[self.rank] if n in split
-                              else t) for n, t in tensors.items()}
-        return out
+            dims = self._dims(fname)
+            out[fname] = {n: (t.chunk(self.size, dim=dims[n])[self.rank]
+                              if n in dims else t)
+                          for n, t in tensors.items()}
+        return self.inner.local(out) if self.inner is not None else out
 
 
 class TrainState(NamedTuple):
@@ -815,8 +831,8 @@ class Checkpointer:
         if state.model is not None and meta.get("model") != state.model:
             raise CheckpointError(
                 f"step {step} holds model {meta.get('model')}; this run's "
-                f"is {state.model} (a restore across a change of the model "
-                f"or of --experts is refused)")
+                f"is {state.model} (a restore across a change of the model, "
+                f"of --experts or of the pipeline layout is refused)")
         saved = {fname: torch.load(os.path.join(root, fname),
                                    map_location="cpu", weights_only=True)
                  for fname in _parts(state)}

@@ -36,11 +36,20 @@ pairs them (the custom VJP of the reference's ``_attn``), so
 policy can save the forward's two outputs by op (``models.remat_policy``).
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor goes to
-the kernel (bf16, head dim 128, contiguous) or the call raises; a CPU
+the kernel (bf16, head dim up to 128, contiguous) or the call raises; a CPU
 tensor goes to the plain version (:func:`_attn_ref`, :func:`_decode_ref`,
 :func:`_bwd_ref`, :func:`_merge_ref`), which is also the yardstick ``chip_smoke.py`` holds
 each kernel against. There is no fallback from the kernel to the plain
 version.
+
+Head dims. K1 and K2 are built for head dims 64 and 128, K3 and K4 for
+128 (:data:`KERNEL_HEAD_DIMS`). Any other head dim up to 128 runs through
+:func:`at_kernel_head_dim`: q / k / v (and dO, O, the merge carry's o)
+are zero-padded to the next size the kernel was built for, the kernel
+runs with the softmax scale of the true head dim, and the outputs are
+cut back. Zero columns add nothing to Q K^T or to rowsum(dO O), and P V
+and the gradients come back zero in them, so the result is exact. A head
+dim above 128 raises (:data:`HEAD_DIM_FAULT`).
 
 Masking uses the finite ``NEG_INF = -1e30`` of the reference: a masked key
 adds exactly 0 once its row has seen a valid key, and a row that saw none
@@ -52,7 +61,7 @@ count), so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -117,14 +126,16 @@ def _logsumexp_rows(l: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 def _merge_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                o: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
-               offsets: Sequence[int], causal: bool) -> Carry:
+               offsets: Sequence[int], causal: bool,
+               scale: Optional[float] = None) -> Carry:
     """Fold one K/V block into the streaming-softmax carry, on [B,H,T,D]
     blocks (K/V may carry grouped heads). ``offsets`` is (q_off, k_off) or
-    (q_off, k_off, stride): slot i sits at global position off + stride*i."""
+    (q_off, k_off, stride): slot i sits at global position off + stride*i.
+    ``scale`` defaults to D ** -0.5."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     group = _group_of(hq, hkv)
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qg = q.reshape(b, hkv, group, tq, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
     if causal:
@@ -148,12 +159,13 @@ def _merge_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+              causal: bool, scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B,H,T,D] in q.dtype, L [B,H,T,1] f32) on [B,H,T,D] blocks:
     the reference's plain branch of ``_attn_impl``."""
     b, h, t, d = q.shape
     carry = init_carry(b, h, t, d, device=q.device)
-    o, l, m = _merge_ref(q, k, v, *carry, (0, 0, 1), causal)
+    o, l, m = _merge_ref(q, k, v, *carry, (0, 0, 1), causal, scale)
     return finalize((o, l, m), q.dtype), _logsumexp_rows(l, m)
 
 
@@ -171,16 +183,18 @@ def _normalize_offsets(offsets: Sequence[int]) -> Tuple[int, int, int]:
 
 def _bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              g: torch.Tensor, L: torch.Tensor, D: torch.Tensor,
-             offsets: Sequence[int], causal: bool
+             offsets: Sequence[int], causal: bool,
+             scale: Optional[float] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) f32 of one K/V block on [B,H,T,D] blocks (K/V may carry
     grouped heads; dk/dv come back at that size), from the *global* row
     logsumexp ``L`` and ``D = rowsum(dO * O)``, both [B,H,Tq,1] f32. The
-    reference's ``_bwd_ref``: f32 throughout, scores materialised."""
+    reference's ``_bwd_ref``: f32 throughout, scores materialised.
+    ``scale`` defaults to D ** -0.5."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     group = _group_of(hq, hkv)
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qg = q.reshape(b, hkv, group, tq, d).float()
     gg = g.reshape(b, hkv, group, tq, d).float()
     kf, vf = k.float(), v.float()
@@ -203,15 +217,17 @@ def _bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                lengths: torch.Tensor) -> torch.Tensor:
+                lengths: torch.Tensor,
+                scale: Optional[float] = None) -> torch.Tensor:
     """Length-masked attention, [B,Tq,H,D] queries against a [B,S,KVH,D]
     cache. Query slot j of row b sits at position lengths[b] - Tq + j;
     keys count iff their position is <= the query's (hence < lengths[b]).
-    Single-pass max-subtracted softmax: masked lanes are exactly zero."""
+    Single-pass max-subtracted softmax: masked lanes are exactly zero.
+    ``scale`` defaults to D ** -0.5."""
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     group = _group_of(hq, hkv)
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qg = q.float().permute(0, 2, 1, 3).reshape(b, hkv, group, tq, d)
     kf = k.float().permute(0, 2, 1, 3)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
@@ -257,8 +273,60 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # --- kernel wrappers ---------------------------------------------------------
 
 
-def _check_kernel_inputs(name: str, tensors: Dict[str, torch.Tensor],
-                         head_dim: int) -> None:
+# Head dims each kernel is built for (the template instances of its
+# source). A head dim between two of them runs at the next one up.
+KERNEL_HEAD_DIMS: Dict[str, Tuple[int, ...]] = {
+    "flash_fwd": (64, 128), "flash_bwd": (64, 128),
+    "flash_decode": (128,), "flash_merge": (128,)}
+MAX_HEAD_DIM = 128
+# Where a head dim above MAX_HEAD_DIM is recorded as an open fault.
+HEAD_DIM_FAULT = "ROADMAP Queue C 1: head dims above 128"
+
+
+def kernel_head_dim(name: str, d: int) -> int:
+    """The head dim ``name``'s kernel runs at for a true head dim ``d``:
+    the smallest size it is built for that holds ``d``. Raises ValueError
+    above :data:`MAX_HEAD_DIM`."""
+    for size in KERNEL_HEAD_DIMS[name]:
+        if 0 < d <= size:
+            return size
+    raise ValueError(f"{name}: head dim {d} is not in 1..{MAX_HEAD_DIM}, "
+                     f"the head dims the kernels take ({HEAD_DIM_FAULT})")
+
+
+def pad_head_dim(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``x`` [..., d] with zero columns appended up to [..., size],
+    contiguous (``x`` itself when d == size)."""
+    d = x.shape[-1]
+    if d == size:
+        return x
+    return torch.nn.functional.pad(x, (0, size - d)).contiguous()
+
+
+def at_kernel_head_dim(name: str, launch: Callable[..., Any],
+                       padded: Sequence[Optional[torch.Tensor]], *rest):
+    """``launch(*padded, *rest, scale=d ** -0.5)`` at the head dim
+    ``name``'s kernel is built for: ``padded`` (the tensors whose last dim
+    is the head dim d, None skipped) zero-padded to
+    :func:`kernel_head_dim`, and every output of that last dim cut back to
+    d. The scale is the true head dim's. Exact: zero columns add nothing
+    to Q K^T or rowsum(dO O), and come back zero in P V and the
+    gradients."""
+    d = padded[0].shape[-1]
+    size = kernel_head_dim(name, d)
+    scale = d ** -0.5
+    if size == d:
+        return launch(*padded, *rest, scale=scale)
+    outs = launch(*(None if x is None else pad_head_dim(x, size)
+                    for x in padded), *rest, scale=scale)
+    if isinstance(outs, torch.Tensor):
+        return outs[..., :d].contiguous()
+    return tuple(x[..., :d].contiguous() if x.shape[-1] == size else x
+                 for x in outs)
+
+
+def _check_kernel_inputs(name: str, tensors: Dict[str, torch.Tensor]
+                         ) -> None:
     device = None
     for arg, t in tensors.items():
         if not t.is_cuda:
@@ -272,15 +340,10 @@ def _check_kernel_inputs(name: str, tensors: Dict[str, torch.Tensor],
         if t.dim() == 4 and t.data_ptr() % 16 != 0:
             # The kernels read rows of q/k/v as 16-byte vectors.
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-    if head_dim != 128:
-        raise ValueError(f"{name}: the kernel takes head dim 128, "
-                         f"got {head_dim}")
 
 
 def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    from tpu_operator_torch.kernels import build
-
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_fwd: q, k, v must be [B, T, H, D]")
     b, t, h, d = q.shape
@@ -292,12 +355,23 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.dtype != torch.bfloat16:
             raise ValueError(f"flash_fwd: {arg} must be bfloat16, "
                              f"got {x.dtype}")
-    _check_kernel_inputs("flash_fwd", {"q": q, "k": k, "v": v}, d)
+    _check_kernel_inputs("flash_fwd", {"q": q, "k": k, "v": v})
     group = _group_of(h, k.shape[2])
     if 64 % group != 0:
         raise ValueError(f"flash_fwd: group {group} must divide 64")
     if t == 0:
         raise ValueError("flash_fwd: empty sequence")
+    return at_kernel_head_dim("flash_fwd", _fwd_launch, (q, k, v), causal)
+
+
+def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, *, scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward kernel on checked inputs at a head dim it
+    is built for."""
+    from tpu_operator_torch.kernels import build
+
+    b, t, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, t, 1, dtype=torch.float32, device=q.device)
     lib = build.library()
@@ -305,8 +379,8 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 out.data_ptr(), lse.data_ptr(), b, t, h,
-                                k.shape[2], d, int(bool(causal)),
-                                d ** -0.5, stream)
+                                k.shape[2], d, int(bool(causal)), scale,
+                                stream)
     build.check(rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
@@ -380,14 +454,19 @@ def _flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: lengths must be int32 [{b}]")
     _decode_panels(tq, _group_of(h, k.shape[2]))
     _check_kernel_inputs("flash_decode",
-                         {"q": q, "k": k, "v": v, "lengths": lengths}, d)
-    return _decode_by_panels(_decode_launch, q, k, v, lengths)
+                         {"q": q, "k": k, "v": v, "lengths": lengths})
+
+    def launch(q, k, v, lengths, *, scale):
+        return _decode_by_panels(
+            lambda *a: _decode_launch(*a, scale=scale), q, k, v, lengths)
+
+    return at_kernel_head_dim("flash_decode", launch, (q, k, v), lengths)
 
 
 def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   lengths: torch.Tensor) -> torch.Tensor:
-    """One launch of the decode kernel on checked inputs with group x Tq
-    <= DECODE_ROWS."""
+                   lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """One launch of the decode kernel on checked inputs at a head dim it
+    is built for, with group x Tq <= DECODE_ROWS."""
     from tpu_operator_torch.kernels import build
 
     b, tq, h, d = q.shape
@@ -407,7 +486,7 @@ def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.flash_decode_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    lengths.data_ptr(), out.data_ptr(),
                                    ws.data_ptr(), counters.data_ptr(), b, tq,
-                                   s, h, kvh, d, ws_floats, d ** -0.5, stream)
+                                   s, h, kvh, d, ws_floats, scale, stream)
     build.check(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out
@@ -432,8 +511,6 @@ def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Both backward kernels. Exactly one of ``out`` (fused D: the dq
     kernel computes D and hands it to dkv) and ``D`` ([B,H,Tq,1] f32) is
     given."""
-    from tpu_operator_torch.kernels import build
-
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_bwd: q/dO [B,Tq,H,D], k/v [B,Tk,KVH,D]")
     b, tq, h, d = q.shape
@@ -460,8 +537,25 @@ def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group = _group_of(h, kvh)
     if 64 % group != 0:
         raise ValueError(f"flash_bwd: group {group} must divide 64")
-    _check_kernel_inputs("flash_bwd", {**rows, **stats}, d)
+    _check_kernel_inputs("flash_bwd", {**rows, **stats})
     _check_positions("flash_bwd", offsets, tq, tk)
+    return at_kernel_head_dim("flash_bwd", _bwd_launch,
+                              (q, k, v, g, None if D is not None else out),
+                              L, D, offsets, causal, grad_dtype)
+
+
+def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                g: torch.Tensor, out: Optional[torch.Tensor],
+                L: torch.Tensor, D: Optional[torch.Tensor],
+                offsets: Tuple[int, int, int], causal: bool,
+                grad_dtype: torch.dtype, *, scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of each backward kernel on checked inputs at a head dim
+    they are built for: D fused (from ``out``) when ``D`` is None."""
+    from tpu_operator_torch.kernels import build
+
+    b, tq, h, d = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
     q_off, k_off, stride = offsets
     dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
@@ -472,7 +566,7 @@ def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         D = torch.empty(b, h, tq, 1, dtype=torch.float32, device=q.device)
     o_ptr = out.data_ptr() if fused else None
     scalars = (b, tq, tk, h, kvh, d, int(bool(causal)), q_off, k_off, stride,
-               d ** -0.5, int(grad_dtype == torch.float32))
+               scale, int(grad_dtype == torch.float32))
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -496,8 +590,6 @@ def _flash_merge_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool) -> Carry:
     """The merge kernel; the carry it returns is new (the given one is
     read, not written)."""
-    from tpu_operator_torch.kernels import build
-
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_merge: q [B,Tq,H,D], k/v [B,Tk,KVH,D]")
     b, tq, h, d = q.shape
@@ -519,8 +611,22 @@ def _flash_merge_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if 64 % group != 0:
         raise ValueError(f"flash_merge: group {group} must divide 64")
     _check_kernel_inputs("flash_merge", {"q": q, "k": k, "v": v, "o": o,
-                                         "l": l, "m": m}, d)
+                                         "l": l, "m": m})
     _check_positions("flash_merge", offsets, tq, tk)
+    return at_kernel_head_dim("flash_merge", _merge_launch, (q, k, v, o),
+                              l, m, offsets, causal)
+
+
+def _merge_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+                  offsets: Tuple[int, int, int], causal: bool, *,
+                  scale: float) -> Carry:
+    """One launch of the merge kernel on checked inputs at a head dim it
+    is built for."""
+    from tpu_operator_torch.kernels import build
+
+    b, tq, h, d = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
     o_out, l_out, m_out = (torch.empty_like(x) for x in (o, l, m))
     lib = build.library()
     with torch.cuda.device(q.device):
@@ -529,7 +635,7 @@ def _flash_merge_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             l.data_ptr(), m.data_ptr(), o_out.data_ptr(), l_out.data_ptr(),
             m_out.data_ptr(), b, tq, tk, h, kvh, d, int(bool(causal)),
-            *offsets, d ** -0.5, stream)
+            *offsets, scale, stream)
     build.check(rc, "flash_merge")
     LAUNCHES["flash_merge"] += 1
     return o_out, l_out, m_out

@@ -19,6 +19,12 @@ its odd blocks holding ``moe/{router/kernel, w1, w2}`` in place of
 ``[E, 4D, D]`` are the port's layout as they are (an expert-parallel
 model takes its part of them and gives back only that part).
 
+The pipeline LM (:func:`pipeline_from_flax`, :func:`pipeline_to_flax`):
+the reference's ``pipeline.py`` tree (``tok_embed``, ``pos_embed``, the
+``stages`` stacks of ``block{i}`` subtrees, ``ln_f``, ``head``), each
+stage leaf ``[S, ...]`` or ``[V, S, ...]``; a process takes and gives
+back the stages it holds.
+
 The classifier: conv kernels HWIO <-> OIHW, the dense head ``[in, out]``
 <-> ``Linear.weight [out, in]``, BatchNorm ``scale`` / ``bias`` and the
 ``batch_stats`` ``mean`` / ``var`` as they are. Under ``--scan-blocks``
@@ -29,7 +35,7 @@ the reference stacks each stage's blocks 1..n-1 under
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -333,3 +339,82 @@ def linear_to_flax(model: LinearRegressor) -> Dict[str, Any]:
 # The reference ``MoELM`` tree of a MoE LM (the inverse of
 # :func:`moe_from_flax`; the expert stacks are this process's part).
 moe_to_flax = to_flax
+
+
+# --- the pipeline LM -----------------------------------------------------------
+
+
+def _stage_leaf_paths(model) -> Dict[str, Tuple[Tuple[str, str, str], bool]]:
+    """Each stage param name of ``model`` (``pipeline.PipelineLM``:
+    ``block{i}.<layer>.weight|bias``) -> (its path under the reference's
+    ``stages`` tree, whether the leaf is a transposed dense kernel)."""
+    stage = next(iter(model.chunks.values()))
+    paths = {}
+    for name, _p in stage.named_parameters():
+        block, layer, kind = name.split(".")
+        if isinstance(stage.get_submodule(f"{block}.{layer}"),
+                      torch.nn.LayerNorm):
+            paths[name] = ((block, layer,
+                            "scale" if kind == "weight" else "bias"), False)
+        else:
+            paths[name] = ((block, layer,
+                            "kernel" if kind == "weight" else "bias"),
+                           kind == "weight")
+    return paths
+
+
+@torch.no_grad()
+def pipeline_from_flax(params: Mapping[str, Any], model) -> None:
+    """Copy the reference pipeline's param tree into ``model``
+    (``pipeline.PipelineLM``) in place: ``tok_embed`` [vocab, dim],
+    ``pos_embed`` [seq, dim], ``ln_f`` and ``head`` [dim, vocab] as they
+    are, and of every ``stages`` leaf (``[S, ...]``, or ``[V, S, ...]``
+    under the interleaved schedule: chunk c = j·S + d at ``[j, d]``) the
+    stages this process holds, dense kernels transposed to ``Linear``'s
+    ``[out, in]``. Raises ValueError where a shape does not fit."""
+    lo, k = model.local[0], len(model.local)
+    for name, (path, transpose) in _stage_leaf_paths(model).items():
+        leaf = np.asarray(_get(params["stages"], path))
+        part = _t(leaf[:, lo:lo + k] if model.V else leaf[lo:lo + k])
+        if transpose:
+            part = part.transpose(-1, -2)
+        live = model.stacks[name]
+        if tuple(part.shape) != tuple(live.shape):
+            raise ValueError(f"stages/{'/'.join(path)} {leaf.shape} does not "
+                             f"fit {tuple(live.shape)} a process")
+        live.copy_(part)
+    for live, leaf in ((model.tok_embed, params["tok_embed"]),
+                       (model.pos_embed, params["pos_embed"]),
+                       (model.ln_f_scale, params["ln_f"]["scale"]),
+                       (model.ln_f_bias, params["ln_f"]["bias"]),
+                       (model.head, params["head"])):
+        t = _t(leaf)
+        if tuple(t.shape) != tuple(live.shape):
+            raise ValueError(f"a {tuple(t.shape)} leaf does not fit "
+                             f"{tuple(live.shape)}")
+        live.copy_(t)
+
+
+def pipeline_to_flax(model, tensors: Optional[Mapping[str, torch.Tensor]]
+                     = None) -> Dict[str, Any]:
+    """The reference pipeline's param tree of ``model``
+    (``pipeline.PipelineLM``) as f32 numpy arrays, or of ``tensors`` (the
+    same names as ``model.params``, e.g. the gradients of
+    ``Pipeline.loss_and_grads``): the inverse of
+    :func:`pipeline_from_flax` over the stages this process holds."""
+    values = model.params if tensors is None else tensors
+    tree: Dict[str, Any] = {
+        "tok_embed": _np(values["tok_embed"]),
+        "pos_embed": _np(values["pos_embed"]),
+        "stages": {},
+        "ln_f": {"scale": _np(values["ln_f.scale"]),
+                 "bias": _np(values["ln_f.bias"])},
+        "head": _np(values["head"]),
+    }
+    for name, (path, transpose) in _stage_leaf_paths(model).items():
+        arr = _np(values[f"stages.{name}"])
+        if transpose:
+            arr = np.swapaxes(arr, -1, -2).copy()
+        block, layer, leaf = path
+        tree["stages"].setdefault(block, {}).setdefault(layer, {})[leaf] = arr
+    return tree
