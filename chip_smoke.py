@@ -13,7 +13,8 @@ one JSON line each:
    and spill report, each figure under its entry function. ``sass``: the
    HGMMA count of every kernel in ``cuobjdump --dump-sass`` of the library
    and the registers and spills by kernel; the wgmma kernels (K1, K2's dq
-   and dkv, and K4) must run on wgmma and spill nothing.
+   and dkv, and K4, and the wide-head kernels of each) must run on wgmma
+   and spill nothing.
 3. ``kernels``: each kernel's wrapper on tensors on the card at the serve
    and training paths' shapes, held against its plain PyTorch version on the same
    inputs with the stated bf16 tolerance (per element; the forward kernel
@@ -53,6 +54,19 @@ one JSON line each:
    yardstick only).
    ``autograd``: flash_attention's gradients against torch autograd
    through the plain reference attention.
+5a. ``wide_heads``: every kernel's wide path (head dims above 128: a
+   grid axis over 128-column blocks of the output, the scores summed over
+   the head dim's chunks in every block) per element against its plain
+   version with the narrow cases' tolerances: K1, dq and dkv at the
+   tensor-parallel job's shard shape (B 16, T 2048, 1 / 1 head, D 1024)
+   and at (B 4, T 2048, 8 / 2 heads, D 256), and at D 192 (padded to 256)
+   with a ragged T (K2 with offsets, a stride, given D, f32 grads); K3 at
+   (B 8, Tq 1 and 4, S 2048, 8 / 2 heads, D 256), ragged lengths with 0,
+   bit-equal across a NaN-poisoned tail; K4 at the ring shape with D 256
+   into a live carry. Negative controls (one 128-column block of V zeroed
+   on the plain side) must fail for K1, K2 and K4. Each timed beside its
+   bound (counted from the work the case needs, not the recompute), the
+   plain version and the first SDPA backend that takes the head dim.
 6. ``ring``: ring attention with 4 shards in one process (K4 forward, K2
    backward ring), contiguous and striped, B 1, T 4096: output and
    gradients against K1 + K2 on the whole sequence and against the plain
@@ -157,6 +171,26 @@ one JSON line each:
     in fresh processes, and ``serve`` at its defaults under a short load:
     head dims 64, 64, 32 and 16, the last two through the wrappers' zero
     padding; exit codes and launch counts gated.
+14d. ``tensor_parallel``: examples/tpujob-tensor-parallel.yml's payload
+    as written (``--tensor-parallel 4 --dim 4096 --layers 16 --batch 16
+    --remat``; 4 heads: head dim 1024, the wide kernels; 3.2B params),
+    the four shards as units in this process, 4 steps through
+    ``transformer.build`` and ``train.train_loop``: K1 2 x layers x
+    shards x steps (full remat re-runs the forward), dq and dkv once
+    that; before the loop, on a 2-layer copy at the same width, TP 4's
+    loss and every gradient at init against TP 1's (``--split-qkv on``,
+    the same params). The step time and peak memory are printed.
+14e. ``sp_tp``: examples/tpujob-3d-parallel.yml's payload as written (T
+    16384, ``--seq-parallel 4 --tensor-parallel 2``, dim 2048, 16 heads,
+    12 layers, ``--remat``, batch 8), 2 steps: each TP shard runs its own
+    4-shard ring on its 8 heads; K4 2 x 16 per layer, shard and step,
+    dq and dkv 16, K1 never; the gate against ``--tensor-parallel 1`` at
+    the same ``--seq-parallel 4``.
+14f. ``ulysses``: the SP bench row (bench.py:661) with ``--seq-parallel
+    4 --sp-mode ulysses`` in place of the striped ring, 4 steps: K1, dq
+    and dkv once per layer, microbatch, step and head shard, K4 never;
+    the gate against the ring at the same weights; the step time beside
+    train_sp's.
 15. ``classifier``: ``payload.cifar`` at its defaults (ResNet-20, batch
     1024, sgd 0.1 / 0.9) for 20 steps (the loss descends; the first 5
     losses against a CPU run of the same port from the same weights and
@@ -340,7 +374,13 @@ SP_GRAD_REL_TOL = TRAIN_GRAD_REL_TOL
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+_STARTED = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.monotonic() - _STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -400,7 +440,9 @@ def decode_excess(torch, got, want) -> float:
 
 # The redesigned kernels: wgmma (HGMMA in their SASS) and no spill.
 HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                  "flash_bwd_dkv_kernel", "flash_merge_kernel")
+                  "flash_bwd_dkv_kernel", "flash_merge_kernel",
+                  "flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
+                  "flash_bwd_dkv_wide_kernel", "flash_merge_wide_kernel")
 
 
 def ptxas_report(log: str):
@@ -795,8 +837,7 @@ def bwd_case(torch, fa, gen, b, t, h, kvh, causal, offsets, fused,
         out = fa.finalize((o, l, m), torch.bfloat16).permute(
             0, 2, 1, 3).contiguous()
         L = fa._logsumexp_rows(l, m).contiguous()
-    D = (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None] \
-        .contiguous()
+    D = fa.row_dot(g, out)
 
     def run():
         return fa.attention_block_grads(
@@ -1324,6 +1365,337 @@ def check_padded_decode_merge(torch, fa):
            "worst_err_over_tol_o": o_exc, "worst_err_over_tol_l": l_exc,
            "worst_err_over_bound_m": m_exc, "rows_seen_agree": rows_agree}
     return dec, mrg
+
+
+def wide_generator(torch):
+    """The wide-head cases (head dims above 128) draw from their own
+    generator too."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    return gen
+
+
+# SDPA's backends in the order tried as the wide-head yardstick: the first
+# that accepts a case's head dim is timed.
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+
+
+def sdpa_yardstick(torch, F, fn_of_sdpa):
+    """(ms, backend name, {backend: outcome}) of ``fn_of_sdpa(sdpa)`` under
+    the first of :data:`SDPA_BACKENDS` that runs it, timed on CUDA events;
+    (None, "none", ...) when none does. A yardstick only: the port never
+    calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    outcomes = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            outcomes[name] = "not in this torch"
+            continue
+        try:
+            with sdpa_kernel(backend):
+                fn_of_sdpa(F.scaled_dot_product_attention)
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            outcomes[name] = f"refused: {str(e).splitlines()[0][:120]}"
+            continue
+        with sdpa_kernel(backend):
+            ms = time_ms(torch, lambda: fn_of_sdpa(
+                F.scaled_dot_product_attention), reps=10)
+        outcomes[name] = "timed"
+        return ms, name, outcomes
+    return None, "none", outcomes
+
+
+def _zero_block(x, block: int, width: int = 128):
+    """``x`` with head-dim columns [block * width, (block + 1) * width)
+    zeroed (a copy)."""
+    y = x.clone()
+    y[..., block * width:(block + 1) * width] = 0
+    return y
+
+
+def check_wide_heads(torch, fa, F):
+    """Every kernel at head dims above 128 (the wide path: a grid axis over
+    128-column blocks, each block summing the scores over the head dim's
+    chunks), per element against its plain version with the tolerances of
+    the narrow cases: K1, dq and dkv at the tensor-parallel job's shard
+    shape (B 16, T 2048, 1 / 1 head, D 1024, causal) and at (B 4, T 2048,
+    8 / 2 heads, D 256), and at D 192 (zero-padded to 256) with a ragged T
+    (K2 with offsets, a stride, given D and f32 grads); K3 at (B 8, Tq 1
+    and 4, S 2048, 8 / 2 heads, D 256) with ragged lengths (0 included);
+    K4 at the ring shape (B 2, Tq = Tk = 2048, 16 / 4 heads, D 256)
+    folding a striped block into a live carry. Negative controls: the
+    plain side with one 128-column block of V zeroed must fail for K1, K2
+    and K4. Each kernel is timed beside its bound, counted from the work
+    the case needs (not the kernels' recompute of the scores per column
+    block), and beside the first SDPA backend that accepts the head dim."""
+    gen = wide_generator(torch)
+    dev = "cuda"
+    res = {"fwd": {}, "bwd": {}, "decode": {}, "merge": {}}
+    for label, (b, t, h, kvh, d) in {
+            "tp_shard_d1024": (16, 2048, 1, 1, 1024),
+            "gqa_d256": (4, 2048, 8, 2, 256),
+            "padded_d192_ragged": (2, 1000, 8, 4, 192)}.items():
+        q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
+        before = fa.launch_counts()["flash_fwd"]
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launches = fa.launch_counts()["flash_fwd"] - before
+        qt, kt, vt = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+        ref_o, ref_l, terms = fwd_plain_terms(torch, fa, qt, kt, vt, True)
+        got = out.permute(0, 2, 1, 3)
+        excess = fwd_excess(torch, got, ref_o, terms)
+        err_l = max_err(torch, lse, ref_l)
+        require(launches == 1, f"wide fwd {label}: {launches} launches")
+        require(bool(torch.isfinite(out.float()).all()),
+                 f"wide fwd {label}: non-finite output")
+        require(excess <= 1.0, f"wide fwd {label}: O {excess} x its "
+                               f"per-element tolerance")
+        require(err_l <= L_TOL, f"wide fwd {label}: L error {err_l}")
+        r = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
+                       "causal": True},
+             "kernel_head_dim": fa.kernel_head_dim("flash_fwd", d),
+             "max_abs_err_O": max_err(torch, got, ref_o),
+             "worst_err_over_tol_O": excess, "max_abs_err_L": err_l}
+        if d > 128:
+            ctrl, _, _ = fwd_plain_terms(torch, fa, qt, kt,
+                                         _zero_block(vt, 1), True)
+            r["zeroed_v_column_block_control_worst_err_over_tol"] = \
+                fwd_excess(torch, got, ctrl, terms)
+            require(r["zeroed_v_column_block_control_worst_err_over_tol"]
+                    > 1.0, f"wide fwd {label}: the zeroed V column block "
+                           f"control passed ({r})")
+            del ctrl
+        del ref_o, terms
+        pairs = t * (t + 1) // 2
+        flops = 4.0 * b * h * d * pairs
+        nbytes = 2.0 * (2 * b * t * h * d + 2 * b * t * kvh * d) \
+            + 4.0 * b * h * t
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_TC_FLOPS)
+        r["ms"] = time_ms(torch, lambda: fa.flash_attention_with_lse(
+            q, k, v, causal=True), reps=10)
+        r["device_ms"] = kernel_device_ms(
+            torch, lambda: fa.flash_attention_with_lse(q, k, v, causal=True),
+            5, ("flash_fwd_wide_kernel",))["flash_fwd_wide_kernel"]
+        r["plain_ms"] = time_ms(torch, lambda: fa._attn_ref(qt, kt, vt, True),
+                                reps=3)
+        r["library_ms"], r["library"], r["library_backends"] = sdpa_yardstick(
+            torch, F, lambda sdpa: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=kvh != h))
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["tflops_required"] = flops / (r["ms"] * 1e-3) / 1e12
+        res["fwd"][label] = r
+        del q, k, v, qt, kt, vt, out, lse, got
+
+    for label, (b, t, h, kvh, offs, fused, gd, d) in {
+            "tp_shard_d1024": (16, 2048, 1, 1, (0, 0, 1), True,
+                               torch.bfloat16, 1024),
+            "gqa_d256": (4, 2048, 8, 2, (0, 0, 1), True, torch.bfloat16, 256),
+            "padded_d192_offsets_stride_given_d": (
+                2, 1000, 8, 4, (0, 3, 2), False, torch.float32, 192)}.items():
+        inputs, run = bwd_case(torch, fa, gen, b, t, h, kvh, True, offs,
+                               fused, gd, d)
+        q, k, v, g, L, o, D = inputs
+        before = fa.launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        after = fa.launch_counts()
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            require(after[name] == before[name] + 1,
+                    f"wide bwd {label}: {name} launched "
+                    f"{after[name] - before[name]} times")
+        want, terms = bwd_plain_terms(torch, fa, q, k, v, g, L, D, offs, True)
+        r = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
+                       "causal": True},
+             "kernel_head_dim": fa.kernel_head_dim("flash_bwd", d),
+             "offsets": list(offs), "fused_d_requested": fused,
+             "grad_dtype": str(gd).replace("torch.", "")}
+        for name, gg, ww, aa in zip(("dq", "dk", "dv"), got, want, terms):
+            require(gg.dtype == gd and bool(torch.isfinite(gg.float()).all()),
+                    f"wide bwd {label}: {name} dtype or non-finite")
+            excess = bwd_excess(torch, gg, ww, aa)
+            r[name] = {"max_abs_err": max_err(torch, gg, ww),
+                       "max_abs_ref": float(ww.abs().max()),
+                       "worst_err_over_tol": excess}
+            require(excess <= 1.0, f"wide bwd {label}: {name} {excess} x "
+                                   f"its tolerance")
+        del want, terms
+        if d > 128:
+            ctrl, cterms = bwd_plain_terms(torch, fa, q, k, _zero_block(v, 1),
+                                           g, L, D, offs, True)
+            r["zeroed_v_column_block_control_worst_err_over_tol"] = max(
+                bwd_excess(torch, gg, ww, aa)
+                for gg, ww, aa in zip(got, ctrl, cterms))
+            require(r["zeroed_v_column_block_control_worst_err_over_tol"]
+                    > 1.0, f"wide bwd {label}: the zeroed V column block "
+                           f"control passed ({r})")
+            del ctrl, cterms
+        del got
+        r.update(bwd_bounds(torch, b, t, t, h, kvh, True, offs, fused,
+                            4 if gd == torch.float32 else 2, d))
+        r["ms_pair"] = time_ms(torch, run, reps=5)
+        per = kernel_device_ms(torch, run, 3, ("flash_bwd_dq_wide_kernel",
+                                               "flash_bwd_dkv_wide_kernel"))
+        r["ms_dq"] = per["flash_bwd_dq_wide_kernel"]
+        # dkv's wide path is two kernels (dK's, dV's), each launched once a
+        # call: the per-launch mean twice.
+        dkv = per["flash_bwd_dkv_wide_kernel"]
+        r["ms_dkv"] = 2 * dkv if isinstance(dkv, float) else dkv
+        for name in ("dq", "dkv"):
+            if isinstance(r[f"ms_{name}"], float):
+                r[f"share_of_bound_{name}"] = r[f"bound_ms_{name}"] \
+                    / r[f"ms_{name}"]
+        qt, kt, vt, gt = (x.permute(0, 2, 1, 3) for x in (q, k, v, g))
+        r["plain_ms"] = time_ms(
+            torch, lambda: fa._bwd_ref(qt, kt, vt, gt, L, D, offs, True),
+            reps=3)
+        if offs == (0, 0, 1):
+            ql, kl, vl = (x.detach().contiguous().requires_grad_(True)
+                          for x in (qt, kt, vt))
+            gl = gt.contiguous()
+
+            def fwd_bwd(sdpa):
+                sdpa(ql, kl, vl, is_causal=True,
+                     enable_gqa=kvh != h).backward(gl)
+
+            def fwd_only(sdpa):
+                with torch.no_grad():
+                    sdpa(ql, kl, vl, is_causal=True, enable_gqa=kvh != h)
+
+            fb, backend, outcomes = sdpa_yardstick(torch, F, fwd_bwd)
+            r["library_backends"] = outcomes
+            r["library"] = backend
+            if fb is not None:
+                from torch.nn.attention import SDPBackend, sdpa_kernel
+
+                with sdpa_kernel(getattr(SDPBackend, backend)):
+                    fo = time_ms(torch, lambda: fwd_only(
+                        F.scaled_dot_product_attention), reps=10)
+                r["library_ms"] = fb - fo
+            else:
+                r["library_ms"] = None
+            r["library_ms_is"] = ("SDPA backward: forward+backward minus "
+                                  "forward, the first backend that runs")
+            del ql, kl, vl, gl
+        res["bwd"][label] = r
+        del inputs, q, k, v, g, L, o, D, qt, kt, vt, gt
+
+    b, s, h, kvh, d = 8, 2048, 8, 2, 256
+    lengths = torch.tensor([1, 17, 1920, 2048, 1000, 513, 64, 0],
+                           dtype=torch.int32, device=dev)
+    k = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+    for tq in (1, 4):
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
+        before = fa.launch_counts()["flash_decode"]
+        got = fa.flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+        launches = fa.launch_counts()["flash_decode"] - before
+        want = fa._decode_ref(q, k, v, lengths)
+        excess = decode_excess(torch, got, want)
+        require(launches == 1, f"wide decode Tq {tq}: {launches} launches")
+        require(excess <= 1.0, f"wide decode Tq {tq}: {excess} x its "
+                               f"per-element tolerance")
+        require(not bool(got[lengths <= 0].any()),
+                f"wide decode Tq {tq}: a row of length 0 is not 0")
+        # A NaN-poisoned tail past every length changes nothing.
+        kp, vp = k.clone(), v.clone()
+        for row, n in enumerate(lengths.tolist()):
+            kp[row, max(n, 0):] = float("nan")
+            vp[row, max(n, 0):] = float("nan")
+        again = fa.flash_decode(q, kp, vp, lengths)
+        equal = bool(torch.equal(got, again))
+        require(equal, f"wide decode Tq {tq}: a NaN tail changed the output")
+        del kp, vp, again
+        r = {"shape": {"B": b, "Tq": tq, "H": h, "KVH": kvh, "S": s, "D": d},
+             "kernel_head_dim": fa.kernel_head_dim("flash_decode", d),
+             "lengths": [int(x) for x in lengths.tolist()],
+             "max_abs_err": max_err(torch, got, want),
+             "worst_err_over_tol": excess,
+             "nan_tail_bit_equal": equal}
+        keys = int(lengths.clamp(min=0).sum())
+        nbytes = 2.0 * (2 * keys * kvh * d + 2 * b * tq * h * d)
+        flops = 4.0 * keys * tq * h * d
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+        r["ms"] = time_ms(torch, lambda: fa.flash_decode(q, k, v, lengths))
+        r["device_ms"] = kernel_device_ms(
+            torch, lambda: fa.flash_decode(q, k, v, lengths), 20,
+            ("flash_decode_wide_kernel",))["flash_decode_wide_kernel"]
+        r["plain_ms"] = time_ms(torch, lambda: fa._decode_ref(q, k, v,
+                                                              lengths),
+                                reps=5)
+        qd, kd, vd = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+        pos = torch.arange(s, device=dev)
+        qpos = lengths[:, None] - tq + torch.arange(tq, device=dev)[None]
+        mask = (pos[None, None, :] <= qpos[:, :, None]) \
+            & (pos[None, None, :] < lengths[:, None, None])
+        mask = mask[:, None]  # [B, 1, Tq, S]
+        r["library_ms"], r["library"], r["library_backends"] = \
+            sdpa_yardstick(torch, F, lambda sdpa: sdpa(
+                qd, kd, vd, attn_mask=mask, enable_gqa=True))
+        res["decode"][f"tq{tq}"] = r
+        del q, got, want, qd, kd, vd
+    del k, v
+
+    b, c, h, kvh, d = 2, 2048, 16, 4, 256
+    q, k0, v0, k1, v1 = (
+        torch.randn(b, c, heads, d, generator=gen, device=dev).bfloat16()
+        for heads in (h, kvh, kvh, kvh, kvh))
+    carry = fa.merge_kv_block(q, k0, v0, fa.init_carry(b, h, c, d, device=dev),
+                              (1, 2, 4), causal=True)
+    before = fa.launch_counts()["flash_merge"]
+    got = fa.merge_kv_block(q, k1, v1, carry, (1, 0, 4), causal=True)
+    torch.cuda.synchronize()
+    launches = fa.launch_counts()["flash_merge"] - before
+    want, terms = merge_plain_terms(torch, fa, q, k1, v1, carry, (1, 0, 4),
+                                    True)
+    o_exc, l_exc, m_exc, rows_agree = merge_excess(torch, fa, q, k1, got,
+                                                   want, terms)
+    require(launches == 1, f"wide merge: {launches} launches")
+    require(rows_agree and max(o_exc, l_exc, m_exc) <= 1.0,
+            f"wide merge: o {o_exc}, l {l_exc}, m {m_exc} x their "
+            f"tolerances, rows seen agree {rows_agree}")
+    ctrl, _ = merge_plain_terms(torch, fa, q, k1, _zero_block(v1, 1), carry,
+                                (1, 0, 4), True)
+    control = merge_excess(torch, fa, q, k1, got, ctrl, terms)[0]
+    require(control > 1.0, f"wide merge: the zeroed V column block control "
+                           f"passed ({control})")
+    seen = want[2] > fa.NEG_INF / 2
+    r = {"shape": {"B": b, "Tq": c, "Tk": c, "H": h, "KVH": kvh, "D": d},
+         "kernel_head_dim": fa.kernel_head_dim("flash_merge", d),
+         "offsets": [1, 0, 4], "carry": "a striped (1, 2, 4) merge",
+         "max_abs_err_o": float(torch.where(
+             seen, (got[0] - want[0]).abs(), 0).max()),
+         "worst_err_over_tol_o": o_exc, "worst_err_over_tol_l": l_exc,
+         "worst_err_over_bound_m": m_exc, "rows_seen_agree": rows_agree,
+         "zeroed_v_column_block_control_worst_err_over_tol_o": control}
+    del ctrl, want, terms
+
+    def merge():
+        fa.merge_kv_block(q, k1, v1, carry, (1, 0, 4), causal=True)
+
+    pos = torch.arange(c, device=dev)
+    pairs = int(((1 + 4 * pos)[:, None] >= (4 * pos)[None, :]).sum())
+    flops = 4.0 * b * h * d * pairs
+    nbytes = 2.0 * (b * c * h * d + 2 * b * c * kvh * d) \
+        + 2 * 4.0 * b * h * c * (d + 2)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_TC_FLOPS)
+    r["ms"] = time_ms(torch, merge, reps=20)
+    r["device_ms"] = kernel_device_ms(torch, merge, 10, (
+        "flash_merge_wide_kernel",))["flash_merge_wide_kernel"]
+    r["plain_ms"] = time_ms(torch, lambda: fa._merge_ref(
+        *(x.permute(0, 2, 1, 3) for x in (q, k1, v1)), *carry, (1, 0, 4),
+        True), reps=5)
+    r["library_ms"] = None
+    r["library"] = "none: no single PyTorch call folds a carry"
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    res["merge"]["ring_d256"] = r
+    return res
 
 
 def ring_plain_terms(torch, fa, q, k, v):
@@ -2119,7 +2491,7 @@ def plain_backward_attend(torch, fa, kernel_forward: bool):
         @staticmethod
         def backward(ctx, g):
             q, k, v, out, lse = ctx.saved_tensors
-            D = (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+            D = fa.row_dot(g, out)
             grads = fa._bwd_ref(*(x.permute(0, 2, 1, 3) for x in (q, k, v, g)),
                                 lse, D, (0, 0, 1), True)
             return tuple(x.permute(0, 2, 1, 3).to(q.dtype) for x in grads)
@@ -2437,6 +2809,19 @@ def run_longctx(torch, fa, transformer, train, data):
     tokens/s and the peak memory. Returns the readings and the build (for
     its profile)."""
     args = transformer.parse_args(LONGCTX_ARGV)
+    # The kernels' bounds at this row's attention shape (one row of 32768
+    # tokens a microbatch, 16 / 4 heads, D 128, causal, fused D, bf16).
+    t, h, kvh = args.seq_len, args.heads, args.kv_heads
+    d = args.dim // h
+    pairs = t * (t + 1) // 2
+    k1_ms, k1_by = bound(2.0 * (2 * t * h * d + 2 * t * kvh * d) + 4.0 * h * t,
+                         4.0 * h * d * pairs, BF16_TC_FLOPS)
+    bounds = {"shape": {"B": 1, "T": t, "H": h, "KVH": kvh, "D": d,
+                        "causal": True},
+              "bound_ms_fwd": k1_ms, "bound_by_fwd": k1_by,
+              **{k: v for k, v in bwd_bounds(
+                  torch, 1, t, t, h, kvh, True, (0, 0, 1), True, 2,
+                  d).items() if k.startswith("bound")}}
     built = transformer.build(args)
     (rows,) = next(data.synthetic_lm(args.seed + 1, 1, args.seq_len,
                                      vocab=args.vocab))
@@ -2465,6 +2850,7 @@ def run_longctx(torch, fa, transformer, train, data):
                                          "unchunked": dense, "rel": rel,
                                          "tol": CHUNK_REL_TOL},
            "optimizer_state_bytes": _opt_bytes(built.opt_state),
+           "kernel_bounds": bounds,
            "smoke_reading": "3 steps from a cold start; not a throughput "
                             "measurement",
            "nvidia_smi": nvidia_smi_line()}
@@ -3082,6 +3468,181 @@ def run_pipeline(torch, fa, pipeline, transformer, train, checkpoint,
         "meta_model": meta_model,
         "nvidia_smi": nvidia_smi_line(),
     }
+
+
+# --- phases: tensor_parallel, sp_tp, ulysses ------------------------------------
+
+COMMON_ARGV = ["--seed", "0", "--log-every", "0", "--device", "cuda",
+               "--checkpoint-dir", "", "--profile-dir", ""]
+# examples/tpujob-tensor-parallel.yml's payload as written; every other
+# flag at its default (heads 4: head dim 1024; seq-len 2048; vocab 256;
+# adam).
+TP_ARGV = ["--steps", "4", "--tensor-parallel", "4", "--dim", "4096",
+           "--layers", "16", "--batch", "16", "--remat", *COMMON_ARGV]
+# examples/tpujob-3d-parallel.yml's payload as written.
+SP_TP_ARGV = ["--steps", "2", "--seq-len", "16384", "--seq-parallel", "4",
+              "--tensor-parallel", "2", "--dim", "2048", "--heads", "16",
+              "--layers", "12", "--remat", "--batch", "8", *COMMON_ARGV]
+# The SP bench row (bench.py:661, SP_TRAIN_ARGV) with Ulysses in place of
+# the striped ring.
+ULYSSES_ARGV = [a for a in SP_TRAIN_ARGV if a not in ("--sp-layout",
+                                                      "striped")] \
+    + ["--sp-mode", "ulysses"]
+# The parity gates' copies: 2 layers at the same widths.
+GATE_LAYERS = 2
+
+
+def with_flags(argv, **flags):
+    """``argv`` with each ``--flag value`` set (appended when absent)."""
+    out = list(argv)
+    for name, value in flags.items():
+        out = with_flag(out, "--" + name.replace("_", "-"), str(value))
+    return out
+
+
+def gate_parity(torch, transformer, label, argv, other_argv, rows):
+    """At init, on ``GATE_LAYERS``-layer copies of ``argv`` and
+    ``other_argv`` at the same widths from the same seed (both resident,
+    the same params: the two differ only in how the work is split), one
+    microbatch of ``rows`` rows: the loss and every parameter's gradient
+    of ``argv`` against ``other_argv``, gated at SP_LOSS_TOL,
+    SP_GRAD_GLOBAL_TOL and SP_GRAD_REL_TOL (the noise of two kernel paths
+    that round their partial results at other points, as the train_sp
+    cross-check states)."""
+    from tpu_operator_torch.payload import data as data_mod
+
+    sides = []
+    for flags in (argv, other_argv):
+        args = transformer.parse_args(with_flags(flags, layers=GATE_LAYERS))
+        mesh = transformer.make_lm_mesh(1, 0, args.seq_parallel,
+                                        args.tensor_parallel)
+        model = transformer.build_model(args, torch.device(args.device),
+                                        mesh.tp()).requires_grad_(True)
+        sides.append((model, transformer.make_lm_loss(
+            model, mesh, args.sp_layout, sp_mode=args.sp_mode)))
+    names = [[n for n, _ in m.named_parameters()] for m, _ in sides]
+    require(names[0] == names[1], f"{label} gate: the two param trees differ")
+    require(all(torch.equal(a, b) for a, b in zip(
+        sides[0][0].parameters(), sides[1][0].parameters())),
+        f"{label} gate: the two seeded inits differ")
+    (tok,) = next(data_mod.synthetic_lm(1, rows, args.seq_len,
+                                        vocab=args.vocab))
+    tokens = torch.from_numpy(tok).to(args.device)
+
+    def loss_and_grads(model, loss_fn):
+        loss, _ = loss_fn(tokens)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        return float(loss.detach()), grads
+
+    got, want = (loss_and_grads(*side) for side in sides)
+    res = compare_grads(got, want)
+    del res["_ratios"], got, want, sides
+    res.update(rows=rows, layers=GATE_LAYERS,
+               tol=f"loss {SP_LOSS_TOL}; the whole gradient "
+                   f"{SP_GRAD_GLOBAL_TOL} and each parameter "
+                   f"{SP_GRAD_REL_TOL} of the reference side's norm")
+    require(res["loss_abs_err"] <= SP_LOSS_TOL,
+            f"{label} gate: loss gap {res['loss_abs_err']}")
+    require(res["grad_rel_err_all"] <= SP_GRAD_GLOBAL_TOL,
+            f"{label} gate: the whole gradient off by "
+            f"{res['grad_rel_err_all']} of its norm")
+    name, worst = res["worst_grad_rel_err"][0]
+    require(worst <= SP_GRAD_REL_TOL,
+            f"{label} gate: {name} gradient off by {worst} of its norm")
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_parallel_cell(torch, fa, transformer, train, label, argv, wanted,
+                      gate):
+    """``argv`` through ``transformer.build`` and ``train.train_loop`` in
+    this one process (every shard a unit), after ``gate`` (the parity
+    gate at init); launch counts gated at ``wanted(args)``. Prints the
+    fenced step seconds and the peak memory."""
+    gate_res = gate()
+    args = transformer.parse_args(argv)
+    built = transformer.build(args)
+    loop = drive_train(torch, fa, train, built, args, label, wanted(args))
+    res = {"argv": argv,
+           "params": sum(p.numel() for p in built.model.parameters()),
+           **loop,
+           "step_ms_median_steps_1_on": 1e3 * statistics.median(
+               loop["step_seconds"][1:]),
+           "tokens_per_s_median_steps_1_on": args.batch * args.seq_len
+           / statistics.median(loop["step_seconds"][1:]),
+           "smoke_reading": f"{args.steps} steps from a cold start, every "
+                            f"shard in one process on one card; not a "
+                            f"throughput measurement",
+           "gate_at_init": gate_res,
+           "nvidia_smi": nvidia_smi_line()}
+    del built
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_tensor_parallel(torch, fa, transformer, train):
+    """examples/tpujob-tensor-parallel.yml's payload as written
+    (--tensor-parallel 4 --dim 4096 --layers 16 --batch 16 --remat; heads
+    4: head dim 1024, the wide kernels), 4 steps with the four shards as
+    units in this process. Gate: at init on a 2-layer copy, TP 4 against
+    TP 1 (--split-qkv on, the same params). Launches: K1 twice per layer,
+    shard and step (full remat re-runs the forward), dq and dkv once."""
+    one = with_flags(TP_ARGV, tensor_parallel=1, split_qkv="on")
+
+    def wanted(args):
+        per = args.layers * args.tensor_parallel * args.steps
+        return {"flash_fwd": 2 * per, "flash_bwd_dq": per,
+                "flash_bwd_dkv": per, "flash_merge": 0, "flash_decode": 0}
+
+    return run_parallel_cell(
+        torch, fa, transformer, train, "tensor_parallel", TP_ARGV, wanted,
+        lambda: gate_parity(torch, transformer, "tensor_parallel", TP_ARGV,
+                            one, 2))
+
+
+def run_sp_tp(torch, fa, transformer, train):
+    """examples/tpujob-3d-parallel.yml's payload as written (T 16384,
+    --seq-parallel 4 --tensor-parallel 2, dim 2048, 16 heads, 12 layers,
+    --remat, batch 8), 2 steps: each TP shard runs its own 4-shard ring
+    on its 8 heads, all in this process. Gate: at init on a 2-layer copy,
+    against --tensor-parallel 1 (--split-qkv on) at the same
+    --seq-parallel 4. Launches: K4 2 x 16 per layer, TP shard and step
+    (the ring's N^2 merges; full remat re-runs the forward ring), dq and
+    dkv 16, K1 never."""
+    one = with_flags(SP_TP_ARGV, tensor_parallel=1, split_qkv="on")
+
+    def wanted(args):
+        per = args.layers * args.tensor_parallel * args.steps \
+            * args.seq_parallel ** 2
+        return {"flash_merge": 2 * per, "flash_bwd_dq": per,
+                "flash_bwd_dkv": per, "flash_fwd": 0, "flash_decode": 0}
+
+    return run_parallel_cell(
+        torch, fa, transformer, train, "sp_tp", SP_TP_ARGV, wanted,
+        lambda: gate_parity(torch, transformer, "sp_tp", SP_TP_ARGV, one, 1))
+
+
+def run_ulysses(torch, fa, transformer, train, ring_step_ms):
+    """The SP bench row (bench.py:661, lm_longctx_T8192_gqa) with
+    --seq-parallel 4 --sp-mode ulysses in place of the striped ring, 4
+    steps as train_sp runs it. Gate: at init on a 2-layer copy, against
+    the ring (contiguous) at the same weights. Launches: K1, dq and dkv
+    once per layer, microbatch, step and head shard (dots_attn saves K1's
+    outputs), K4 never. ``ring_step_ms``: train_sp's median step."""
+    ring = [a for a in ULYSSES_ARGV if a not in ("--sp-mode", "ulysses")]
+
+    def wanted(args):
+        per = args.layers * args.grad_accum * args.steps * args.seq_parallel
+        return {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+                "flash_merge": 0, "flash_decode": 0}
+
+    res = run_parallel_cell(
+        torch, fa, transformer, train, "ulysses", ULYSSES_ARGV, wanted,
+        lambda: gate_parity(torch, transformer, "ulysses", ULYSSES_ARGV,
+                            ring, 1))
+    res["ring_step_ms_median_steps_1_on"] = ring_step_ms
+    return res
 
 
 # --- phase: defaults ----------------------------------------------------------
@@ -3995,6 +4556,8 @@ def main() -> int:
                   "flash_merge": mrg["padded_d64"]})
         bwd = check_flash_bwd(torch, fa, F, gen)
         emit({"phase": "kernels", "kernel": "flash_bwd", **bwd})
+        wide = check_wide_heads(torch, fa, F)
+        emit({"phase": "wide_heads", **wide})
         emit({"phase": "autograd", **check_attention_autograd(torch, fa)})
         rng = check_ring(torch, fa, ring_mod, gen)
         emit({"phase": "ring", **rng})
@@ -4048,6 +4611,13 @@ def main() -> int:
                            bootstrap)
         emit({"phase": "defaults", **dft})
         torch.cuda.empty_cache()
+        tpr = run_tensor_parallel(torch, fa, transformer, train)
+        emit({"phase": "tensor_parallel", **tpr})
+        sptp = run_sp_tp(torch, fa, transformer, train)
+        emit({"phase": "sp_tp", **sptp})
+        uly = run_ulysses(torch, fa, transformer, train, 1e3 * statistics.median(
+            sp["step_seconds"][1:]))
+        emit({"phase": "ulysses", **uly})
         cls, built = run_classifier(torch, cifar, train, checkpoint,
                                     steptrace)
         emit({"phase": "classifier", **cls})
@@ -4068,7 +4638,15 @@ def main() -> int:
     main_dec, main_bwd = dec["full"], bwd["train_causal_gqa"]
     ring_bwd = bwd["sp_ring_striped_given_d"]
     pipe_fwd, pipe_bwd = (x["pipeline_causal_mha_d64"] for x in (fwd, bwd))
-    # This slice's path: every schedule of the pipeline phase together.
+    # This slice's path: the tensor_parallel, sp_tp and ulysses phases
+    # together; K1 and K2 timed at the TP job's shard shape (D 1024).
+    tp_fwd, tp_bwd = (wide[x]["tp_shard_d1024"] for x in ("fwd", "bwd"))
+    slice_runs = {"tensor_parallel": tpr, "sp_tp": sptp, "ulysses": uly}
+    slice_launches = {k: sum(r["launches"][k] for r in slice_runs.values())
+                      for k in fa.LAUNCHES}
+    slice_by_path = {k: {name: r["launches"][k]
+                         for name, r in slice_runs.items()}
+                     for k in fa.LAUNCHES}
     pipe_launches = {k: sum(r["launches"][k] for r in pp["runs"].values())
                      for k in fa.LAUNCHES}
     pipe_by_path = {k: {f"pipeline_{label}": r["launches"][k]
@@ -4089,8 +4667,9 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_fwd.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:462",
-         "launches": pipe_launches["flash_fwd"],
-         "launches_by_path": {**pipe_by_path["flash_fwd"],
+         "launches": slice_launches["flash_fwd"],
+         "launches_by_path": {**slice_by_path["flash_fwd"],
+                              **pipe_by_path["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "serve": sv["launches"]["flash_fwd"],
                               "checkpoint_resume":
@@ -4105,16 +4684,27 @@ def main() -> int:
                                   prf["launches"]["flash_fwd"],
                               **{f"remat_{k}": r["launches"]["flash_fwd"]
                                  for k, r in rmt["runs"].items()}},
-         "max_abs_err": max(r["max_abs_err_O"] for r in fwd.values()),
-         "worst_err_over_tol": max(r["worst_err_over_tol_O"]
-                                   for r in fwd.values()),
-         "ms": train_fwd["ms"], "plain_ms": train_fwd["plain_ms"],
-         "bound_ms": train_fwd["bound_ms"],
-         "bound_by": train_fwd["bound_by"],
-         "library_ms": train_fwd["library_ms"],
-         "tflops": train_fwd["tflops"],
-         "share_of_bound": train_fwd["share_of_bound"],
-         "shape": "train B8 T2048", "serve_prefill_ms": serve_fwd["ms"],
+         "max_abs_err": max(r["max_abs_err_O"] for r in
+                            (*fwd.values(), *wide["fwd"].values())),
+         "worst_err_over_tol": max(r["worst_err_over_tol_O"] for r in
+                                   (*fwd.values(), *wide["fwd"].values())),
+         "ms": tp_fwd["ms"], "plain_ms": tp_fwd["plain_ms"],
+         "bound_ms": tp_fwd["bound_ms"], "bound_by": tp_fwd["bound_by"],
+         "library_ms": tp_fwd["library_ms"], "library": tp_fwd["library"],
+         "device_ms": tp_fwd["device_ms"],
+         "share_of_bound": tp_fwd["share_of_bound"],
+         "shape": "tensor_parallel shard B16 T2048 H1 D1024 causal (wide "
+                  "path)",
+         "wide_gqa_d256": {k: wide["fwd"]["gqa_d256"][k] for k in (
+             "ms", "plain_ms", "library_ms", "library", "bound_ms",
+             "share_of_bound")},
+         "train_shape": "train B8 T2048", "train_ms": train_fwd["ms"],
+         "train_plain_ms": train_fwd["plain_ms"],
+         "train_bound_ms": train_fwd["bound_ms"],
+         "train_library_ms": train_fwd["library_ms"],
+         "train_tflops": train_fwd["tflops"],
+         "train_share_of_bound": train_fwd["share_of_bound"],
+         "serve_prefill_ms": serve_fwd["ms"],
          "serve_prefill_bound_ms": serve_fwd["bound_ms"],
          "serve_prefill_library_ms": serve_fwd["library_ms"],
          "serve_prefill_tflops": serve_fwd["tflops"],
@@ -4140,9 +4730,13 @@ def main() -> int:
                                   dft["serve"]["launches"]["flash_decode"]},
          "padded_d64_worst_err_over_tol":
              dec["padded_d64"]["worst_err_over_tol"],
-         "max_abs_err": max(r["max_abs_err"] for r in dec.values()),
-         "worst_err_over_tol": max(r["worst_err_over_tol"]
-                                   for r in dec.values()),
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            (*dec.values(), *wide["decode"].values())),
+         "worst_err_over_tol": max(r["worst_err_over_tol"] for r in
+                                   (*dec.values(), *wide["decode"].values())),
+         "wide_d256_tq1": {k: wide["decode"]["tq1"][k] for k in (
+             "ms", "device_ms", "plain_ms", "library_ms", "library",
+             "bound_ms")},
          "ms": main_dec["ms"], "plain_ms": main_dec["plain_ms"],
          "bound_ms": main_dec["bound_ms"],
          "bound_by": main_dec["bound_by"],
@@ -4160,8 +4754,9 @@ def main() -> int:
             "name": f"flash_bwd_{name}", "route": "cuda",
             "source": "tpu_operator_torch/kernels/csrc/flash_bwd.cu",
             "replaces": f"tpu_operator/payload/flash_attention.py:{line}",
-            "launches": pipe_launches[f"flash_bwd_{name}"],
+            "launches": slice_launches[f"flash_bwd_{name}"],
             "launches_by_path": {
+                **slice_by_path[f"flash_bwd_{name}"],
                 **pipe_by_path[f"flash_bwd_{name}"],
                 "train_sp": sp["launches"][f"flash_bwd_{name}"],
                 "train": tr["launches"][f"flash_bwd_{name}"],
@@ -4176,20 +4771,36 @@ def main() -> int:
                 "profile_directive": prf["launches"][f"flash_bwd_{name}"],
                 **{f"remat_{k}": r["launches"][f"flash_bwd_{name}"]
                    for k, r in rmt["runs"].items()}},
-            "max_abs_err": bwd_err[name],
-            "worst_err_over_tol": bwd_excess_of[name],
-            "ms": main_bwd[f"ms_{name}"],
-            "plain_ms": main_bwd["plain_ms"],
-            "bound_ms": main_bwd[f"bound_ms_{name}"],
-            "bound_by": main_bwd[f"bound_by_{name}"],
-            "library_ms": main_bwd["library_ms"],
-            "tflops": main_bwd.get(f"tflops_{name}"),
-            "share_of_bound": main_bwd.get(f"share_of_bound_{name}"),
-            "shape": "train B8 T2048",
+            "max_abs_err": max(bwd_err[name], *(
+                r[n]["max_abs_err"] for r in wide["bwd"].values()
+                for n in (("dq",) if name == "dq" else ("dk", "dv")))),
+            "worst_err_over_tol": max(bwd_excess_of[name], *(
+                r[n]["worst_err_over_tol"] for r in wide["bwd"].values()
+                for n in (("dq",) if name == "dq" else ("dk", "dv")))),
+            "ms": tp_bwd[f"ms_{name}"],
+            "plain_ms": tp_bwd["plain_ms"],
+            "bound_ms": tp_bwd[f"bound_ms_{name}"],
+            "bound_by": tp_bwd[f"bound_by_{name}"],
+            "library_ms": tp_bwd["library_ms"],
+            "library": tp_bwd["library"],
+            "share_of_bound": tp_bwd.get(f"share_of_bound_{name}"),
+            "shape": "tensor_parallel shard B16 T2048 H1 D1024 causal "
+                     "(wide path; dkv's is two kernels, dK's and dV's)",
             "plain_ms_is": "_bwd_ref: dq, dk and dv together",
-            "library_ms_is": main_bwd["library_ms_is"],
-            "pair_ms": main_bwd["ms_pair"],
-            "pair_bound_ms": main_bwd["bound_ms_pair"],
+            "library_ms_is": tp_bwd["library_ms_is"],
+            "pair_ms": tp_bwd["ms_pair"],
+            "pair_bound_ms": tp_bwd["bound_ms_pair"],
+            "wide_gqa_d256": {k: wide["bwd"]["gqa_d256"][k] for k in (
+                f"ms_{name}", f"bound_ms_{name}", "plain_ms", "library_ms",
+                "library")},
+            "train_shape": "train B8 T2048",
+            "train_ms": main_bwd[f"ms_{name}"],
+            "train_plain_ms": main_bwd["plain_ms"],
+            "train_bound_ms": main_bwd[f"bound_ms_{name}"],
+            "train_library_ms": main_bwd["library_ms"],
+            "train_tflops": main_bwd.get(f"tflops_{name}"),
+            "train_share_of_bound": main_bwd.get(f"share_of_bound_{name}"),
+            "train_pair_ms": main_bwd["ms_pair"],
             "sp_ring_shape": "B2 Tq=Tk=2048 H16 KVH4, striped (1, 0, 4), "
                              "given D, f32 grads",
             "sp_ring_ms": ring_bwd[f"ms_{name}"],
@@ -4222,14 +4833,18 @@ def main() -> int:
         "name": "flash_merge", "route": "cuda",
         "source": "tpu_operator_torch/kernels/csrc/flash_merge.cu",
         "replaces": "tpu_operator/payload/flash_attention.py:287",
-        "launches": sp["launches"]["flash_merge"],
+        "launches": slice_launches["flash_merge"],
         "launches_by_path": {
+            **slice_by_path["flash_merge"],
             "train_sp": sp["launches"]["flash_merge"],
             "train": tr["launches"]["flash_merge"],
             "ring_check": rng["striped"]["launches"]["flash_merge"]},
-        "max_abs_err": max(r["max_abs_err_o"] for r in mrg.values()),
-        "worst_err_over_tol": max(r["worst_err_over_tol_o"]
-                                  for r in mrg.values()),
+        "max_abs_err": max(r["max_abs_err_o"] for r in
+                           (*mrg.values(), *wide["merge"].values())),
+        "worst_err_over_tol": max(r["worst_err_over_tol_o"] for r in
+                                  (*mrg.values(), *wide["merge"].values())),
+        "wide_ring_d256": {k: wide["merge"]["ring_d256"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "share_of_bound")},
         "ms": main_mrg["ms"], "plain_ms": main_mrg["plain_ms"],
         "bound_ms": main_mrg["bound_ms"], "bound_by": main_mrg["bound_by"],
         "library_ms": None, "library": main_mrg["library"],

@@ -2,7 +2,7 @@
 
 K1 and K2 are built for head dims 64 and 128, K3 and K4 for 128
 (``flash_attention.KERNEL_HEAD_DIMS``). The CUDA wrappers run any other
-head dim up to 128 through ``flash_attention.at_kernel_head_dim``: q / k
+head dim through ``flash_attention.at_kernel_head_dim``: q / k
 / v (and dO, O, the merge carry's o) zero-padded to the next size the
 kernel is built for, the softmax scale of the true head dim, the outputs
 cut back. The kernels cannot run here, so the same helper drives each
@@ -14,8 +14,8 @@ wrong scale moves the output by O(10%), a column left in by O(1)).
 
 The port's plain attention at head dims 32 and 64 is also held to the JAX
 ``flash_attention`` (its Pallas kernels in interpret mode) at 2e-5, the
-bound of ``tests/test_torch_flash_attention.py``. A head dim above 128
-raises, naming the ROADMAP entry that records it.
+bound of ``tests/test_torch_flash_attention.py``. Head dims above 128 (the
+kernels' wide path) are held in ``tests/test_torch_wide_heads.py``.
 """
 
 import numpy as np
@@ -80,13 +80,20 @@ def _decode_plain(q, k, v, lengths, *, scale):
 
 def test_kernel_head_dims():
     """The size each kernel runs at: K1 / K2 natively at 64 and 128, the
-    next one up between; K3 / K4 at 128."""
+    next one up between; K3 / K4 at 128; above 128 every kernel's wide
+    path at the next multiple of 128."""
     for d, size in ((1, 64), (16, 64), (32, 64), (64, 64), (65, 128),
                     (96, 128), (128, 128)):
         assert tfa.kernel_head_dim("flash_fwd", d) == size
         assert tfa.kernel_head_dim("flash_bwd", d) == size
         assert tfa.kernel_head_dim("flash_decode", d) == 128
         assert tfa.kernel_head_dim("flash_merge", d) == 128
+    for d, size in ((129, 256), (160, 256), (192, 256), (256, 256),
+                    (1000, 1024), (1024, 1024), (4096, 4096)):
+        for name in tfa.KERNEL_HEAD_DIMS:
+            assert tfa.kernel_head_dim(name, d) == size
+    with pytest.raises(ValueError, match="positive"):
+        tfa.kernel_head_dim("flash_fwd", 0)
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
@@ -189,15 +196,3 @@ def test_plain_attention_matches_jax_at_head_dim(monkeypatch, d):
     (got * w).sum().backward()
     for name, x, jg in zip("qkv", (tq, tk, tv), jgrads):
         _close(x.grad, jg, JAX_TOL)
-
-
-def test_head_dim_above_128_raises_naming_the_roadmap_entry():
-    calls = []
-    for name in tfa.KERNEL_HEAD_DIMS:
-        with pytest.raises(ValueError, match="ROADMAP Queue C 1"):
-            tfa.kernel_head_dim(name, 160)
-        q = torch.zeros(1, 4, 2, 160)
-        with pytest.raises(ValueError, match="ROADMAP Queue C 1"):
-            tfa.at_kernel_head_dim(name, lambda *a, **kw: calls.append(a),
-                                   (q, q, q))
-    assert not calls

@@ -21,6 +21,10 @@ a timeout of its own. Each worker:
   drain agreement over the gloo group beside it) and hashes its params;
 - process 0 then trains the same config with the whole ring on its card
   (P = 1, no collective) for the loss comparison.
+
+Beside it, a two-card run (``pair_runs``, two cards or more): tensor
+parallelism and Ulysses over NCCL, one shard a card, against one card
+holding both shards.
 """
 
 import json
@@ -87,7 +91,7 @@ SCRIPT = textwrap.dedent('''
         xs = [torch.randn(1, 4096, hh, 128, generator=gen,
                           device="cuda").bfloat16() for hh in (16, 4, 4, 16)]
         lo = mesh.seq_rank * 1024
-        res = {"mesh": list(mesh), "device": str(torch.cuda.current_device())}
+        res = {"mesh": list(mesh)[:4], "device": str(torch.cuda.current_device())}
         for layout in ("contiguous", "striped"):
             stripe = layout == "striped"
             perm = torch.from_numpy(
@@ -193,4 +197,125 @@ def test_losses_match_one_process_holding_the_whole_ring(runs):
     for _code, res in runs.values():
         assert len(res["losses"]) == len(one) == 2
         for got, want in zip(res["losses"], one):
+            assert abs(got - want) <= 1e-2
+
+
+# --- two cards: tensor parallelism and Ulysses over NCCL ------------------------
+#
+#     python -m pytest tests/test_torch_multicard.py --noconftest -m cuda -q -s
+#
+# on a machine with two or more cards. Two workers, one card each: the
+# long-context flagship's widths (2 layers, T 4096, 16 / 4 heads) with
+# --tensor-parallel 2 (one model shard a card: the row-parallel sums and
+# the gradients entering each shard over NCCL) and with --seq-parallel 2
+# --sp-mode ulysses (the head-scatter all-to-all over NCCL), 2 steps each;
+# worker 0 then runs both configs with both shards on its own card.
+
+PAIR = 2
+
+PAIR_SCRIPT = textwrap.dedent('''
+    import json, sys
+    import torch
+    sys.path.insert(0, sys.argv[1])
+    from tpu_operator_torch.payload import bootstrap, train, transformer
+
+    out = sys.argv[2]
+    BASE = ["--steps", "2", "--batch", "2", "--seq-len", "4096",
+            "--vocab", "32768", "--dim", "2048", "--heads", "16",
+            "--kv-heads", "4", "--layers", "2", "--seed", "0",
+            "--log-every", "0", "--device", "cuda", "--checkpoint-dir", "",
+            "--profile-dir", ""]
+    CONFIGS = {"tp": ["--tensor-parallel", "2"],
+               "ulysses": ["--seq-parallel", "2", "--sp-mode", "ulysses"]}
+
+    def train_run(flags, mesh):
+        args = transformer.parse_args(BASE + flags)
+        built = transformer.build(args, mesh=mesh)
+        losses = []
+
+        def step(batch):
+            metrics = built.step(batch)
+            losses.append(metrics["loss"])
+            return metrics
+
+        if mesh.world > 1:
+            train.train_loop(step, built.batches, args.steps,
+                             device=built.device, heartbeat=None,
+                             steptrace=None)
+        else:
+            for _ in range(args.steps):
+                (tokens,) = next(built.batches)
+                step(torch.from_numpy(tokens).to(built.device))
+        return [float(x) for x in losses]
+
+    def payload(info):
+        rank = info.process_id
+        res = {}
+        for name, flags in CONFIGS.items():
+            args = transformer.parse_args(BASE + flags)
+            mesh = transformer.make_lm_mesh(
+                seq_parallel=args.seq_parallel,
+                tensor_parallel=args.tensor_parallel)
+            res[name] = train_run(flags, mesh)
+            if rank == 0:
+                res[name + "_one_card"] = train_run(
+                    flags, transformer.make_lm_mesh(
+                        1, 0, args.seq_parallel, args.tensor_parallel))
+        with open(f"{out}/pair{rank}.json", "w") as f:
+            json.dump(res, f)
+
+    sys.exit(bootstrap.run_payload(payload, device="cuda"))
+''')
+
+
+@pytest.fixture(scope="module")
+def pair_runs(tmp_path_factory):
+    """rank -> (exit code, result) of the two workers."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < PAIR:
+        pytest.skip(f"needs {PAIR} CUDA cards")
+    from tpu_operator_torch.kernels import build
+
+    build.library()
+    out = tmp_path_factory.mktemp("pair")
+    port = _free_port()
+    procs = []
+    for rank in range(PAIR):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_PROCESS_ID=str(rank), JAX_NUM_PROCESSES=str(PAIR))
+        env.pop("TPUJOB_STATUS_URL", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", PAIR_SCRIPT, str(REPO), str(out)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+        pytest.fail(f"the two-card run did not finish in {TIMEOUT} s")
+    result = {}
+    for rank, proc in enumerate(procs):
+        path = out / f"pair{rank}.json"
+        assert path.exists(), logs[rank][-3000:]
+        result[rank] = (proc.returncode, json.loads(path.read_text()))
+    print(json.dumps({str(r): v for r, v in result.items()}))
+    return result
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["tp", "ulysses"])
+def test_two_cards_match_one_card_holding_both_shards(pair_runs, config):
+    """Each shard's kernels and products run at the same shapes on two
+    cards as on one; the sums over NCCL and the all-to-all move the same
+    values. cuBLAS may still pick other algorithms per process, so the
+    losses are held to 1e-2 a step, the loss tolerance chip_smoke.py
+    states for bf16 logits over thousands of targets (a wrong shard, split
+    or exchange moves it by O(1))."""
+    one = pair_runs[0][1][config + "_one_card"]
+    for code, res in pair_runs.values():
+        assert code == 0
+        assert len(res[config]) == len(one) == 2
+        for got, want in zip(res[config], one):
             assert abs(got - want) <= 1e-2

@@ -97,7 +97,7 @@ SCRIPT = textwrap.dedent('''
         finally:
             with open(tag + ".json", "w") as f:
                 json.dump({"losses": losses, "drain_steps": len(calls),
-                           "mesh": list(mesh)}, f)
+                           "mesh": list(mesh)[:4]}, f)
 
     sys.exit(bootstrap.run_payload(payload, device="cpu"))
 ''')

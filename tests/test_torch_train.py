@@ -284,14 +284,11 @@ def test_build_without_cuda_raises(monkeypatch):
         transformer.build(args)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--seq-parallel", "2", "--sp-mode", "ulysses"],
-    ["--tensor-parallel", "2"], ["--sp-mode", "ulysses"],
-    ["--split-qkv", "on"], ["--fsdp"],
-], ids=lambda f: f[0])
+@pytest.mark.parametrize("flag", [["--fsdp"]], ids=lambda f: f[0])
 def test_unported_flags_raise(flag):
-    """Sequence parallelism itself is ported (tests/test_torch_ring_
-    attention.py); Ulysses, its other strategy, is not."""
+    """Sequence parallelism (ring and Ulysses), tensor parallelism and
+    --split-qkv are ported (tests/test_torch_ring_attention.py,
+    test_torch_ulysses.py, test_torch_tensor_parallel.py); FSDP is not."""
     args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.build(args)

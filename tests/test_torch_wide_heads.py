@@ -1,0 +1,189 @@
+"""Head dims above 128 (the kernels' wide path), on the CPU.
+
+Above 128 every kernel runs at the next multiple of 128
+(``flash_attention.kernel_head_dim``): a grid axis over 128-column blocks
+of the output, each block summing the scores over the head dim's chunks
+(``kernels/csrc/flash_wide.cuh``), and the backward kernels take D =
+rowsum(dO O) given, since it spans every block. The kernels cannot run
+here, so:
+
+- the port's plain attention (its forward and its autograd through the
+  plain backward) at head dims 192, 256 and 1024 is held to the JAX
+  ``flash_attention`` (its Pallas kernels in interpret mode, 64 x 64
+  blocks) at 2e-5 of the largest value, the bound of
+  ``tests/test_torch_flash_attention.py``;
+- the CUDA wrappers' own routing (``_flash_fwd_cuda``, ``_flash_bwd_cuda``,
+  ``_flash_merge_cuda``, ``_flash_decode_cuda``) runs on CPU tensors with
+  the launch swapped for the plain version and the device check for a
+  no-op: each launch must see the padded head dim (a multiple of 128), the
+  true head dim's scale and, for the backward, D given; its result must
+  be the plain version's at the true head dim within 1e-5 of the largest
+  value (f32 arithmetic from bf16 inputs; only the summation order moves:
+  a wrong scale moves O by O(10%), a dropped column block by O(1)), and
+  a bf16 output also within one bf16 ulp, 2^-7 of its value.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tpu_operator.payload import flash_attention as jfa
+from tpu_operator_torch.payload import flash_attention as tfa
+
+WIDE_DIMS = (192, 256, 1024)
+JAX_TOL = 2e-5
+ROUTE_TOL = 1e-5
+
+
+def _inputs(seed, b, tq, h, kvh, d, tk=None, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    tk = tq if tk is None else tk
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(dtype))
+                 for shape in ((b, tq, h, d), (b, tk, kvh, d),
+                               (b, tk, kvh, d), (b, tq, h, d)))
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale)
+
+
+def _close_bf16(got, want):
+    """bf16 outputs: two roundings of f32 values that differ by summation
+    order can land one bf16 ulp apart, up to 2^-7 of the value; on top of
+    ROUTE_TOL."""
+    got, want = got.float().numpy(), want.float().numpy()
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7,
+                               atol=ROUTE_TOL * scale)
+
+
+def _t(x):
+    """[B,T,H,D] <-> [B,H,T,D]."""
+    return x.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_plain_attention_matches_jax_at_wide_head_dim(monkeypatch, d):
+    """O, L and the q / k / v gradients of sum(O * w), GQA group 2, T 128
+    over 64 x 64 blocks, against the JAX flash_attention in interpret
+    mode."""
+    monkeypatch.setenv("TPU_OPERATOR_FWD_BLOCKS", "64,64")
+    q, k, v, w = _inputs(500 + d, 1, 128, 4, 2, d)
+    jq, jk, jv, jw = (jnp.asarray(x.numpy()) for x in (q, k, v, w))
+    want = jfa.flash_attention(jq, jk, jv, causal=True, use_pallas=True)
+
+    def jloss(a, b, c):
+        return jnp.sum(jfa.flash_attention(a, b, c, causal=True,
+                                           use_pallas=True) * jw)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    got, lse = tfa.flash_attention_with_lse(tq, tk, tv, causal=True)
+    _close(got.detach(), want, JAX_TOL)
+    qt, kt, vt = (jnp.einsum("bthd->bhtd", x) for x in (jq, jk, jv))
+    _want_o, want_l = jfa._attn_impl(True, True, qt, kt, vt)
+    _close(lse.detach(), want_l, JAX_TOL)
+    (got * w).sum().backward()
+    for x, jg in zip((tq, tk, tv), jgrads):
+        _close(x.grad, jg, JAX_TOL)
+
+
+@pytest.fixture
+def plain_launches(monkeypatch):
+    """The CUDA wrappers on CPU tensors: the device check a no-op, each
+    launch the plain version in the launch's argument layout, recording
+    (kernel, head dim it ran at, scale, D given)."""
+    seen = []
+    monkeypatch.setattr(tfa, "_check_kernel_inputs", lambda *a: None)
+
+    def fwd(q, k, v, causal, *, scale):
+        seen.append(("flash_fwd", q.shape[-1], scale, None))
+        out, lse = tfa._attn_ref(_t(q), _t(k), _t(v), causal, scale)
+        return _t(out).contiguous(), lse
+
+    def bwd(q, k, v, g, out, L, D, offsets, causal, grad_dtype, *, scale):
+        seen.append(("flash_bwd", q.shape[-1], scale, D is not None))
+        if D is None:
+            D = tfa.row_dot(g, out)
+        grads = tfa._bwd_ref(_t(q), _t(k), _t(v), _t(g), L, D, offsets,
+                             causal, scale)
+        return tuple(_t(x).to(grad_dtype).contiguous() for x in grads)
+
+    def merge(q, k, v, o, l, m, offsets, causal, *, scale):
+        seen.append(("flash_merge", q.shape[-1], scale, None))
+        return tfa._merge_ref(_t(q), _t(k), _t(v), o, l, m, offsets, causal,
+                              scale)
+
+    def decode(q, k, v, lengths, *, scale):
+        seen.append(("flash_decode", q.shape[-1], scale, None))
+        return tfa._decode_ref(q, k, v, lengths, scale)
+
+    monkeypatch.setattr(tfa, "_fwd_launch", fwd)
+    monkeypatch.setattr(tfa, "_bwd_launch", bwd)
+    monkeypatch.setattr(tfa, "_merge_launch", merge)
+    monkeypatch.setattr(tfa, "_decode_launch", decode)
+    return seen
+
+
+def _bf16(*xs):
+    return tuple(x.bfloat16() for x in xs)
+
+
+@pytest.mark.parametrize("d", (192, 256, 1000))
+def test_forward_route_pads_to_a_multiple_of_128(plain_launches, d):
+    q, k, v, _g = _bf16(*_inputs(600 + d, 2, 24, 4, 2, d))
+    out, lse = tfa._flash_fwd_cuda(q, k, v, True)
+    assert plain_launches == [("flash_fwd", -(-d // 128) * 128, d ** -0.5,
+                               None)]
+    want, want_l = tfa._attn_ref(_t(q), _t(k), _t(v), True)
+    assert out.shape == q.shape
+    _close_bf16(out, _t(want))
+    _close(lse, want_l, ROUTE_TOL)
+
+
+@pytest.mark.parametrize("d", (192, 256, 1000))
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_d", "given_d"])
+def test_backward_route_takes_d_given(plain_launches, d, fused):
+    """Fused D requested or not, the wide launch gets D = rowsum(dO O) of
+    the true head dim, given; GQA group 2, offsets with a stride."""
+    q, k, v, g = _bf16(*_inputs(700 + d, 2, 24, 4, 2, d, tk=40))
+    out = torch.from_numpy(np.random.default_rng(d).normal(
+        size=q.shape).astype(np.float32)).bfloat16()
+    L = torch.from_numpy(np.random.default_rng(d + 1).normal(
+        size=(2, 4, 24, 1)).astype(np.float32)) + 3.0
+    D = tfa.row_dot(g, out)
+    offsets = (16, 0, 2)
+    got = tfa._flash_bwd_cuda(q, k, v, g, L, out if fused else None,
+                              None if fused else D, offsets, True,
+                              torch.float32)
+    assert plain_launches == [("flash_bwd", -(-d // 128) * 128, d ** -0.5,
+                               True)]
+    want = tfa._bwd_ref(_t(q), _t(k), _t(v), _t(g), L, D, offsets, True)
+    for a, b in zip(got, want):
+        _close(a, _t(b), ROUTE_TOL)
+
+
+@pytest.mark.parametrize("d", (192, 256))
+def test_merge_and_decode_routes(plain_launches, d):
+    """K4 folding a block into a live carry, K3 over a cache with ragged
+    lengths (0 included), both at the padded head dim."""
+    q, k, v, _g = _bf16(*_inputs(800 + d, 1, 32, 4, 2, d))
+    carry = tfa._merge_ref(_t(q), _t(k), _t(v), *tfa.init_carry(1, 4, 32, d),
+                           (32, 0, 1), True)
+    got = tfa._flash_merge_cuda(q, k, v, carry, (32, 32, 1), True)
+    want = tfa._merge_ref(_t(q), _t(k), _t(v), *carry, (32, 32, 1), True)
+    for a, b in zip(got, want):
+        _close(a, b, ROUTE_TOL)
+    q, k, v, _g = _bf16(*_inputs(900 + d, 3, 2, 8, 2, d, tk=48))
+    lengths = torch.tensor([0, 17, 48], dtype=torch.int32)
+    out = tfa._flash_decode_cuda(q, k, v, lengths)
+    _close_bf16(out, tfa._decode_ref(q, k, v, lengths))
+    size = -(-d // 128) * 128
+    assert [x[:3] for x in plain_launches] == [
+        ("flash_merge", size, d ** -0.5), ("flash_decode", size, d ** -0.5)]

@@ -31,7 +31,8 @@
 // and 128 (the entry points pick by `head_dim`; the wrapper zero-pads any
 // other D <= 128 to the next of them). At D 64 every tile is one 64-column
 // half of the swizzle, S and dP take 4 k16 steps instead of 8, and dQ, dK
-// and dV are 64 columns (32 accumulator registers a thread each).
+// and dV are 64 columns (32 accumulator registers a thread each). Above
+// 128, at any multiple of 128, the wide kernels below run instead.
 //
 // Every accumulator has exactly one owning CTA, so there are no atomics
 // and two launches give bit-equal results. Both kernels are one warpgroup
@@ -434,13 +435,343 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// --- head dims above 128 ------------------------------------------------------
+//
+// Any multiple of 128 (flash_wide.cuh's design, transposed as above): a
+// grid axis over the 128-column blocks of the output (dQ in dq; dK and dV
+// in dkv; blockIdx.y = KV head x nc + column block cb). Every CTA sums the
+// full S = sum_c Q_c K_c^T and dP = sum_c dO_c V_c^T over the head dim's
+// chunks, streaming one chunk of each operand per step through a 2-stage
+// cp.async ring in an order that ends on chunk cb, so the last step's
+// stage already holds the operand of the output product (K_cb for dQ;
+// Q_cb and dO_cb for dK and dV). D = rowsum(dO O) spans the whole head
+// dim, so these kernels always read a given D. Like the forward, they
+// recompute S and dP once per column block (ROADMAP Queue B). dkv runs as
+// two kernels, dK's and dV's (below).
+
+constexpr int CD = 128;                      // head-dim columns of one chunk
+constexpr int WIDE_PANEL = ROWS * CD;        // one chunk of a 64-row panel
+constexpr int WIDE_KEYS = BK * CD;           // one chunk of a 64-key tile
+constexpr int WIDE_STAGE = 2 * WIDE_PANEL + 2 * WIDE_KEYS;
+// dq: two stages of (Q_c, dO_c, K_c, V_c), then the panel's L and D rows.
+constexpr size_t WIDE_DQ_SMEM = 1024 + 2 * 2 * (size_t)WIDE_STAGE + 2 * ROWS * 4;
+// dkv: two stages of (K_c, V_c, Q_c, dO_c), then two stages of L and D rows.
+constexpr size_t WIDE_DKV_SMEM = 1024 + 2 * 2 * (size_t)WIDE_STAGE + 2 * 2 * ROWS * 4;
+
+template <typename OutT>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         const float* __restrict__ L, const float* __restrict__ dvec,
+                         OutT* __restrict__ dq, int Tq, int Tk, int H, int KVH, int group,
+                         int nc, int causal, int q_off, int k_off, int stride, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* base = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  float* sL = reinterpret_cast<float*>(base + 2 * WIDE_STAGE);
+  float* sD = sL + ROWS;
+
+  const int D = nc * CD;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int blk_q = ROWS / group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * blk_q;  // heaviest first
+  const int kvh = blockIdx.y / nc;
+  const int cb = blockIdx.y - kvh * nc;
+  const int b = blockIdx.z;
+
+  const int q_last = min(q0 + blk_q, Tq) - 1;
+  const int q_hi = q_off + stride * q_last;
+  int n_tiles = (Tk + BK - 1) / BK;
+  if (causal)
+    while (n_tiles > 0 && k_off + stride * (n_tiles - 1) * BK > q_hi) --n_tiles;
+  const int steps = n_tiles * nc;
+
+  // Step j: key tile j / nc, chunk (cb + 1 + j % nc) % nc (cb last).
+  auto load_step = [&](int j) {
+    const int kt = j / nc, i = j - kt * nc;
+    const int col = ((cb + 1 + i) % nc) * CD;
+    bf16* sQ = base + (j & 1) * WIDE_STAGE;
+    auto panel_row = [&](const bf16* src) {
+      return [=](int r) -> const bf16* {
+        const int t = q0 + r / group;
+        return t < Tq ? src + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + col
+                      : nullptr;
+      };
+    };
+    const int k0 = kt * BK;
+    auto key_row = [&](const bf16* src) {
+      return [=](int r) -> const bf16* {
+        const int t = k0 + r;
+        return t < Tk ? src + (((size_t)b * Tk + t) * KVH + kvh) * D + col : nullptr;
+      };
+    };
+    load_tile<ROWS, NT>(sQ, tid, panel_row(q), q);
+    load_tile<ROWS, NT>(sQ + WIDE_PANEL, tid, panel_row(g), g);
+    load_tile<BK, NT>(sQ + 2 * WIDE_PANEL, tid, key_row(k), k);
+    load_tile<BK, NT>(sQ + 2 * WIDE_PANEL + WIDE_KEYS, tid, key_row(v), v);
+  };
+  if (steps > 0) load_step(0);
+  cp_async_commit();
+
+  // Thread pair (2r, 2r + 1) stages panel row r's L and D.
+  {
+    const int r = tid >> 1;
+    const int t = q0 + r / group;
+    const size_t row = ((size_t)b * H + kvh * group + r % group) * Tq + t;
+    if ((tid & 1) == 0) sL[r] = t < Tq ? L[row] : 0.f;
+    else sD[r] = t < Tq ? dvec[row] : 0.f;
+  }
+  __syncthreads();
+
+  const int r_a = (tid >> 5) * 16 + (lane >> 2);
+  const int r_b = r_a + 8;
+  const int t_a = q0 + r_a / group, t_b = q0 + r_b / group;
+  const float l2_a = sL[r_a] * LOG2E, l2_b = sL[r_b] * LOG2E;
+  const float d_a = sD[r_a], d_b = sD[r_b];
+  const float c = scale * LOG2E;
+  const int col0 = 2 * (lane & 3);
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float s[32], dp[32];
+
+  for (int j = 0; j < steps; ++j) {
+    const int st = j & 1;
+    if (j + 1 < steps) load_step(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step j landed for this thread's copies
+    fence_proxy_async();
+    __syncthreads();     // ... and for every thread's
+    const bf16* sQ = base + st * WIDE_STAGE;
+    const bf16* sG = sQ + WIDE_PANEL;
+    const bf16* sK = sG + WIDE_PANEL;
+    const bf16* sV = sK + WIDE_KEYS;
+    const int kt = j / nc, i = j - kt * nc;
+
+    wgmma_fence();
+    gemm_nt_64x64_chunk(s, sQ, ROWS, sK, BK, i > 0);
+    gemm_nt_64x64_chunk(dp, sG, ROWS, sV, BK, i > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    if (i == nc - 1) {
+      const int k0 = kt * BK;
+      const int k_last = k_off + stride * (min(k0 + BK, Tk) - 1);
+      const bool masked = q0 + blk_q > Tq || k0 + BK > Tk ||
+                          (causal && q_off + stride * q0 < k_last);
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * x + col0 + e;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int y = 4 * x + 2 * h + e;
+            float p = exp2f(fmaf(s[y], c, -(h ? l2_b : l2_a)));
+            if (masked) {
+              const int t = h ? t_b : t_a;
+              bool valid = t < Tq && kpos < Tk;
+              if (causal) valid = valid && q_off + stride * t >= k_off + stride * kpos;
+              p = valid ? p : 0.f;
+            }
+            dp[y] = p * (dp[y] - (h ? d_b : d_a));
+          }
+        }
+      uint32_t pd[16];
+      pack_scores(pd, dp);
+
+      wgmma_fence();
+      gemm_rs_64xN<CD>(acc, pd, sK, BK);  // K_cb: this step's chunk is cb
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncthreads();  // every warp is done with stage st
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r_b : r_a;
+    const int t = h ? t_b : t_a;
+    if (t >= Tq) continue;
+    OutT* row = dq + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + cb * CD;
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const int y = 4 * x + 2 * h;
+      store2(row + 8 * x + col0, acc[y] * scale, acc[y + 1] * scale);
+    }
+  }
+}
+
+// dkv at head dims above 128: one kernel for dK (DK, S and dP) and one for
+// dV (S only), each holding one 64 x 128 f32 accumulator, so neither
+// spills: with both accumulators and both score tiles live across the
+// chunk steps, one kernel would need more than 255 registers a thread.
+template <typename OutT, bool DK>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ g,
+                          const float* __restrict__ L, const float* __restrict__ dvec,
+                          OutT* __restrict__ dout, int Tq, int Tk, int H, int KVH, int group,
+                          int nc, int causal, int q_off, int k_off, int stride, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* base = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  float* sStats = reinterpret_cast<float*>(base + 2 * WIDE_STAGE);  // stage s: L, D
+
+  const int D = nc * CD;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int blk_q = ROWS / group;
+  const int k0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y / nc;
+  const int cb = blockIdx.y - kvh * nc;
+  const int b = blockIdx.z;
+
+  const int n_qt = (Tq + blk_q - 1) / blk_q;
+  const int k_lo = k_off + stride * k0;
+  int qt0 = 0;
+  if (causal)
+    while (qt0 < n_qt && q_off + stride * (min((qt0 + 1) * blk_q, Tq) - 1) < k_lo) ++qt0;
+  const int steps = (n_qt - qt0) * nc;
+
+  // Step j: q-tile qt0 + j / nc, chunk (cb + 1 + j % nc) % nc (cb last):
+  // K_c and Q_c (for S), for dK also V_c and dO_c (for dP); the q-tile's
+  // last step also brings dO_cb (dV's operand) and the L and D rows.
+  auto load_step = [&](int j) {
+    const int qi = j / nc, i = j - qi * nc;
+    const int q0 = (qt0 + qi) * blk_q;
+    const int col = ((cb + 1 + i) % nc) * CD;
+    bf16* sK = base + (j & 1) * WIDE_STAGE;
+    auto key_row = [&](const bf16* src) {
+      return [=](int r) -> const bf16* {
+        const int t = k0 + r;
+        return t < Tk ? src + (((size_t)b * Tk + t) * KVH + kvh) * D + col : nullptr;
+      };
+    };
+    auto panel_row = [&](const bf16* src) {
+      return [=](int r) -> const bf16* {
+        const int t = q0 + r / group;
+        return t < Tq ? src + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + col
+                      : nullptr;
+      };
+    };
+    load_tile<BK, NT>(sK, tid, key_row(k), k);
+    if (DK) load_tile<BK, NT>(sK + WIDE_KEYS, tid, key_row(v), v);
+    load_tile<ROWS, NT>(sK + 2 * WIDE_KEYS, tid, panel_row(q), q);
+    if (DK || i == nc - 1)
+      load_tile<ROWS, NT>(sK + 2 * WIDE_KEYS + WIDE_PANEL, tid, panel_row(g), g);
+    if (i == nc - 1) {
+      // Thread i < 64 copies row i's L, thread 64 + i its D.
+      const int r = tid % ROWS;
+      const int t = q0 + r / group;
+      const size_t idx = ((size_t)b * H + kvh * group + r % group) * Tq + t;
+      const float* src = tid < ROWS ? L : dvec;
+      cp_async_4(sStats + 2 * (j & 1) * ROWS + tid, t < Tq ? src + idx : src, t < Tq);
+    }
+  };
+  if (steps > 0) load_step(0);
+  cp_async_commit();
+
+  const int kpos_a = k0 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int kpos_b = kpos_a + 8;
+  const int k_last = k_off + stride * (min(k0 + BK, Tk) - 1);
+  const float c = scale * LOG2E;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float s[32], dp[DK ? 32 : 1];
+
+  for (int j = 0; j < steps; ++j) {
+    const int st = j & 1;
+    if (j + 1 < steps) load_step(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step j landed for this thread's copies
+    fence_proxy_async();
+    __syncthreads();     // ... and for every thread's
+    const bf16* sK = base + st * WIDE_STAGE;
+    const bf16* sV = sK + WIDE_KEYS;
+    const bf16* sQ = sV + WIDE_KEYS;
+    const bf16* sG = sQ + WIDE_PANEL;
+    const int qi = j / nc, i = j - qi * nc;
+
+    wgmma_fence();
+    gemm_nt_64x64_chunk(s, sK, BK, sQ, ROWS, i > 0);
+    if constexpr (DK) gemm_nt_64x64_chunk(dp, sV, BK, sG, ROWS, i > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if constexpr (DK) fence_regs(dp);
+
+    if (i == nc - 1) {
+      const float* sL = sStats + 2 * st * ROWS;
+      const float* sD = sL + ROWS;
+      const int q0 = (qt0 + qi) * blk_q;
+      const bool masked = q0 + blk_q > Tq || k0 + BK > Tk ||
+                          (causal && q_off + stride * q0 < k_last);
+      // P^T = exp2(S^T scale log2e - L log2e); dK: dS^T = P^T (dP^T - D)
+      // in place of S^T.
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 8 * x + 2 * (lane & 3) + e;  // panel row (column of S^T)
+          const float l2 = sL[r] * LOG2E;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int y = 4 * x + 2 * h + e;
+            float p = exp2f(fmaf(s[y], c, -l2));
+            if (masked) {
+              const int t = q0 + r / group;
+              const int kpos = h ? kpos_b : kpos_a;
+              bool valid = t < Tq && kpos < Tk;
+              if (causal) valid = valid && q_off + stride * t >= k_off + stride * kpos;
+              p = valid ? p : 0.f;
+            }
+            if constexpr (DK) s[y] = p * (dp[y] - sD[r]);
+            else s[y] = p;
+          }
+        }
+      uint32_t pp[16];
+      pack_scores(pp, s);
+
+      wgmma_fence();
+      // This step's chunk is cb: dK += dS^T Q_cb, dV += P^T dO_cb.
+      gemm_rs_64xN<CD>(acc, pp, DK ? sQ : sG, ROWS);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncthreads();  // every warp is done with stage st
+  }
+  cp_async_wait<0>();
+
+  const int col0 = 2 * (lane & 3);
+  const float out_scale = DK ? scale : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = h ? kpos_b : kpos_a;
+    if (t >= Tk) continue;
+    OutT* row = dout + (((size_t)b * Tk + t) * KVH + kvh) * D + cb * CD;
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const int y = 4 * x + 2 * h;
+      store2(row + 8 * x + col0, acc[y] * out_scale, acc[y + 1] * out_scale);
+    }
+  }
+}
+
 template <auto kernel>
 cudaError_t prepare(size_t smem_bytes) {
   return set_smem_once<kernel>(smem_bytes, true);
 }
 
 bool shape_ok(int B, int Tq, int Tk, int H, int KVH, int head_dim, int stride) {
-  return (head_dim == 64 || head_dim == 128) && B > 0 && Tq > 0 && Tk > 0 && KVH > 0 &&
+  return (head_dim == 64 || head_dim % CD == 0) && head_dim > 0 && B > 0 && Tq > 0 && Tk > 0 && KVH > 0 &&
          H % KVH == 0 && ROWS % (H / KVH) == 0 && stride > 0;
 }
 
@@ -472,9 +803,49 @@ cudaError_t launch_dkv(dim3 grid, cudaStream_t s, const void* q, const void* k, 
   return cudaGetLastError();
 }
 
+template <typename OutT>
+cudaError_t launch_dq_wide(cudaStream_t s, const void* q, const void* k, const void* v,
+                           const void* g, const void* L, const void* dvec, void* dq, int B,
+                           int Tq, int Tk, int H, int KVH, int head_dim, int causal, int q_off,
+                           int k_off, int stride, float scale) {
+  cudaError_t err = prepare<flash_bwd_dq_wide_kernel<OutT>>(WIDE_DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  const int nc = head_dim / CD, blk_q = ROWS / (H / KVH);
+  dim3 grid((Tq + blk_q - 1) / blk_q, KVH * nc, B);
+  flash_bwd_dq_wide_kernel<OutT><<<grid, NT, WIDE_DQ_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
+      (const float*)dvec, (OutT*)dq, Tq, Tk, H, KVH, H / KVH, nc, causal, q_off, k_off, stride,
+      scale);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_dkv_wide(cudaStream_t s, const void* q, const void* k, const void* v,
+                            const void* g, const void* L, const void* dvec, void* dk, void* dv,
+                            int B, int Tq, int Tk, int H, int KVH, int head_dim, int causal,
+                            int q_off, int k_off, int stride, float scale) {
+  cudaError_t err = prepare<flash_bwd_dkv_wide_kernel<OutT, true>>(WIDE_DKV_SMEM);
+  if (err == cudaSuccess) err = prepare<flash_bwd_dkv_wide_kernel<OutT, false>>(WIDE_DKV_SMEM);
+  if (err != cudaSuccess) return err;
+  const int nc = head_dim / CD;
+  dim3 grid((Tk + BK - 1) / BK, KVH * nc, B);
+  flash_bwd_dkv_wide_kernel<OutT, true><<<grid, NT, WIDE_DKV_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
+      (const float*)dvec, (OutT*)dk, Tq, Tk, H, KVH, H / KVH, nc, causal, q_off, k_off, stride,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_wide_kernel<OutT, false><<<grid, NT, WIDE_DKV_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
+      (const float*)dvec, (OutT*)dv, Tq, Tk, H, KVH, H / KVH, nc, causal, q_off, k_off, stride,
+      scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry points (bound with ctypes); head_dim 64 or 128. dq: `o`
+// C entry points (bound with ctypes); head_dim 64, 128 or a multiple of
+// 128 above it (the wide kernels, which take a given D only). dq: `o`
 // non-null fuses D = rowsum(dO*O) and writes it to `d_out` ([B,H,Tq] f32)
 // for dkv; otherwise `dvec` ([B,H,Tq] f32) is D. dkv always reads D from `dvec`. `out_f32`
 // picks the gradient dtype (f32, else bf16). Each launches on `stream` and
@@ -487,9 +858,16 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
   if (!shape_ok(B, Tq, Tk, H, KVH, head_dim, stride) ||
       (o == nullptr ? dvec == nullptr : d_out == nullptr))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (head_dim > CD) {
+    if (o != nullptr) return (int)cudaErrorInvalidValue;
+#define WIDE_ARGS s, q, k, v, g, L, dvec, dq, B, Tq, Tk, H, KVH, head_dim, causal, q_off, k_off, \
+                  stride, scale
+    return (int)(out_f32 ? launch_dq_wide<float>(WIDE_ARGS) : launch_dq_wide<bf16>(WIDE_ARGS));
+#undef WIDE_ARGS
+  }
   const int blk_q = ROWS / (H / KVH);
   dim3 grid((Tq + blk_q - 1) / blk_q, KVH, B);
-  cudaStream_t s = (cudaStream_t)stream;
 #define DQ_ARGS grid, s, q, k, v, g, L, o, dvec, d_out, dq, Tq, Tk, H, KVH, causal, q_off, \
                 k_off, stride, scale
   cudaError_t err;
@@ -508,8 +886,15 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
                                   void* stream) {
   if (!shape_ok(B, Tq, Tk, H, KVH, head_dim, stride) || dvec == nullptr)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Tk + BK - 1) / BK, KVH, B);
   cudaStream_t s = (cudaStream_t)stream;
+  if (head_dim > CD) {
+#define WIDE_ARGS s, q, k, v, g, L, dvec, dk, dv, B, Tq, Tk, H, KVH, head_dim, causal, q_off, \
+                  k_off, stride, scale
+    return (int)(out_f32 ? launch_dkv_wide<float>(WIDE_ARGS)
+                         : launch_dkv_wide<bf16>(WIDE_ARGS));
+#undef WIDE_ARGS
+  }
+  dim3 grid((Tk + BK - 1) / BK, KVH, B);
 #define DKV_ARGS grid, s, q, k, v, g, L, dvec, dk, dv, Tq, Tk, H, KVH, causal, q_off, k_off, \
                  stride, scale
   cudaError_t err;

@@ -27,6 +27,10 @@
 // the next of them). At D 64 every tile is one 64-column half of the
 // swizzle, S = Q K^T takes 4 k16 steps instead of 8, and O is 64 columns
 // (32 accumulator registers a thread); everything else is as at D 128.
+// Above 128, at any multiple of 128, the entry point launches
+// flash_fwd_wide_kernel instead (flash_wide.cuh: a grid axis over
+// 128-column blocks of O, each block summing S over the head dim's
+// chunks; the wrapper zero-pads any other D above 128 to the next one).
 //
 // The design (hopper.cuh holds the wgmma and cp.async building blocks):
 // - one CTA per (q-tile, KV head, batch), heaviest causal q-tiles first;
@@ -58,6 +62,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 #include "smem_once.cuh"
 
@@ -257,10 +262,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
+// Head dims above 128, any multiple of 128: flash_wide.cuh's design (a
+// grid axis over 128-column blocks of O, the scores summed over the head
+// dim's chunks in every block).
+__global__ void __launch_bounds__(wide::NT, 1) flash_fwd_wide_kernel(wide::Args a) {
+  wide::attend<false>(a);
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                        int T, int H, int KVH, int head_dim, int causal, float scale,
+                        cudaStream_t stream) {
+  cudaError_t err = set_smem_once<flash_fwd_wide_kernel>(wide::SMEM_BYTES, true);
+  if (err != cudaSuccess) return err;
+  const int nc = head_dim / wide::CD;
+  wide::Args a{(const bf16*)q, (const bf16*)k, (const bf16*)v, nullptr, nullptr, nullptr,
+               o, (float*)lse, nullptr, T, T, H, KVH, H / KVH, nc, causal, 0, 0, 1, scale};
+  flash_fwd_wide_kernel<<<wide::grid(T, KVH, nc, B, H / KVH), wide::NT, wide::SMEM_BYTES,
+                          stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry point (bound with ctypes); head_dim 64 or 128. Launches on
-// `stream`; returns cudaGetLastError() after the launch (0 = launched).
+// C entry point (bound with ctypes); head_dim 64, 128 or a multiple of 128
+// above it. Launches on `stream`; returns cudaGetLastError() after the
+// launch (0 = launched).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                               void* lse, int B, int T, int H, int KVH, int head_dim,
                               int causal, float scale, void* stream) {
@@ -269,6 +295,8 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   cudaStream_t s = (cudaStream_t)stream;
   if (head_dim == 64) return (int)launch<64>(q, k, v, o, lse, B, T, H, KVH, causal, scale, s);
   if (head_dim == 128) return (int)launch<128>(q, k, v, o, lse, B, T, H, KVH, causal, scale, s);
+  if (head_dim > 128 && head_dim % wide::CD == 0)
+    return (int)launch_wide(q, k, v, o, lse, B, T, H, KVH, head_dim, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

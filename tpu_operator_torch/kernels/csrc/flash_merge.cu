@@ -63,6 +63,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 #include "smem_once.cuh"
 
@@ -70,7 +71,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;      // head dim (the wrapper checks it)
+constexpr int D = 128;      // head dim; any multiple above it: flash_wide.cuh
 constexpr int ROWS = 128;   // flattened q-slot x group panel rows
 constexpr int BK = 64;      // keys per tile
 constexpr int NT = 256;     // two warpgroups, 64 panel rows each
@@ -270,9 +271,17 @@ flash_merge_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// Head dims above 128, any multiple of 128: flash_wide.cuh's design (a
+// grid axis over 128-column blocks of the carry's o, the scores summed
+// over the head dim's chunks in every block; block 0 writes l and m).
+__global__ void __launch_bounds__(wide::NT, 1) flash_merge_wide_kernel(wide::Args a) {
+  wide::attend<true>(a);
+}
+
 }  // namespace
 
-// C entry point (bound with ctypes). Reads the carry (o_in, l_in, m_in)
+// C entry point (bound with ctypes); head_dim 128 or a multiple of 128
+// above it. Reads the carry (o_in, l_in, m_in)
 // and writes the merged one to (o_out, l_out, m_out), which must not
 // overlap it. Launches on `stream`; returns cudaGetLastError() after the
 // launch (0 = launched).
@@ -281,9 +290,21 @@ extern "C" int flash_merge_bf16(const void* q, const void* k, const void* v, con
                                 void* m_out, int B, int Tq, int Tk, int H, int KVH,
                                 int head_dim, int causal, int q_off, int k_off, int stride,
                                 float scale, void* stream) {
-  if (head_dim != D || B <= 0 || Tq <= 0 || Tk <= 0 || KVH <= 0 || H % KVH != 0 ||
-      ROWS % (H / KVH) != 0 || stride <= 0)
+  if (head_dim < D || head_dim % D != 0 || B <= 0 || Tq <= 0 || Tk <= 0 || KVH <= 0 ||
+      H % KVH != 0 || ROWS % (H / KVH) != 0 || stride <= 0)
     return (int)cudaErrorInvalidValue;
+  if (head_dim > D) {
+    cudaError_t err = set_smem_once<flash_merge_wide_kernel>(wide::SMEM_BYTES, true);
+    if (err != cudaSuccess) return (int)err;
+    const int nc = head_dim / wide::CD;
+    wide::Args a{(const bf16*)q,      (const bf16*)k,      (const bf16*)v,
+                 (const float*)o_in,  (const float*)l_in,  (const float*)m_in,
+                 o_out,               (float*)l_out,       (float*)m_out,
+                 Tq, Tk, H, KVH, H / KVH, nc, causal, q_off, k_off, stride, scale};
+    flash_merge_wide_kernel<<<wide::grid(Tq, KVH, nc, B, H / KVH), wide::NT,
+                              wide::SMEM_BYTES, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = set_smem_once<flash_merge_kernel>(SMEM_BYTES, true);
   if (err != cudaSuccess) return (int)err;
   const int group = H / KVH;

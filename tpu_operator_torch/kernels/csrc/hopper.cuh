@@ -207,6 +207,20 @@ __device__ __forceinline__ void gemm_nt_64x64(float (&s)[32], const __nv_bfloat1
   }
 }
 
+// S[64 x 64] (+)= A B^T over one 128-column chunk of a wider head dim:
+// gemm_nt_64x64<128> whose first k16 step adds to S when `accumulate` is
+// non-zero (the wide kernels sum S over the chunks of the head dim).
+__device__ __forceinline__ void gemm_nt_64x64_chunk(float (&s)[32], const __nv_bfloat16* a,
+                                                    int a_rows, const __nv_bfloat16* b,
+                                                    int b_rows, int accumulate) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int half = k >> 2, off = (k & 3) * 16;  // elements
+    wgmma_m64n64k16_ss(s, desc_kmajor(a + half * a_rows * HALF_COLS + off),
+                       desc_kmajor(b + half * b_rows * HALF_COLS + off), k > 0 ? 1 : accumulate);
+  }
+}
+
 // O[64 x N] += P[64 x 64] B[64 rows, N], N (the head dim) 64 or 128, P as
 // 4 k16 register fragments (from pack_scores), B a swizzled [b_rows][N]
 // tile whose contraction rows start at `b`.

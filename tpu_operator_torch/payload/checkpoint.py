@@ -105,6 +105,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_operator_torch.payload import bootstrap
+from tpu_operator_torch.payload.collectives import part_of
 
 log = logging.getLogger(__name__)
 
@@ -139,9 +140,12 @@ class Shards(NamedTuple):
     this one holding part ``rank``), each along dim 0 (a set of names:
     the MoE payload's expert stacks and their optimizer moments) or along
     the dim its name maps to (a dict: the pipeline payload's stage stacks,
-    ``[S, ...]`` or ``[V, S, ...]``). ``inner`` splits this one's parts
-    once more, over another group (the pipeline's ZeRO-1 moments over the
-    data group)."""
+    ``[S, ...]`` or ``[V, S, ...]``; a ``(dim, sections)`` pair splits
+    each of ``sections`` equal sections along dim, the part the
+    concatenation of this process's share of each: the transformer's
+    fused ``qkv`` under tensor parallelism). ``inner`` splits this one's
+    parts once more, over another group (the pipeline's ZeRO-1 moments
+    over the data group)."""
 
     names: Dict[str, Any]
     group: Any
@@ -149,11 +153,12 @@ class Shards(NamedTuple):
     rank: int
     inner: Optional["Shards"] = None
 
-    def _dims(self, fname: str) -> Dict[str, int]:
+    def _dims(self, fname: str) -> Dict[str, Tuple[int, int]]:
         split = self.names.get(fname, ())
         if isinstance(split, Mapping):
-            return dict(split)
-        return {name: 0 for name in split}
+            return {name: (d, 1) if isinstance(d, int) else tuple(d)
+                    for name, d in split.items()}
+        return {name: (0, 1) for name in split}
 
     def gather(self, parts: Dict[str, Dict[str, torch.Tensor]]
                ) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -168,10 +173,13 @@ class Shards(NamedTuple):
             whole = {}
             for name, t in tensors.items():
                 if name in dims:
+                    dim, sections = dims[name]
                     t = t.contiguous()
                     pieces = [torch.empty_like(t) for _ in range(self.size)]
                     dist.all_gather(pieces, t, group=self.group)
-                    t = torch.cat(pieces, dim=dims[name])
+                    t = torch.cat([torch.cat([p.chunk(sections, dim)[j]
+                                              for p in pieces], dim=dim)
+                                   for j in range(sections)], dim=dim)
                 whole[name] = t
             out[fname] = whole
         return out
@@ -183,7 +191,7 @@ class Shards(NamedTuple):
         out = {}
         for fname, tensors in saved.items():
             dims = self._dims(fname)
-            out[fname] = {n: (t.chunk(self.size, dim=dims[n])[self.rank]
+            out[fname] = {n: (part_of(t, *dims[n], self.size, self.rank)
                               if n in dims else t)
                           for n, t in tensors.items()}
         return self.inner.local(out) if self.inner is not None else out

@@ -1,0 +1,146 @@
+"""Autograd collectives shared by the parallel payloads.
+
+- :class:`AllToAll`: equal chunks of dim 0 to every process of a group,
+  chunk j to process j; its own transpose, so the backward is the same
+  exchange. The MoE payload's expert dispatch and the Ulysses head scatter
+  (``ulysses.py``) both run on it.
+- :class:`TPShards` and its three functions, the Megatron pairing of the
+  reference's ``lm_tp_shardings`` (``tpu_operator/payload/
+  transformer.py:256``): ``enter`` (identity forward, gradients summed
+  over the tensor-parallel group: before a column-parallel layer),
+  ``reduce`` (the row-parallel partial products summed: their forward
+  all-reduce, identity backward), both summing in shard order, and
+  ``gather`` (the column-parallel ``lm_head``'s vocab shards joined; the
+  backward keeps this process's).
+  ``N`` shards spread over the ``P`` processes of a group, ``N / P`` a
+  process; the shards a process holds run as units one after another, so
+  one process holding all ``N`` runs the same code as ``P`` processes, with
+  local sums in place of the collectives.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+class AllToAll(torch.autograd.Function):
+    """Equal chunks of dim 0 to every process of ``group``, chunk j to
+    process j; its own transpose, so the backward is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return exchange(grad, ctx.group), None
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    # Contiguous first: empty_like keeps a permuted input's strides, and
+    # the collective writes the output's storage in row-major order.
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def part_of(t: torch.Tensor, dim: int, sections: int, size: int,
+            rank: int) -> torch.Tensor:
+    """Part ``rank`` of ``size`` of a whole tensor split along ``dim``:
+    that share of each of ``sections`` equal sections, joined (3 for the
+    fused ``qkv``, whose q, k and v thirds each split by head)."""
+    parts = [x.chunk(size, dim=dim)[rank] for x in t.chunk(sections, dim=dim)]
+    return parts[0] if sections == 1 else torch.cat(parts, dim=dim)
+
+
+class TPShards(NamedTuple):
+    """This process's part of the tensor-parallel (``model``) axis:
+    ``shards`` (N) shards over ``procs`` (P) processes, this one the
+    ``index``-th of them holding shards ``index·N/P .. (index+1)·N/P - 1``;
+    ``group`` their process group (None with one process)."""
+
+    shards: int = 1
+    procs: int = 1
+    index: int = 0
+    group: Any = None
+
+    @property
+    def local(self) -> int:
+        return self.shards // self.procs
+
+    def enter(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``x`` once for each shard this process holds (views); the
+        gradient is the shards' gradients summed in shard order, then over
+        the group's processes. The fixed order makes one process holding
+        two shards compute what two processes holding one each do."""
+        return _Enter.apply(x, self.local, self.group if self.procs > 1
+                            else None)
+
+    def reduce(self, partials: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of every shard's partial product, in f32, back in the
+        partials' dtype: this process's, in shard order, then over the
+        group. Each partial's gradient is the sum's."""
+        total = partials[0].float()
+        for p in partials[1:]:
+            total = total + p.float()
+        if self.procs > 1:
+            total = _Reduce.apply(total, self.group)
+        return total.to(partials[0].dtype)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every process's ``x`` joined along ``dim`` in process order; the
+        gradient keeps this process's part (every process computes the same
+        function of the whole)."""
+        if self.procs == 1:
+            return x
+        return _Gather.apply(x, dim, self.procs, self.index, self.group)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, units, group):
+        ctx.group = group
+        return tuple(x.view_as(x) for _ in range(units))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in grads:
+            if g is not None:
+                total = g if total is None else total + g
+        if ctx.group is not None and total is not None:
+            total = total.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(total, group=ctx.group)
+        return total, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, procs, index, group):
+        ctx.dim, ctx.index, ctx.size = dim, index, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(procs)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        part = grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
+        return part.contiguous(), None, None, None, None

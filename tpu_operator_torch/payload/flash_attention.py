@@ -36,20 +36,24 @@ pairs them (the custom VJP of the reference's ``_attn``), so
 policy can save the forward's two outputs by op (``models.remat_policy``).
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor goes to
-the kernel (bf16, head dim up to 128, contiguous) or the call raises; a CPU
+the kernel (bf16, any head dim, contiguous) or the call raises; a CPU
 tensor goes to the plain version (:func:`_attn_ref`, :func:`_decode_ref`,
 :func:`_bwd_ref`, :func:`_merge_ref`), which is also the yardstick ``chip_smoke.py`` holds
 each kernel against. There is no fallback from the kernel to the plain
 version.
 
 Head dims. K1 and K2 are built for head dims 64 and 128, K3 and K4 for
-128 (:data:`KERNEL_HEAD_DIMS`). Any other head dim up to 128 runs through
-:func:`at_kernel_head_dim`: q / k / v (and dO, O, the merge carry's o)
-are zero-padded to the next size the kernel was built for, the kernel
-runs with the softmax scale of the true head dim, and the outputs are
-cut back. Zero columns add nothing to Q K^T or to rowsum(dO O), and P V
-and the gradients come back zero in them, so the result is exact. A head
-dim above 128 raises (:data:`HEAD_DIM_FAULT`).
+128 (:data:`KERNEL_HEAD_DIMS`). Above 128 every kernel takes its wide
+path at any multiple of 128 (:data:`WIDE_CHUNK`): a grid axis over
+128-column blocks of the output, each block summing the scores over the
+head dim's chunks (``csrc/flash_wide.cuh``; K2's wide kernels take D =
+rowsum(dO O) given, :func:`row_dot`, since it spans every block). Any
+other head dim runs through :func:`at_kernel_head_dim`: q / k / v (and
+dO, O, the merge carry's o) are zero-padded to the next size the kernel
+runs at, the kernel runs with the softmax scale of the true head dim, and
+the outputs are cut back. Zero columns add nothing to Q K^T or to
+rowsum(dO O), and P V and the gradients come back zero in them, so the
+result is exact.
 
 Masking uses the finite ``NEG_INF = -1e30`` of the reference: a masked key
 adds exactly 0 once its row has seen a valid key, and a row that saw none
@@ -274,24 +278,28 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # Head dims each kernel is built for (the template instances of its
-# source). A head dim between two of them runs at the next one up.
+# source) up to 128. A head dim between two of them runs at the next one
+# up; above the largest, every kernel runs its wide path at the next
+# multiple of WIDE_CHUNK.
 KERNEL_HEAD_DIMS: Dict[str, Tuple[int, ...]] = {
     "flash_fwd": (64, 128), "flash_bwd": (64, 128),
     "flash_decode": (128,), "flash_merge": (128,)}
-MAX_HEAD_DIM = 128
-# Where a head dim above MAX_HEAD_DIM is recorded as an open fault.
-HEAD_DIM_FAULT = "ROADMAP Queue C 1: head dims above 128"
+# Head-dim columns of one chunk of the kernels' wide path (D > 128): a
+# grid axis over column blocks of this width, the scores summed over the
+# head dim's chunks in every block.
+WIDE_CHUNK = 128
 
 
 def kernel_head_dim(name: str, d: int) -> int:
     """The head dim ``name``'s kernel runs at for a true head dim ``d``:
-    the smallest size it is built for that holds ``d``. Raises ValueError
-    above :data:`MAX_HEAD_DIM`."""
+    the smallest size it is built for that holds ``d``, or above 128 the
+    next multiple of :data:`WIDE_CHUNK` (the wide path)."""
+    if d <= 0:
+        raise ValueError(f"{name}: head dim {d} must be positive")
     for size in KERNEL_HEAD_DIMS[name]:
-        if 0 < d <= size:
+        if d <= size:
             return size
-    raise ValueError(f"{name}: head dim {d} is not in 1..{MAX_HEAD_DIM}, "
-                     f"the head dims the kernels take ({HEAD_DIM_FAULT})")
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def pad_head_dim(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -472,8 +480,12 @@ def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, tq, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     group = h // kvh
-    # Each chunk's partial state: group x Tq rows of (acc[D], m, l) in f32.
-    ws_floats = b * kvh * -(-s // DECODE_CHUNK) * group * tq * (d + 2)
+    # Each chunk's partial state: group x Tq rows of (acc[D], m, l) in f32;
+    # on the wide path (D > 128) one such state of WIDE_CHUNK columns for
+    # each of the D / WIDE_CHUNK column blocks, each with its own counter.
+    blocks = d // WIDE_CHUNK if d > WIDE_CHUNK else 1
+    part = WIDE_CHUNK + 2 if blocks > 1 else d + 2
+    ws_floats = b * kvh * -(-s // DECODE_CHUNK) * group * tq * blocks * part
     if ws_floats >= 2 ** 31:
         raise ValueError(f"flash_decode: workspace of {ws_floats} floats "
                          f"overflows int32")
@@ -482,7 +494,7 @@ def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        counters = _decode_counters(q.device, stream, b * kvh)
+        counters = _decode_counters(q.device, stream, b * kvh * blocks)
         rc = lib.flash_decode_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    lengths.data_ptr(), out.data_ptr(),
                                    ws.data_ptr(), counters.data_ptr(), b, tq,
@@ -539,9 +551,19 @@ def _flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_bwd: group {group} must divide 64")
     _check_kernel_inputs("flash_bwd", {**rows, **stats})
     _check_positions("flash_bwd", offsets, tq, tk)
+    if D is None and kernel_head_dim("flash_bwd", d) > WIDE_CHUNK:
+        # D = rowsum(dO O) spans the whole head dim, which the wide
+        # kernels' column blocks split: they take it given.
+        D = row_dot(g, out)
     return at_kernel_head_dim("flash_bwd", _bwd_launch,
                               (q, k, v, g, None if D is not None else out),
                               L, D, offsets, causal, grad_dtype)
+
+
+def row_dot(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO O) [B,H,Tq,1] f32 of [B,Tq,H,D] ``g`` and ``out``."""
+    return (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None] \
+        .contiguous()
 
 
 def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -771,7 +793,7 @@ def attention_block_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _flash_bwd_cuda(q, k, v, g, L, out, None, offs, causal,
                                grad_dtype)
     if D is None:
-        D = (g.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+        D = row_dot(g, out)
     dq, dk, dv = _bwd_ref(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
                           v.permute(0, 2, 1, 3), g.permute(0, 2, 1, 3), L, D,
                           offs, causal)

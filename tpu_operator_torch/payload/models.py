@@ -66,6 +66,7 @@ from torch import nn
 from torch.utils import checkpoint as checkpoint_mod
 
 from tpu_operator_torch.payload import flash_attention as fa
+from tpu_operator_torch.payload.collectives import TPShards, part_of
 
 LN_EPS = 1e-6
 COMPUTE_DTYPE = torch.bfloat16
@@ -176,6 +177,57 @@ def _dense(layer: nn.Linear, x: torch.Tensor,
     return y
 
 
+def _dense_part(layer: nn.Linear, x: torch.Tensor, dim: int, start: int,
+                size: int, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+    """:func:`_dense` through rows (``dim`` 0: output features, with their
+    bias) or columns (``dim`` 1: input features, no bias: a row-parallel
+    partial product, whose bias joins after the sum) ``start .. start +
+    size - 1`` of ``layer``'s weight."""
+    dtype = dtype or COMPUTE_DTYPE
+    y = F.linear(x.to(dtype), layer.weight.narrow(dim, start, size).to(dtype))
+    if dim == 0 and layer.bias is not None:
+        y = y + layer.bias.narrow(0, start, size).to(dtype)
+    return y
+
+
+def resolve_split_qkv(mode: str, tp: int, log) -> bool:
+    """The shared --split-qkv resolution (the reference's
+    ``models.resolve_split_qkv``): 'auto' splits under TP (each model shard
+    owns whole heads); an explicit 'off' under TP is allowed (fused-kernel
+    checkpoint layouts) but warned. The port's shards then take their
+    heads' rows of each third of the fused ``qkv``, the same arithmetic."""
+    if mode == "off" and tp > 1:
+        log.warning(
+            "--split-qkv off with --tensor-parallel %d: the fused qkv "
+            "kernel's column shards straddle the q/k/v thirds (heads not "
+            "shard-local); use auto/on unless checkpoint layout "
+            "compatibility requires the fused kernel", tp)
+    return mode == "on" or (mode == "auto" and tp > 1)
+
+
+def validate_heads_dims(heads: int, kv_heads: int, dim: int, tp: int) -> None:
+    """The shared --kv-heads / --tensor-parallel divisibility contract
+    (the reference's ``models.validate_heads_dims``), with its messages."""
+    if kv_heads < 0:
+        raise ValueError(f"--kv-heads must be >= 0, got {kv_heads}")
+    if kv_heads and heads % kv_heads != 0:
+        raise ValueError(
+            f"--heads {heads} must divide by --kv-heads {kv_heads}")
+    if tp > 1:
+        if heads % tp != 0:
+            raise ValueError(
+                f"--heads {heads} must divide by --tensor-parallel {tp} "
+                f"(TP shards whole heads)")
+        if kv_heads and kv_heads % tp != 0:
+            raise ValueError(
+                f"--kv-heads {kv_heads} must divide by --tensor-parallel "
+                f"{tp} (TP shards whole K/V heads)")
+        if dim % tp != 0:
+            raise ValueError(
+                f"--dim {dim} must divide by --tensor-parallel {tp}")
+
+
 def _embed(table: nn.Embedding, ids: torch.Tensor,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """flax ``Embed(dtype=bf16)``: the rows of the table in the compute
@@ -208,7 +260,8 @@ class DecoderBlock(nn.Module):
                  split_qkv: Optional[bool] = None,
                  param_dtype: torch.dtype = torch.bfloat16, device=None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 mlp: Optional[MlpFactory] = None):
+                 mlp: Optional[MlpFactory] = None,
+                 tp: TPShards = TPShards()):
         super().__init__()
         self.compute_dtype = compute_dtype
         kvh = kv_heads or heads
@@ -220,26 +273,99 @@ class DecoderBlock(nn.Module):
         split = (kvh != heads) if split_qkv is None else bool(split_qkv)
         if kvh != heads and not split:
             raise ValueError("grouped K/V heads need split q/k/v")
+        if tp.shards > 1:
+            validate_heads_dims(heads, kv_heads, dim, tp.shards)
+            if mlp is not None:
+                raise ValueError("a block MLP does not take tensor "
+                                 "parallelism")
         self.dim, self.heads, self.kv_heads = dim, heads, kvh
         self.head_dim = dim // heads
+        self.tp = tp
+        # This process's rows (column-parallel) or columns (row-parallel)
+        # of each split weight: L = N / P shards' worth.
+        part = tp.local
+        n = tp.shards
         kv_dim = kvh * self.head_dim
         w = dict(dtype=param_dtype, device=device)
         self.ln_attn = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         if split:
-            self.q = nn.Linear(dim, dim, bias=False, **w)
-            self.k = nn.Linear(dim, kv_dim, bias=False, **w)
-            self.v = nn.Linear(dim, kv_dim, bias=False, **w)
+            self.q = nn.Linear(dim, dim * part // n, bias=False, **w)
+            self.k = nn.Linear(dim, kv_dim * part // n, bias=False, **w)
+            self.v = nn.Linear(dim, kv_dim * part // n, bias=False, **w)
         else:
-            self.qkv = nn.Linear(dim, 3 * dim, bias=False, **w)
+            self.qkv = nn.Linear(dim, 3 * dim * part // n, bias=False, **w)
         self.split_qkv = split
-        self.attn_out = nn.Linear(dim, dim, bias=False, **w)
+        self.attn_out = nn.Linear(dim * part // n, dim, bias=False, **w)
         self.ln_mlp = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.moe = mlp(param_dtype, device) if mlp is not None else None
         if mlp is None:
-            self.mlp_up = nn.Linear(dim, 4 * dim, bias=True, **w)
-            self.mlp_down = nn.Linear(4 * dim, dim, bias=True, **w)
+            self.mlp_up = nn.Linear(dim, 4 * dim * part // n, bias=True, **w)
+            self.mlp_down = nn.Linear(4 * dim * part // n, dim, bias=True,
+                                      **w)
+
+    def tp_dims(self) -> Dict[str, Tuple[int, int]]:
+        """{param name: (split dim, sections)} of the params split over the
+        tensor-parallel processes: column-parallel along dim 0 (the fused
+        ``qkv`` in 3 sections), row-parallel along dim 1; the rest (the
+        LayerNorms, ``mlp_down``'s bias) is whole on every process."""
+        if self.tp.shards == 1:
+            return {}
+        col = ["q.weight", "k.weight", "v.weight"] if self.split_qkv \
+            else []
+        dims = {name: (0, 1) for name in col + ["mlp_up.weight",
+                                                "mlp_up.bias"]}
+        if not self.split_qkv:
+            dims["qkv.weight"] = (0, 3)
+        dims.update({"attn_out.weight": (1, 1), "mlp_down.weight": (1, 1)})
+        return dims
+
+    def _forward_tp(self, x: torch.Tensor, attend: Attend) -> torch.Tensor:
+        """The Megatron pairing over this process's shards, one unit each:
+        q/k/v and ``mlp_up`` column-parallel (each shard's heads' rows),
+        ``attn_out`` and ``mlp_down`` row-parallel (partial products summed
+        over every shard, ``mlp_down``'s bias added once after the sum);
+        attention is head-local, ``attend`` once per shard on its H/N query
+        heads and KVH/N K/V heads."""
+        b, t, _ = x.shape
+        hd, dt, tp = self.head_dim, self.compute_dtype, self.tp
+        hq, hkv = self.heads // tp.shards, self.kv_heads // tp.shards
+        qw, kw = hq * hd, hkv * hd
+        hs = tp.enter(_layer_norm(self.ln_attn, x))
+        outs = []
+        for u, h in enumerate(hs):
+            if self.split_qkv:
+                with checkpoint_name("attn_q"):
+                    q = _dense_part(self.q, h, 0, u * qw, qw, dt)
+                with checkpoint_name("attn_k"):
+                    k = _dense_part(self.k, h, 0, u * kw, kw, dt)
+                with checkpoint_name("attn_v"):
+                    v = _dense_part(self.v, h, 0, u * kw, kw, dt)
+            else:
+                third = tp.local * qw
+                with checkpoint_name("attn_q", "attn_k", "attn_v"):
+                    q, k, v = (_dense_part(self.qkv, h, 0, j * third + u * qw,
+                                           qw, dt) for j in range(3))
+            outs.append(attend(q.reshape(b, t, hq, hd).contiguous(),
+                               k.reshape(b, t, hkv, hd).contiguous(),
+                               v.reshape(b, t, hkv, hd).contiguous()))
+        with checkpoint_name("attn_residual"):
+            x = x + tp.reduce([
+                _dense_part(self.attn_out, o.reshape(b, t, qw), 1, u * qw,
+                            qw, dt) for u, o in enumerate(outs)])
+        hs = tp.enter(_layer_norm(self.ln_mlp, x))
+        fw = 4 * self.dim // tp.shards
+        parts = []
+        for u, h in enumerate(hs):
+            up = _dense_part(self.mlp_up, h, 0, u * fw, fw, dt)
+            with checkpoint_name("mlp_gelu"):
+                up = F.gelu(up, approximate="tanh")
+            parts.append(_dense_part(self.mlp_down, up, 1, u * fw, fw, dt))
+        down = tp.reduce(parts) + self.mlp_down.bias.to(dt or COMPUTE_DTYPE)
+        return x + down
 
     def forward(self, x: torch.Tensor, attend: Attend) -> torch.Tensor:
+        if self.tp.shards > 1:
+            return self._forward_tp(x, attend)
         b, t, _ = x.shape
         hd = self.head_dim
         dt = self.compute_dtype
@@ -306,12 +432,18 @@ class TransformerLM(nn.Module):
                  block: type = None,
                  compute_dtype: Optional[torch.dtype] = None,
                  mlp_for_layer: Optional[
-                     Callable[[int], Optional[MlpFactory]]] = None):
+                     Callable[[int], Optional[MlpFactory]]] = None,
+                 tp: TPShards = TPShards()):
         super().__init__()
         self.vocab, self.dim, self.heads = vocab, dim, heads
         self.layers, self.max_seq = layers, max_seq
         self.kv_heads = kv_heads
         self.compute_dtype = compute_dtype
+        if vocab % tp.shards:
+            raise ValueError(f"--vocab {vocab} must divide by "
+                             f"--tensor-parallel {tp.shards} (lm_head "
+                             f"splits over vocab)")
+        self.tp = tp
         w = dict(dtype=param_dtype, device=device)
         self.tok_embed = nn.Embedding(vocab, dim, **w)
         self.pos_embed = nn.Embedding(max_seq, dim, **w)
@@ -319,11 +451,23 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             block(dim, heads, kv_heads, split_qkv, param_dtype, device,
                   compute_dtype=compute_dtype,
-                  mlp=mlp_for_layer(i) if mlp_for_layer else None)
+                  mlp=mlp_for_layer(i) if mlp_for_layer else None, tp=tp)
             for i in range(layers))
         self.ln_final = nn.LayerNorm(dim, eps=LN_EPS, device=device)
-        self.lm_head = nn.Linear(dim, vocab, bias=False, **w)
+        self.lm_head = nn.Linear(dim, vocab // tp.procs, bias=False, **w)
         self.requires_grad_(False)
+
+    def tp_dims(self) -> Dict[str, Tuple[int, int]]:
+        """{param name: (split dim, sections)} of every param split over
+        the tensor-parallel processes (:meth:`DecoderBlock.tp_dims`, and
+        ``lm_head`` over vocab); empty without tensor parallelism."""
+        if self.tp.shards == 1:
+            return {}
+        dims = {"lm_head.weight": (0, 1)}
+        for i, block in enumerate(self.blocks):
+            dims.update({f"blocks.{i}.{n}": d
+                         for n, d in block.tp_dims().items()})
+        return dims
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "TransformerLM":
@@ -331,20 +475,35 @@ class TransformerLM(nn.Module):
         device): the reference's scales — dense kernels normal with std
         1/sqrt(fan_in), embeddings std 1/sqrt(dim), zero biases, unit
         LayerNorm scales. A block MLP with an ``init_weights(generator)``
-        of its own draws its weights there, in module order."""
-        def normal_(p: torch.Tensor, std: float) -> None:
-            draw = torch.randn(p.shape, generator=generator,
+        of its own draws its weights there, in module order. A param split
+        over tensor-parallel processes draws the whole tensor and keeps
+        this process's part, so every layout holds one model."""
+        split = self.tp_dims()
+
+        def normal_(p: torch.Tensor, std: float, name: str) -> None:
+            shape = list(p.shape)
+            if name in split and self.tp.procs > 1:
+                shape[split[name][0]] *= self.tp.procs
+            draw = torch.randn(shape, generator=generator,
                                device=generator.device,
                                dtype=torch.float32)
+            if name in split and self.tp.procs > 1:
+                draw = part_of(draw, *split[name], self.tp.procs,
+                               self.tp.index)
             p.copy_(draw.mul_(std))
 
-        for module in self.modules():
+        for mname, module in self.named_modules():
             if isinstance(module, nn.Linear):
-                normal_(module.weight, 1.0 / math.sqrt(module.in_features))
+                fan_in = module.in_features
+                wname = f"{mname}.weight"
+                if wname in split and split[wname][0] == 1:
+                    fan_in *= self.tp.procs  # row-parallel: a part of the input
+                normal_(module.weight, 1.0 / math.sqrt(fan_in), wname)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, nn.Embedding):
-                normal_(module.weight, 1.0 / math.sqrt(self.dim))
+                normal_(module.weight, 1.0 / math.sqrt(self.dim),
+                        f"{mname}.weight")
             elif isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
@@ -369,7 +528,13 @@ class TransformerLM(nn.Module):
         x = _layer_norm(self.ln_final, x)
         if return_hidden:
             return x.to(dt or COMPUTE_DTYPE)
-        return _dense(self.lm_head, x, dt)
+        if self.tp.shards == 1:
+            return _dense(self.lm_head, x, dt)
+        # Column-parallel over vocab: each shard's rows, joined.
+        vw = self.vocab // self.tp.shards
+        logits = [_dense_part(self.lm_head, xu, 0, u * vw, vw, dt)
+                  for u, xu in enumerate(self.tp.enter(x))]
+        return self.tp.gather(torch.cat(logits, dim=-1), dim=-1)
 
 
 def add_remat_policy_flag(parser) -> None:

@@ -73,6 +73,7 @@ from tpu_operator_torch.device import resolve_device
 from tpu_operator_torch.payload import autotune
 from tpu_operator_torch.payload import bootstrap
 from tpu_operator_torch.payload import checkpoint
+from tpu_operator_torch.payload import collectives
 from tpu_operator_torch.payload import compute
 from tpu_operator_torch.payload import data as data_mod
 from tpu_operator_torch.payload import flash_attention as fa
@@ -312,29 +313,6 @@ class ExpertShard(NamedTuple):
     group: Any = None
 
 
-class _AllToAll(torch.autograd.Function):
-    """Equal chunks of dim 0 to every process of ``group``, chunk j to
-    process j; its own transpose, so the backward is the same exchange."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _exchange(x, group)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _exchange(grad, ctx.group), None
-
-
-def _exchange(x: torch.Tensor, group) -> torch.Tensor:
-    # Contiguous first: empty_like keeps a permuted input's strides, and
-    # the collective writes the output's storage in row-major order.
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
-
-
 def _to_experts(x: torch.Tensor, shard: ExpertShard) -> torch.Tensor:
     """``[E, G, C, D]`` slots of this process's rows -> ``[E/P, P*G, C,
     D]``: every process's slots of the experts held here, in process
@@ -343,7 +321,7 @@ def _to_experts(x: torch.Tensor, shard: ExpertShard) -> torch.Tensor:
         return x
     e, g, c, d = x.shape
     p = shard.size
-    got = _AllToAll.apply(x.reshape(p, e // p, g, c, d), shard.group)
+    got = collectives.AllToAll.apply(x.reshape(p, e // p, g, c, d), shard.group)
     return got.transpose(0, 1).reshape(e // p, p * g, c, d)
 
 
@@ -355,7 +333,7 @@ def _from_experts(y: torch.Tensor, shard: ExpertShard) -> torch.Tensor:
     el, pg, c, d = y.shape
     p = shard.size
     y = y.reshape(el, p, pg // p, c, d).transpose(0, 1).contiguous()
-    return _AllToAll.apply(y, shard.group).reshape(el * p, pg // p, c, d)
+    return collectives.AllToAll.apply(y, shard.group).reshape(el * p, pg // p, c, d)
 
 
 # --- the MoE MLP ---------------------------------------------------------------

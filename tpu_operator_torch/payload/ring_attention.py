@@ -157,8 +157,7 @@ class RingAttention(torch.autograd.Function):
         chunk = qs[0].shape[1]
         ids = ring.shard_ids()
         # D once per backward, reused by every block pair.
-        ds = [(gg.float() * o.float()).sum(-1).permute(0, 2, 1)[..., None]
-              .contiguous() for gg, o in zip(gs, outs)]
+        ds = [fa.row_dot(gg, o) for gg, o in zip(gs, outs)]
 
         def grads(j: int, k_blk, v_blk, kv_idx: int):
             return fa.attention_block_grads(

@@ -168,12 +168,16 @@ def fused_cross_entropy(logits: torch.Tensor,
 
 def all_reduce_grads(params: Sequence[torch.Tensor], metrics: Metrics,
                      data_size: int, sharded: Sequence[int] = (),
-                     shard_group: Any = None) -> Metrics:
-    """Sum the ``.grad`` of ``params`` and the (scalar) ``metrics`` over the
-    world, then divide by ``data_size``: one flat f32 collective. Each
-    process's loss is its sequence shard's share of its data rank's mean,
-    so the sum over a seq group is that rank's gradient and the division
-    averages the data ranks. Returns the reduced metrics.
+                     shard_group: Any = None, group: Any = None) -> Metrics:
+    """Sum the ``.grad`` of ``params`` and the (scalar) ``metrics`` over
+    ``group`` (None: the world), then divide by ``data_size``: one flat f32
+    collective. Each process's loss is its sequence shard's share of its
+    data rank's mean, so the sum over a seq group is that rank's gradient
+    and the division averages the data ranks. Under tensor parallelism
+    ``group`` is the processes holding this one's model shards (the
+    transformer's ``LMMesh.replica_group``): the processes of a
+    tensor-parallel group compute the same loss, and each holds other
+    parts of the split params. Returns the reduced metrics.
 
     ``sharded`` (positions in ``params``) are parameters each process
     holds a different part of (the MoE payload's expert stacks): their
@@ -198,7 +202,8 @@ def all_reduce_grads(params: Sequence[torch.Tensor], metrics: Metrics,
     split = set(sharded)
     keys = sorted(metrics)
     rest = reduce([i for i in range(len(params)) if i not in split],
-                  [metrics[k].reshape(1).float() for k in keys], None, True)
+                  [metrics[k].reshape(1).float() for k in keys], group,
+                  group is None or dist.get_world_size(group) > 1)
     if split:
         reduce(sorted(split), [], shard_group,
                shard_group is not None

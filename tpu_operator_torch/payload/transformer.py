@@ -37,9 +37,24 @@ both during the rendezvous. The kernel library is built or loaded
 trace of steps 11-20 of the run; ``--prefetch-depth`` and the
 ``TPUJOB_DATAPLANE_*`` env drive the data plane (``autotune.py``).
 
-The flags of the reference that are not ported yet (tensor parallelism,
-Ulysses, FSDP) parse with the reference's defaults and raise
-NotImplementedError when set away from them; ROADMAP Queue A lists them.
+``--sp-mode ulysses`` swaps the ring for the head-scatter all-to-all
+(``ulysses.py``) on the same layout: the flash kernels over the whole
+sequence on H/N heads a shard.
+
+``--tensor-parallel N`` splits every block Megatron-style over N model
+shards (``models.DecoderBlock._forward_tp``): q/k/v, ``mlp_up`` and
+``lm_head`` column-parallel, ``attn_out`` and ``mlp_down`` row-parallel;
+attention is head-local (the kernels on H/N heads a shard, or a ring of
+its own a shard under ``--seq-parallel``: the 3-axis data x seq x model
+mesh). The shards spread over the processes of a model group, N / P a
+process; one process holding all N runs them as units one after another.
+``--split-qkv auto`` splits the q/k/v projections under TP (``off`` warns
+and each shard takes its heads' rows of each third of the fused
+``qkv``). Checkpoints hold whole arrays, so a step saved at one TP degree
+restores at another.
+
+``--fsdp`` is not ported yet: it parses with the reference's default and
+raises NotImplementedError when set (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -57,13 +72,17 @@ from tpu_operator_torch.device import resolve_device
 from tpu_operator_torch.payload import autotune
 from tpu_operator_torch.payload import bootstrap
 from tpu_operator_torch.payload import checkpoint
+from tpu_operator_torch.payload import collectives
 from tpu_operator_torch.payload import compute
 from tpu_operator_torch.payload import data as data_mod
 from tpu_operator_torch.payload import flash_attention as fa
 from tpu_operator_torch.payload import optimizers
 from tpu_operator_torch.payload import ring_attention as ring_mod
 from tpu_operator_torch.payload import train
+from tpu_operator_torch.payload import ulysses
 from tpu_operator_torch.payload.models import TransformerLM
+from tpu_operator_torch.payload.models import resolve_split_qkv
+from tpu_operator_torch.payload.models import validate_heads_dims
 
 log = logging.getLogger(__name__)
 
@@ -83,13 +102,21 @@ def parse_args(argv=None):
                    help="sequence-parallel ring shards (N); they spread over "
                         "the job's processes, N / P per process")
     p.add_argument("--tensor-parallel", type=int, default=1,
-                   help="tensor-parallel shards (not ported: must be 1)")
+                   help="Megatron-style TP shards (N; they spread over the "
+                        "job's processes, N / P per process): q/k/v/mlp_up/"
+                        "lm_head column-parallel, attn_out/mlp_down row-"
+                        "parallel; composes with --seq-parallel (3-axis "
+                        "data x seq x model mesh, ring attention only)")
     p.add_argument("--split-qkv", choices=("auto", "on", "off"),
                    default="auto",
-                   help="q/k/v projection layout (not ported: auto, which "
-                        "splits under GQA and fuses otherwise)")
+                   help="separate q/k/v projections (auto: on under "
+                        "--tensor-parallel, so TP shards whole heads, and "
+                        "under GQA; off fuses one [3d, d] product, the "
+                        "layout of checkpoints saved with a fused kernel)")
     p.add_argument("--sp-mode", choices=("ring", "ulysses"), default="ring",
-                   help="sequence-parallel strategy (ulysses not ported)")
+                   help="sequence-parallel strategy: ring = K/V blocks "
+                        "rotate, O(T/N) memory; ulysses = head-scatter "
+                        "all-to-all, needs heads %% seq shards == 0")
     p.add_argument("--sp-layout", choices=("contiguous", "striped"),
                    default="contiguous",
                    help="how the ring shards the sequence: contiguous = "
@@ -142,9 +169,6 @@ def parse_args(argv=None):
 
 # flag -> (its default, the ROADMAP Queue A item that ports it)
 _NOT_PORTED = {
-    "tensor_parallel": (1, "7"),
-    "sp_mode": ("ring", "7"),
-    "split_qkv": ("auto", "7"),
     "fsdp": (False, "7"),
 }
 
@@ -164,7 +188,28 @@ def check_ported(args) -> None:
             raise ValueError(
                 "--sp-layout striped requires --seq-parallel > 1 (the "
                 "layout exists to balance the ring)")
+    tp = getattr(args, "tensor_parallel", 1)
+    if tp < 1:
+        raise ValueError(f"--tensor-parallel {tp} must be >= 1")
+    if tp > 1 and shards > 1 and getattr(args, "sp_mode", "ring") \
+            == "ulysses":
+        raise ValueError(
+            "--sp-mode ulysses does not compose with --tensor-parallel "
+            "(both shard the head dimension); use --sp-mode ring")
+    if tp > 1 and getattr(args, "fsdp", False):
+        raise ValueError(
+            "--fsdp and --tensor-parallel are exclusive in this payload: "
+            "TP replicates over data, FSDP shards over it")
+    validate_heads_dims(args.heads, getattr(args, "kv_heads", 0), args.dim,
+                        tp)
+    if shards > 1 and getattr(args, "sp_mode", "ring") == "ulysses":
+        ulysses.check_heads(args.heads, getattr(args, "kv_heads", 0)
+                            or args.heads, shards)
     chunk = getattr(args, "loss_chunk", 0)
+    if chunk and tp > 1:
+        raise ValueError("--loss-chunk requires --tensor-parallel 1: the "
+                         "chunked head runs on the whole lm_head, which "
+                         "tensor parallelism splits over vocab")
     if chunk and shards > 1:
         raise ValueError("--loss-chunk requires --seq-parallel 1: sequence "
                          "parallelism already shards the logits over T")
@@ -184,30 +229,46 @@ def _causal_attend(_i):
 
 
 class LMMesh(NamedTuple):
-    """The (data, seq) layout of the job's processes: ``world`` processes,
-    ``seq_procs`` (P) per seq group sharing ``seq_shards`` (N) ring shards,
-    ``data`` = world / P data ranks. Ranks are data-major: rank = data_rank
-    · P + seq_rank, so a seq group is P neighbouring ranks."""
+    """The (data, seq, model) layout of the job's processes: ``world``
+    processes, ``seq_procs`` (P_s) per seq group sharing ``seq_shards``
+    (N_s) sequence shards, ``model_procs`` (P_m) per model group sharing
+    ``model_shards`` (N_m) tensor-parallel shards, ``data`` = world /
+    (P_s·P_m) data ranks. The model axis is innermost, as in the
+    reference's ``train.make_mesh3``: rank = (data_rank·P_s +
+    seq_rank)·P_m + model_rank. The groups are this process's (None
+    without a process group or with one process in them):
+    ``seq_group`` (its seq group: the Ulysses exchange), ``model_group``
+    (its model group) and ``replica_group`` (every process with its
+    model rank: the gradient reduce under tensor parallelism)."""
 
     world: int
     rank: int
     seq_procs: int
     seq_shards: int
+    model_procs: int = 1
+    model_shards: int = 1
+    seq_group: Any = None
+    model_group: Any = None
+    replica_group: Any = None
 
     @property
     def data(self) -> int:
-        return self.world // self.seq_procs
+        return self.world // (self.seq_procs * self.model_procs)
 
     @property
-    def data_rank(self) -> int:
-        return self.rank // self.seq_procs
+    def model_rank(self) -> int:
+        return self.rank % self.model_procs
 
     @property
     def seq_rank(self) -> int:
-        return self.rank % self.seq_procs
+        return (self.rank // self.model_procs) % self.seq_procs
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // (self.model_procs * self.seq_procs)
 
     # The batch shard this process holds (data.lm_batches): its data
-    # rank's, which its seq group shares.
+    # rank's, which its seq and model groups share.
     @property
     def batch_rank(self) -> int:
         return self.data_rank
@@ -216,18 +277,31 @@ class LMMesh(NamedTuple):
     def batch_ranks(self) -> int:
         return self.data
 
+    def seq_ranks(self) -> range:
+        """The global ranks of this process's seq group, in ring order."""
+        first = self.data_rank * self.seq_procs * self.model_procs \
+            + self.model_rank
+        return range(first, first + self.seq_procs * self.model_procs,
+                     self.model_procs)
+
     def ring(self) -> ring_mod.SeqRing:
-        first = self.data_rank * self.seq_procs
-        return ring_mod.SeqRing(self.seq_shards,
-                                range(first, first + self.seq_procs),
+        return ring_mod.SeqRing(self.seq_shards, self.seq_ranks(),
                                 self.seq_rank)
+
+    def tp(self) -> collectives.TPShards:
+        return collectives.TPShards(self.model_shards, self.model_procs,
+                                    self.model_rank, self.model_group)
 
 
 def make_lm_mesh(world: Optional[int] = None, rank: Optional[int] = None,
-                 seq_parallel: int = 1) -> LMMesh:
-    """The (data, seq) mesh over the job's processes (default: the process
-    group, or one process without one): P = min(world, N) processes per seq
-    group, data = world / P. N must split over P, and P over the world."""
+                 seq_parallel: int = 1, tensor_parallel: int = 1) -> LMMesh:
+    """The (data, seq, model) mesh over the job's processes (default: the
+    process group, or one process without one): P_m = min(world, N_m)
+    processes per model group, P_s = min(world / P_m, N_s) per seq group,
+    data = world / (P_s·P_m). Each N must split over its P, and the world
+    over P_s·P_m. With a process group, every process creates every seq,
+    model and replica group it may need (``dist.new_group`` is
+    collective) and keeps its own."""
     import torch.distributed as dist
 
     grouped = dist.is_available() and dist.is_initialized()
@@ -235,11 +309,41 @@ def make_lm_mesh(world: Optional[int] = None, rank: Optional[int] = None,
         world = dist.get_world_size() if grouped else 1
     if rank is None:
         rank = dist.get_rank() if grouped else 0
-    procs = min(world, seq_parallel)
-    if seq_parallel < 1 or seq_parallel % procs or world % procs:
+    if tensor_parallel < 1 or seq_parallel < 1:
+        raise ValueError(f"--seq-parallel {seq_parallel} and "
+                         f"--tensor-parallel {tensor_parallel} must be >= 1")
+    mprocs = min(world, tensor_parallel)
+    if tensor_parallel % mprocs or world % mprocs:
+        raise ValueError(f"--tensor-parallel {tensor_parallel} does not lay "
+                         f"out over {world} processes")
+    procs = min(world // mprocs, seq_parallel)
+    if seq_parallel % procs or world % (procs * mprocs):
         raise ValueError(f"--seq-parallel {seq_parallel} does not lay out "
-                         f"over {world} processes")
-    return LMMesh(world, rank, procs, seq_parallel)
+                         f"over {world // mprocs} processes")
+    mesh = LMMesh(world, rank, procs, seq_parallel, mprocs, tensor_parallel)
+    if not grouped or world == 1:
+        return mesh
+    groups = {}
+    inner = procs * mprocs
+    if procs > 1:
+        for first in range(0, world, inner):
+            for m in range(mprocs):
+                ranks = list(range(first + m, first + inner, mprocs))
+                group = dist.new_group(ranks)
+                if rank in ranks:
+                    groups["seq_group"] = group
+    if mprocs > 1:
+        for first in range(0, world, mprocs):
+            ranks = list(range(first, first + mprocs))
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups["model_group"] = group
+        for m in range(mprocs):
+            ranks = list(range(m, world, mprocs))
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups["replica_group"] = group
+    return mesh._replace(**groups)
 
 
 class Built(NamedTuple):
@@ -253,26 +357,70 @@ class Built(NamedTuple):
     @property
     def state(self) -> checkpoint.TrainState:
         """The params and optimizer state the step updates in place: what
-        a checkpoint saves and a restore copies back."""
-        return checkpoint.TrainState(dict(self.model.named_parameters()),
-                                     self.opt_state)
+        a checkpoint saves and a restore copies back. Under tensor
+        parallelism over several processes the split params and their
+        moments are named as such (:func:`tp_shards`): a checkpoint holds
+        whole arrays."""
+        return checkpoint.TrainState(
+            dict(self.model.named_parameters()), self.opt_state,
+            shards=tp_shards(self.model, self.opt_state))
 
 
-def build_model(args, device) -> TransformerLM:
+def tp_shards(model: TransformerLM, opt_state
+              ) -> Optional[checkpoint.Shards]:
+    """The params split over the model group's processes, and the moments
+    of each (``mu.<i>`` / ``nu.<i>``, shaped as their param), with each
+    one's split (:meth:`TransformerLM.tp_dims`); None unless the model
+    group holds more than one process. adam8's block-quantized moments do
+    not split along a param's dims: refused."""
+    tp = model.tp
+    if tp.procs == 1:
+        return None
+    dims = model.tp_dims()
+    params = list(model.named_parameters())
+    opt = {}
+    for key, t in opt_state.state_dict().items():
+        index = key.rsplit(".", 1)[-1]
+        if not t.dim() or not index.isdigit():
+            continue
+        name, param = params[int(index)]
+        if name not in dims:
+            continue
+        if t.shape != param.shape:
+            raise ValueError(
+                f"optimizer state {key} {tuple(t.shape)} is not shaped as "
+                f"its param {name} {tuple(param.shape)}: it does not split "
+                f"over --tensor-parallel processes for a checkpoint (use "
+                f"--optimizer adam)")
+        opt[key] = dims[name]
+    return checkpoint.Shards({checkpoint.PARAMS_FILE: dims,
+                              checkpoint.OPT_FILE: opt},
+                             tp.group, tp.procs, tp.index)
+
+
+def build_model(args, device, tp: Optional[collectives.TPShards] = None
+                ) -> TransformerLM:
     """The LM at the flags' widths with f32 master params and the block of
     ``compute.lm_block`` (rematerialized under ``--remat``), from a seeded
-    init on ``device``."""
+    init on ``device``; ``tp`` (default: N = ``--tensor-parallel`` shards
+    in this process) splits it, and ``--split-qkv`` resolves as the
+    reference's does."""
+    tp = tp or collectives.TPShards(getattr(args, "tensor_parallel", 1), 1)
+    split = resolve_split_qkv(getattr(args, "split_qkv", "auto"), tp.shards,
+                              log)
     model = TransformerLM(args.vocab, args.dim, args.heads, args.layers,
                           args.seq_len, kv_heads=args.kv_heads,
+                          split_qkv=split or None,
                           param_dtype=torch.float32, device=device,
-                          block=compute.lm_block(args))
+                          block=compute.lm_block(args), tp=tp)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(args.seed))
     return model.init_weights(gen)
 
 
 def make_lm_loss(model: TransformerLM, mesh: Optional[LMMesh] = None,
-                 sp_layout: str = "contiguous", loss_chunk: int = 0):
+                 sp_layout: str = "contiguous", loss_chunk: int = 0,
+                 sp_mode: str = "ring"):
     """``loss_fn(tokens) -> (loss, metrics)`` of one microbatch on ``mesh``
     (default: one process, one shard).
 
@@ -283,7 +431,9 @@ def make_lm_loss(model: TransformerLM, mesh: Optional[LMMesh] = None,
     reference's striped step (``transformer.py:337-359``) for either layout.
     Every process holds its data rank's ``[b, T]`` tokens and takes its
     slots' tokens, positions (``perm``), targets (``(perm + 1) % T``) and
-    mask (``perm < T - 1``); attention is the ring. The loss is divided by
+    mask (``perm < T - 1``); attention is the ring, or with ``sp_mode``
+    ``ulysses`` the head-scatter exchange. Tensor parallelism lives in the
+    model (``model.tp``): each shard attends on its heads. The loss is divided by
     the whole sequence's count of valid targets, b·(T - 1), so the sum over
     a seq group is the reference's loss, and so is its gradient."""
     mesh = mesh or make_lm_mesh(1, 0, 1)
@@ -321,9 +471,17 @@ def make_lm_loss(model: TransformerLM, mesh: Optional[LMMesh] = None,
     mask = pos < seq_len - 1
     ring = mesh.ring()
 
-    def attend_for_layer(_i):
-        return lambda q, k, v: ring_mod.ring_attention(
-            q, k, v, ring, causal=True, stripe=striped)
+    if sp_mode == "ulysses":
+        if striped:
+            raise ValueError("--sp-layout striped requires --sp-mode ring")
+
+        def attend_for_layer(_i):
+            return lambda q, k, v: ulysses.ulysses_attention(
+                q, k, v, ring, mesh.seq_group, causal=True)
+    else:
+        def attend_for_layer(_i):
+            return lambda q, k, v: ring_mod.ring_attention(
+                q, k, v, ring, causal=True, stripe=striped)
 
     def loss_fn(tokens):
         if tokens.shape[1] != seq_len:
@@ -341,20 +499,23 @@ def make_lm_loss(model: TransformerLM, mesh: Optional[LMMesh] = None,
 
 def make_lm_train_step(model: TransformerLM, optimizer, opt_state,
                        grad_accum: int = 1, mesh: Optional[LMMesh] = None,
-                       sp_layout: str = "contiguous", loss_chunk: int = 0):
+                       sp_layout: str = "contiguous", loss_chunk: int = 0,
+                       sp_mode: str = "ring"):
     """Next-token cross-entropy step (:func:`make_lm_loss`) over
     ``model``'s trainable params (the ones ``opt_state`` was initialised
     on). With more than one process it all-reduces the gradients after the
-    last microbatch: summed over the world, divided by the data ranks."""
+    last microbatch: summed over the processes with this one's model rank
+    (the world without tensor parallelism), divided by the data ranks."""
     mesh = mesh or make_lm_mesh(1, 0, 1)
     params = [p for p in model.parameters() if p.requires_grad]
     reduce = None
     if mesh.world > 1:
         def reduce(ps, metrics):
-            return train.all_reduce_grads(ps, metrics, mesh.data)
+            return train.all_reduce_grads(ps, metrics, mesh.data,
+                                          group=mesh.replica_group)
 
     return train.make_loss_train_step(make_lm_loss(model, mesh, sp_layout,
-                                                   loss_chunk),
+                                                   loss_chunk, sp_mode),
                                       params, optimizer, opt_state,
                                       grad_accum=grad_accum, reduce=reduce)
 
@@ -362,13 +523,18 @@ def make_lm_train_step(model: TransformerLM, optimizer, opt_state,
 def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
     """Model (seeded init, gradients on), optimizer and its state, step
     and host batches for the flags. ``device`` defaults to ``--device``
-    (CUDA unless it says ``cpu``); ``mesh`` to the (data, seq) mesh of the
-    job's process group at ``--seq-parallel``."""
+    (CUDA unless it says ``cpu``); ``mesh`` to the (data, seq, model) mesh
+    of the job's process group at ``--seq-parallel`` and
+    ``--tensor-parallel``."""
     check_ported(args)
-    mesh = mesh or make_lm_mesh(seq_parallel=args.seq_parallel)
-    if mesh.seq_shards != args.seq_parallel:
-        raise ValueError(f"mesh has {mesh.seq_shards} seq shards, "
-                         f"--seq-parallel is {args.seq_parallel}")
+    mesh = mesh or make_lm_mesh(seq_parallel=args.seq_parallel,
+                                tensor_parallel=args.tensor_parallel)
+    if mesh.seq_shards != args.seq_parallel \
+            or mesh.model_shards != args.tensor_parallel:
+        raise ValueError(f"mesh has {mesh.seq_shards} seq and "
+                         f"{mesh.model_shards} model shards, --seq-parallel "
+                         f"is {args.seq_parallel} and --tensor-parallel "
+                         f"{args.tensor_parallel}")
     if args.batch % mesh.data:
         raise ValueError(f"--batch {args.batch} must split over "
                          f"{mesh.data} data ranks")
@@ -379,12 +545,13 @@ def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
     dev = resolve_device(device if device is not None
                          else (args.device or None))
     optimizer = optimizers.from_args(args)
-    model = build_model(args, dev).requires_grad_(True)
+    model = build_model(args, dev, mesh.tp()).requires_grad_(True)
     opt_state = optimizer.init(list(model.parameters()))
     step = make_lm_train_step(model, optimizer, opt_state,
                               grad_accum=args.grad_accum, mesh=mesh,
                               sp_layout=args.sp_layout,
-                              loss_chunk=args.loss_chunk)
+                              loss_chunk=args.loss_chunk,
+                              sp_mode=args.sp_mode)
     return Built(model, optimizer, opt_state, step,
                  data_mod.lm_batches(args, mesh), dev)
 
@@ -394,9 +561,11 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     built = build(args)
     n_params = sum(p.numel() for p in built.model.parameters())
     log.info("training %d params on %s; batch %d seq %d grad-accum %d "
-             "seq-parallel %d (%s); remat %s; optimizer %s; loss chunk %d",
+             "seq-parallel %d (%s, %s); tensor-parallel %d; remat %s; "
+             "optimizer %s; loss chunk %d",
              n_params, built.device, args.batch, args.seq_len,
-             args.grad_accum, args.seq_parallel, args.sp_layout,
+             args.grad_accum, args.seq_parallel, args.sp_mode,
+             args.sp_layout, args.tensor_parallel,
              args.remat_policy if args.remat else "off", args.optimizer,
              args.loss_chunk)
     ckpt = checkpoint.from_env_or_args(args.checkpoint_dir,

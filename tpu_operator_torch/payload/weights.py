@@ -40,6 +40,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from tpu_operator_torch.payload.collectives import TPShards
 from tpu_operator_torch.payload.models import (BatchNorm, CifarResNet, Conv,
                                                LinearRegressor, TransformerLM)
 
@@ -117,14 +118,16 @@ def _load_lm(model: TransformerLM, params: Mapping[str, Any]) -> None:
 @torch.no_grad()
 def from_flax(params: Mapping[str, Any], *, heads: int, device=None,
               param_dtype: torch.dtype = torch.bfloat16,
-              block: type = None) -> TransformerLM:
+              block: type = None, tensor_parallel: int = 1) -> TransformerLM:
     """``TransformerLM`` holding the flax tree's weights. ``heads`` is not
     recoverable from shapes; vocab, dim, layers, max_seq, the K/V head
-    count and the qkv layout are read from the tree. Gradients stay off
-    (the model's default)."""
+    count and the qkv layout are read from the tree. ``tensor_parallel``
+    N splits the model into N shards held by this one process (the
+    reference's ``--tensor-parallel``: the same whole arrays). Gradients
+    stay off (the model's default)."""
     model = TransformerLM(**_lm_shape(params, heads),
                           param_dtype=param_dtype, device=device,
-                          block=block)
+                          block=block, tp=TPShards(tensor_parallel))
     _load_lm(model, params)
     return model
 
