@@ -67,6 +67,14 @@ one JSON line each:
    on the plain side) must fail for K1, K2 and K4. Each timed beside its
    bound (counted from the work the case needs, not the recompute), the
    plain version and the first SDPA backend that takes the head dim.
+5b. ``parallel_shapes``: K1, dq, dkv and K4 per element against their
+   plain versions at the shapes the ulysses and sp_tp phases give them:
+   the Ulysses slab (B 2, T 8192, 16 / 4 heads; K1, then K2 with fused D
+   and bf16 grads) and one TP shard's ring chunk (B 8, 4096-token chunks,
+   8 / 8 heads; K4 into a live carry, K2 at the home and an earlier
+   block with D given and f32 grads). Negative controls (V's first 1024
+   keys zeroed on the plain side) must fail for every case. Each timed
+   beside its bound and the plain version.
 6. ``ring``: ring attention with 4 shards in one process (K4 forward, K2
    backward ring), contiguous and striped, B 1, T 4096: output and
    gradients against K1 + K2 on the whole sequence and against the plain
@@ -179,7 +187,9 @@ one JSON line each:
     shards x steps (full remat re-runs the forward), dq and dkv once
     that; before the loop, on a 2-layer copy at the same width, TP 4's
     loss and every gradient at init against TP 1's (``--split-qkv on``,
-    the same params). The step time and peak memory are printed.
+    the same params). The step time and peak memory are printed. Then
+    the same 4 steps at ``--tensor-parallel 1`` (launches gated, kept
+    apart from the slice's): the two loss trajectories side by side.
 14e. ``sp_tp``: examples/tpujob-3d-parallel.yml's payload as written (T
     16384, ``--seq-parallel 4 --tensor-parallel 2``, dim 2048, 16 heads,
     12 layers, ``--remat``, batch 8), 2 steps: each TP shard runs its own
@@ -188,7 +198,8 @@ one JSON line each:
     the same ``--seq-parallel 4``.
 14f. ``ulysses``: the SP bench row (bench.py:661) with ``--seq-parallel
     4 --sp-mode ulysses`` in place of the striped ring, 4 steps: K1, dq
-    and dkv once per layer, microbatch, step and head shard, K4 never;
+    and dkv once per layer, microbatch and step (one call over the heads
+    of the four shards this process holds), K4 never;
     the gate against the ring at the same weights; the step time beside
     train_sp's.
 15. ``classifier``: ``payload.cifar`` at its defaults (ResNet-20, batch
@@ -1695,6 +1706,251 @@ def check_wide_heads(torch, fa, F):
     r["library"] = "none: no single PyTorch call folds a carry"
     r["share_of_bound"] = r["bound_ms"] / r["ms"]
     res["merge"]["ring_d256"] = r
+    return res
+
+
+def parallel_generator(torch):
+    """The cases at the Ulysses and SP x TP phases' shapes draw from their
+    own generator too."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    return gen
+
+
+def _zero_keys(x, keys: int = 1024):
+    """``x`` [B, T, H, D] with its first ``keys`` key positions zeroed (a
+    copy): the negative control of the parallel-shape cases."""
+    y = x.clone()
+    y[:, :keys] = 0
+    return y
+
+
+def _head_slices(b: int, h: int, kvh: int, tq: int, tk: int):
+    """(batch row, query heads, K/V heads) slices small enough that the
+    plain side's [heads, Tq, Tk] f32 scores stay under 1 GiB: one batch row
+    and as many whole GQA groups as fit."""
+    group = h // kvh
+    per = kvh
+    while per > 1 and (kvh % per or group * per * tq * tk * 4 > 2 ** 30):
+        per -= 1
+    for i in range(b):
+        for j in range(0, kvh, per):
+            yield (slice(i, i + 1), slice(j * group, (j + per) * group),
+                   slice(j, j + per))
+
+
+def check_parallel_shapes(torch, fa, F):
+    """K1, dq, dkv and K4 per element against their plain versions at the
+    shapes the ulysses and sp_tp phases give them, each case with a
+    negative control (the plain side with V's first 1024 keys zeroed must
+    fail):
+
+    - ulysses: one process holds all four shards of the SP bench row, so
+      the exchange hands the kernels the slab (B 2, T 8192, 16 / 4 heads,
+      D 128, causal): K1, then dq / dkv with fused D and bf16 grads as
+      ``flash_attention``'s backward runs them;
+    - sp_tp: each TP shard's ring over 4096-token chunks (B 8, 8 / 8
+      heads, D 128, contiguous layout): K4 folding shard 0's block into
+      shard 1's live carry (offsets (4096, 0, 1) after the home block at
+      (4096, 4096, 1)), and dq / dkv at the same two offsets with D given
+      and f32 grads, as the backward ring runs them.
+
+    The plain side runs a batch row and a few GQA groups at a time (the
+    scores of the whole slab would take tens of GB). Each case is timed
+    beside its bound and the plain version; K1 and K2 at the Ulysses slab
+    also beside SDPA (a yardstick only)."""
+    gen = parallel_generator(torch)
+    dev = "cuda"
+    res = {}
+
+    def fwd_worst(got, qt, kt, vt, causal):
+        """(worst O excess, worst L error, largest O error) of K1's (O, L)
+        over the slices."""
+        out, lse = got
+        b, h, t, _d = qt.shape
+        worst_o = worst_l = err_o = 0.0
+        for bs, hs, ks in _head_slices(b, h, kt.shape[1], t, t):
+            ref_o, ref_l, terms = fwd_plain_terms(
+                torch, fa, qt[bs, hs], kt[bs, ks], vt[bs, ks], causal)
+            mine = out[bs, :, hs].permute(0, 2, 1, 3)
+            worst_o = max(worst_o, fwd_excess(torch, mine, ref_o, terms))
+            worst_l = max(worst_l, max_err(torch, lse[bs, hs], ref_l))
+            err_o = max(err_o, max_err(torch, mine, ref_o))
+            del ref_o, ref_l, terms
+        return worst_o, worst_l, err_o
+
+    # Ulysses: K1 on the slab.
+    b, t, h, kvh, d = 2, 8192, 16, 4, 128
+    q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
+    before = fa.launch_counts()["flash_fwd"]
+    got = fa.flash_attention_with_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    require(fa.launch_counts()["flash_fwd"] - before == 1,
+            "ulysses fwd: not one launch")
+    require(bool(torch.isfinite(got[0].float()).all()),
+            "ulysses fwd: non-finite output")
+    qt, kt, vt = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    o_exc, l_err, o_err = fwd_worst(got, qt, kt, vt, True)
+    require(o_exc <= 1.0, f"ulysses fwd: O {o_exc} x its tolerance")
+    require(l_err <= L_TOL, f"ulysses fwd: L error {l_err}")
+    ctrl = fwd_worst(got, qt, kt, _zero_keys(v).permute(0, 2, 1, 3),
+                     True)[0]
+    require(ctrl > 1.0, f"ulysses fwd: the zeroed-keys control passed "
+                        f"({ctrl})")
+    pairs = t * (t + 1) // 2
+    flops = 4.0 * b * h * d * pairs
+    nbytes = 2.0 * (2 * b * t * h * d + 2 * b * t * kvh * d) + 4.0 * b * h * t
+    r = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
+                   "causal": True},
+         "max_abs_err_O": o_err, "worst_err_over_tol_O": o_exc,
+         "max_abs_err_L": l_err,
+         "zeroed_keys_control_worst_err_over_tol": ctrl}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_TC_FLOPS)
+    r["ms"] = time_ms(torch, lambda: fa.flash_attention_with_lse(
+        q, k, v, causal=True), reps=10)
+    qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
+    r["plain_ms"] = time_ms(torch, lambda: fa._attn_ref(qc, kc, vc, True),
+                            reps=3)
+    r["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True), reps=10)
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    res["ulysses_fwd"] = r
+    del q, k, v, qt, kt, vt, qc, kc, vc, got
+
+    def bwd_worst(got, q, k, v, g, L, D, offs):
+        """(worst excess, largest error) of each of (dq, dk, dv) over the
+        slices."""
+        b, tq, h, _d = q.shape
+        kvh, tk = k.shape[2], k.shape[1]
+        worst, errs = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+        for bs, hs, ks in _head_slices(b, h, kvh, tq, tk):
+            want, terms = bwd_plain_terms(
+                torch, fa, q[bs, :, hs], k[bs, :, ks], v[bs, :, ks],
+                g[bs, :, hs], L[bs, hs], D[bs, hs], offs, True)
+            mine = (got[0][bs, :, hs], got[1][bs, :, ks], got[2][bs, :, ks])
+            for i, (gg, ww, aa) in enumerate(zip(mine, want, terms)):
+                worst[i] = max(worst[i], bwd_excess(torch, gg, ww, aa))
+                errs[i] = max(errs[i], max_err(torch, gg, ww))
+            del want, terms
+        return worst, errs
+
+    def bwd_check(label, b, t, h, kvh, offs, fused, gd):
+        inputs, run = bwd_case(torch, fa, gen, b, t, h, kvh, True, offs,
+                               fused, gd)
+        q, k, v, g, L, o, D = inputs
+        before = fa.launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        after = fa.launch_counts()
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            require(after[name] == before[name] + 1,
+                    f"{label}: {name} launched {after[name] - before[name]} "
+                    f"times")
+        for name, x in zip(("dq", "dk", "dv"), got):
+            require(x.dtype == gd and bool(torch.isfinite(x.float()).all()),
+                    f"{label}: {name} dtype or non-finite")
+        worst, errs = bwd_worst(got, q, k, v, g, L, D, offs)
+        for name, x in zip(("dq", "dk", "dv"), worst):
+            require(x <= 1.0, f"{label}: {name} {x} x its tolerance")
+        ctrl = max(bwd_worst(got, q, k, _zero_keys(v), g, L, D, offs)[0])
+        require(ctrl > 1.0, f"{label}: the zeroed-keys control passed "
+                            f"({ctrl})")
+        r = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": 128,
+                       "causal": True},
+             "offsets": list(offs), "fused_d": fused,
+             "grad_dtype": str(gd).replace("torch.", ""),
+             **{f"worst_err_over_tol_{n}": x
+                for n, x in zip(("dq", "dk", "dv"), worst)},
+             **{f"max_abs_err_{n}": x
+                for n, x in zip(("dq", "dk", "dv"), errs)},
+             "zeroed_keys_control_worst_err_over_tol": ctrl}
+        r.update(bwd_bounds(torch, b, t, t, h, kvh, True, offs, fused,
+                            4 if gd == torch.float32 else 2))
+        r["ms_pair"] = time_ms(torch, run, reps=5)
+        per = kernel_device_ms(torch, run, 3, ("flash_bwd_dq_kernel",
+                                               "flash_bwd_dkv_kernel"))
+        for name in ("dq", "dkv"):
+            ms = per[f"flash_bwd_{name}_kernel"]
+            r[f"ms_{name}"] = ms
+            if isinstance(ms, float):
+                r[f"share_of_bound_{name}"] = r[f"bound_ms_{name}"] / ms
+        qt, kt, vt, gt = (x.permute(0, 2, 1, 3) for x in (q, k, v, g))
+        r["plain_ms"] = time_ms(
+            torch, lambda: fa._bwd_ref(qt, kt, vt, gt, L, D, offs, True),
+            reps=3)
+        del got, inputs, q, k, v, g, L, o, D, qt, kt, vt, gt
+        return r
+
+    res["ulysses_bwd"] = bwd_check("ulysses bwd", 2, 8192, 16, 4,
+                                   (0, 0, 1), True, torch.bfloat16)
+    # SP x TP: one TP shard's ring over 4096-token chunks; shard 1's
+    # queries against its home block and against shard 0's.
+    b, c, h, kvh = 8, 4096, 8, 8
+    for label, offs in (("sp_tp_bwd_home", (c, c, 1)),
+                        ("sp_tp_bwd_earlier", (c, 0, 1))):
+        res[label] = bwd_check(label.replace("_", " "), b, c, h, kvh, offs,
+                               False, torch.float32)
+
+    q, k0, v0, k1, v1 = (
+        torch.randn(b, c, heads, d, generator=gen, device=dev).bfloat16()
+        for heads in (h, kvh, kvh, kvh, kvh))
+    carry = fa.merge_kv_block(q, k1, v1, fa.init_carry(b, h, c, d, device=dev),
+                              (c, c, 1), causal=True)
+    before = fa.launch_counts()["flash_merge"]
+    got = fa.merge_kv_block(q, k0, v0, carry, (c, 0, 1), causal=True)
+    torch.cuda.synchronize()
+    require(fa.launch_counts()["flash_merge"] - before == 1,
+            "sp_tp merge: not one launch")
+
+    def merge_worst(vv):
+        """(worst o / l / m excess, largest o error on the rows seen, the
+        rows seen agree) over the slices."""
+        worst, err_o = [0.0, 0.0, 0.0], 0.0
+        agree = True
+        for bs, hs, ks in _head_slices(b, h, kvh, c, c):
+            part = tuple(x[bs, hs] for x in carry)
+            want, terms = merge_plain_terms(torch, fa, q[bs, :, hs],
+                                            k0[bs, :, ks], vv[bs, :, ks],
+                                            part, (c, 0, 1), True)
+            mine = tuple(x[bs, hs] for x in got)
+            *exc, rows = merge_excess(torch, fa, q[bs, :, hs], k0[bs, :, ks],
+                                      mine, want, terms)
+            worst = [max(a, e) for a, e in zip(worst, exc)]
+            agree = agree and rows
+            seen = want[2] > fa.NEG_INF / 2
+            err_o = max(err_o, float(torch.where(
+                seen, (mine[0] - want[0]).abs(), 0).max()))
+            del want, terms
+        return worst, err_o, agree
+
+    (o_exc, l_exc, m_exc), o_err, agree = merge_worst(v0)
+    require(agree and max(o_exc, l_exc, m_exc) <= 1.0,
+            f"sp_tp merge: o {o_exc}, l {l_exc}, m {m_exc} x their "
+            f"tolerances, rows seen agree {agree}")
+    ctrl = merge_worst(_zero_keys(v0))[0][0]
+    require(ctrl > 1.0, f"sp_tp merge: the zeroed-keys control passed "
+                        f"({ctrl})")
+    r = {"shape": {"B": b, "Tq": c, "Tk": c, "H": h, "KVH": kvh, "D": d},
+         "offsets": [c, 0, 1], "carry": f"the home block at ({c}, {c}, 1)",
+         "max_abs_err_o": o_err,
+         "worst_err_over_tol_o": o_exc, "worst_err_over_tol_l": l_exc,
+         "worst_err_over_bound_m": m_exc, "rows_seen_agree": agree,
+         "zeroed_keys_control_worst_err_over_tol_o": ctrl}
+    flops = 4.0 * b * h * d * c * c
+    nbytes = 2.0 * (b * c * h * d + 2 * b * c * kvh * d) \
+        + 2 * 4.0 * b * h * c * (d + 2)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_TC_FLOPS)
+    r["ms"] = time_ms(torch, lambda: fa.merge_kv_block(
+        q, k0, v0, carry, (c, 0, 1), causal=True), reps=10)
+    r["plain_ms"] = time_ms(torch, lambda: fa._merge_ref(
+        *(x.permute(0, 2, 1, 3) for x in (q, k0, v0)), *carry, (c, 0, 1),
+        True), reps=3)
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    res["sp_tp_merge"] = r
+    del q, k0, v0, k1, v1, carry, got
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3587,7 +3843,10 @@ def run_tensor_parallel(torch, fa, transformer, train):
     4: head dim 1024, the wide kernels), 4 steps with the four shards as
     units in this process. Gate: at init on a 2-layer copy, TP 4 against
     TP 1 (--split-qkv on, the same params). Launches: K1 twice per layer,
-    shard and step (full remat re-runs the forward), dq and dkv once."""
+    shard and step (full remat re-runs the forward), dq and dkv once.
+    Then the same 4 steps at --tensor-parallel 1 (a comparison, not this
+    slice's path: its launches are gated but kept apart), so the two loss
+    trajectories stand side by side."""
     one = with_flags(TP_ARGV, tensor_parallel=1, split_qkv="on")
 
     def wanted(args):
@@ -3595,10 +3854,26 @@ def run_tensor_parallel(torch, fa, transformer, train):
         return {"flash_fwd": 2 * per, "flash_bwd_dq": per,
                 "flash_bwd_dkv": per, "flash_merge": 0, "flash_decode": 0}
 
-    return run_parallel_cell(
+    res = run_parallel_cell(
         torch, fa, transformer, train, "tensor_parallel", TP_ARGV, wanted,
         lambda: gate_parity(torch, transformer, "tensor_parallel", TP_ARGV,
                             one, 2))
+    args = transformer.parse_args(one)
+    built = transformer.build(args)
+    tp1 = drive_train(torch, fa, train, built, args, "tensor_parallel TP 1",
+                      wanted(args))
+    del built
+    torch.cuda.empty_cache()
+    res["tp1_same_flags"] = {
+        "argv": one, "launches": tp1["launches"],
+        "loss_trajectory": tp1["loss_trajectory"],
+        "step_ms_median_steps_1_on": 1e3 * statistics.median(
+            tp1["step_seconds"][1:]),
+        "peak_memory_gb": tp1["peak_memory_gb"]}
+    res["loss_gap_tp4_minus_tp1"] = [
+        a - b for a, b in zip(res["loss_trajectory"],
+                              tp1["loss_trajectory"])]
+    return res
 
 
 def run_sp_tp(torch, fa, transformer, train):
@@ -3628,12 +3903,13 @@ def run_ulysses(torch, fa, transformer, train, ring_step_ms):
     --seq-parallel 4 --sp-mode ulysses in place of the striped ring, 4
     steps as train_sp runs it. Gate: at init on a 2-layer copy, against
     the ring (contiguous) at the same weights. Launches: K1, dq and dkv
-    once per layer, microbatch, step and head shard (dots_attn saves K1's
-    outputs), K4 never. ``ring_step_ms``: train_sp's median step."""
+    once per layer, microbatch and step (one call over the heads of all
+    four shards; dots_attn saves K1's outputs), K4 never.
+    ``ring_step_ms``: train_sp's median step."""
     ring = [a for a in ULYSSES_ARGV if a not in ("--sp-mode", "ulysses")]
 
     def wanted(args):
-        per = args.layers * args.grad_accum * args.steps * args.seq_parallel
+        per = args.layers * args.grad_accum * args.steps
         return {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
                 "flash_merge": 0, "flash_decode": 0}
 
@@ -4558,6 +4834,8 @@ def main() -> int:
         emit({"phase": "kernels", "kernel": "flash_bwd", **bwd})
         wide = check_wide_heads(torch, fa, F)
         emit({"phase": "wide_heads", **wide})
+        par = check_parallel_shapes(torch, fa, F)
+        emit({"phase": "parallel_shapes", **par})
         emit({"phase": "autograd", **check_attention_autograd(torch, fa)})
         rng = check_ring(torch, fa, ring_mod, gen)
         emit({"phase": "ring", **rng})
@@ -4656,6 +4934,7 @@ def main() -> int:
         pipe_by_path[k]["pipeline_dense"] = pp["dense"]["launches"][k]
         pipe_by_path[k].update({f"defaults_{name}": r["launches"][k]
                                 for name, r in dft.items()})
+    par_bwd = ("ulysses_bwd", "sp_tp_bwd_home", "sp_tp_bwd_earlier")
     bwd_err = {name: max(r[n]["max_abs_err"] for r in bwd.values()
                          for n in names)
                for name, names in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
@@ -4685,9 +4964,15 @@ def main() -> int:
                               **{f"remat_{k}": r["launches"]["flash_fwd"]
                                  for k, r in rmt["runs"].items()}},
          "max_abs_err": max(r["max_abs_err_O"] for r in
-                            (*fwd.values(), *wide["fwd"].values())),
+                            (*fwd.values(), *wide["fwd"].values(),
+                             par["ulysses_fwd"])),
          "worst_err_over_tol": max(r["worst_err_over_tol_O"] for r in
-                                   (*fwd.values(), *wide["fwd"].values())),
+                                   (*fwd.values(), *wide["fwd"].values(),
+                                    par["ulysses_fwd"])),
+         "ulysses_slab_shape": "ulysses slab B2 T8192 H16 KVH4 causal",
+         **{f"ulysses_slab_{k}": par["ulysses_fwd"][k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "share_of_bound")},
          "ms": tp_fwd["ms"], "plain_ms": tp_fwd["plain_ms"],
          "bound_ms": tp_fwd["bound_ms"], "bound_by": tp_fwd["bound_by"],
          "library_ms": tp_fwd["library_ms"], "library": tp_fwd["library"],
@@ -4773,10 +5058,22 @@ def main() -> int:
                    for k, r in rmt["runs"].items()}},
             "max_abs_err": max(bwd_err[name], *(
                 r[n]["max_abs_err"] for r in wide["bwd"].values()
+                for n in (("dq",) if name == "dq" else ("dk", "dv"))), *(
+                par[c][f"max_abs_err_{n}"] for c in par_bwd
                 for n in (("dq",) if name == "dq" else ("dk", "dv")))),
             "worst_err_over_tol": max(bwd_excess_of[name], *(
                 r[n]["worst_err_over_tol"] for r in wide["bwd"].values()
+                for n in (("dq",) if name == "dq" else ("dk", "dv"))), *(
+                par[c][f"worst_err_over_tol_{n}"] for c in par_bwd
                 for n in (("dq",) if name == "dq" else ("dk", "dv")))),
+            **{f"{c}_{k}": par[c][k] for c in par_bwd for k in (
+                f"ms_{name}", f"bound_ms_{name}", f"bound_by_{name}",
+                "plain_ms")},
+            "ulysses_bwd_shape": "ulysses slab B2 T8192 H16 KVH4 causal, "
+                                 "fused D, bf16 grads",
+            "sp_tp_bwd_shape": "sp_tp chunk B8 Tq=Tk=4096 H8 KVH8, "
+                               "(4096, 4096, 1) home and (4096, 0, 1) "
+                               "earlier, given D, f32 grads",
             "ms": tp_bwd[f"ms_{name}"],
             "plain_ms": tp_bwd["plain_ms"],
             "bound_ms": tp_bwd[f"bound_ms_{name}"],
@@ -4840,9 +5137,15 @@ def main() -> int:
             "train": tr["launches"]["flash_merge"],
             "ring_check": rng["striped"]["launches"]["flash_merge"]},
         "max_abs_err": max(r["max_abs_err_o"] for r in
-                           (*mrg.values(), *wide["merge"].values())),
+                           (*mrg.values(), *wide["merge"].values(),
+                            par["sp_tp_merge"])),
         "worst_err_over_tol": max(r["worst_err_over_tol_o"] for r in
-                                  (*mrg.values(), *wide["merge"].values())),
+                                  (*mrg.values(), *wide["merge"].values(),
+                                   par["sp_tp_merge"])),
+        "sp_tp_shape": "sp_tp chunk B8 Tq=Tk=4096 H8 KVH8, (4096, 0, 1) "
+                       "into a live carry",
+        **{f"sp_tp_{k}": par["sp_tp_merge"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")},
         "wide_ring_d256": {k: wide["merge"]["ring_d256"][k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "share_of_bound")},
         "ms": main_mrg["ms"], "plain_ms": main_mrg["plain_ms"],

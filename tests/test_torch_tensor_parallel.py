@@ -21,8 +21,10 @@ import torch
 import jax
 
 from tpu_operator.payload import data as jdata
+from tpu_operator.payload import train as jtrain
 from tpu_operator.payload import transformer as jtransformer
 from tpu_operator_torch.payload import collectives
+from tpu_operator_torch.payload import data as tdata
 from tpu_operator_torch.payload import models
 from tpu_operator_torch.payload import optimizers
 from tpu_operator_torch.payload import transformer
@@ -34,6 +36,15 @@ from tpu_operator_torch.payload import weights
 # partial product dropped or counted twice, the bias added per shard)
 # moves it by O(0.1) or more.
 LOSS_TOL = 5e-3
+# Gradients at init, against the JAX gradient at the same params and
+# batch: the bf16 products of the two frameworks leave each parameter's
+# gradient within ~1.7% of its norm, the whole within ~1.2% (dim 64, 2
+# layers). Each parameter is held to 2^-4 of its norm and the whole to
+# 2^-5: a gradient summed over the shards by 1/N or N times, a
+# row-parallel gradient counted twice or a shard's part dropped is off by
+# 50% or more.
+GRAD_REL_TOL = 2.0 ** -4
+GRAD_WHOLE_TOL = 2.0 ** -5
 
 
 def _argv(extra=()):
@@ -70,6 +81,81 @@ def _against_jax(argv, jmesh, steps=3, tp=None, seq=1):
         jl.append(float(jax.device_get(metrics["loss"])))
         tl.append(float(tstep(torch.from_numpy(jb))["loss"]))
     return tl, jl
+
+
+def _grad_tree(model):
+    """{flax path: gradient} of ``model``'s params as f32 numpy."""
+    import copy
+
+    twin = copy.deepcopy(model)
+    with torch.no_grad():
+        for p, q in zip(twin.parameters(), model.parameters()):
+            p.copy_(q.grad)
+    return _flat(weights.to_flax(twin))
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v, np.float32)
+    return out
+
+
+def _port_loss_and_grads(model, targs, tp, seq):
+    """(loss, {flax path: gradient}) of one microbatch through the port's
+    loss on one process holding every shard."""
+    mesh = transformer.make_lm_mesh(1, 0, seq, tp)
+    loss_fn = transformer.make_lm_loss(model, mesh, targs.sp_layout,
+                                       sp_mode=targs.sp_mode)
+
+    def run(tokens):
+        loss, _ = loss_fn(torch.from_numpy(tokens))
+        loss.backward()
+        return float(loss.detach()), _grad_tree(model)
+
+    return run
+
+
+def _grads_against_jax(argv, jmesh, tp, seq=1):
+    """(port (loss, grads), JAX (loss, grads)) at init, on the first batch:
+    jax.grad of the reference's loss (``make_lm_train_step``'s
+    ``loss_fn``) with the params and tokens placed on ``jmesh`` under the
+    TP shardings, and the port's loss and gradients at the same params."""
+    args = jtransformer.parse_args(argv)
+    jm, jmodel, state, _step, jbatches = jtransformer.build(args,
+                                                            mesh=jmesh)
+    (tokens,) = next(jbatches)
+
+    def loss_fn(params, tok):
+        return jtrain.next_token_nll(jmodel.apply({"params": params}, tok),
+                                     tok)
+
+    placed = jdata.put_global_batch(jm, tokens,
+                                    spec=jtransformer.lm_token_spec(jm))
+    placed = placed[0] if isinstance(placed, (tuple, list)) else placed
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(state.params,
+                                                         placed)
+    want = (float(jax.device_get(jloss)), _flat(_np_tree(jgrads)))
+    targs = transformer.parse_args(argv)
+    model = weights.from_flax(_np_tree(state.params), heads=targs.heads,
+                              param_dtype=torch.float32, tensor_parallel=tp)
+    model.requires_grad_(True)
+    return _port_loss_and_grads(model, targs, tp, seq)(tokens), want
+
+
+def _grad_gaps(got, want):
+    """Each parameter's gradient difference norm over its reference norm,
+    and the whole gradient's."""
+    gaps, diff_sq, ref_sq = {}, 0.0, 0.0
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        diff, norm = np.linalg.norm(got[name] - ref), np.linalg.norm(ref)
+        gaps[name] = diff / max(norm, 1e-30)
+        diff_sq, ref_sq = diff_sq + diff ** 2, ref_sq + norm ** 2
+    return gaps, (diff_sq / ref_sq) ** 0.5
 
 
 @pytest.fixture(scope="module")
@@ -133,6 +219,66 @@ def test_tp_matches_tp1():
         built.step(torch.from_numpy(tokens))
         losses[tp] = float(built.step(torch.from_numpy(tokens))["loss"])
     assert abs(losses[1] - losses[4]) < LOSS_TOL, losses
+
+
+GRAD_CASES = {
+    "tp2": (_argv(["--tensor-parallel", "2"]), 1, 2),
+    "tp2_fused_qkv": (_argv(["--tensor-parallel", "2", "--split-qkv",
+                             "off"]), 1, 2),
+    "tp2_gqa": (_argv(["--tensor-parallel", "2", "--kv-heads", "2",
+                       "--dim", "32", "--seq-len", "32"]), 1, 2),
+    "sp2_tp2": (["--batch", "4", "--seq-len", "64", "--dim", "64", "--heads",
+                 "4", "--layers", "2", "--seq-parallel", "2",
+                 "--tensor-parallel", "2", "--log-every", "0",
+                 "--checkpoint-dir", "", "--profile-dir", ""], 2, 2),
+}
+
+
+def _assert_grads_close(got, want):
+    (got_loss, got_g), (want_loss, want_g) = got, want
+    assert abs(got_loss - want_loss) < LOSS_TOL, (got_loss, want_loss)
+    gaps, whole = _grad_gaps(got_g, want_g)
+    worst = max(gaps, key=gaps.get)
+    assert whole <= GRAD_WHOLE_TOL, whole
+    assert gaps[worst] <= GRAD_REL_TOL, (worst, gaps[worst])
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_tp_loss_and_every_gradient_match_jax(case):
+    """The loss and every parameter's gradient at init against jax.grad of
+    the reference's loss under ``lm_tp_shardings``: on the (data 4, model
+    2) mesh (split and fused qkv, MHA and GQA) and on the (data 2, seq 2,
+    model 2) mesh; the port in one process holding every shard. Adam's
+    update hardly moves when a gradient is scaled, so the step losses of
+    the tests above cannot see a gradient summed wrongly over the shards;
+    this can (GRAD_REL_TOL)."""
+    argv, seq, tp = GRAD_CASES[case]
+    jmesh = jtransformer.make_lm_mesh(8, seq_parallel=seq,
+                                      tensor_parallel=tp)
+    got, want = _grads_against_jax(argv, jmesh, tp, seq)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("seq", [1, 2])
+def test_tp_gradients_match_tp1(seq):
+    """The port's loss and every gradient at init, --tensor-parallel 4
+    against 1 (both --split-qkv on: the same seeded params), alone and
+    under --seq-parallel 2, to the tolerances of the JAX comparison."""
+    sides = []
+    for tp in (4, 1):
+        targs = transformer.parse_args(_argv([
+            "--tensor-parallel", str(tp), "--split-qkv", "on",
+            "--seq-parallel", str(seq), "--heads", "4", "--device", "cpu"]))
+        model = transformer.build_model(
+            targs, torch.device("cpu"),
+            transformer.make_lm_mesh(1, 0, seq, tp).tp()).requires_grad_(True)
+        sides.append((model, targs, tp))
+    for a, b in zip(sides[0][0].parameters(), sides[1][0].parameters()):
+        assert torch.equal(a, b)
+    (tokens,) = next(tdata.synthetic_lm(0, 8, 64, vocab=256))
+    got, want = (_port_loss_and_grads(model, targs, tp, seq)(tokens)
+                 for model, targs, tp in sides)
+    _assert_grads_close(got, want)
 
 
 def test_tp_loss_descends():

@@ -4,7 +4,8 @@ CPU mesh (data 2 x seq 4, ``make_lm_mesh(8, seq_parallel=4)``), case for
 case as ``tests/test_ulysses.py`` holds the reference: the forward, the
 gradients, equality with the ring, GQA, the two divisibility refusals,
 the transformer's loss against one shard (and its step against the JAX
-step), and descent. The port runs the 4 shards in one process as units;
+step), and descent. The port holds the 4 shards in one process (one
+kernel call over their heads);
 inputs come from numpy with a seed, f32 throughout, each comparison with
 its tolerance stated.
 """

@@ -16,9 +16,10 @@ The ``N`` shards spread over the ``P`` processes of a seq group as the
 ring's do (:class:`ring_attention.SeqRing`, contiguous layout only):
 each process holds the slab of its ``N / P`` consecutive shards. The
 exchange (``collectives.AllToAll`` over the seq group) sends process j
-the slab's heads of j's shards; the shards a process then holds run one
-after another as units, so one process holding all N runs the same split
-and join as P processes do, with the exchange the identity.
+the slab's heads of j's shards; the process then runs the flash kernels
+once over the heads of all the shards it holds. The kernels treat each
+head on its own, so one process holding all N (the exchange the
+identity) computes what P processes do.
 
 The reference refuses heads or K/V heads that do not divide by N; so does
 this module, with its messages.
@@ -26,7 +27,7 @@ this module, with its messages.
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any
 
 import torch
 
@@ -80,15 +81,8 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous layout, ``group`` the seq group's processes (None with
     one); returns the output slab ``[B, (N/P)·C, H, D]`` in q's dtype.
     Differentiable (the exchange is its own transpose)."""
-    n, procs, local = ring.shards, ring.procs, ring.local
-    check_heads(q.shape[2], k.shape[2], n)
-    qs, ks, vs = (_scatter_heads(x, procs, group) for x in (q, k, v))
-    hq, hkv = q.shape[2] // n, k.shape[2] // n
-    outs: List[torch.Tensor] = [
-        fa.flash_attention(qs[:, :, u * hq:(u + 1) * hq].contiguous(),
-                           ks[:, :, u * hkv:(u + 1) * hkv].contiguous(),
-                           vs[:, :, u * hkv:(u + 1) * hkv].contiguous(),
-                           causal=causal)
-        for u in range(local)]
-    out = outs[0] if local == 1 else torch.cat(outs, dim=2)
-    return _gather_heads(out, procs, group).contiguous()
+    check_heads(q.shape[2], k.shape[2], ring.shards)
+    qs, ks, vs = (_scatter_heads(x, ring.procs, group).contiguous()
+                  for x in (q, k, v))
+    out = fa.flash_attention(qs, ks, vs, causal=causal)
+    return _gather_heads(out, ring.procs, group).contiguous()
