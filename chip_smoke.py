@@ -55,12 +55,16 @@ one JSON line each:
    ``autograd``: flash_attention's gradients against torch autograd
    through the plain reference attention.
 5a. ``wide_heads``: every kernel's wide path (head dims above 128: a
-   grid axis over 128-column blocks of the output, the scores summed over
-   the head dim's chunks in every block) per element against its plain
-   version with the narrow cases' tolerances: K1, dq and dkv at the
-   tensor-parallel job's shard shape (B 16, T 2048, 1 / 1 head, D 1024)
-   and at (B 4, T 2048, 8 / 2 heads, D 256), and at D 192 (padded to 256)
-   with a ragged T (K2 with offsets, a stride, given D, f32 grads); K3 at
+   grid axis over column blocks of the output, 256 columns for K1 and
+   128 for the others; K1 and dkv compute
+   each score tile once per thread-block cluster of blocks, whose sizes
+   and fitting counts the phase prints, dq, K3 and K4 in every block) per
+   element against its plain version with the narrow cases' tolerances:
+   K1, dq and dkv at the tensor-parallel job's shard shape (B 16, T 2048,
+   1 / 1 head, D 1024) and at (B 4, T 2048, 8 / 2 heads, D 256), at D 192
+   (padded to 256) with a ragged T (K2 with offsets, a stride, given D,
+   f32 grads), at D 384 (ragged T) and D 1536 (K2 with given D), and K1
+   at D 2304 (the cluster sizes 2, 3 and 6); K3 at
    (B 8, Tq 1 and 4, S 2048, 8 / 2 heads, D 256), ragged lengths with 0,
    bit-equal across a NaN-poisoned tail; K4 at the ring shape with D 256
    into a live carry. Negative controls (one 128-column block of V zeroed
@@ -1428,28 +1432,71 @@ def _zero_block(x, block: int, width: int = 128):
     return y
 
 
+def wide_clusters(fa, dims):
+    """{kernel: {head dim: cluster size, the most clusters the card holds
+    at once}} of the two cluster kernels (K1 and dkv wide), from their C
+    entry points; each size must be ``fa.wide_cluster_size``'s and at
+    least one cluster must fit."""
+    import ctypes
+
+    from tpu_operator_torch.kernels import build
+
+    lib = build.library()
+    res = {}
+    for kernel, name, entry in (
+            ("flash_fwd_wide_kernel", "flash_fwd", lib.flash_fwd_wide_cluster),
+            ("flash_bwd_dkv_wide_kernel", "flash_bwd",
+             lib.flash_bwd_dkv_wide_cluster)):
+        res[kernel] = {}
+        for d in dims:
+            size, active = ctypes.c_int(0), ctypes.c_int(0)
+            build.check(entry(fa.kernel_head_dim(name, d),
+                              ctypes.addressof(size),
+                              ctypes.addressof(active)), kernel)
+            want = fa.wide_cluster_size(name, d)
+            require(size.value == want,
+                    f"{kernel} at D {d}: cluster of {size.value}, the "
+                    f"wrapper expects {want}")
+            require(active.value > 0, f"{kernel} at D {d}: no cluster of "
+                                      f"{size.value} fits on the card")
+            res[kernel][str(d)] = {"cluster_size": size.value,
+                                   "max_active_clusters": active.value}
+    return res
+
+
 def check_wide_heads(torch, fa, F):
     """Every kernel at head dims above 128 (the wide path: a grid axis over
-    128-column blocks, each block summing the scores over the head dim's
-    chunks), per element against its plain version with the tolerances of
-    the narrow cases: K1, dq and dkv at the tensor-parallel job's shard
-    shape (B 16, T 2048, 1 / 1 head, D 1024, causal) and at (B 4, T 2048,
-    8 / 2 heads, D 256), and at D 192 (zero-padded to 256) with a ragged T
-    (K2 with offsets, a stride, given D and f32 grads); K3 at (B 8, Tq 1
-    and 4, S 2048, 8 / 2 heads, D 256) with ragged lengths (0 included);
-    K4 at the ring shape (B 2, Tq = Tk = 2048, 16 / 4 heads, D 256)
-    folding a striped block into a live carry. Negative controls: the
-    plain side with one 128-column block of V zeroed must fail for K1, K2
-    and K4. Each kernel is timed beside its bound, counted from the work
-    the case needs (not the kernels' recompute of the scores per column
-    block), and beside the first SDPA backend that accepts the head dim."""
+    column blocks, 256 columns for K1 and 128 for the others; K1 and dkv
+    compute each score tile once per thread-block cluster of blocks, dq,
+    K3 and K4 in every block), per element against its plain version with
+    the tolerances of the narrow cases: K1, dq and dkv at the
+    tensor-parallel job's shard shape (B 16, T 2048, 1 / 1 head, D 1024,
+    causal: clusters of 4 in K1, 8 in dkv) and at (B 4, T 2048, 8 / 2
+    heads, D 256), at D 192 (zero-padded to 256) with a ragged T (K2 with
+    offsets, a stride, given D and f32 grads), and at other cluster
+    sizes: D 384 (K1 padded to 512, a cluster of 2; dkv a cluster of 3)
+    with a ragged T and D 1536 (K1 one cluster of 6, dkv two), K2 with
+    given D, and K1 at D 2304 (three clusters of 3, Q streamed); K3
+    at (B 8, Tq 1 and 4, S 2048, 8 / 2 heads, D 256) with ragged lengths
+    (0 included); K4 at the ring shape (B 2, Tq = Tk = 2048, 16 / 4 heads,
+    D 256) folding a striped block into a live carry. Negative controls:
+    the plain side with one 128-column block of V zeroed must fail for K1,
+    K2 and K4 (block 1, or for the D 384, 1536 and 2304 cases the last
+    128-column block: in the last cluster). Each kernel is timed beside
+    its bound, counted from the work the case needs (not the kernels'
+    recompute of the scores per column block), and beside the first SDPA
+    backend that accepts the head dim."""
     gen = wide_generator(torch)
     dev = "cuda"
-    res = {"fwd": {}, "bwd": {}, "decode": {}, "merge": {}}
-    for label, (b, t, h, kvh, d) in {
-            "tp_shard_d1024": (16, 2048, 1, 1, 1024),
-            "gqa_d256": (4, 2048, 8, 2, 256),
-            "padded_d192_ragged": (2, 1000, 8, 4, 192)}.items():
+    res = {"fwd": {}, "bwd": {}, "decode": {}, "merge": {},
+           "clusters": wide_clusters(fa, (192, 256, 384, 1024, 1536, 2304))}
+    for label, (b, t, h, kvh, d, blk) in {
+            "tp_shard_d1024": (16, 2048, 1, 1, 1024, 1),
+            "gqa_d256": (4, 2048, 8, 2, 256, 1),
+            "padded_d192_ragged": (2, 1000, 8, 4, 192, 1),
+            "cluster3_d384_ragged": (2, 1000, 4, 2, 384, 2),
+            "two_clusters_d1536": (1, 1024, 2, 1, 1536, 11),
+            "three_clusters_d2304": (1, 512, 2, 1, 2304, 17)}.items():
         q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
         v = torch.randn(b, t, kvh, d, generator=gen, device=dev).bfloat16()
@@ -1471,11 +1518,13 @@ def check_wide_heads(torch, fa, F):
         r = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
                        "causal": True},
              "kernel_head_dim": fa.kernel_head_dim("flash_fwd", d),
+             "cluster_size": fa.wide_cluster_size("flash_fwd", d),
              "max_abs_err_O": max_err(torch, got, ref_o),
              "worst_err_over_tol_O": excess, "max_abs_err_L": err_l}
         if d > 128:
+            r["zeroed_v_column_block"] = blk
             ctrl, _, _ = fwd_plain_terms(torch, fa, qt, kt,
-                                         _zero_block(vt, 1), True)
+                                         _zero_block(vt, blk), True)
             r["zeroed_v_column_block_control_worst_err_over_tol"] = \
                 fwd_excess(torch, got, ctrl, terms)
             require(r["zeroed_v_column_block_control_worst_err_over_tol"]
@@ -1503,12 +1552,18 @@ def check_wide_heads(torch, fa, F):
         res["fwd"][label] = r
         del q, k, v, qt, kt, vt, out, lse, got
 
-    for label, (b, t, h, kvh, offs, fused, gd, d) in {
+    for label, (b, t, h, kvh, offs, fused, gd, d, blk) in {
             "tp_shard_d1024": (16, 2048, 1, 1, (0, 0, 1), True,
-                               torch.bfloat16, 1024),
-            "gqa_d256": (4, 2048, 8, 2, (0, 0, 1), True, torch.bfloat16, 256),
+                               torch.bfloat16, 1024, 1),
+            "gqa_d256": (4, 2048, 8, 2, (0, 0, 1), True, torch.bfloat16, 256,
+                         1),
             "padded_d192_offsets_stride_given_d": (
-                2, 1000, 8, 4, (0, 3, 2), False, torch.float32, 192)}.items():
+                2, 1000, 8, 4, (0, 3, 2), False, torch.float32, 192, 1),
+            "cluster3_d384_ragged_given_d": (
+                2, 1000, 4, 2, (0, 0, 1), False, torch.float32, 384, 2),
+            "two_clusters_d1536_given_d": (
+                1, 1024, 2, 1, (0, 0, 1), False, torch.bfloat16, 1536,
+                11)}.items():
         inputs, run = bwd_case(torch, fa, gen, b, t, h, kvh, True, offs,
                                fused, gd, d)
         q, k, v, g, L, o, D = inputs
@@ -1524,6 +1579,7 @@ def check_wide_heads(torch, fa, F):
         r = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
                        "causal": True},
              "kernel_head_dim": fa.kernel_head_dim("flash_bwd", d),
+             "cluster_size_dkv": fa.wide_cluster_size("flash_bwd", d),
              "offsets": list(offs), "fused_d_requested": fused,
              "grad_dtype": str(gd).replace("torch.", "")}
         for name, gg, ww, aa in zip(("dq", "dk", "dv"), got, want, terms):
@@ -1537,8 +1593,10 @@ def check_wide_heads(torch, fa, F):
                                    f"its tolerance")
         del want, terms
         if d > 128:
-            ctrl, cterms = bwd_plain_terms(torch, fa, q, k, _zero_block(v, 1),
-                                           g, L, D, offs, True)
+            r["zeroed_v_column_block"] = blk
+            ctrl, cterms = bwd_plain_terms(torch, fa, q, k,
+                                           _zero_block(v, blk), g, L, D,
+                                           offs, True)
             r["zeroed_v_column_block_control_worst_err_over_tol"] = max(
                 bwd_excess(torch, gg, ww, aa)
                 for gg, ww, aa in zip(got, ctrl, cterms))
@@ -1553,10 +1611,7 @@ def check_wide_heads(torch, fa, F):
         per = kernel_device_ms(torch, run, 3, ("flash_bwd_dq_wide_kernel",
                                                "flash_bwd_dkv_wide_kernel"))
         r["ms_dq"] = per["flash_bwd_dq_wide_kernel"]
-        # dkv's wide path is two kernels (dK's, dV's), each launched once a
-        # call: the per-launch mean twice.
-        dkv = per["flash_bwd_dkv_wide_kernel"]
-        r["ms_dkv"] = 2 * dkv if isinstance(dkv, float) else dkv
+        r["ms_dkv"] = per["flash_bwd_dkv_wide_kernel"]  # one launch a call
         for name in ("dq", "dkv"):
             if isinstance(r[f"ms_{name}"], float):
                 r[f"share_of_bound_{name}"] = r[f"bound_ms_{name}"] \
@@ -5082,7 +5137,7 @@ def main() -> int:
             "library": tp_bwd["library"],
             "share_of_bound": tp_bwd.get(f"share_of_bound_{name}"),
             "shape": "tensor_parallel shard B16 T2048 H1 D1024 causal "
-                     "(wide path; dkv's is two kernels, dK's and dV's)",
+                     "(wide path; dkv's one cluster kernel)",
             "plain_ms_is": "_bwd_ref: dq, dk and dv together",
             "library_ms_is": tp_bwd["library_ms_is"],
             "pair_ms": tp_bwd["ms_pair"],

@@ -81,7 +81,8 @@ def _decode_plain(q, k, v, lengths, *, scale):
 def test_kernel_head_dims():
     """The size each kernel runs at: K1 / K2 natively at 64 and 128, the
     next one up between; K3 / K4 at 128; above 128 every kernel's wide
-    path at the next multiple of 128."""
+    path at the next multiple of its column block: 256 for K1, 128 for
+    the others."""
     for d, size in ((1, 64), (16, 64), (32, 64), (64, 64), (65, 128),
                     (96, 128), (128, 128)):
         assert tfa.kernel_head_dim("flash_fwd", d) == size
@@ -92,6 +93,11 @@ def test_kernel_head_dims():
                     (1000, 1024), (1024, 1024), (4096, 4096)):
         for name in tfa.KERNEL_HEAD_DIMS:
             assert tfa.kernel_head_dim(name, d) == size
+    for d, fwd, other in ((300, 512, 384), (384, 512, 384),
+                          (1500, 1536, 1536), (1536, 1536, 1536)):
+        assert tfa.kernel_head_dim("flash_fwd", d) == fwd
+        for name in ("flash_bwd", "flash_decode", "flash_merge"):
+            assert tfa.kernel_head_dim(name, d) == other
     with pytest.raises(ValueError, match="positive"):
         tfa.kernel_head_dim("flash_fwd", 0)
 

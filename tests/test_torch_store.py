@@ -721,10 +721,13 @@ def test_quarantine_condemns_remote_copy(tmp_path):
     up = WriteBehindUploader(WarmStartStore(be, prefix="p"), fail_after=3)
     ck = checkpoint.Checkpointer(str(tmp_path / "ck"), save_every=1,
                                  uploader=up)
-    ck.maybe_save(1, tiny_state(1))
-    ck.maybe_save(2, tiny_state(2))
-    ck.flush()
-    assert up.flush(30.0)
+    # Each step uploads before the next is saved: a step still pending
+    # when the next arrives is superseded by design (last-wins), which a
+    # loaded machine can reach.
+    for step in (1, 2):
+        ck.maybe_save(step, tiny_state(step))
+        ck.flush()
+        assert up.flush(30.0)
     assert WarmStartStore(be, prefix="p").checkpoint_steps() == [1, 2]
     ck.close()
     victim = tmp_path / "ck" / "2" / checkpoint.PARAMS_FILE

@@ -2,25 +2,30 @@
 
 Above 128 every kernel runs at the next multiple of 128
 (``flash_attention.kernel_head_dim``): a grid axis over 128-column blocks
-of the output, each block summing the scores over the head dim's chunks
-(``kernels/csrc/flash_wide.cuh``), and the backward kernels take D =
-rowsum(dO O) given, since it spans every block. The kernels cannot run
-here, so:
+of the output (``kernels/csrc/flash_wide.cuh``); K1 and dkv compute each
+score tile once per thread-block cluster of blocks, whose size
+(``flash_attention.wide_cluster_size``) is the largest divisor of the
+block count up to 8 (K1's blocks are 256 columns, so K1 runs at the next
+multiple of 256); the backward kernels take D = rowsum(dO O) given,
+since it spans every block. The kernels cannot run here, so:
 
 - the port's plain attention (its forward and its autograd through the
-  plain backward) at head dims 192, 256 and 1024 is held to the JAX
+  plain backward) at head dims 192, 256, 384, 1024 and 1536 (dkv's
+  clusters of 2, 2, 3, 8 and two of 6) is held to the JAX
   ``flash_attention`` (its Pallas kernels in interpret mode, 64 x 64
   blocks) at 2e-5 of the largest value, the bound of
   ``tests/test_torch_flash_attention.py``;
 - the CUDA wrappers' own routing (``_flash_fwd_cuda``, ``_flash_bwd_cuda``,
   ``_flash_merge_cuda``, ``_flash_decode_cuda``) runs on CPU tensors with
   the launch swapped for the plain version and the device check for a
-  no-op: each launch must see the padded head dim (a multiple of 128), the
+  no-op: each launch must see the padded head dim (a multiple of 128; of
+  256 for K1), the
   true head dim's scale and, for the backward, D given; its result must
   be the plain version's at the true head dim within 1e-5 of the largest
   value (f32 arithmetic from bf16 inputs; only the summation order moves:
   a wrong scale moves O by O(10%), a dropped column block by O(1)), and
-  a bf16 output also within one bf16 ulp, 2^-7 of its value.
+  a bf16 output also within one bf16 ulp, 2^-7 of its value; the routes
+  run at head dims whose clusters hold 1 to 8 blocks, padded or not.
 """
 
 import numpy as np
@@ -33,7 +38,7 @@ import jax.numpy as jnp
 from tpu_operator.payload import flash_attention as jfa
 from tpu_operator_torch.payload import flash_attention as tfa
 
-WIDE_DIMS = (192, 256, 1024)
+WIDE_DIMS = (192, 256, 384, 1024, 1536)
 JAX_TOL = 2e-5
 ROUTE_TOL = 1e-5
 
@@ -94,6 +99,27 @@ def test_plain_attention_matches_jax_at_wide_head_dim(monkeypatch, d):
         _close(x.grad, jg, JAX_TOL)
 
 
+@pytest.mark.parametrize("d,fwd,bwd", [
+    (129, 1, 2), (256, 1, 2), (300, 2, 3), (384, 2, 3), (640, 3, 5),
+    (1000, 4, 8), (1024, 4, 8), (1408, 6, 1), (1536, 6, 6), (2048, 8, 8),
+    (2304, 3, 6), (2816, 1, 2)])
+def test_wide_cluster_size(d, fwd, bwd):
+    """The largest divisor, at most 8, of the column-block count: K1's
+    blocks are 256 columns, dkv's 128 (a prime count above 8 gets
+    clusters of one)."""
+    for name, size in (("flash_fwd", fwd), ("flash_bwd", bwd)):
+        nb = tfa.kernel_head_dim(name, d) // tfa.WIDE_BLOCKS[name]
+        assert tfa.wide_cluster_size(name, d) == size
+        assert nb % size == 0 and size <= 8
+
+
+@pytest.mark.parametrize("name,d", [("flash_fwd", 128), ("flash_bwd", 64),
+                                    ("flash_merge", 256)])
+def test_wide_cluster_size_refuses_what_runs_no_cluster(name, d):
+    with pytest.raises(ValueError):
+        tfa.wide_cluster_size(name, d)
+
+
 @pytest.fixture
 def plain_launches(monkeypatch):
     """The CUDA wrappers on CPU tensors: the device check a no-op, each
@@ -135,19 +161,24 @@ def _bf16(*xs):
     return tuple(x.bfloat16() for x in xs)
 
 
-@pytest.mark.parametrize("d", (192, 256, 1000))
+ROUTE_DIMS = (192, 256, 384, 1000, 1500)
+# The head dim K1's wide kernel runs at: the next multiple of its 256-column
+# block.
+FWD_SIZES = {192: 256, 256: 256, 384: 512, 1000: 1024, 1500: 1536}
+
+
+@pytest.mark.parametrize("d", ROUTE_DIMS)
 def test_forward_route_pads_to_a_multiple_of_128(plain_launches, d):
     q, k, v, _g = _bf16(*_inputs(600 + d, 2, 24, 4, 2, d))
     out, lse = tfa._flash_fwd_cuda(q, k, v, True)
-    assert plain_launches == [("flash_fwd", -(-d // 128) * 128, d ** -0.5,
-                               None)]
+    assert plain_launches == [("flash_fwd", FWD_SIZES[d], d ** -0.5, None)]
     want, want_l = tfa._attn_ref(_t(q), _t(k), _t(v), True)
     assert out.shape == q.shape
     _close_bf16(out, _t(want))
     _close(lse, want_l, ROUTE_TOL)
 
 
-@pytest.mark.parametrize("d", (192, 256, 1000))
+@pytest.mark.parametrize("d", ROUTE_DIMS)
 @pytest.mark.parametrize("fused", [True, False], ids=["fused_d", "given_d"])
 def test_backward_route_takes_d_given(plain_launches, d, fused):
     """Fused D requested or not, the wide launch gets D = rowsum(dO O) of

@@ -74,6 +74,9 @@ SIGNATURES = {
     # q, k, v, o_in, l_in, m_in, o_out, l_out, m_out | B, Tq, Tk, H, KVH,
     # head_dim, causal, q_off, k_off, stride | scale | stream
     "flash_merge_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
+    # head_dim | cluster size out, max active clusters out
+    "flash_fwd_wide_cluster": [_I, _P, _P],
+    "flash_bwd_dkv_wide_cluster": [_I, _P, _P],
 }
 
 

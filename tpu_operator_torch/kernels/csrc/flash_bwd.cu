@@ -437,17 +437,18 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // --- head dims above 128 ------------------------------------------------------
 //
-// Any multiple of 128 (flash_wide.cuh's design, transposed as above): a
-// grid axis over the 128-column blocks of the output (dQ in dq; dK and dV
-// in dkv; blockIdx.y = KV head x nc + column block cb). Every CTA sums the
-// full S = sum_c Q_c K_c^T and dP = sum_c dO_c V_c^T over the head dim's
-// chunks, streaming one chunk of each operand per step through a 2-stage
-// cp.async ring in an order that ends on chunk cb, so the last step's
-// stage already holds the operand of the output product (K_cb for dQ;
-// Q_cb and dO_cb for dK and dV). D = rowsum(dO O) spans the whole head
-// dim, so these kernels always read a given D. Like the forward, they
-// recompute S and dP once per column block (ROADMAP Queue B). dkv runs as
-// two kernels, dK's and dV's (below).
+// Any multiple of 128: a grid axis over the 128-column blocks of the
+// output (dQ in dq; dK and dV in dkv; blockIdx.y = KV head x nc + column
+// block cb). D = rowsum(dO O) spans the whole head dim, so these kernels
+// always read a given D.
+// - dq keeps the first wide design: every CTA sums the full
+//   S = sum_c Q_c K_c^T and dP = sum_c dO_c V_c^T itself, streaming one
+//   chunk of each operand per step through a 2-stage cp.async ring in an
+//   order that ends on chunk cb, so the last step's stage holds K_cb, the
+//   operand of dQ_cb += dS K_cb; it recomputes S and dP once per column
+//   block (ROADMAP Queue B).
+// - dkv computes each score tile once per thread-block cluster of column
+//   blocks (flash_wide.cuh's design, transposed; below).
 
 constexpr int CD = 128;                      // head-dim columns of one chunk
 constexpr int WIDE_PANEL = ROWS * CD;        // one chunk of a 64-row panel
@@ -455,8 +456,12 @@ constexpr int WIDE_KEYS = BK * CD;           // one chunk of a 64-key tile
 constexpr int WIDE_STAGE = 2 * WIDE_PANEL + 2 * WIDE_KEYS;
 // dq: two stages of (Q_c, dO_c, K_c, V_c), then the panel's L and D rows.
 constexpr size_t WIDE_DQ_SMEM = 1024 + 2 * 2 * (size_t)WIDE_STAGE + 2 * ROWS * 4;
-// dkv: two stages of (K_c, V_c, Q_c, dO_c), then two stages of L and D rows.
-constexpr size_t WIDE_DKV_SMEM = 1024 + 2 * 2 * (size_t)WIDE_STAGE + 2 * 2 * ROWS * 4;
+// dkv (bytes from the aligned base): resident K_cb, V_cb; two stages of
+// (Q_c, dO_c, K_c, V_c); the partials S^T and dP^T [BK][ROWS] f32; P^T and
+// dS^T [BK][ROWS] bf16; two stages of the panel's L and D rows.
+constexpr size_t WIDE_DKV_PART = 2 * (2 * (size_t)WIDE_KEYS + 2 * (size_t)WIDE_STAGE);
+constexpr size_t WIDE_DKV_SMEM =
+    1024 + WIDE_DKV_PART + 2 * 4 * BK * ROWS + 2 * 2 * BK * ROWS + 2 * 2 * ROWS * 4;
 
 template <typename OutT>
 __global__ void __launch_bounds__(NT, 1)
@@ -607,28 +612,60 @@ flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dkv at head dims above 128: one kernel for dK (DK, S and dP) and one for
-// dV (S only), each holding one 64 x 128 f32 accumulator, so neither
-// spills: with both accumulators and both score tiles live across the
-// chunk steps, one kernel would need more than 255 registers a thread.
-template <typename OutT, bool DK>
-__global__ void __launch_bounds__(NT, 1)
+// dkv at head dims above 128: flash_wide.cuh's cluster design, transposed.
+// One CTA per (64-key tile, KV head x column block, batch), two warpgroups,
+// in clusters of cs = wide_cluster_size(nc) CTAs along y: column blocks
+// cl cs .. cl cs + cs - 1 of one key tile. Rank r sums the m = nc / cs
+// chunks r, r + cs, ... of the head dim (ordered to end on its own chunk
+// cb = cl cs + r; at m = 1, cs = nc, the only chunk is cb), K_c and V_c
+// resident when m = 1 and streamed otherwise. Per q-panel step, with Q_c,
+// dO_c, L and D streaming through a 2-stage cp.async ring:
+// - warpgroup 0 computes the partial S^T_r = K_r Q_r^T, warpgroup 1
+//   dP^T_r = V_r dO_r^T (64 x 64 f32 each), and both go to shared memory;
+// - after a cluster barrier rank r reduces its 1/cs of the keys over every
+//   rank's partials through distributed shared memory (in rank order: at
+//   m = 1 chunk order, so every column block holds a bit-identical S and
+//   dP), forms P^T = exp(S^T scale - L) and dS^T = P^T (dP^T - D) with the
+//   causal and ragged masks, and stores both in bf16 into every rank's
+//   shared memory;
+// - after a second cluster barrier warpgroup 0 adds dS^T Q_cb to dK_cb and
+//   warpgroup 1 P^T dO_cb to dV_cb (64 x 128 f32 each, 64 registers a
+//   thread), the scores read back as wgmma register fragments.
+// As in the forward, the second barrier frees the partials for the next
+// step and the fragments are read before the next step's first barrier.
+// The contraction over the panel's rows sums the GQA group into the KV
+// head. At m > 1 each rank's chunk order ends on its own chunk, so the
+// panel's clusters sum S in different orders and may differ in the last
+// bits.
+template <typename OutT>
+__global__ void __launch_bounds__(2 * NT, 1)
 flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ g,
                           const float* __restrict__ L, const float* __restrict__ dvec,
-                          OutT* __restrict__ dout, int Tq, int Tk, int H, int KVH, int group,
-                          int nc, int causal, int q_off, int k_off, int stride, float scale) {
+                          OutT* __restrict__ dk, OutT* __restrict__ dv, int Tq, int Tk, int H,
+                          int KVH, int group, int nc, int causal, int q_off, int k_off,
+                          int stride, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  bf16* base = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  float* sStats = reinterpret_cast<float*>(base + 2 * WIDE_STAGE);  // stage s: L, D
+  unsigned char* sb = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* sKres = reinterpret_cast<bf16*>(sb);
+  bf16* sVres = sKres + WIDE_KEYS;
+  bf16* stages = sVres + WIDE_KEYS;  // stage s: Q_c, dO_c, (m > 1) K_c, V_c
+  float* sPartS = reinterpret_cast<float*>(sb + WIDE_DKV_PART);
+  float* sPartP = sPartS + BK * ROWS;
+  bf16* sPT = reinterpret_cast<bf16*>(sPartP + BK * ROWS);
+  bf16* sDST = sPT + BK * ROWS;
+  float* sStats = reinterpret_cast<float*>(sDST + BK * ROWS);  // stage s: L, D
 
   const int D = nc * CD;
+  const int cs = wide_cluster_size(nc), mch = nc / cs;
+  const bool resident = mch == 1;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int blk_q = ROWS / group;
   const int k0 = blockIdx.x * BK;
   const int kvh = blockIdx.y / nc;
   const int cb = blockIdx.y - kvh * nc;
+  const int rank = cb % cs, cl = cb / cs;  // cs divides nc
   const int b = blockIdx.z;
 
   const int n_qt = (Tq + blk_q - 1) / blk_q;
@@ -636,22 +673,21 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   int qt0 = 0;
   if (causal)
     while (qt0 < n_qt && q_off + stride * (min((qt0 + 1) * blk_q, Tq) - 1) < k_lo) ++qt0;
-  const int steps = (n_qt - qt0) * nc;
+  const int steps = (n_qt - qt0) * mch;
 
-  // Step j: q-tile qt0 + j / nc, chunk (cb + 1 + j % nc) % nc (cb last):
-  // K_c and Q_c (for S), for dK also V_c and dO_c (for dP); the q-tile's
-  // last step also brings dO_cb (dV's operand) and the L and D rows.
-  auto load_step = [&](int j) {
-    const int qi = j / nc, i = j - qi * nc;
-    const int q0 = (qt0 + qi) * blk_q;
-    const int col = ((cb + 1 + i) % nc) * CD;
-    bf16* sK = base + (j & 1) * WIDE_STAGE;
-    auto key_row = [&](const bf16* src) {
-      return [=](int r) -> const bf16* {
-        const int t = k0 + r;
-        return t < Tk ? src + (((size_t)b * Tk + t) * KVH + kvh) * D + col : nullptr;
-      };
+  auto key_row = [&](const bf16* src, int c0) {
+    return [=](int r) -> const bf16* {
+      const int t = k0 + r;
+      return t < Tk ? src + (((size_t)b * Tk + t) * KVH + kvh) * D + c0 : nullptr;
     };
+  };
+  // Step j: q-tile qt0 + j / m, chunk rank + cs ((cl + 1 + j % m) % m) (cb
+  // last); the q-tile's last step also brings the L and D rows.
+  auto load_step = [&](int j) {
+    const int qi = j / mch, i = j - qi * mch;
+    const int q0 = (qt0 + qi) * blk_q;
+    const int col = (rank + cs * ((cl + 1 + i) % mch)) * CD;
+    bf16* sQ = stages + (j & 1) * WIDE_STAGE;
     auto panel_row = [&](const bf16* src) {
       return [=](int r) -> const bf16* {
         const int t = q0 + r / group;
@@ -659,12 +695,13 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                       : nullptr;
       };
     };
-    load_tile<BK, NT>(sK, tid, key_row(k), k);
-    if (DK) load_tile<BK, NT>(sK + WIDE_KEYS, tid, key_row(v), v);
-    load_tile<ROWS, NT>(sK + 2 * WIDE_KEYS, tid, panel_row(q), q);
-    if (DK || i == nc - 1)
-      load_tile<ROWS, NT>(sK + 2 * WIDE_KEYS + WIDE_PANEL, tid, panel_row(g), g);
-    if (i == nc - 1) {
+    load_tile<ROWS, 2 * NT>(sQ, tid, panel_row(q), q);
+    load_tile<ROWS, 2 * NT>(sQ + WIDE_PANEL, tid, panel_row(g), g);
+    if (!resident) {
+      load_tile<BK, 2 * NT>(sQ + 2 * WIDE_PANEL, tid, key_row(k, col), k);
+      load_tile<BK, 2 * NT>(sQ + 2 * WIDE_PANEL + WIDE_KEYS, tid, key_row(v, col), v);
+    }
+    if (i == mch - 1 && tid < 2 * ROWS) {
       // Thread i < 64 copies row i's L, thread 64 + i its D.
       const int r = tid % ROWS;
       const int t = q0 + r / group;
@@ -673,18 +710,22 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       cp_async_4(sStats + 2 * (j & 1) * ROWS + tid, t < Tq ? src + idx : src, t < Tq);
     }
   };
+  if (resident) {
+    load_tile<BK, 2 * NT>(sKres, tid, key_row(k, cb * CD), k);
+    load_tile<BK, 2 * NT>(sVres, tid, key_row(v, cb * CD), v);
+  }
   if (steps > 0) load_step(0);
   cp_async_commit();
 
-  const int kpos_a = k0 + ((tid >> 5) & 3) * 16 + (lane >> 2);
-  const int kpos_b = kpos_a + 8;
-  const int k_last = k_off + stride * (min(k0 + BK, Tk) - 1);
   const float c = scale * LOG2E;
+  // The keys this rank reduces, as (key, 4-row chunk of the panel) tasks.
+  const int lo = rank * BK / cs, hi = (rank + 1) * BK / cs;
+  const int n_tasks = (hi - lo) * 16;
 
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  float s[32], dp[DK ? 32 : 1];
+  float s[32];
 
   for (int j = 0; j < steps; ++j) {
     const int st = j & 1;
@@ -693,55 +734,60 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     cp_async_wait<1>();  // step j landed for this thread's copies
     fence_proxy_async();
     __syncthreads();     // ... and for every thread's
-    const bf16* sK = base + st * WIDE_STAGE;
-    const bf16* sV = sK + WIDE_KEYS;
-    const bf16* sQ = sV + WIDE_KEYS;
+    const bf16* sQ = stages + st * WIDE_STAGE;
     const bf16* sG = sQ + WIDE_PANEL;
-    const int qi = j / nc, i = j - qi * nc;
+    const bf16* sK = resident ? sKres : sG + WIDE_PANEL;
+    const bf16* sV = resident ? sVres : sG + WIDE_PANEL + WIDE_KEYS;
+    const int qi = j / mch, i = j - qi * mch;
 
+    // Warpgroup 0: S^T (+)= K_c Q_c^T; warpgroup 1: dP^T (+)= V_c dO_c^T.
     wgmma_fence();
-    gemm_nt_64x64_chunk(s, sK, BK, sQ, ROWS, i > 0);
-    if constexpr (DK) gemm_nt_64x64_chunk(dp, sV, BK, sG, ROWS, i > 0);
+    gemm_nt_64x64_chunk(s, wg ? sV : sK, BK, wg ? sG : sQ, ROWS, i > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    if constexpr (DK) fence_regs(dp);
 
-    if (i == nc - 1) {
+    if (i == mch - 1) {
+      store_scores(wg ? sPartP : sPartS, 0, lane, warp, s);
+      cluster_sync();
+
+      // Reduce this rank's keys over the cluster: P^T and dS^T to every
+      // rank.
       const float* sL = sStats + 2 * st * ROWS;
       const float* sD = sL + ROWS;
       const int q0 = (qt0 + qi) * blk_q;
-      const bool masked = q0 + blk_q > Tq || k0 + BK > Tk ||
-                          (causal && q_off + stride * q0 < k_last);
-      // P^T = exp2(S^T scale log2e - L log2e); dK: dS^T = P^T (dP^T - D)
-      // in place of S^T.
+      for (int task = tid; task < n_tasks; task += 2 * NT) {
+        const int key = lo + (task >> 4), c4 = task & 15;
+        float4 sv, dpv;
+        cluster_sum_f4x2(sPartS + fswz(key, 4 * c4), sPartP + fswz(key, 4 * c4), cs, sv, dpv);
+        const float ss[4] = {sv.x, sv.y, sv.z, sv.w};
+        const float dd[4] = {dpv.x, dpv.y, dpv.z, dpv.w};
+        const int kpos = k0 + key;
+        float p[4], ds[4];
 #pragma unroll
-      for (int x = 0; x < 8; ++x)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = 8 * x + 2 * (lane & 3) + e;  // panel row (column of S^T)
-          const float l2 = sL[r] * LOG2E;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int y = 4 * x + 2 * h + e;
-            float p = exp2f(fmaf(s[y], c, -l2));
-            if (masked) {
-              const int t = q0 + r / group;
-              const int kpos = h ? kpos_b : kpos_a;
-              bool valid = t < Tq && kpos < Tk;
-              if (causal) valid = valid && q_off + stride * t >= k_off + stride * kpos;
-              p = valid ? p : 0.f;
-            }
-            if constexpr (DK) s[y] = p * (dp[y] - sD[r]);
-            else s[y] = p;
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * c4 + e;  // panel row
+          const int t = q0 + r / group;
+          bool valid = t < Tq && kpos < Tk;
+          if (causal) valid = valid && q_off + stride * t >= k_off + stride * kpos;
+          p[e] = valid ? exp2f(fmaf(ss[e], c, -sL[r] * LOG2E)) : 0.f;
+          ds[e] = p[e] * (dd[e] - sD[r]);
         }
-      uint32_t pp[16];
-      pack_scores(pp, s);
+        const uint32_t p01 = pack_bf16x2(p[0], p[1]), p23 = pack_bf16x2(p[2], p[3]);
+        const uint32_t d01 = pack_bf16x2(ds[0], ds[1]), d23 = pack_bf16x2(ds[2], ds[3]);
+        const int off = swz(BK, key, 4 * c4);
+        for (int r = 0; r < cs; ++r) {
+          st_dsmem_u32x2(dsmem(sPT + off, r), p01, p23);
+          st_dsmem_u32x2(dsmem(sDST + off, r), d01, d23);
+        }
+      }
+      cluster_sync();
 
-      wgmma_fence();
       // This step's chunk is cb: dK += dS^T Q_cb, dV += P^T dO_cb.
-      gemm_rs_64xN<CD>(acc, pp, DK ? sQ : sG, ROWS);
+      uint32_t pf[16];
+      load_fragments(pf, wg ? sPT : sDST, BK, 0, lane, warp);
+      wgmma_fence();
+      gemm_rs_64xN<CD>(acc, pf, wg ? sG : sQ, ROWS);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -750,11 +796,13 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
   cp_async_wait<0>();
 
+  // No peer touches this CTA's shared memory after the last barrier.
   const int col0 = 2 * (lane & 3);
-  const float out_scale = DK ? scale : 1.f;
+  OutT* dout = wg ? dv : dk;
+  const float out_scale = wg ? 1.f : scale;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int t = h ? kpos_b : kpos_a;
+    const int t = k0 + warp * 16 + (lane >> 2) + 8 * h;
     if (t >= Tk) continue;
     OutT* row = dout + (((size_t)b * Tk + t) * KVH + kvh) * D + cb * CD;
 #pragma unroll
@@ -824,21 +872,16 @@ cudaError_t launch_dkv_wide(cudaStream_t s, const void* q, const void* k, const 
                             const void* g, const void* L, const void* dvec, void* dk, void* dv,
                             int B, int Tq, int Tk, int H, int KVH, int head_dim, int causal,
                             int q_off, int k_off, int stride, float scale) {
-  cudaError_t err = prepare<flash_bwd_dkv_wide_kernel<OutT, true>>(WIDE_DKV_SMEM);
-  if (err == cudaSuccess) err = prepare<flash_bwd_dkv_wide_kernel<OutT, false>>(WIDE_DKV_SMEM);
+  cudaError_t err = prepare<flash_bwd_dkv_wide_kernel<OutT>>(WIDE_DKV_SMEM);
   if (err != cudaSuccess) return err;
   const int nc = head_dim / CD;
-  dim3 grid((Tk + BK - 1) / BK, KVH * nc, B);
-  flash_bwd_dkv_wide_kernel<OutT, true><<<grid, NT, WIDE_DKV_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
-      (const float*)dvec, (OutT*)dk, Tq, Tk, H, KVH, H / KVH, nc, causal, q_off, k_off, stride,
-      scale);
-  err = cudaGetLastError();
+  ClusterLaunch l(dim3((Tk + BK - 1) / BK, KVH * nc, B), 2 * NT, WIDE_DKV_SMEM,
+                  wide_cluster_size(nc), s);
+  err = cudaLaunchKernelEx(&l.cfg, flash_bwd_dkv_wide_kernel<OutT>, (const bf16*)q,
+                           (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
+                           (const float*)dvec, (OutT*)dk, (OutT*)dv, Tq, Tk, H, KVH, H / KVH,
+                           nc, causal, q_off, k_off, stride, scale);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_wide_kernel<OutT, false><<<grid, NT, WIDE_DKV_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
-      (const float*)dvec, (OutT*)dv, Tq, Tk, H, KVH, H / KVH, nc, causal, q_off, k_off, stride,
-      scale);
   return cudaGetLastError();
 }
 
@@ -904,4 +947,17 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
     err = out_f32 ? launch_dkv<128, float>(DKV_ARGS) : launch_dkv<128, bf16>(DKV_ARGS);
 #undef DKV_ARGS
   return (int)err;
+}
+
+// The wide dkv kernel's cluster at `head_dim` (a multiple of 128 above
+// it): its size and the most such clusters the device holds at once.
+extern "C" int flash_bwd_dkv_wide_cluster(int head_dim, int* cluster_size,
+                                          int* max_clusters) {
+  if (head_dim <= CD || head_dim % CD != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<flash_bwd_dkv_wide_kernel<bf16>>(WIDE_DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int cs = wide_cluster_size(head_dim / CD);
+  *cluster_size = cs;
+  return (int)max_active_clusters(flash_bwd_dkv_wide_kernel<bf16>, 2 * NT, WIDE_DKV_SMEM, cs,
+                                  max_clusters);
 }

@@ -27,10 +27,11 @@
 // the next of them). At D 64 every tile is one 64-column half of the
 // swizzle, S = Q K^T takes 4 k16 steps instead of 8, and O is 64 columns
 // (32 accumulator registers a thread); everything else is as at D 128.
-// Above 128, at any multiple of 128, the entry point launches
-// flash_fwd_wide_kernel instead (flash_wide.cuh: a grid axis over
-// 128-column blocks of O, each block summing S over the head dim's
-// chunks; the wrapper zero-pads any other D above 128 to the next one).
+// Above 128 the entry point launches flash_fwd_wide_kernel instead, at
+// any multiple of 256 (flash_wide.cuh: a grid axis
+// over 256-column blocks of O, a thread-block cluster of blocks computing
+// each score tile once; the wrapper zero-pads any other D above 128 to
+// the next multiple of 256).
 //
 // The design (hopper.cuh holds the wgmma and cp.async building blocks):
 // - one CTA per (q-tile, KV head, batch), heaviest causal q-tiles first;
@@ -262,31 +263,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
-// Head dims above 128, any multiple of 128: flash_wide.cuh's design (a
-// grid axis over 128-column blocks of O, the scores summed over the head
-// dim's chunks in every block).
+// Head dims above 128, any multiple of 256: flash_wide.cuh's cluster
+// design (a grid axis over 256-column blocks of O; a cluster of column
+// blocks computes each score tile once and exchanges it through
+// distributed shared memory).
 __global__ void __launch_bounds__(wide::NT, 1) flash_fwd_wide_kernel(wide::Args a) {
-  wide::attend<false>(a);
+  wide::attend_cluster(a);
 }
 
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                         int T, int H, int KVH, int head_dim, int causal, float scale,
                         cudaStream_t stream) {
-  cudaError_t err = set_smem_once<flash_fwd_wide_kernel>(wide::SMEM_BYTES, true);
+  cudaError_t err = set_smem_once<flash_fwd_wide_kernel>(wide::CLUSTER_SMEM_BYTES, true);
   if (err != cudaSuccess) return err;
-  const int nc = head_dim / wide::CD;
+  const int nb = head_dim / wide::C_CD;
   wide::Args a{(const bf16*)q, (const bf16*)k, (const bf16*)v, nullptr, nullptr, nullptr,
-               o, (float*)lse, nullptr, T, T, H, KVH, H / KVH, nc, causal, 0, 0, 1, scale};
-  flash_fwd_wide_kernel<<<wide::grid(T, KVH, nc, B, H / KVH), wide::NT, wide::SMEM_BYTES,
-                          stream>>>(a);
+               o, (float*)lse, nullptr, T, T, H, KVH, H / KVH, nb, causal, 0, 0, 1, scale};
+  ClusterLaunch l(wide::grid(T, KVH, nb, B, H / KVH), wide::NT, wide::CLUSTER_SMEM_BYTES,
+                  wide_cluster_size(nb), stream);
+  err = cudaLaunchKernelEx(&l.cfg, flash_fwd_wide_kernel, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes); head_dim 64, 128 or a multiple of 128
-// above it. Launches on `stream`; returns cudaGetLastError() after the
-// launch (0 = launched).
+// C entry point (bound with ctypes); head_dim 64, 128 or a multiple of 256
+// (the wide kernel's column block). Launches on `stream`; returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                               void* lse, int B, int T, int H, int KVH, int head_dim,
                               int causal, float scale, void* stream) {
@@ -295,9 +299,22 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   cudaStream_t s = (cudaStream_t)stream;
   if (head_dim == 64) return (int)launch<64>(q, k, v, o, lse, B, T, H, KVH, causal, scale, s);
   if (head_dim == 128) return (int)launch<128>(q, k, v, o, lse, B, T, H, KVH, causal, scale, s);
-  if (head_dim > 128 && head_dim % wide::CD == 0)
+  if (head_dim > 128 && head_dim % wide::C_CD == 0)
     return (int)launch_wide(q, k, v, o, lse, B, T, H, KVH, head_dim, causal, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The wide kernel's cluster at `head_dim` (a multiple of 256): its size
+// and the most such clusters the device holds at once.
+extern "C" int flash_fwd_wide_cluster(int head_dim, int* cluster_size,
+                                      int* max_clusters) {
+  if (head_dim <= 128 || head_dim % wide::C_CD != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem_once<flash_fwd_wide_kernel>(wide::CLUSTER_SMEM_BYTES, true);
+  if (err != cudaSuccess) return (int)err;
+  const int cs = wide_cluster_size(head_dim / wide::C_CD);
+  *cluster_size = cs;
+  return (int)max_active_clusters(flash_fwd_wide_kernel, wide::NT, wide::CLUSTER_SMEM_BYTES,
+                                  cs, max_clusters);
 }
 
 extern "C" const char* kernels_error_string(int code) {

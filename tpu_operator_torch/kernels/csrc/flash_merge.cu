@@ -271,11 +271,12 @@ flash_merge_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Head dims above 128, any multiple of 128: flash_wide.cuh's design (a
-// grid axis over 128-column blocks of the carry's o, the scores summed
-// over the head dim's chunks in every block; block 0 writes l and m).
+// Head dims above 128, any multiple of 128: flash_wide.cuh's first wide
+// design (a grid axis over 128-column blocks of the carry's o, the scores
+// summed over the head dim's chunks in every block; block 0 writes l and
+// m).
 __global__ void __launch_bounds__(wide::NT, 1) flash_merge_wide_kernel(wide::Args a) {
-  wide::attend<true>(a);
+  wide::attend_merge(a);
 }
 
 }  // namespace

@@ -263,4 +263,133 @@ __device__ __forceinline__ void pack_scores(uint32_t (&p)[16], const float (&s)[
   for (int i = 0; i < 16; ++i) p[i] = pack_bf16x2(s[2 * i], s[2 * i + 1]);
 }
 
+// --- thread-block clusters (the wide kernels' score exchange) -------------------
+//
+// A wide kernel's cluster is the 128-column blocks of one output tile: its
+// CTAs each hold a partial score tile (their chunks' share of the head
+// dim), exchange them through distributed shared memory and sum them.
+// Score tiles travel as f32 [rows][64]: the 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8), so the accumulator's float2 stores and the
+// reduction's float4 loads hit distinct banks. P (and dS) travel as bf16
+// [rows][64] in hopper's swizzle (`swz`), read back as wgmma A fragments.
+
+// The cluster size of a head dim of nc 128-column chunks: the largest
+// divisor of nc that is at most 8, the portable limit.
+__host__ __device__ __forceinline__ int wide_cluster_size(int nc) {
+  for (int c = nc < 8 ? nc : 8; c > 1; --c)
+    if (nc % c == 0) return c;
+  return 1;
+}
+
+// Element offset of (row, col) in a swizzled f32 [rows][64] score tile.
+__device__ __forceinline__ int fswz(int row, int col) {
+  return row * 64 + ((((col >> 2) ^ (row & 7))) << 2) + (col & 3);
+}
+
+// The shared::cluster address of this CTA's shared `p` in CTA `rank`.
+__device__ __forceinline__ uint32_t dsmem(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_dsmem_u32x2(uint32_t addr, uint32_t a, uint32_t b) {
+  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_dsmem_f32(uint32_t addr, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(x) : "memory");
+}
+
+// Every thread of every CTA of the cluster: what each wrote before
+// (shared memory, local or remote) is visible to all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Sums over the cluster's ranks 0..cs-1 (cs <= 8), in rank order, of the
+// float4 at `a` (and at `b`) in each rank's copy of a score tile. Every
+// rank's load is issued before the first add, so a reduction waits on the
+// network once, not cs times.
+__device__ __forceinline__ float4 cluster_sum_f4(const float* a, int cs) {
+  float4 x[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    if (r < cs) x[r] = ld_dsmem_f4(dsmem(a, r));
+  float4 acc = x[0];
+#pragma unroll
+  for (int r = 1; r < 8; ++r)
+    if (r < cs) {
+      acc.x += x[r].x;
+      acc.y += x[r].y;
+      acc.z += x[r].z;
+      acc.w += x[r].w;
+    }
+  return acc;
+}
+
+__device__ __forceinline__ void cluster_sum_f4x2(const float* a, const float* b, int cs,
+                                                 float4& sa, float4& sb) {
+  float4 x[8], y[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    if (r < cs) {
+      x[r] = ld_dsmem_f4(dsmem(a, r));
+      y[r] = ld_dsmem_f4(dsmem(b, r));
+    }
+  sa = x[0];
+  sb = y[0];
+#pragma unroll
+  for (int r = 1; r < 8; ++r)
+    if (r < cs) {
+      sa.x += x[r].x;
+      sa.y += x[r].y;
+      sa.z += x[r].z;
+      sa.w += x[r].w;
+      sb.x += y[r].x;
+      sb.y += y[r].y;
+      sb.z += y[r].z;
+      sb.w += y[r].w;
+    }
+}
+
+// A 64 x 64 f32 accumulator (rows 16w + l/4 and + 8 of the warpgroup's
+// tile, starting at row `row0`) stored to a swizzled f32 score tile.
+__device__ __forceinline__ void store_scores(float* tile, int row0, int lane, int warp,
+                                             const float (&s)[32]) {
+  const int ra = row0 + warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(tile + fswz(ra + 8 * h, 8 * x + c0)) =
+          make_float2(s[4 * x + 2 * h], s[4 * x + 2 * h + 1]);
+}
+
+// The 4 k16 A fragments of rows [row0, row0 + 64) (this thread's rows
+// 16w + l/4 and + 8) of a swizzled bf16 [rows][64] tile: pack_scores's
+// layout.
+__device__ __forceinline__ void load_fragments(uint32_t (&p)[16], const __nv_bfloat16* tile,
+                                               int rows, int row0, int lane, int warp) {
+  const int ra = row0 + warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      p[2 * x + h] = *reinterpret_cast<const uint32_t*>(tile + swz(rows, ra + 8 * h, 8 * x + c0));
+}
+
 }  // namespace

@@ -44,10 +44,13 @@ version.
 
 Head dims. K1 and K2 are built for head dims 64 and 128, K3 and K4 for
 128 (:data:`KERNEL_HEAD_DIMS`). Above 128 every kernel takes its wide
-path at any multiple of 128 (:data:`WIDE_CHUNK`): a grid axis over
-128-column blocks of the output, each block summing the scores over the
-head dim's chunks (``csrc/flash_wide.cuh``; K2's wide kernels take D =
-rowsum(dO O) given, :func:`row_dot`, since it spans every block). Any
+path: a grid axis over column blocks of the output, 256 columns wide for
+K1 and 128 for the others (:data:`WIDE_BLOCKS`; ``csrc/flash_wide.cuh``).
+K1 and dkv compute each score tile once per thread-block cluster of
+column blocks (:func:`wide_cluster_size`), dq, K3 and K4 in every block.
+K2's wide
+kernels take D = rowsum(dO O) given (:func:`row_dot`), since it spans
+every block. Any
 other head dim runs through :func:`at_kernel_head_dim`: q / k / v (and
 dO, O, the merge carry's o) are zero-padded to the next size the kernel
 runs at, the kernel runs with the softmax scale of the true head dim, and
@@ -280,26 +283,45 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Head dims each kernel is built for (the template instances of its
 # source) up to 128. A head dim between two of them runs at the next one
 # up; above the largest, every kernel runs its wide path at the next
-# multiple of WIDE_CHUNK.
+# multiple of its WIDE_BLOCKS.
 KERNEL_HEAD_DIMS: Dict[str, Tuple[int, ...]] = {
     "flash_fwd": (64, 128), "flash_bwd": (64, 128),
     "flash_decode": (128,), "flash_merge": (128,)}
-# Head-dim columns of one chunk of the kernels' wide path (D > 128): a
-# grid axis over column blocks of this width, the scores summed over the
-# head dim's chunks in every block.
+# Head-dim columns of one chunk of the kernels' wide path (D > 128).
 WIDE_CHUNK = 128
+# Head-dim columns of a column block of each kernel's wide path: a grid
+# axis over blocks of this width. K1's CTA owns 256 columns of O (half the
+# cluster's score exchange per product of 128).
+WIDE_BLOCKS: Dict[str, int] = {"flash_fwd": 2 * WIDE_CHUNK,
+                               "flash_bwd": WIDE_CHUNK,
+                               "flash_decode": WIDE_CHUNK,
+                               "flash_merge": WIDE_CHUNK}
 
 
 def kernel_head_dim(name: str, d: int) -> int:
     """The head dim ``name``'s kernel runs at for a true head dim ``d``:
     the smallest size it is built for that holds ``d``, or above 128 the
-    next multiple of :data:`WIDE_CHUNK` (the wide path)."""
+    next multiple of its :data:`WIDE_BLOCKS` (the wide path)."""
     if d <= 0:
         raise ValueError(f"{name}: head dim {d} must be positive")
     for size in KERNEL_HEAD_DIMS[name]:
         if d <= size:
             return size
-    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+    block = WIDE_BLOCKS[name]
+    return -(-d // block) * block
+
+
+def wide_cluster_size(name: str, d: int) -> int:
+    """The thread-block cluster of the wide K1 (``name`` "flash_fwd") or
+    dkv ("flash_bwd") kernel at head dim ``d`` (> 128): the largest
+    divisor of the column-block count ``kernel_head_dim(name, d) /
+    WIDE_BLOCKS[name]`` that is at most 8, the portable cluster size
+    (``csrc/hopper.cuh`` ``wide_cluster_size``). A cluster computes each
+    score tile once."""
+    if name not in ("flash_fwd", "flash_bwd") or d <= WIDE_CHUNK:
+        raise ValueError(f"{name} at head dim {d} runs no cluster")
+    nb = kernel_head_dim(name, d) // WIDE_BLOCKS[name]
+    return max(c for c in range(1, min(nb, 8) + 1) if nb % c == 0)
 
 
 def pad_head_dim(x: torch.Tensor, size: int) -> torch.Tensor:
