@@ -55,22 +55,24 @@ one JSON line each:
    ``autograd``: flash_attention's gradients against torch autograd
    through the plain reference attention.
 5a. ``wide_heads``: every kernel's wide path (head dims above 128: a
-   grid axis over column blocks of the output, 256 columns for K1 and
-   128 for the others; K1 and dkv compute
-   each score tile once per thread-block cluster of blocks, whose sizes
-   and fitting counts the phase prints, dq, K3 and K4 in every block) per
-   element against its plain version with the narrow cases' tolerances:
-   K1, dq and dkv at the tensor-parallel job's shard shape (B 16, T 2048,
-   1 / 1 head, D 1024) and at (B 4, T 2048, 8 / 2 heads, D 256), at D 192
-   (padded to 256) with a ragged T (K2 with offsets, a stride, given D,
-   f32 grads), at D 384 (ragged T) and D 1536 (K2 with given D), and K1
-   at D 2304 (the cluster sizes 2, 3 and 6); K3 at
-   (B 8, Tq 1 and 4, S 2048, 8 / 2 heads, D 256), ragged lengths with 0,
-   bit-equal across a NaN-poisoned tail; K4 at the ring shape with D 256
-   into a live carry. Negative controls (one 128-column block of V zeroed
-   on the plain side) must fail for K1, K2 and K4. Each timed beside its
-   bound (counted from the work the case needs, not the recompute), the
-   plain version and the first SDPA backend that takes the head dim.
+   grid axis over column blocks of the output, 256 columns for K1, dq and
+   K4 and 128 for dkv and K3; K1, dq, dkv and K4 compute each score
+   tile once per thread-block cluster of blocks, whose sizes and fitting
+   counts the phase prints, K3 in every block) per element against its
+   plain version with the narrow cases' tolerances: K1, dq and dkv at the
+   tensor-parallel job's shard shape (B 16, T 2048, 1 / 1 head, D 1024)
+   and at (B 4, T 2048, 8 / 2 heads, D 256), at D 192 (padded to 256)
+   with a ragged T (K2 with offsets, a stride, given D, f32 grads), at D
+   384 (ragged T) and D 1536 (K2 with given D), and K1 at D 2304 (the
+   cluster sizes 2, 3 and 6); K3 at (B 8, Tq 1 and 4, S 2048, 8 / 2
+   heads, D 256), ragged lengths with 0, bit-equal across a NaN-poisoned
+   tail; K4 into a live carry at the ring shape with D 256 (striped), at
+   D 384 with a ragged T (padded to 512, a cluster of 2) and at D 1024
+   (a cluster of 4, stride 2). Negative controls (one 128-column block of
+   V zeroed on the plain side, in the last cluster where there are
+   several) must fail for K1, K2 and K4. Each timed beside its bound
+   (counted from the work the case needs), the plain version and the
+   first SDPA backend that takes the head dim.
 5b. ``parallel_shapes``: K1, dq, dkv and K4 per element against their
    plain versions at the shapes the ulysses and sp_tp phases give them:
    the Ulysses slab (B 2, T 8192, 16 / 4 heads; K1, then K2 with fused D
@@ -1434,9 +1436,9 @@ def _zero_block(x, block: int, width: int = 128):
 
 def wide_clusters(fa, dims):
     """{kernel: {head dim: cluster size, the most clusters the card holds
-    at once}} of the two cluster kernels (K1 and dkv wide), from their C
-    entry points; each size must be ``fa.wide_cluster_size``'s and at
-    least one cluster must fit."""
+    at once}} of the four cluster kernels (K1, dq, dkv and K4 wide), from
+    their C entry points; each size must be ``fa.wide_cluster_size``'s and
+    at least one cluster must fit."""
     import ctypes
 
     from tpu_operator_torch.kernels import build
@@ -1445,12 +1447,16 @@ def wide_clusters(fa, dims):
     res = {}
     for kernel, name, entry in (
             ("flash_fwd_wide_kernel", "flash_fwd", lib.flash_fwd_wide_cluster),
+            ("flash_bwd_dq_wide_kernel", "flash_bwd_dq",
+             lib.flash_bwd_dq_wide_cluster),
             ("flash_bwd_dkv_wide_kernel", "flash_bwd",
-             lib.flash_bwd_dkv_wide_cluster)):
+             lib.flash_bwd_dkv_wide_cluster),
+            ("flash_merge_wide_kernel", "flash_merge",
+             lib.flash_merge_wide_cluster)):
         res[kernel] = {}
         for d in dims:
             size, active = ctypes.c_int(0), ctypes.c_int(0)
-            build.check(entry(fa.kernel_head_dim(name, d),
+            build.check(entry(fa.kernel_head_dim(fa.CLUSTER_KERNELS[name], d),
                               ctypes.addressof(size),
                               ctypes.addressof(active)), kernel)
             want = fa.wide_cluster_size(name, d)
@@ -1466,26 +1472,29 @@ def wide_clusters(fa, dims):
 
 def check_wide_heads(torch, fa, F):
     """Every kernel at head dims above 128 (the wide path: a grid axis over
-    column blocks, 256 columns for K1 and 128 for the others; K1 and dkv
-    compute each score tile once per thread-block cluster of blocks, dq,
-    K3 and K4 in every block), per element against its plain version with
-    the tolerances of the narrow cases: K1, dq and dkv at the
+    column blocks, 256 columns for K1, dq and K4 and 128 for dkv and K3;
+    K1, dq, dkv and K4 compute each score tile once per thread-block
+    cluster of blocks, K3 in every block), per element against its plain
+    version with the tolerances of the narrow cases: K1, dq and dkv at the
     tensor-parallel job's shard shape (B 16, T 2048, 1 / 1 head, D 1024,
-    causal: clusters of 4 in K1, 8 in dkv) and at (B 4, T 2048, 8 / 2
-    heads, D 256), at D 192 (zero-padded to 256) with a ragged T (K2 with
-    offsets, a stride, given D and f32 grads), and at other cluster
-    sizes: D 384 (K1 padded to 512, a cluster of 2; dkv a cluster of 3)
-    with a ragged T and D 1536 (K1 one cluster of 6, dkv two), K2 with
-    given D, and K1 at D 2304 (three clusters of 3, Q streamed); K3
-    at (B 8, Tq 1 and 4, S 2048, 8 / 2 heads, D 256) with ragged lengths
-    (0 included); K4 at the ring shape (B 2, Tq = Tk = 2048, 16 / 4 heads,
-    D 256) folding a striped block into a live carry. Negative controls:
-    the plain side with one 128-column block of V zeroed must fail for K1,
-    K2 and K4 (block 1, or for the D 384, 1536 and 2304 cases the last
-    128-column block: in the last cluster). Each kernel is timed beside
-    its bound, counted from the work the case needs (not the kernels'
-    recompute of the scores per column block), and beside the first SDPA
-    backend that accepts the head dim."""
+    causal: clusters of 4 in K1 and dq, 8 in dkv) and at (B 4, T 2048,
+    8 / 2 heads, D 256: K1 and dq a cluster of 1), at D 192 (zero-padded
+    to 256) with a ragged T (K2 with offsets, a stride, given D and f32
+    grads), and at other cluster sizes: D 384 (padded to 512: K1 and dq a
+    cluster of 2, dkv of 4) with a ragged T and D 1536 (K1 and dq one
+    cluster of 6, dkv two, its K / V streamed), K2 with given D, and K1 at
+    D 2304 (three clusters of 3, Q streamed); K3 at (B 8, Tq 1 and 4, S 2048, 8 / 2
+    heads, D 256) with ragged lengths (0 included); K4 into a live carry
+    at the ring shape (B 2, Tq = Tk = 2048, 16 / 4 heads, D 256, a
+    cluster of 1) folding a striped block, at D 384 with a ragged T 1000
+    (padded to 512, a cluster of 2) folding an earlier block at (Tq, 0, 1),
+    and at D 1024 (B 1, T 1024, a cluster of 4) folding a stride-2 block.
+    Negative controls: the plain side with one 128-column block of V
+    zeroed must fail for K1, K2 and K4 (block 1, or for the D 384, 1024
+    K4, 1536 and 2304 cases the last 128-column block: in the last
+    cluster). Each kernel is timed beside its bound, counted from the work
+    the case needs, and beside the first SDPA backend that accepts the
+    head dim."""
     gen = wide_generator(torch)
     dev = "cuda"
     res = {"fwd": {}, "bwd": {}, "decode": {}, "merge": {},
@@ -1494,7 +1503,7 @@ def check_wide_heads(torch, fa, F):
             "tp_shard_d1024": (16, 2048, 1, 1, 1024, 1),
             "gqa_d256": (4, 2048, 8, 2, 256, 1),
             "padded_d192_ragged": (2, 1000, 8, 4, 192, 1),
-            "cluster3_d384_ragged": (2, 1000, 4, 2, 384, 2),
+            "d384_ragged": (2, 1000, 4, 2, 384, 2),
             "two_clusters_d1536": (1, 1024, 2, 1, 1536, 11),
             "three_clusters_d2304": (1, 512, 2, 1, 2304, 17)}.items():
         q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
@@ -1559,7 +1568,7 @@ def check_wide_heads(torch, fa, F):
                          1),
             "padded_d192_offsets_stride_given_d": (
                 2, 1000, 8, 4, (0, 3, 2), False, torch.float32, 192, 1),
-            "cluster3_d384_ragged_given_d": (
+            "d384_ragged_given_d": (
                 2, 1000, 4, 2, (0, 0, 1), False, torch.float32, 384, 2),
             "two_clusters_d1536_given_d": (
                 1, 1024, 2, 1, (0, 0, 1), False, torch.bfloat16, 1536,
@@ -1579,6 +1588,7 @@ def check_wide_heads(torch, fa, F):
         r = {"shape": {"B": b, "T": t, "H": h, "KVH": kvh, "D": d,
                        "causal": True},
              "kernel_head_dim": fa.kernel_head_dim("flash_bwd", d),
+             "cluster_size_dq": fa.wide_cluster_size("flash_bwd_dq", d),
              "cluster_size_dkv": fa.wide_cluster_size("flash_bwd", d),
              "offsets": list(offs), "fused_d_requested": fused,
              "grad_dtype": str(gd).replace("torch.", "")}
@@ -1708,59 +1718,73 @@ def check_wide_heads(torch, fa, F):
         del q, got, want, qd, kd, vd
     del k, v
 
-    b, c, h, kvh, d = 2, 2048, 16, 4, 256
-    q, k0, v0, k1, v1 = (
-        torch.randn(b, c, heads, d, generator=gen, device=dev).bfloat16()
-        for heads in (h, kvh, kvh, kvh, kvh))
-    carry = fa.merge_kv_block(q, k0, v0, fa.init_carry(b, h, c, d, device=dev),
-                              (1, 2, 4), causal=True)
-    before = fa.launch_counts()["flash_merge"]
-    got = fa.merge_kv_block(q, k1, v1, carry, (1, 0, 4), causal=True)
-    torch.cuda.synchronize()
-    launches = fa.launch_counts()["flash_merge"] - before
-    want, terms = merge_plain_terms(torch, fa, q, k1, v1, carry, (1, 0, 4),
-                                    True)
-    o_exc, l_exc, m_exc, rows_agree = merge_excess(torch, fa, q, k1, got,
-                                                   want, terms)
-    require(launches == 1, f"wide merge: {launches} launches")
-    require(rows_agree and max(o_exc, l_exc, m_exc) <= 1.0,
-            f"wide merge: o {o_exc}, l {l_exc}, m {m_exc} x their "
-            f"tolerances, rows seen agree {rows_agree}")
-    ctrl, _ = merge_plain_terms(torch, fa, q, k1, _zero_block(v1, 1), carry,
-                                (1, 0, 4), True)
-    control = merge_excess(torch, fa, q, k1, got, ctrl, terms)[0]
-    require(control > 1.0, f"wide merge: the zeroed V column block control "
-                           f"passed ({control})")
-    seen = want[2] > fa.NEG_INF / 2
-    r = {"shape": {"B": b, "Tq": c, "Tk": c, "H": h, "KVH": kvh, "D": d},
-         "kernel_head_dim": fa.kernel_head_dim("flash_merge", d),
-         "offsets": [1, 0, 4], "carry": "a striped (1, 2, 4) merge",
-         "max_abs_err_o": float(torch.where(
-             seen, (got[0] - want[0]).abs(), 0).max()),
-         "worst_err_over_tol_o": o_exc, "worst_err_over_tol_l": l_exc,
-         "worst_err_over_bound_m": m_exc, "rows_seen_agree": rows_agree,
-         "zeroed_v_column_block_control_worst_err_over_tol_o": control}
-    del ctrl, want, terms
+    for label, (b, tq, tk, h, kvh, d, home, offs, blk, reps) in {
+            "ring_d256": (2, 2048, 2048, 16, 4, 256, (1, 2, 4), (1, 0, 4), 1,
+                          20),
+            "cluster2_d384_ragged": (2, 1000, 1000, 4, 2, 384,
+                                     (1000, 1000, 1), (1000, 0, 1), 2, 5),
+            "cluster4_d1024_stride2": (1, 1024, 1024, 2, 1, 1024, (1, 1, 2),
+                                       (1, 0, 2), 7, 5)}.items():
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
+        k0, v0, k1, v1 = (
+            torch.randn(b, tk, kvh, d, generator=gen, device=dev).bfloat16()
+            for _ in range(4))
+        carry = fa.merge_kv_block(q, k0, v0,
+                                  fa.init_carry(b, h, tq, d, device=dev),
+                                  home, causal=True)
+        before = fa.launch_counts()["flash_merge"]
+        got = fa.merge_kv_block(q, k1, v1, carry, offs, causal=True)
+        torch.cuda.synchronize()
+        launches = fa.launch_counts()["flash_merge"] - before
+        want, terms = merge_plain_terms(torch, fa, q, k1, v1, carry, offs,
+                                        True)
+        o_exc, l_exc, m_exc, rows_agree = merge_excess(torch, fa, q, k1, got,
+                                                       want, terms)
+        require(launches == 1, f"wide merge {label}: {launches} launches")
+        require(rows_agree and max(o_exc, l_exc, m_exc) <= 1.0,
+                f"wide merge {label}: o {o_exc}, l {l_exc}, m {m_exc} x "
+                f"their tolerances, rows seen agree {rows_agree}")
+        ctrl, _ = merge_plain_terms(torch, fa, q, k1, _zero_block(v1, blk),
+                                    carry, offs, True)
+        control = merge_excess(torch, fa, q, k1, got, ctrl, terms)[0]
+        require(control > 1.0, f"wide merge {label}: the zeroed V column "
+                               f"block control passed ({control})")
+        seen = want[2] > fa.NEG_INF / 2
+        r = {"shape": {"B": b, "Tq": tq, "Tk": tk, "H": h, "KVH": kvh,
+                       "D": d},
+             "kernel_head_dim": fa.kernel_head_dim("flash_merge", d),
+             "cluster_size": fa.wide_cluster_size("flash_merge", d),
+             "offsets": list(offs), "carry": f"a causal merge at {home}",
+             "max_abs_err_o": float(torch.where(
+                 seen, (got[0] - want[0]).abs(), 0).max()),
+             "worst_err_over_tol_o": o_exc, "worst_err_over_tol_l": l_exc,
+             "worst_err_over_bound_m": m_exc, "rows_seen_agree": rows_agree,
+             "zeroed_v_column_block": blk,
+             "zeroed_v_column_block_control_worst_err_over_tol_o": control}
+        del ctrl, want, terms, got
 
-    def merge():
-        fa.merge_kv_block(q, k1, v1, carry, (1, 0, 4), causal=True)
+        def merge():
+            fa.merge_kv_block(q, k1, v1, carry, offs, causal=True)
 
-    pos = torch.arange(c, device=dev)
-    pairs = int(((1 + 4 * pos)[:, None] >= (4 * pos)[None, :]).sum())
-    flops = 4.0 * b * h * d * pairs
-    nbytes = 2.0 * (b * c * h * d + 2 * b * c * kvh * d) \
-        + 2 * 4.0 * b * h * c * (d + 2)
-    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_TC_FLOPS)
-    r["ms"] = time_ms(torch, merge, reps=20)
-    r["device_ms"] = kernel_device_ms(torch, merge, 10, (
-        "flash_merge_wide_kernel",))["flash_merge_wide_kernel"]
-    r["plain_ms"] = time_ms(torch, lambda: fa._merge_ref(
-        *(x.permute(0, 2, 1, 3) for x in (q, k1, v1)), *carry, (1, 0, 4),
-        True), reps=5)
-    r["library_ms"] = None
-    r["library"] = "none: no single PyTorch call folds a carry"
-    r["share_of_bound"] = r["bound_ms"] / r["ms"]
-    res["merge"]["ring_d256"] = r
+        q_pos = offs[0] + offs[2] * torch.arange(tq, device=dev)
+        k_pos = offs[1] + offs[2] * torch.arange(tk, device=dev)
+        pairs = int((q_pos[:, None] >= k_pos[None, :]).sum())
+        flops = 4.0 * b * h * d * pairs
+        nbytes = 2.0 * (b * tq * h * d + 2 * b * tk * kvh * d) \
+            + 2 * 4.0 * b * h * tq * (d + 2)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_TC_FLOPS)
+        r["ms"] = time_ms(torch, merge, reps=reps)
+        r["device_ms"] = kernel_device_ms(torch, merge, 10 if reps > 5 else 3,
+                                          ("flash_merge_wide_kernel",)
+                                          )["flash_merge_wide_kernel"]
+        r["plain_ms"] = time_ms(torch, lambda: fa._merge_ref(
+            *(x.permute(0, 2, 1, 3) for x in (q, k1, v1)), *carry, offs,
+            True), reps=5 if reps > 5 else 2)
+        r["library_ms"] = None
+        r["library"] = "none: no single PyTorch call folds a carry"
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        res["merge"][label] = r
+        del q, k0, v0, k1, v1, carry
     return res
 
 

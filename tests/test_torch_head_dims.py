@@ -81,8 +81,8 @@ def _decode_plain(q, k, v, lengths, *, scale):
 def test_kernel_head_dims():
     """The size each kernel runs at: K1 / K2 natively at 64 and 128, the
     next one up between; K3 / K4 at 128; above 128 every kernel's wide
-    path at the next multiple of its column block: 256 for K1, 128 for
-    the others."""
+    path at the next multiple of its column block: 256 for K1, K4 and
+    the backward pair (dq's block), 128 for K3."""
     for d, size in ((1, 64), (16, 64), (32, 64), (64, 64), (65, 128),
                     (96, 128), (128, 128)):
         assert tfa.kernel_head_dim("flash_fwd", d) == size
@@ -95,9 +95,9 @@ def test_kernel_head_dims():
             assert tfa.kernel_head_dim(name, d) == size
     for d, fwd, other in ((300, 512, 384), (384, 512, 384),
                           (1500, 1536, 1536), (1536, 1536, 1536)):
-        assert tfa.kernel_head_dim("flash_fwd", d) == fwd
-        for name in ("flash_bwd", "flash_decode", "flash_merge"):
-            assert tfa.kernel_head_dim(name, d) == other
+        for name in ("flash_fwd", "flash_bwd", "flash_merge"):
+            assert tfa.kernel_head_dim(name, d) == fwd
+        assert tfa.kernel_head_dim("flash_decode", d) == other
     with pytest.raises(ValueError, match="positive"):
         tfa.kernel_head_dim("flash_fwd", 0)
 

@@ -1,13 +1,14 @@
 """Head dims above 128 (the kernels' wide path), on the CPU.
 
-Above 128 every kernel runs at the next multiple of 128
-(``flash_attention.kernel_head_dim``): a grid axis over 128-column blocks
-of the output (``kernels/csrc/flash_wide.cuh``); K1 and dkv compute each
-score tile once per thread-block cluster of blocks, whose size
-(``flash_attention.wide_cluster_size``) is the largest divisor of the
-block count up to 8 (K1's blocks are 256 columns, so K1 runs at the next
-multiple of 256); the backward kernels take D = rowsum(dO O) given,
-since it spans every block. The kernels cannot run here, so:
+Above 128 every kernel runs at the next multiple of its column block
+(``flash_attention.kernel_head_dim``, ``WIDE_BLOCKS``): a grid axis over
+blocks of the output, 256 columns for K1, dq and K4, 128 for dkv and K3
+(the backward pair pads to dq's 256);
+K1, dq, dkv and K4 compute each score tile once per thread-block cluster
+of blocks, whose size (``flash_attention.wide_cluster_size``) is the
+largest divisor of the block count up to 8; the backward kernels take
+D = rowsum(dO O) given, since it spans every block. The kernels cannot
+run here, so:
 
 - the port's plain attention (its forward and its autograd through the
   plain backward) at head dims 192, 256, 384, 1024 and 1536 (dkv's
@@ -18,14 +19,16 @@ since it spans every block. The kernels cannot run here, so:
 - the CUDA wrappers' own routing (``_flash_fwd_cuda``, ``_flash_bwd_cuda``,
   ``_flash_merge_cuda``, ``_flash_decode_cuda``) runs on CPU tensors with
   the launch swapped for the plain version and the device check for a
-  no-op: each launch must see the padded head dim (a multiple of 128; of
-  256 for K1), the
+  no-op: each launch must see the padded head dim (a multiple of 128 for
+  K3; of 256 for K1, the backward pair and K4), the
   true head dim's scale and, for the backward, D given; its result must
   be the plain version's at the true head dim within 1e-5 of the largest
   value (f32 arithmetic from bf16 inputs; only the summation order moves:
   a wrong scale moves O by O(10%), a dropped column block by O(1)), and
   a bf16 output also within one bf16 ulp, 2^-7 of its value; the routes
-  run at head dims whose clusters hold 1 to 8 blocks, padded or not.
+  run at head dims whose clusters hold 1 to 8 blocks, padded or not;
+- K4's plain version is held to the JAX ``_merge_pallas`` in interpret
+  mode at head dims 384 and 1024, into a live carry, at 2e-5.
 """
 
 import numpy as np
@@ -99,22 +102,28 @@ def test_plain_attention_matches_jax_at_wide_head_dim(monkeypatch, d):
         _close(x.grad, jg, JAX_TOL)
 
 
-@pytest.mark.parametrize("d,fwd,bwd", [
-    (129, 1, 2), (256, 1, 2), (300, 2, 3), (384, 2, 3), (640, 3, 5),
-    (1000, 4, 8), (1024, 4, 8), (1408, 6, 1), (1536, 6, 6), (2048, 8, 8),
-    (2304, 3, 6), (2816, 1, 2)])
-def test_wide_cluster_size(d, fwd, bwd):
-    """The largest divisor, at most 8, of the column-block count: K1's
-    blocks are 256 columns, dkv's 128 (a prime count above 8 gets
+@pytest.mark.parametrize("d,fwd,dq,bwd,merge", [
+    (129, 1, 1, 2, 1), (256, 1, 1, 2, 1), (300, 2, 2, 4, 2),
+    (384, 2, 2, 4, 2), (640, 3, 3, 6, 3), (1000, 4, 4, 8, 4),
+    (1024, 4, 4, 8, 4), (1408, 6, 6, 6, 6), (1536, 6, 6, 6, 6),
+    (2048, 8, 8, 8, 8), (2304, 3, 3, 6, 3), (2816, 1, 1, 2, 1)])
+def test_wide_cluster_size(d, fwd, dq, bwd, merge):
+    """The largest divisor, at most 8, of the column-block count: K1's,
+    dq's and K4's blocks are 256 columns, dkv's 128 at the backward pair's
+    head dim, which is padded to dq's 256 (a prime count above 8 gets
     clusters of one)."""
-    for name, size in (("flash_fwd", fwd), ("flash_bwd", bwd)):
-        nb = tfa.kernel_head_dim(name, d) // tfa.WIDE_BLOCKS[name]
+    for name, size in (("flash_fwd", fwd), ("flash_bwd_dq", dq),
+                       ("flash_bwd", bwd), ("flash_merge", merge)):
+        padded = tfa.kernel_head_dim(tfa.CLUSTER_KERNELS[name], d)
+        nb = padded // tfa.WIDE_BLOCKS[name]
         assert tfa.wide_cluster_size(name, d) == size
+        assert padded % tfa.WIDE_BLOCKS[name] == 0
         assert nb % size == 0 and size <= 8
 
 
 @pytest.mark.parametrize("name,d", [("flash_fwd", 128), ("flash_bwd", 64),
-                                    ("flash_merge", 256)])
+                                    ("flash_merge", 128),
+                                    ("flash_decode", 256)])
 def test_wide_cluster_size_refuses_what_runs_no_cluster(name, d):
     with pytest.raises(ValueError):
         tfa.wide_cluster_size(name, d)
@@ -165,6 +174,8 @@ ROUTE_DIMS = (192, 256, 384, 1000, 1500)
 # The head dim K1's wide kernel runs at: the next multiple of its 256-column
 # block.
 FWD_SIZES = {192: 256, 256: 256, 384: 512, 1000: 1024, 1500: 1536}
+# The backward pair's: dq's 256-column block is the coarser of the two.
+BWD_SIZES = {192: 256, 256: 256, 384: 512, 1000: 1024, 1500: 1536}
 
 
 @pytest.mark.parametrize("d", ROUTE_DIMS)
@@ -193,17 +204,17 @@ def test_backward_route_takes_d_given(plain_launches, d, fused):
     got = tfa._flash_bwd_cuda(q, k, v, g, L, out if fused else None,
                               None if fused else D, offsets, True,
                               torch.float32)
-    assert plain_launches == [("flash_bwd", -(-d // 128) * 128, d ** -0.5,
-                               True)]
+    assert plain_launches == [("flash_bwd", BWD_SIZES[d], d ** -0.5, True)]
     want = tfa._bwd_ref(_t(q), _t(k), _t(v), _t(g), L, D, offsets, True)
     for a, b in zip(got, want):
         _close(a, _t(b), ROUTE_TOL)
 
 
-@pytest.mark.parametrize("d", (192, 256))
+@pytest.mark.parametrize("d", (192, 256, 384))
 def test_merge_and_decode_routes(plain_launches, d):
     """K4 folding a block into a live carry, K3 over a cache with ragged
-    lengths (0 included), both at the padded head dim."""
+    lengths (0 included), both at the padded head dim: the next multiple
+    of each one's column block (K4 at D 384 runs at 512)."""
     q, k, v, _g = _bf16(*_inputs(800 + d, 1, 32, 4, 2, d))
     carry = tfa._merge_ref(_t(q), _t(k), _t(v), *tfa.init_carry(1, 4, 32, d),
                            (32, 0, 1), True)
@@ -215,6 +226,44 @@ def test_merge_and_decode_routes(plain_launches, d):
     lengths = torch.tensor([0, 17, 48], dtype=torch.int32)
     out = tfa._flash_decode_cuda(q, k, v, lengths)
     _close_bf16(out, tfa._decode_ref(q, k, v, lengths))
-    size = -(-d // 128) * 128
+    merge_size, decode_size = (-(-d // tfa.WIDE_BLOCKS[name])
+                               * tfa.WIDE_BLOCKS[name]
+                               for name in ("flash_merge", "flash_decode"))
     assert [x[:3] for x in plain_launches] == [
-        ("flash_merge", size, d ** -0.5), ("flash_decode", size, d ** -0.5)]
+        ("flash_merge", merge_size, d ** -0.5),
+        ("flash_decode", decode_size, d ** -0.5)]
+
+
+@pytest.mark.parametrize("d", (384, 1024))
+def test_plain_merge_matches_jax_kernel_at_wide_head_dim(d):
+    """The port's ``_merge_ref`` (K4's plain version, its CPU path and its
+    yardstick on the card) against the JAX ``_merge_pallas`` in interpret
+    mode, folding a striped block at (1, 0, 4) into a live carry from a
+    merge at (1, 2, 4) (whose row 0 has seen no key), GQA group 2, f32
+    inputs, at 2e-5 of the largest value. As in
+    ``tests/test_torch_flash_merge.py`` the Pallas kernel skips tiles wholly
+    in a row's future, so o and l are compared on the rows that have seen
+    a key, and those rows must be the same."""
+    rng = np.random.default_rng(1000 + d)
+    b, t, h, kvh = 1, 64, 4, 2
+
+    def block(heads):
+        return torch.from_numpy(rng.normal(size=(b, heads, t, d))
+                                .astype(np.float32))
+
+    q, k0, v0, k1, v1 = (block(x) for x in (h, kvh, kvh, kvh, kvh))
+    carry = tfa._merge_ref(q, k0, v0, *tfa.init_carry(b, h, t, d),
+                           (1, 2, 4), True)
+    assert not bool((carry[2] > tfa.NEG_INF / 2).all())
+    got = tfa._merge_ref(q, k1, v1, *carry, (1, 0, 4), True)
+    jq, jk, jv, *jcarry = (jnp.asarray(x.numpy())
+                           for x in (q, k1, v1, *carry))
+    want = jfa._merge_pallas(jq, jk, jv, *jcarry,
+                             jfa._normalize_offsets(
+                                 jnp.asarray((1, 0, 4), jnp.int32)),
+                             True, interpret=True)
+    seen = np.asarray(want[2]) > jfa.NEG_INF / 2
+    np.testing.assert_array_equal(got[2].numpy() > tfa.NEG_INF / 2, seen)
+    for mine, theirs in zip(got, want):
+        _close(np.where(seen, mine.numpy(), 0.0),
+               np.where(seen, np.asarray(theirs), 0.0), JAX_TOL)

@@ -76,7 +76,9 @@ SIGNATURES = {
     "flash_merge_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
     # head_dim | cluster size out, max active clusters out
     "flash_fwd_wide_cluster": [_I, _P, _P],
+    "flash_bwd_dq_wide_cluster": [_I, _P, _P],
     "flash_bwd_dkv_wide_cluster": [_I, _P, _P],
+    "flash_merge_wide_cluster": [_I, _P, _P],
 }
 
 

@@ -32,7 +32,8 @@
 // other D <= 128 to the next of them). At D 64 every tile is one 64-column
 // half of the swizzle, S and dP take 4 k16 steps instead of 8, and dQ, dK
 // and dV are 64 columns (32 accumulator registers a thread each). Above
-// 128, at any multiple of 128, the wide kernels below run instead.
+// 128, at any multiple of dq's 256-column block, the wide kernels below
+// run instead.
 //
 // Every accumulator has exactly one owning CTA, so there are no atomics
 // and two launches give bit-equal results. Both kernels are one warpgroup
@@ -437,25 +438,32 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // --- head dims above 128 ------------------------------------------------------
 //
-// Any multiple of 128: a grid axis over the 128-column blocks of the
-// output (dQ in dq; dK and dV in dkv; blockIdx.y = KV head x nc + column
-// block cb). D = rowsum(dO O) spans the whole head dim, so these kernels
-// always read a given D.
-// - dq keeps the first wide design: every CTA sums the full
-//   S = sum_c Q_c K_c^T and dP = sum_c dO_c V_c^T itself, streaming one
-//   chunk of each operand per step through a 2-stage cp.async ring in an
-//   order that ends on chunk cb, so the last step's stage holds K_cb, the
-//   operand of dQ_cb += dS K_cb; it recomputes S and dP once per column
-//   block (ROADMAP Queue B).
-// - dkv computes each score tile once per thread-block cluster of column
-//   blocks (flash_wide.cuh's design, transposed; below).
+// Any multiple of 128: a grid axis over column blocks of the output (dQ
+// in dq; dK and dV in dkv; blockIdx.y = KV head x blocks + block cb).
+// D = rowsum(dO O) spans the whole head dim, so these kernels always read
+// a given D. Both compute each score tile once per thread-block cluster of
+// column blocks (flash_wide.cuh's design): each rank sums its chunks'
+// share of S and dP into partials, the cluster reduces them through
+// distributed shared memory, and each rank's block takes its own product
+// of the reduced scores.
 
 constexpr int CD = 128;                      // head-dim columns of one chunk
 constexpr int WIDE_PANEL = ROWS * CD;        // one chunk of a 64-row panel
 constexpr int WIDE_KEYS = BK * CD;           // one chunk of a 64-key tile
 constexpr int WIDE_STAGE = 2 * WIDE_PANEL + 2 * WIDE_KEYS;
-// dq: two stages of (Q_c, dO_c, K_c, V_c), then the panel's L and D rows.
-constexpr size_t WIDE_DQ_SMEM = 1024 + 2 * 2 * (size_t)WIDE_STAGE + 2 * ROWS * 4;
+// dq: 128-column chunks in a column block of dQ (its block is
+// DQ_CB * 128 columns wide; flash_attention.WIDE_BLOCKS). The exchange,
+// not the products, bounds a cluster kernel, and a 256-column block
+// halves the scores exchanged per product: on an H100 at the TP shard
+// shape (B 16, T 2048, one head, D 1024) dq read 1.63-1.64 ms at 256
+// columns against 2.74-2.78 at 128 (PERF.md).
+constexpr int DQ_CB = 2;
+// dq (bytes from the aligned base): the Q and dO slot (resident when
+// m = 1, else the step's chunk), two stages of K, V; the partials S and
+// dP [ROWS][BK] f32; dS [ROWS][BK] bf16; the panel's L and D rows.
+constexpr size_t WIDE_DQ_PART = 2 * (2 * (size_t)DQ_CB * WIDE_PANEL + 3 * (size_t)DQ_CB * WIDE_KEYS);
+constexpr size_t WIDE_DQ_SMEM =
+    1024 + WIDE_DQ_PART + 2 * 4 * ROWS * BK + 2 * ROWS * BK + 2 * ROWS * 4;
 // dkv (bytes from the aligned base): resident K_cb, V_cb; two stages of
 // (Q_c, dO_c, K_c, V_c); the partials S^T and dP^T [BK][ROWS] f32; P^T and
 // dS^T [BK][ROWS] bf16; two stages of the panel's L and D rows.
@@ -463,149 +471,206 @@ constexpr size_t WIDE_DKV_PART = 2 * (2 * (size_t)WIDE_KEYS + 2 * (size_t)WIDE_S
 constexpr size_t WIDE_DKV_SMEM =
     1024 + WIDE_DKV_PART + 2 * 4 * BK * ROWS + 2 * 2 * BK * ROWS + 2 * 2 * ROWS * 4;
 
+// dq at head dims above 128: the forward's loop order, dkv's exchange.
+// One CTA per (64-row panel, KV head x column block, batch), two
+// warpgroups, in clusters of cs = wide_cluster_size(nb) CTAs along y
+// (nb = D / W blocks of W = 128 DQ_CB columns; a cluster is blocks
+// cl cs .. cl cs + cs - 1 of one panel). Rank r sums the m = nb / cs
+// blocks r, r + cs, ... of the head dim (ordered to end on its own block
+// cb = cl cs + r; at m = 1 the only one is cb), Q_cb and dO_cb resident
+// when m = 1 and streamed through the same slot otherwise. Per key tile,
+// K_c streaming through a 2-stage cp.async ring and V_c through one
+// buffer (each step's copies issued once the previous step's products are
+// done, so they overlap the exchange):
+// - warpgroup 0 computes the partial S_r = Q_r K_r^T, warpgroup 1
+//   dP_r = dO_r V_r^T (64 x 64 f32 each), and both go to shared memory;
+// - after a cluster barrier rank r reduces its 1/cs of the panel rows
+//   over every rank's partials through distributed shared memory (in rank
+//   order: at m = 1 block order, so every column block of the panel holds
+//   a bit-identical dS), forms P = exp(S scale - L) and dS = P (dP - D)
+//   with the causal, ragged and offset / stride masks, and stores dS in
+//   bf16 into every rank's shared memory (dQ needs no P);
+// - after a second cluster barrier dQ_cb += dS K_cb, dS read back as
+//   wgmma register fragments, warpgroup w taking dQ_cb's W / 2 columns
+//   [w W / 2, (w + 1) W / 2) (both warpgroups hold all 64 panel rows, and
+//   wgmma's M is 64: the columns are what splits).
+// The second barrier frees the partials for the next tile, and the
+// fragments are read before the next tile's first barrier, so one buffer
+// of each suffices. Every CTA of a cluster runs the same panel, hence the
+// same tile count and barriers. At m > 1 each rank's chunk order ends on
+// its own block, so the panel's clusters sum S in different orders and
+// may differ in the last bits.
 template <typename OutT>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(2 * NT, 1)
 flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ g,
                          const float* __restrict__ L, const float* __restrict__ dvec,
                          OutT* __restrict__ dq, int Tq, int Tk, int H, int KVH, int group,
-                         int nc, int causal, int q_off, int k_off, int stride, float scale) {
+                         int nb, int causal, int q_off, int k_off, int stride, float scale) {
+  constexpr int W = DQ_CB * CD;  // columns of a block
   extern __shared__ unsigned char smem_raw[];
-  bf16* base = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  float* sL = reinterpret_cast<float*>(base + 2 * WIDE_STAGE);
+  unsigned char* sb = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(sb);     // Q's block, DQ_CB chunks
+  bf16* sG = sQ + DQ_CB * WIDE_PANEL;         // dO's block
+  bf16* sKring = sG + DQ_CB * WIDE_PANEL;     // stage s: K's block at s DQ_CB WIDE_KEYS
+  bf16* sV = sKring + 2 * DQ_CB * WIDE_KEYS;  // V's block
+  float* sPartS = reinterpret_cast<float*>(sb + WIDE_DQ_PART);
+  float* sPartP = sPartS + ROWS * BK;
+  bf16* sDS = reinterpret_cast<bf16*>(sPartP + ROWS * BK);
+  float* sL = reinterpret_cast<float*>(sDS + ROWS * BK);
   float* sD = sL + ROWS;
 
-  const int D = nc * CD;
+  const int D = nb * W;
+  const int cs = wide_cluster_size(nb), mch = nb / cs;
+  const bool resident = mch == 1;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int blk_q = ROWS / group;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * blk_q;  // heaviest first
-  const int kvh = blockIdx.y / nc;
-  const int cb = blockIdx.y - kvh * nc;
+  const int kvh = blockIdx.y / nb;
+  const int cb = blockIdx.y - kvh * nb;
+  const int rank = cb % cs, cl = cb / cs;  // cs divides nb
   const int b = blockIdx.z;
 
-  const int q_last = min(q0 + blk_q, Tq) - 1;
-  const int q_hi = q_off + stride * q_last;
+  // Key tiles up to the causal limit: the last query position in the panel
+  // (the same in every CTA of the cluster).
+  const int q_hi = q_off + stride * (min(q0 + blk_q, Tq) - 1);
   int n_tiles = (Tk + BK - 1) / BK;
   if (causal)
     while (n_tiles > 0 && k_off + stride * (n_tiles - 1) * BK > q_hi) --n_tiles;
-  const int steps = n_tiles * nc;
+  const int steps = n_tiles * mch;
 
-  // Step j: key tile j / nc, chunk (cb + 1 + j % nc) % nc (cb last).
-  auto load_step = [&](int j) {
-    const int kt = j / nc, i = j - kt * nc;
-    const int col = ((cb + 1 + i) % nc) * CD;
-    bf16* sQ = base + (j & 1) * WIDE_STAGE;
-    auto panel_row = [&](const bf16* src) {
-      return [=](int r) -> const bf16* {
-        const int t = q0 + r / group;
-        return t < Tq ? src + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + col
-                      : nullptr;
-      };
+  auto panel_row = [&](const bf16* src, int c0) {
+    return [=](int r) -> const bf16* {
+      const int t = q0 + r / group;
+      return t < Tq ? src + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + c0
+                    : nullptr;
     };
-    const int k0 = kt * BK;
-    auto key_row = [&](const bf16* src) {
-      return [=](int r) -> const bf16* {
-        const int t = k0 + r;
-        return t < Tk ? src + (((size_t)b * Tk + t) * KVH + kvh) * D + col : nullptr;
-      };
-    };
-    load_tile<ROWS, NT>(sQ, tid, panel_row(q), q);
-    load_tile<ROWS, NT>(sQ + WIDE_PANEL, tid, panel_row(g), g);
-    load_tile<BK, NT>(sQ + 2 * WIDE_PANEL, tid, key_row(k), k);
-    load_tile<BK, NT>(sQ + 2 * WIDE_PANEL + WIDE_KEYS, tid, key_row(v), v);
   };
+  auto key_row = [&](const bf16* src, int k0, int c0) {
+    return [=](int r) -> const bf16* {
+      const int t = k0 + r;
+      return t < Tk ? src + (((size_t)b * Tk + t) * KVH + kvh) * D + c0 : nullptr;
+    };
+  };
+  auto load_panel = [&](int c0) {
+#pragma unroll
+    for (int x = 0; x < DQ_CB; ++x) {
+      load_tile<ROWS, 2 * NT>(sQ + x * WIDE_PANEL, tid, panel_row(q, c0 + x * CD), q);
+      load_tile<ROWS, 2 * NT>(sG + x * WIDE_PANEL, tid, panel_row(g, c0 + x * CD), g);
+    }
+  };
+  // Step j: key tile j / m, block rank + cs ((cl + 1 + j % m) % m) (cb
+  // last): K's block into stage j & 1, V's into its buffer and, when Q and
+  // dO are not resident, theirs into the slot.
+  auto load_step = [&](int j) {
+    const int kt = j / mch, i = j - kt * mch;
+    const int col = (rank + cs * ((cl + 1 + i) % mch)) * W;
+    bf16* sK = sKring + (j & 1) * DQ_CB * WIDE_KEYS;
+#pragma unroll
+    for (int x = 0; x < DQ_CB; ++x) {
+      load_tile<BK, 2 * NT>(sK + x * WIDE_KEYS, tid, key_row(k, kt * BK, col + x * CD), k);
+      load_tile<BK, 2 * NT>(sV + x * WIDE_KEYS, tid, key_row(v, kt * BK, col + x * CD), v);
+    }
+    if (!resident) load_panel(col);
+  };
+  if (resident) load_panel(cb * W);
   if (steps > 0) load_step(0);
   cp_async_commit();
 
-  // Thread pair (2r, 2r + 1) stages panel row r's L and D.
-  {
-    const int r = tid >> 1;
+  // Thread i < 64 stages panel row i's L, thread 64 + i its D (read after
+  // the first step's barrier).
+  if (tid < 2 * ROWS) {
+    const int r = tid % ROWS;
     const int t = q0 + r / group;
     const size_t row = ((size_t)b * H + kvh * group + r % group) * Tq + t;
-    if ((tid & 1) == 0) sL[r] = t < Tq ? L[row] : 0.f;
+    if (tid < ROWS) sL[r] = t < Tq ? L[row] : 0.f;
     else sD[r] = t < Tq ? dvec[row] : 0.f;
   }
-  __syncthreads();
 
-  const int r_a = (tid >> 5) * 16 + (lane >> 2);
-  const int r_b = r_a + 8;
-  const int t_a = q0 + r_a / group, t_b = q0 + r_b / group;
-  const float l2_a = sL[r_a] * LOG2E, l2_b = sL[r_b] * LOG2E;
-  const float d_a = sD[r_a], d_b = sD[r_b];
   const float c = scale * LOG2E;
-  const int col0 = 2 * (lane & 3);
+  // The panel rows this rank reduces, as (row, 4-key chunk) tasks.
+  const int lo = rank * ROWS / cs, hi = (rank + 1) * ROWS / cs;
+  const int n_tasks = (hi - lo) * 16;
 
-  float acc[64];
+  float acc[W / 4];  // dQ_cb's W / 2 columns of this warpgroup
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  float s[32], dp[32];
+  for (int x = 0; x < W / 4; ++x) acc[x] = 0.f;
+  float s[32];
 
   for (int j = 0; j < steps; ++j) {
-    const int st = j & 1;
-    if (j + 1 < steps) load_step(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // step j landed for this thread's copies
+    const int kt = j / mch, i = j - kt * mch;
+    cp_async_wait<0>();  // step j landed for this thread's copies
     fence_proxy_async();
     __syncthreads();     // ... and for every thread's
-    const bf16* sQ = base + st * WIDE_STAGE;
-    const bf16* sG = sQ + WIDE_PANEL;
-    const bf16* sK = sG + WIDE_PANEL;
-    const bf16* sV = sK + WIDE_KEYS;
-    const int kt = j / nc, i = j - kt * nc;
+    const bf16* sK = sKring + (j & 1) * DQ_CB * WIDE_KEYS;
 
+    // Warpgroup 0: S (+)= Q_c K_c^T; warpgroup 1: dP (+)= dO_c V_c^T.
     wgmma_fence();
-    gemm_nt_64x64_chunk(s, sQ, ROWS, sK, BK, i > 0);
-    gemm_nt_64x64_chunk(dp, sG, ROWS, sV, BK, i > 0);
+#pragma unroll
+    for (int x = 0; x < DQ_CB; ++x)
+      gemm_nt_64x64_chunk(s, (wg ? sG : sQ) + x * WIDE_PANEL, ROWS,
+                          (wg ? sV : sK) + x * WIDE_KEYS, BK, i > 0 || x > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    fence_regs(dp);
+    __syncthreads();  // every warpgroup is done with the slot, V and stage j & 1's reads
+    if (j + 1 < steps) load_step(j + 1);
+    cp_async_commit();
 
-    if (i == nc - 1) {
+    if (i == mch - 1) {
+      store_scores(wg ? sPartP : sPartS, 0, lane, warp, s);
+      cluster_sync();
+
+      // Reduce this rank's rows over the cluster: dS to every rank.
       const int k0 = kt * BK;
-      const int k_last = k_off + stride * (min(k0 + BK, Tk) - 1);
-      const bool masked = q0 + blk_q > Tq || k0 + BK > Tk ||
-                          (causal && q_off + stride * q0 < k_last);
+      for (int task = tid; task < n_tasks; task += 2 * NT) {
+        const int row = lo + (task >> 4), c4 = task & 15;
+        float4 sv, dpv;
+        cluster_sum_f4x2(sPartS + fswz(row, 4 * c4), sPartP + fswz(row, 4 * c4), cs, sv, dpv);
+        const float ss[4] = {sv.x, sv.y, sv.z, sv.w};
+        const float dd[4] = {dpv.x, dpv.y, dpv.z, dpv.w};
+        const int t = q0 + row / group;
+        const float l2 = sL[row] * LOG2E, dr = sD[row];
+        float ds[4];
 #pragma unroll
-      for (int x = 0; x < 8; ++x)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + 8 * x + col0 + e;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int y = 4 * x + 2 * h + e;
-            float p = exp2f(fmaf(s[y], c, -(h ? l2_b : l2_a)));
-            if (masked) {
-              const int t = h ? t_b : t_a;
-              bool valid = t < Tq && kpos < Tk;
-              if (causal) valid = valid && q_off + stride * t >= k_off + stride * kpos;
-              p = valid ? p : 0.f;
-            }
-            dp[y] = p * (dp[y] - (h ? d_b : d_a));
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 4 * c4 + e;
+          bool valid = t < Tq && kpos < Tk;
+          if (causal) valid = valid && q_off + stride * t >= k_off + stride * kpos;
+          const float p = valid ? exp2f(fmaf(ss[e], c, -l2)) : 0.f;
+          ds[e] = p * (dd[e] - dr);
         }
-      uint32_t pd[16];
-      pack_scores(pd, dp);
+        const uint32_t d01 = pack_bf16x2(ds[0], ds[1]), d23 = pack_bf16x2(ds[2], ds[3]);
+        const bf16* dst = sDS + swz(ROWS, row, 4 * c4);
+        for (int r = 0; r < cs; ++r) st_dsmem_u32x2(dsmem(dst, r), d01, d23);
+      }
+      cluster_sync();
 
+      // This step's block is cb: dQ_cb += dS K_cb on this warpgroup's
+      // columns.
+      uint32_t pf[16];
+      load_fragments(pf, sDS, ROWS, 0, lane, warp);
       wgmma_fence();
-      gemm_rs_64xN<CD>(acc, pd, sK, BK);  // K_cb: this step's chunk is cb
+      gemm_rs_64xN<W / 2>(acc, pf, sK + wg * BK * (W / 2), BK);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
     }
-    __syncthreads();  // every warp is done with stage st
   }
   cp_async_wait<0>();
 
+  // No peer touches this CTA's shared memory after the last barrier.
+  const int col0 = 2 * (lane & 3);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = h ? r_b : r_a;
-    const int t = h ? t_b : t_a;
+    const int r = warp * 16 + (lane >> 2) + 8 * h;
+    const int t = q0 + r / group;
     if (t >= Tq) continue;
-    OutT* row = dq + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + cb * CD;
+    OutT* row = dq + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + cb * W +
+                wg * (W / 2);
 #pragma unroll
-    for (int x = 0; x < 16; ++x) {
+    for (int x = 0; x < W / 16; ++x) {
       const int y = 4 * x + 2 * h;
       store2(row + 8 * x + col0, acc[y] * scale, acc[y + 1] * scale);
     }
@@ -858,12 +923,14 @@ cudaError_t launch_dq_wide(cudaStream_t s, const void* q, const void* k, const v
                            int k_off, int stride, float scale) {
   cudaError_t err = prepare<flash_bwd_dq_wide_kernel<OutT>>(WIDE_DQ_SMEM);
   if (err != cudaSuccess) return err;
-  const int nc = head_dim / CD, blk_q = ROWS / (H / KVH);
-  dim3 grid((Tq + blk_q - 1) / blk_q, KVH * nc, B);
-  flash_bwd_dq_wide_kernel<OutT><<<grid, NT, WIDE_DQ_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
-      (const float*)dvec, (OutT*)dq, Tq, Tk, H, KVH, H / KVH, nc, causal, q_off, k_off, stride,
-      scale);
+  const int nb = head_dim / (DQ_CB * CD), blk_q = ROWS / (H / KVH);
+  ClusterLaunch l(dim3((Tq + blk_q - 1) / blk_q, KVH * nb, B), 2 * NT, WIDE_DQ_SMEM,
+                  wide_cluster_size(nb), s);
+  err = cudaLaunchKernelEx(&l.cfg, flash_bwd_dq_wide_kernel<OutT>, (const bf16*)q,
+                           (const bf16*)k, (const bf16*)v, (const bf16*)g, (const float*)L,
+                           (const float*)dvec, (OutT*)dq, Tq, Tk, H, KVH, H / KVH, nb, causal,
+                           q_off, k_off, stride, scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -888,7 +955,8 @@ cudaError_t launch_dkv_wide(cudaStream_t s, const void* q, const void* k, const 
 }  // namespace
 
 // C entry points (bound with ctypes); head_dim 64, 128 or a multiple of
-// 128 above it (the wide kernels, which take a given D only). dq: `o`
+// 128 above it (the wide kernels, which take a given D only; dq's a
+// multiple of its DQ_CB * 128-column block). dq: `o`
 // non-null fuses D = rowsum(dO*O) and writes it to `d_out` ([B,H,Tq] f32)
 // for dkv; otherwise `dvec` ([B,H,Tq] f32) is D. dkv always reads D from `dvec`. `out_f32`
 // picks the gradient dtype (f32, else bf16). Each launches on `stream` and
@@ -903,7 +971,7 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (head_dim > CD) {
-    if (o != nullptr) return (int)cudaErrorInvalidValue;
+    if (o != nullptr || head_dim % (DQ_CB * CD) != 0) return (int)cudaErrorInvalidValue;
 #define WIDE_ARGS s, q, k, v, g, L, dvec, dq, B, Tq, Tk, H, KVH, head_dim, causal, q_off, k_off, \
                   stride, scale
     return (int)(out_f32 ? launch_dq_wide<float>(WIDE_ARGS) : launch_dq_wide<bf16>(WIDE_ARGS));
@@ -947,6 +1015,19 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
     err = out_f32 ? launch_dkv<128, float>(DKV_ARGS) : launch_dkv<128, bf16>(DKV_ARGS);
 #undef DKV_ARGS
   return (int)err;
+}
+
+// The wide dq kernel's cluster at `head_dim` (a multiple of its column
+// block above 128): its size and the most such clusters the device holds
+// at once.
+extern "C" int flash_bwd_dq_wide_cluster(int head_dim, int* cluster_size, int* max_clusters) {
+  if (head_dim <= CD || head_dim % (DQ_CB * CD) != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<flash_bwd_dq_wide_kernel<bf16>>(WIDE_DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int cs = wide_cluster_size(head_dim / (DQ_CB * CD));
+  *cluster_size = cs;
+  return (int)max_active_clusters(flash_bwd_dq_wide_kernel<bf16>, 2 * NT, WIDE_DQ_SMEM, cs,
+                                  max_clusters);
 }
 
 // The wide dkv kernel's cluster at `head_dim` (a multiple of 128 above

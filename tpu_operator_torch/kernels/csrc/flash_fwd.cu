@@ -268,7 +268,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 // blocks computes each score tile once and exchanges it through
 // distributed shared memory).
 __global__ void __launch_bounds__(wide::NT, 1) flash_fwd_wide_kernel(wide::Args a) {
-  wide::attend_cluster(a);
+  wide::attend_cluster<false>(a);
 }
 
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, void* lse, int B,

@@ -271,19 +271,20 @@ flash_merge_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Head dims above 128, any multiple of 128: flash_wide.cuh's first wide
-// design (a grid axis over 128-column blocks of the carry's o, the scores
-// summed over the head dim's chunks in every block; block 0 writes l and
+// Head dims above 128, any multiple of 256: flash_wide.cuh's cluster
+// design in its merge form (a grid axis over 256-column blocks of the
+// carry's o; a cluster of column blocks computes each score tile once and
+// exchanges it through distributed shared memory; block 0 writes l and
 // m).
 __global__ void __launch_bounds__(wide::NT, 1) flash_merge_wide_kernel(wide::Args a) {
-  wide::attend_merge(a);
+  wide::attend_cluster<true>(a);
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes); head_dim 128 or a multiple of 128
-// above it. Reads the carry (o_in, l_in, m_in)
-// and writes the merged one to (o_out, l_out, m_out), which must not
+// C entry point (bound with ctypes); head_dim 128 or a multiple of 256
+// above it (the wide kernel's column block). Reads the carry (o_in, l_in,
+// m_in) and writes the merged one to (o_out, l_out, m_out), which must not
 // overlap it. Launches on `stream`; returns cudaGetLastError() after the
 // launch (0 = launched).
 extern "C" int flash_merge_bf16(const void* q, const void* k, const void* v, const void* o_in,
@@ -291,19 +292,21 @@ extern "C" int flash_merge_bf16(const void* q, const void* k, const void* v, con
                                 void* m_out, int B, int Tq, int Tk, int H, int KVH,
                                 int head_dim, int causal, int q_off, int k_off, int stride,
                                 float scale, void* stream) {
-  if (head_dim < D || head_dim % D != 0 || B <= 0 || Tq <= 0 || Tk <= 0 || KVH <= 0 ||
-      H % KVH != 0 || ROWS % (H / KVH) != 0 || stride <= 0)
+  if (head_dim < D || (head_dim > D && head_dim % wide::C_CD != 0) || B <= 0 || Tq <= 0 ||
+      Tk <= 0 || KVH <= 0 || H % KVH != 0 || ROWS % (H / KVH) != 0 || stride <= 0)
     return (int)cudaErrorInvalidValue;
   if (head_dim > D) {
-    cudaError_t err = set_smem_once<flash_merge_wide_kernel>(wide::SMEM_BYTES, true);
+    cudaError_t err = set_smem_once<flash_merge_wide_kernel>(wide::CLUSTER_SMEM_BYTES, true);
     if (err != cudaSuccess) return (int)err;
-    const int nc = head_dim / wide::CD;
+    const int nb = head_dim / wide::C_CD;
     wide::Args a{(const bf16*)q,      (const bf16*)k,      (const bf16*)v,
                  (const float*)o_in,  (const float*)l_in,  (const float*)m_in,
                  o_out,               (float*)l_out,       (float*)m_out,
-                 Tq, Tk, H, KVH, H / KVH, nc, causal, q_off, k_off, stride, scale};
-    flash_merge_wide_kernel<<<wide::grid(Tq, KVH, nc, B, H / KVH), wide::NT,
-                              wide::SMEM_BYTES, (cudaStream_t)stream>>>(a);
+                 Tq, Tk, H, KVH, H / KVH, nb, causal, q_off, k_off, stride, scale};
+    ClusterLaunch l(wide::grid(Tq, KVH, nb, B, H / KVH), wide::NT, wide::CLUSTER_SMEM_BYTES,
+                    wide_cluster_size(nb), (cudaStream_t)stream);
+    err = cudaLaunchKernelEx(&l.cfg, flash_merge_wide_kernel, a);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   cudaError_t err = set_smem_once<flash_merge_kernel>(SMEM_BYTES, true);
@@ -316,4 +319,16 @@ extern "C" int flash_merge_bf16(const void* q, const void* k, const void* v, con
       (const float*)m_in, (float*)o_out, (float*)l_out, (float*)m_out, Tq, Tk, H, KVH, group,
       causal, q_off, k_off, stride, scale);
   return (int)cudaGetLastError();
+}
+
+// The wide merge kernel's cluster at `head_dim` (a multiple of 256): its
+// size and the most such clusters the device holds at once.
+extern "C" int flash_merge_wide_cluster(int head_dim, int* cluster_size, int* max_clusters) {
+  if (head_dim <= D || head_dim % wide::C_CD != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem_once<flash_merge_wide_kernel>(wide::CLUSTER_SMEM_BYTES, true);
+  if (err != cudaSuccess) return (int)err;
+  const int cs = wide_cluster_size(head_dim / wide::C_CD);
+  *cluster_size = cs;
+  return (int)max_active_clusters(flash_merge_wide_kernel, wide::NT, wide::CLUSTER_SMEM_BYTES,
+                                  cs, max_clusters);
 }

@@ -9,15 +9,15 @@
 // the f32 accumulator of its own block only. The scores S = sum_c Q_c K_c^T
 // span every block.
 //
-// K1 (attend_cluster) computes each score tile once per thread-block
-// cluster. Its CTAs own 256-column blocks of O (two 128-column f32
-// accumulators a thread; the wrapper pads D to a multiple of 256), nb =
-// D / 256 of them, and a cluster is cs = wide_cluster_size(nb)
-// consecutive blocks of one (q-panel, KV head, batch) (cs = nb up to
-// D 2048). Rank r of a cluster sums the m = nb / cs blocks r, r + cs, ...
-// of the head dim into a partial S_r (128 x 64 f32); its Q block is
-// resident when m = 1 and streamed through the same slot otherwise. Per
-// 64-key tile:
+// K1 and K4 are one kernel body, attend_cluster<MERGE>, which computes
+// each score tile once per thread-block cluster. Its CTAs own 256-column
+// blocks of the output (two 128-column f32 accumulators a thread; the
+// wrapper pads D to a multiple of 256), nb = D / 256 of them, and a
+// cluster is cs = wide_cluster_size(nb) consecutive blocks of one
+// (q-panel, KV head, batch) (cs = nb up to D 2048). Rank r of a cluster
+// sums the m = nb / cs blocks r, r + cs, ... of the head dim into a
+// partial S_r (128 x 64 f32); its Q block is resident when m = 1 and
+// streamed through the same slot otherwise. Per 64-key tile:
 // - S_r = Q_r K_r^T runs on wgmma; K's block streams through a 2-stage
 //   cp.async ring, each step's copy issued once the previous product is
 //   done, so it overlaps the exchange below; V_cb's block is one buffer,
@@ -36,20 +36,23 @@
 //   and adds P V_cb (P read back as wgmma register fragments).
 // The second barrier also frees each partial for the next tile (every
 // reader has passed it), and P, alpha are read into registers before the
-// next tile's first barrier, so one buffer of each suffices. Block 0
-// writes L from the all-gathered m and l; the epilogue is the narrow K1's.
-// A merge variant folds the carry in there and seeds m from it.
+// next tile's first barrier, so one buffer of each suffices.
 //
-// K4 (attend_merge) keeps the first wide design: every CTA sums
-// the whole S itself, streaming the (Q_c, K_c) chunk pairs of each key
-// tile (chunk cb last; its last step also brings V_cb), which repeats the
-// score products nc times; block 0 writes l and m.
+// K1 (MERGE false) starts every row at m = NEG_INF, l = 0 and runs at
+// offsets (0, 0, 1); block 0 writes L from the all-gathered m and l, and
+// the epilogue is the narrow K1's. K4 (MERGE true) is the ring's merge:
+// it takes offsets and a stride, seeds each row's running max from the
+// carry's m (the accumulators and the row sum start at 0), and its
+// epilogue folds the carry in, o' = o e^{m - m'} + acc and
+// l' = l e^{m - m'} + l_acc in f32, unnormalised (flash_merge.cu's
+// contract and `_merge_ref`'s grouping); block 0 writes l' and m'. A row
+// that ends the block at m = NEG_INF (no key yet; a CTA that ran no tile
+// too) writes its carry back as it was, bit-equal.
 //
 // Layouts are the narrow kernels': q [B,Tq,H,D], k/v [B,Tk,KVH,D] bf16;
 // K1 writes O [B,Tq,H,D] bf16 and L [B,H,Tq] f32; K4 reads the carry o
 // [B,H,Tq,D], l, m [B,H,Tq] f32 and writes a new one. Masking, offsets
-// and the NEG_INF conventions are flash_merge.cu's; K1 runs at offsets
-// (0, 0, 1).
+// and the NEG_INF conventions are flash_merge.cu's.
 
 #pragma once
 
@@ -73,16 +76,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int Q_ELEMS = ROWS * CD;
 constexpr int KV_ELEMS = BK * CD;
-// K4: one stage is Q_c, K_c and (on a key tile's last step) V_cb; two
-// stages, 1024 bytes of slack to align the base.
-constexpr int STAGE_ELEMS = Q_ELEMS + 2 * KV_ELEMS;
-constexpr size_t SMEM_BYTES = 1024 + 2 * 2 * (size_t)STAGE_ELEMS;
-// K1: a CTA owns a 256-column block of O (two 128-column accumulators a
-// thread), so a score tile exchanged serves twice the output columns of a
-// 128-column block (half the cluster traffic per product). Shared memory
-// (from the aligned base): the Q slot (Q's block, resident when m = 1,
-// else the step's), two stages of K's block, V's block, the partial S
-// [ROWS][BK] f32, P [ROWS][BK] bf16, the rows' m, l and alpha.
+// A CTA owns a 256-column block of the output (two 128-column
+// accumulators a thread), so a score tile exchanged serves twice the
+// output columns of a 128-column block (half the cluster traffic per
+// product). Shared memory (from the aligned base; 1024 bytes of slack to
+// align it): the Q slot (Q's block, resident when m = 1, else the
+// step's), two stages of K's block, V's block, the partial S [ROWS][BK]
+// f32, P [ROWS][BK] bf16, the rows' m, l and alpha.
 constexpr int C_CD = 2 * CD;
 constexpr int C_Q_ELEMS = ROWS * C_CD;
 constexpr int C_KV_ELEMS = BK * C_CD;
@@ -126,8 +126,10 @@ struct Args {
   float scale;
 };
 
-// K1: one CTA per (q-tile, KV head x 256-column block, batch), NT threads,
-// in clusters of wide_cluster_size(nb) CTAs along y (nb = D / 256).
+// One CTA per (q-tile, KV head x 256-column block, batch), NT threads, in
+// clusters of wide_cluster_size(nb) CTAs along y (nb = D / 256); K1
+// (MERGE false) or K4 (MERGE true).
+template <bool MERGE>
 __device__ __forceinline__ void attend_cluster(const Args& a) {
   extern __shared__ unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
@@ -204,30 +206,32 @@ __device__ __forceinline__ void attend_cluster(const Args& a) {
   if (steps > 0) load_kv(sV, v, 0, cb * C_CD);
   cp_async_commit();
 
-  // The rows' running max and sum. With a cluster of one (cs 1) no
-  // partial travels, and its buffer holds them instead, two copies (tile
-  // kt reads copy kt & 1 and writes the other).
+  // Panel row r's [B,H,Tq] row (a row past Tq borrows row Tq - 1's and
+  // is never written).
+  auto stat_row = [&](int r) {
+    return ((size_t)b * H + kvh * group + r % group) * Tq + min(q0 + r / group, Tq - 1);
+  };
+  // The rows' running max (K4: the carry's) and sum. With a cluster of one
+  // (cs 1) no partial travels, and its buffer holds them instead, two
+  // copies (tile kt reads copy kt & 1 and writes the other).
   float* sStat1 = sPart;
   for (int r = tid; r < 2 * ROWS; r += NT) {
+    const float m0 = MERGE ? a.m_in[stat_row(r % ROWS)] : NEG_INF;
     if (r < ROWS) {
-      sM[r] = NEG_INF;
+      sM[r] = m0;
       sL[r] = 0.f;
     }
     if (cs == 1) {
-      sStat1[r] = NEG_INF;
+      sStat1[r] = m0;
       sStat1[2 * ROWS + r] = 0.f;
     }
   }
   __syncthreads();
 
-  // This thread's two accumulator rows and their [B,H,Tq] rows (a row past
-  // Tq borrows row Tq - 1's and is never written).
+  // This thread's two accumulator rows.
   const int r_a = wg * 64 + warp * 16 + (lane >> 2);
   const int r_b = r_a + 8;
   const int t_a = q0 + r_a / group, t_b = q0 + r_b / group;
-  auto stat_row = [&](int r, int t) {
-    return ((size_t)b * H + kvh * group + r % group) * Tq + min(t, Tq - 1);
-  };
   const float scale = a.scale;
   const float c = scale * LOG2E;
   const int col0 = 2 * (lane & 3);
@@ -415,222 +419,52 @@ __device__ __forceinline__ void attend_cluster(const Args& a) {
   }
   cp_async_wait<0>();
 
-  // O = acc / l (0 for a row that saw no key), L = m + log l. No peer
-  // touches this CTA's shared memory after the last barrier.
+  // No peer touches this CTA's shared memory after the last barrier.
+  const float* fin = sStat1 + (n_tiles & 1) * ROWS;  // cs 1: the last tile's copy
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int t = half ? t_b : t_a;
     if (t >= Tq) continue;
     const int r = half ? r_b : r_a;
-    const float* fin = sStat1 + (n_tiles & 1) * ROWS;  // cs 1: the last tile's copy
     const float m = cs == 1 ? fin[r] : sM[r];
     const float l = cs == 1 ? fin[2 * ROWS + r] : sL[r];
     const bool valid = m > NEG_INF / 2;
-    const float inv = valid ? 1.f / fmaxf(l, 1e-30f) : 0.f;
-    const int h = kvh * group + r % group;
-    bf16* orow = reinterpret_cast<bf16*>(a.o) + (((size_t)b * Tq + t) * H + h) * D + cb * C_CD;
-#pragma unroll
-    for (int x = 0; x < 16; ++x) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * x + col0) = __floats2bfloat162_rn(
-          acc0[4 * x + 2 * half] * inv, acc0[4 * x + 2 * half + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + CD + 8 * x + col0) = __floats2bfloat162_rn(
-          acc1[4 * x + 2 * half] * inv, acc1[4 * x + 2 * half + 1] * inv);
-    }
-    if (cb == 0 && (lane & 3) == 0)
-      a.l[stat_row(r, t)] = valid ? m + logf(fmaxf(l, 1e-30f)) : 0.f;
-  }
-}
-
-// K4: one CTA per (q-tile, KV head x column block, batch), NT threads.
-__device__ __forceinline__ void attend_merge(const Args& a) {
-  extern __shared__ unsigned char smem_raw[];
-  bf16* base =
-      reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-
-  const int Tq = a.Tq, Tk = a.Tk, H = a.H, KVH = a.KVH, group = a.group, nc = a.nc;
-  const int q_off = a.q_off, k_off = a.k_off, stride = a.stride, causal = a.causal;
-  const int D = nc * CD;
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const int lane = tid & 31;
-  const int blk_q = ROWS / group;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * blk_q;  // heaviest first
-  const int kvh = blockIdx.y / nc;
-  const int cb = blockIdx.y - kvh * nc;
-  const int b = blockIdx.z;
-  const bf16* q = a.q;
-  const bf16* k = a.k;
-  const bf16* v = a.v;
-
-  // Key tiles up to the causal limit: the last query position in the panel.
-  const int q_lo = q_off + stride * q0;
-  const int q_hi = q_off + stride * (min(q0 + blk_q, Tq) - 1);
-  int n_tiles = (Tk + BK - 1) / BK;
-  if (causal)
-    while (n_tiles > 0 && k_off + stride * (n_tiles - 1) * BK > q_hi) --n_tiles;
-  const int steps = n_tiles * nc;
-
-  // Step j: key tile j / nc, chunk (cb + 1 + j % nc) % nc (cb last), into
-  // stage j & 1; the tile's last step also loads V's column block cb.
-  auto load_step = [&](int j) {
-    const int kt = j / nc, i = j - kt * nc;
-    const int col = ((cb + 1 + i) % nc) * CD;
-    bf16* sQ = base + (j & 1) * STAGE_ELEMS;
-    bf16* sK = sQ + Q_ELEMS;
-    load_tile<ROWS, NT>(sQ, tid, [&](int r) -> const bf16* {
-      const int t = q0 + r / group;
-      return t < Tq ? q + (((size_t)b * Tq + t) * H + kvh * group + r % group) * D + col
-                    : nullptr;
-    }, q);
-    const int k0 = kt * BK;
-    auto key_row = [&](const bf16* src, int c0) {
-      return [=](int r) -> const bf16* {
-        const int t = k0 + r;
-        return t < Tk ? src + (((size_t)b * Tk + t) * KVH + kvh) * D + c0 : nullptr;
-      };
-    };
-    load_tile<BK, NT>(sK, tid, key_row(k, col), k);
-    if (i == nc - 1) load_tile<BK, NT>(sK + KV_ELEMS, tid, key_row(v, cb * CD), v);
-  };
-  if (steps > 0) load_step(0);
-  cp_async_commit();
-
-  // This thread's two panel rows (accumulator rows l/4 and l/4 + 8 of its
-  // warp's 16), their [B,H,Tq] rows (a row past Tq borrows row Tq - 1's
-  // and is never written) and their query positions.
-  const int r_a = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
-  const int r_b = r_a + 8;
-  const int t_a = q0 + r_a / group, t_b = q0 + r_b / group;
-  auto stat_row = [&](int r, int t) {
-    return ((size_t)b * H + kvh * group + r % group) * Tq + min(t, Tq - 1);
-  };
-  const int qpos_a = q_off + stride * min(t_a, Tq - 1);
-  const int qpos_b = q_off + stride * min(t_b, Tq - 1);
-  const float scale = a.scale;
-  const float c = scale * LOG2E;
-  const int col0 = 2 * (lane & 3);
-
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  // Running max in natural-log units, seeded from the carry; the row sum
-  // of this launch's keys only (the carry's l joins in the epilogue).
-  float m_a = a.m_in[stat_row(r_a, t_a)];
-  float m_b = a.m_in[stat_row(r_b, t_b)];
-  float l_a = 0.f, l_b = 0.f;
-  float s[32];
-
-  for (int j = 0; j < steps; ++j) {
-    const int st = j & 1;
-    if (j + 1 < steps) load_step(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // step j landed for this thread's copies
-    fence_proxy_async();
-    __syncthreads();     // ... and for every thread's
-    const bf16* sQ = base + st * STAGE_ELEMS;
-    const bf16* sK = sQ + Q_ELEMS;
-    const bf16* sV = sK + KV_ELEMS;
-    const int kt = j / nc, i = j - kt * nc;
-
-    wgmma_fence();
-    gemm_nt_64x64_chunk(s, sQ + wg * 64 * HALF_COLS, ROWS, sK, BK, i > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    if (i == nc - 1) {
-      // S is whole: flash_merge.cu's online softmax and O += P V on
-      // column block cb.
-      const int k0 = kt * BK;
-      const bool masked =
-          k0 + BK > Tk || (causal && k_off + stride * (k0 + BK - 1) > q_lo);
-      if (masked) {
-#pragma unroll
-        for (int x = 0; x < 8; ++x)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int jj = k0 + 8 * x + col0 + e;
-            const bool out = jj >= Tk;
-            if (out || (causal && k_off + stride * jj > qpos_a)) s[4 * x + e] = -INFINITY;
-            if (out || (causal && k_off + stride * jj > qpos_b)) s[4 * x + 2 + e] = -INFINITY;
-          }
-      }
-      float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-      for (int x = 0; x < 8; ++x) {
-        mx_a = fmaxf(mx_a, fmaxf(s[4 * x], s[4 * x + 1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[4 * x + 2], s[4 * x + 3]));
-      }
-      mx_a = quad_max(mx_a);
-      mx_b = quad_max(mx_b);
-      const float mn_a = fmaxf(m_a, mx_a == -INFINITY ? NEG_INF : mx_a * scale);
-      const float mn_b = fmaxf(m_b, mx_b == -INFINITY ? NEG_INF : mx_b * scale);
-      const float alpha_a = exp2f((m_a - mn_a) * LOG2E);
-      const float alpha_b = exp2f((m_b - mn_b) * LOG2E);
-      m_a = mn_a;
-      m_b = mn_b;
-      const float ml_a = mn_a * LOG2E, ml_b = mn_b * LOG2E;
-      const float dead_a = exp2f((NEG_INF - mn_a) * LOG2E);
-      const float dead_b = exp2f((NEG_INF - mn_b) * LOG2E);
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int x = 0; x < 8; ++x)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& pa = s[4 * x + e];
-          float& pb = s[4 * x + 2 + e];
-          pa = (masked && pa == -INFINITY) ? dead_a : exp2f(fmaf(pa, c, -ml_a));
-          pb = (masked && pb == -INFINITY) ? dead_b : exp2f(fmaf(pb, c, -ml_b));
-          sum_a += pa;
-          sum_b += pb;
-        }
-      l_a = l_a * alpha_a + quad_sum(sum_a);
-      l_b = l_b * alpha_b + quad_sum(sum_b);
+    const size_t row = stat_row(r);
+    if constexpr (MERGE) {
+      // o' = o e^{m - m'} + acc, l' = l e^{m - m'} + l_acc; a row with no
+      // key yet keeps its carry (o * 1 + 0 would turn -0 into +0).
+      const bool keep = n_tiles == 0 || !valid;
+      const float alpha = exp2f((a.m_in[row] - m) * LOG2E);
+      const float* src = a.o_in + row * D + cb * C_CD + col0;
+      float* dst = reinterpret_cast<float*>(a.o) + row * D + cb * C_CD + col0;
 #pragma unroll
       for (int x = 0; x < 16; ++x) {
-        acc[4 * x] *= alpha_a;
-        acc[4 * x + 1] *= alpha_a;
-        acc[4 * x + 2] *= alpha_b;
-        acc[4 * x + 3] *= alpha_b;
+        const int ai = 4 * x + 2 * half;
+        const float2 y0 = *reinterpret_cast<const float2*>(src + 8 * x);
+        const float2 y1 = *reinterpret_cast<const float2*>(src + CD + 8 * x);
+        *reinterpret_cast<float2*>(dst + 8 * x) =
+            keep ? y0 : make_float2(fmaf(y0.x, alpha, acc0[ai]), fmaf(y0.y, alpha, acc0[ai + 1]));
+        *reinterpret_cast<float2*>(dst + CD + 8 * x) =
+            keep ? y1 : make_float2(fmaf(y1.x, alpha, acc1[ai]), fmaf(y1.y, alpha, acc1[ai + 1]));
       }
-      uint32_t p[16];
-      pack_scores(p, s);
-
-      wgmma_fence();
-      gemm_rs_64xN<CD>(acc, p, sV, BK);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-    }
-    __syncthreads();  // every warpgroup is done with stage st
-  }
-  cp_async_wait<0>();
-
-  // Fold the carry in: o' = o e^{m - m'} + acc, l' = l e^{m - m'} + l_acc;
-  // a CTA that ran no tile copies the carry.
+      if (cb == 0 && (lane & 3) == 0) {
+        const float lc = a.l_in[row];
+        a.l[row] = keep ? lc : fmaf(lc, alpha, l);
+        a.m[row] = keep ? a.m_in[row] : m;
+      }
+    } else {
+      // O = acc / l (0 for a row that saw no key), L = m + log l.
+      const float inv = valid ? 1.f / fmaxf(l, 1e-30f) : 0.f;
+      const int h = kvh * group + r % group;
+      bf16* orow = reinterpret_cast<bf16*>(a.o) + (((size_t)b * Tq + t) * H + h) * D + cb * C_CD;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = half ? t_b : t_a;
-    if (t >= Tq) continue;
-    const int r = half ? r_b : r_a;
-    const size_t row = stat_row(r, t);
-    const float m = half ? m_b : m_a;
-    const float l = half ? l_b : l_a;
-    const bool ran = n_tiles > 0;
-    const float alpha = exp2f((a.m_in[row] - m) * LOG2E);
-    const float* src = a.o_in + row * D + cb * CD + col0;
-    float* dst = reinterpret_cast<float*>(a.o) + row * D + cb * CD + col0;
-#pragma unroll
-    for (int x = 0; x < 16; ++x) {
-      const float2 y = *reinterpret_cast<const float2*>(src + 8 * x);
-      const int ai = 4 * x + 2 * half;
-      *reinterpret_cast<float2*>(dst + 8 * x) =
-          ran ? make_float2(fmaf(y.x, alpha, acc[ai]), fmaf(y.y, alpha, acc[ai + 1])) : y;
-    }
-    if (cb == 0 && (lane & 3) == 0) {
-      const float lc = a.l_in[row];
-      a.l[row] = ran ? fmaf(lc, alpha, l) : lc;
-      a.m[row] = m;
+      for (int x = 0; x < 16; ++x) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * x + col0) = __floats2bfloat162_rn(
+            acc0[4 * x + 2 * half] * inv, acc0[4 * x + 2 * half + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(orow + CD + 8 * x + col0) = __floats2bfloat162_rn(
+            acc1[4 * x + 2 * half] * inv, acc1[4 * x + 2 * half + 1] * inv);
+      }
+      if (cb == 0 && (lane & 3) == 0) a.l[row] = valid ? m + logf(fmaxf(l, 1e-30f)) : 0.f;
     }
   }
 }

@@ -265,7 +265,7 @@ __device__ __forceinline__ void pack_scores(uint32_t (&p)[16], const float (&s)[
 
 // --- thread-block clusters (the wide kernels' score exchange) -------------------
 //
-// A wide kernel's cluster is the 128-column blocks of one output tile: its
+// A wide kernel's cluster is the column blocks of one output tile: its
 // CTAs each hold a partial score tile (their chunks' share of the head
 // dim), exchange them through distributed shared memory and sum them.
 // Score tiles travel as f32 [rows][64]: the 16-byte chunk c of row r sits
@@ -273,8 +273,8 @@ __device__ __forceinline__ void pack_scores(uint32_t (&p)[16], const float (&s)[
 // reduction's float4 loads hit distinct banks. P (and dS) travel as bf16
 // [rows][64] in hopper's swizzle (`swz`), read back as wgmma A fragments.
 
-// The cluster size of a head dim of nc 128-column chunks: the largest
-// divisor of nc that is at most 8, the portable limit.
+// The cluster size of a head dim of nc column blocks: the largest divisor
+// of nc that is at most 8, the portable limit.
 __host__ __device__ __forceinline__ int wide_cluster_size(int nc) {
   for (int c = nc < 8 ? nc : 8; c > 1; --c)
     if (nc % c == 0) return c;

@@ -45,13 +45,13 @@ version.
 Head dims. K1 and K2 are built for head dims 64 and 128, K3 and K4 for
 128 (:data:`KERNEL_HEAD_DIMS`). Above 128 every kernel takes its wide
 path: a grid axis over column blocks of the output, 256 columns wide for
-K1 and 128 for the others (:data:`WIDE_BLOCKS`; ``csrc/flash_wide.cuh``).
-K1 and dkv compute each score tile once per thread-block cluster of
-column blocks (:func:`wide_cluster_size`), dq, K3 and K4 in every block.
-K2's wide
-kernels take D = rowsum(dO O) given (:func:`row_dot`), since it spans
-every block. Any
-other head dim runs through :func:`at_kernel_head_dim`: q / k / v (and
+K1, dq and K4 and 128 for dkv and K3 (:data:`WIDE_BLOCKS`; the backward
+pair pads to dq's 256). K1, dq, dkv and K4 compute each score tile once
+per thread-block cluster of column blocks (:func:`wide_cluster_size`;
+``csrc/flash_wide.cuh`` for K1 and K4, ``csrc/flash_bwd.cu`` for dq and
+dkv); K3 sums it in every block. K2's wide kernels take D = rowsum(dO O)
+given (:func:`row_dot`), since it spans every block. Any other head dim
+runs through :func:`at_kernel_head_dim`: q / k / v (and
 dO, O, the merge carry's o) are zero-padded to the next size the kernel
 runs at, the kernel runs with the softmax scale of the true head dim, and
 the outputs are cut back. Zero columns add nothing to Q K^T or to
@@ -290,37 +290,53 @@ KERNEL_HEAD_DIMS: Dict[str, Tuple[int, ...]] = {
 # Head-dim columns of one chunk of the kernels' wide path (D > 128).
 WIDE_CHUNK = 128
 # Head-dim columns of a column block of each kernel's wide path: a grid
-# axis over blocks of this width. K1's CTA owns 256 columns of O (half the
-# cluster's score exchange per product of 128).
+# axis over blocks of this width ("flash_bwd" is dkv's, "flash_bwd_dq"
+# dq's). A 256-column CTA (K1, dq, K4) exchanges half the cluster's scores
+# per product that a 128-column one does; dkv keeps 128 (at 256 its
+# resident K, V and staged Q, dO would not fit in shared memory).
 WIDE_BLOCKS: Dict[str, int] = {"flash_fwd": 2 * WIDE_CHUNK,
                                "flash_bwd": WIDE_CHUNK,
+                               "flash_bwd_dq": 2 * WIDE_CHUNK,
                                "flash_decode": WIDE_CHUNK,
-                               "flash_merge": WIDE_CHUNK}
+                               "flash_merge": 2 * WIDE_CHUNK}
+# The cluster kernels of the wide path, each by the wrapper whose head dim
+# it runs at: the backward pair pads once, to the coarser of its blocks.
+CLUSTER_KERNELS: Dict[str, str] = {"flash_fwd": "flash_fwd",
+                                   "flash_bwd_dq": "flash_bwd",
+                                   "flash_bwd": "flash_bwd",
+                                   "flash_merge": "flash_merge"}
 
 
 def kernel_head_dim(name: str, d: int) -> int:
     """The head dim ``name``'s kernel runs at for a true head dim ``d``:
     the smallest size it is built for that holds ``d``, or above 128 the
-    next multiple of its :data:`WIDE_BLOCKS` (the wide path)."""
+    next multiple of its :data:`WIDE_BLOCKS` (the wide path; for
+    "flash_bwd" of the coarser of dq's and dkv's)."""
     if d <= 0:
         raise ValueError(f"{name}: head dim {d} must be positive")
     for size in KERNEL_HEAD_DIMS[name]:
         if d <= size:
             return size
     block = WIDE_BLOCKS[name]
+    if name == "flash_bwd":
+        block = max(block, WIDE_BLOCKS["flash_bwd_dq"])
     return -(-d // block) * block
 
 
 def wide_cluster_size(name: str, d: int) -> int:
-    """The thread-block cluster of the wide K1 (``name`` "flash_fwd") or
-    dkv ("flash_bwd") kernel at head dim ``d`` (> 128): the largest
-    divisor of the column-block count ``kernel_head_dim(name, d) /
-    WIDE_BLOCKS[name]`` that is at most 8, the portable cluster size
+    """The thread-block cluster of a wide cluster kernel at head dim ``d``
+    (> 128): K1 (``name`` "flash_fwd"), dq ("flash_bwd_dq"), dkv
+    ("flash_bwd") or K4 ("flash_merge"). It is the largest divisor of the
+    kernel's column-block count (the head dim it runs at over its
+    :data:`WIDE_BLOCKS`) that is at most 8, the portable cluster size
     (``csrc/hopper.cuh`` ``wide_cluster_size``). A cluster computes each
     score tile once."""
-    if name not in ("flash_fwd", "flash_bwd") or d <= WIDE_CHUNK:
-        raise ValueError(f"{name} at head dim {d} runs no cluster")
-    nb = kernel_head_dim(name, d) // WIDE_BLOCKS[name]
+    if name not in CLUSTER_KERNELS or d <= WIDE_CHUNK:
+        raise ValueError(f"{name} at head dim {d} runs no cluster: the "
+                         f"cluster kernels are K1, dq, dkv and K4 "
+                         f"({', '.join(CLUSTER_KERNELS)}) above head dim "
+                         f"{WIDE_CHUNK}")
+    nb = kernel_head_dim(CLUSTER_KERNELS[name], d) // WIDE_BLOCKS[name]
     return max(c for c in range(1, min(nb, 8) + 1) if nb % c == 0)
 
 
