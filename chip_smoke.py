@@ -56,21 +56,27 @@ one JSON line each:
    through the plain reference attention.
 5a. ``wide_heads``: every kernel's wide path (head dims above 128: a
    grid axis over column blocks of the output, 256 columns for K1, dq and
-   K4 and 128 for dkv and K3; K1, dq, dkv and K4 compute each score
-   tile once per thread-block cluster of blocks, whose sizes and fitting
-   counts the phase prints, K3 in every block) per element against its
+   K4 and 128 for dkv and K3; every wide kernel computes each score tile
+   once per thread-block cluster of blocks, whose sizes and fitting
+   counts the phase prints) per element against its
    plain version with the narrow cases' tolerances: K1, dq and dkv at the
    tensor-parallel job's shard shape (B 16, T 2048, 1 / 1 head, D 1024)
    and at (B 4, T 2048, 8 / 2 heads, D 256), at D 192 (padded to 256)
    with a ragged T (K2 with offsets, a stride, given D, f32 grads), at D
    384 (ragged T) and D 1536 (K2 with given D), and K1 at D 2304 (the
-   cluster sizes 2, 3 and 6); K3 at (B 8, Tq 1 and 4, S 2048, 8 / 2
-   heads, D 256), ragged lengths with 0, bit-equal across a NaN-poisoned
-   tail; K4 into a live carry at the ring shape with D 256 (striped), at
+   cluster sizes 2, 3 and 6); K3 at ``WIDE_DECODE_CASES``: (a) B 8, Tq
+   1 and 4, S 2048, 8 / 2 heads, D 256, ragged lengths with 0, (b) one
+   layer's serve_wide decode step (B 8, Tq 1, S 2048 full, 4 / 4 heads,
+   D 1024: one query row, a cluster of 8), (c) (a) at full lengths, and
+   clusters of 3, 4, 6 and 1 (D 384, 512, 1536, 1408; the last two
+   stream 2 and 11 blocks of K a rank), each bit-equal across NaN tails,
+   a paged gather, a doubled capacity and a rerun, with its cluster size
+   and the clusters that fit; K4 into a live carry at the ring shape
+   with D 256 (striped), at
    D 384 with a ragged T (padded to 512, a cluster of 2) and at D 1024
    (a cluster of 4, stride 2). Negative controls (one 128-column block of
    V zeroed on the plain side, in the last cluster where there are
-   several) must fail for K1, K2 and K4. Each timed beside its bound
+   several) must fail for K1, K2, K3 and K4. Each timed beside its bound
    (counted from the work the case needs), the plain version and the
    first SDPA backend that takes the head dim.
 5b. ``parallel_shapes``: K1, dq, dkv and K4 per element against their
@@ -96,6 +102,14 @@ one JSON line each:
 8. ``profile``: one full-width admission and ten 8-slot decode steps
    under torch.profiler: device time by kernel, device-busy time and the
    idle share beside the host clock.
+8a. ``serve_wide``: the serve phase's load, HTTP request and gates at
+   the tensor-parallel job's widths (examples/tpujob-tensor-parallel.yml:
+   dim 4096, 16 layers, 4 heads, ``--kv-heads 0``, vocab 256; head dim
+   1024, 3.2B params, bf16, whole on one card): K1 wide 16 times per
+   admission and K3 wide 16 times per decode step (one query row a
+   launch); then ``profile``'s admission and ten decode steps: the
+   step's wall and device time by kernel, the idle share, K3 wide's
+   share of the device time, and the phase's peak memory.
 9. ``train``: the same LM trained at full width for 6 steps as its bench
    row is written (bench.py:636: global batch 32 x 2048 tokens as 4
    microbatches, adam with a bf16 first moment, ``--remat --remat-policy
@@ -460,6 +474,8 @@ HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                   "flash_bwd_dkv_kernel", "flash_merge_kernel",
                   "flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
                   "flash_bwd_dkv_wide_kernel", "flash_merge_wide_kernel")
+# Kernels on CUDA cores that must spill nothing all the same.
+NO_SPILL_KERNELS = ("flash_decode_wide_kernel",)
 
 
 def ptxas_report(log: str):
@@ -517,15 +533,17 @@ def sass_hgmma(lib_path) -> dict:
 
 
 def check_hopper_build(per_kernel: dict, hgmma: dict) -> None:
-    """Every instantiation of a redesigned kernel runs on wgmma and spills
-    nothing."""
-    for name in HOPPER_KERNELS:
+    """Every instantiation of a redesigned kernel spills nothing, and
+    those of :data:`HOPPER_KERNELS` run on wgmma."""
+    for name in (*HOPPER_KERNELS, *NO_SPILL_KERNELS):
         built = [k for k in per_kernel if name in k]
         require(built, f"build: no ptxas report for {name}")
         for k in built:
             spill = per_kernel[k].get("spill_stores", 0) \
                 + per_kernel[k].get("spill_loads", 0)
             require(spill == 0, f"build: {k} spills ({per_kernel[k]})")
+        if name in NO_SPILL_KERNELS:
+            continue
         sass = {k: n for k, n in hgmma.items() if name in k}
         require(sass and all(n > 0 for n in sass.values()),
                 f"build: {name} has no HGMMA in its SASS ({sass})")
@@ -662,6 +680,55 @@ def check_flash_fwd(torch, fa, F, gen):
     return results
 
 
+def decode_invariants(torch, fa, gen, q, k, v, lengths, got, label: str,
+                      page: int = 16) -> dict:
+    """The decode kernel's output ``got`` for (q, k, v, lengths) must come
+    back bit-equal from: NaN-poisoned tails (every key at or past a row's
+    length), a paged gather of the same keys (scattered into a NaN-filled
+    pool through a shuffled page table drawn from ``gen``, gathered back),
+    the same keys in a cache of twice the capacity padded with NaN (more
+    chunks in the grid, the same partials), and a second launch."""
+    dev = q.device
+    b, s, kvh, d = k.shape
+    valid = (torch.arange(s, device=dev)[None, :]
+             < lengths[:, None])[:, :, None, None]
+    nan = torch.full((), float("nan"), dtype=k.dtype, device=dev)
+    k_nan, v_nan = torch.where(valid, k, nan), torch.where(valid, v, nan)
+    poison_equal = bool(torch.equal(fa.flash_decode(q, k_nan, v_nan, lengths),
+                                    got))
+    require(poison_equal, f"{label}: poisoned tail changed the output")
+    pages_per_slot = s // page
+    pool_pages = b * pages_per_slot
+    perm = torch.randperm(pool_pages, generator=gen, device=dev)
+    tables = perm.reshape(b, pages_per_slot)
+    k_pool = torch.full((pool_pages + 1, page, kvh, d), float("nan"),
+                        dtype=k.dtype, device=dev)
+    v_pool = k_pool.clone()
+    k_pool[tables] = k_nan.reshape(b, pages_per_slot, page, kvh, d)
+    v_pool[tables] = v_nan.reshape(b, pages_per_slot, page, kvh, d)
+    kd = k_pool[tables].reshape(b, s, kvh, d)
+    vd = v_pool[tables].reshape(b, s, kvh, d)
+    del k_pool, v_pool
+    paged_equal = bool(torch.equal(fa.flash_decode(q, kd, vd, lengths), got))
+    require(paged_equal, f"{label}: paged != dense")
+    del kd, vd
+    k_cap = torch.full((b, 2 * s, kvh, d), float("nan"), dtype=k.dtype,
+                       device=dev)
+    v_cap = k_cap.clone()
+    k_cap[:, :s], v_cap[:, :s] = k_nan, v_nan
+    del k_nan, v_nan
+    capacity_equal = bool(torch.equal(
+        fa.flash_decode(q, k_cap, v_cap, lengths), got))
+    require(capacity_equal, f"{label}: capacity {2 * s} != capacity {s}")
+    del k_cap, v_cap
+    rerun_equal = bool(torch.equal(fa.flash_decode(q, k, v, lengths), got))
+    require(rerun_equal, f"{label}: two launches differ")
+    return {"poisoned_tail_bit_equal": poison_equal,
+            "paged_vs_dense_bit_equal": paged_equal,
+            f"capacity_{2 * s}_vs_{s}_bit_equal": capacity_equal,
+            "two_launches_bit_equal": rerun_equal}
+
+
 def check_flash_decode(torch, fa, F, gen):
     """The decode kernel at the serve decode shape (B 8, S 2048, group 4):
     Tq 1 with ragged and full lengths, Tq 4 (16 query rows, one launch)
@@ -705,43 +772,8 @@ def check_flash_decode(torch, fa, F, gen):
         empty = lengths <= 0
         require(not bool(got[empty].any()),
                 f"flash_decode {label}: a row of length 0 is not 0")
-        nan = torch.full((), float("nan"), dtype=k.dtype, device=dev)
-        k_nan, v_nan = torch.where(valid, k, nan), torch.where(valid, v, nan)
-        poisoned = fa.flash_decode(q, k_nan, v_nan, lengths)
-        poison_equal = bool(torch.equal(poisoned, got))
-        require(poison_equal, f"flash_decode {label}: poisoned tail "
-                              f"changed the output")
-        # Paged: scatter the valid span into a NaN-filled pool through a
-        # shuffled page table, gather it back, attend.
-        pages_per_slot = s // page
-        pool_pages = b * pages_per_slot
-        perm = torch.randperm(pool_pages, generator=gen, device=dev)
-        tables = perm.reshape(b, pages_per_slot)
-        k_pool = torch.full((pool_pages + 1, page, kvh, d), float("nan"),
-                            dtype=k.dtype, device=dev)
-        v_pool = k_pool.clone()
-        k_pool[tables] = k_nan.reshape(b, pages_per_slot, page, kvh, d)
-        v_pool[tables] = v_nan.reshape(b, pages_per_slot, page, kvh, d)
-        kd = k_pool[tables].reshape(b, s, kvh, d)
-        vd = v_pool[tables].reshape(b, s, kvh, d)
-        paged = fa.flash_decode(q, kd, vd, lengths)
-        paged_equal = bool(torch.equal(paged, got))
-        require(paged_equal, f"flash_decode {label}: paged != dense")
-        del k_pool, v_pool, kd, vd
-        # Capacity: the same valid keys in a cache twice as long, NaN past
-        # each row's length (more chunks in the grid, the same partials).
-        k_cap = torch.full((b, 2 * s, kvh, d), float("nan"), dtype=k.dtype,
-                           device=dev)
-        v_cap = k_cap.clone()
-        k_cap[:, :s], v_cap[:, :s] = k_nan, v_nan
-        capacity_equal = bool(torch.equal(
-            fa.flash_decode(q, k_cap, v_cap, lengths), got))
-        require(capacity_equal, f"flash_decode {label}: capacity {2 * s} "
-                                f"!= capacity {s}")
-        del k_cap, v_cap, k_nan, v_nan
-        rerun_equal = bool(torch.equal(fa.flash_decode(q, k, v, lengths),
-                                       got))
-        require(rerun_equal, f"flash_decode {label}: two launches differ")
+        same = decode_invariants(torch, fa, gen, q, k, v, lengths, got,
+                                 f"flash_decode {label}", page)
         res = {
             "shape": {"B": b, "Tq": tq, "H": h, "KVH": kvh, "S": s, "D": d},
             "lengths": [int(x) for x in lengths.tolist()],
@@ -750,10 +782,7 @@ def check_flash_decode(torch, fa, F, gen):
             "tol": f"per element {DECODE_REL_TOL} * |ref| + "
                    f"{DECODE_ABS_FLOOR}",
             "worst_err_over_tol": excess,
-            "poisoned_tail_bit_equal": poison_equal,
-            "paged_vs_dense_bit_equal": paged_equal,
-            "capacity_4096_vs_2048_bit_equal": capacity_equal,
-            "two_launches_bit_equal": rerun_equal,
+            **same,
         }
         out[label] = res
         if tq != 1:
@@ -1470,11 +1499,133 @@ def wide_clusters(fa, dims):
     return res
 
 
+# K3 wide's cases: (B, Tq, H, KVH, S, D, lengths; None = every row full).
+# "a" is the ragged GQA case (at Tq 1 and 4), "b" one layer's
+# decode step of the tensor-parallel job's model served on one card (the
+# serve_wide phase: MHA, R = group x Tq = 1), "c" the full-length D 256
+# case; the rest reach the other cluster sizes (128-column blocks:
+# cs = wide_cluster_size(D / 128)), 8 / 1 heads for R = 8, Tq 2 for R = 2,
+# and at D 1536 and 1408 more column blocks than a cluster holds (each
+# rank streams 2 and 11 blocks of K).
+RAGGED_A = [1, 17, 1920, 2048, 1000, 513, 64, 0]
+WIDE_DECODE_CASES = {
+    "a_d256_ragged_tq1": (8, 1, 8, 2, 2048, 256, RAGGED_A),
+    "a_d256_ragged_tq4": (8, 4, 8, 2, 2048, 256, RAGGED_A),
+    "b_serve_tp_d1024": (8, 1, 4, 4, 2048, 1024, None),
+    "c_d256_full": (8, 1, 8, 2, 2048, 256, None),
+    "cluster3_d384": (4, 1, 8, 1, 1024, 384, [1000, 0, 700, 1024]),
+    "cluster4_d512_tq2": (4, 2, 4, 4, 1024, 512, [1, 255, 1024, 640]),
+    "cluster6_d1536": (2, 1, 4, 2, 1024, 1536, [777, 1024]),
+    "cluster1_d1408": (2, 1, 2, 1, 512, 1408, [300, 512]),
+}
+
+
+def decode_cluster(fa, d: int, rows: int):
+    """(cluster size, the most such clusters the card holds at once) of K3
+    wide at head dim ``d`` and ``rows`` query rows, from its C entry; the
+    size must be ``fa.wide_cluster_size``'s and one cluster must fit."""
+    import ctypes
+
+    from tpu_operator_torch.kernels import build
+
+    size, active = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(build.library().flash_decode_wide_cluster(
+        fa.kernel_head_dim("flash_decode", d), rows, ctypes.addressof(size),
+        ctypes.addressof(active)), "flash_decode_wide_cluster")
+    want = fa.wide_cluster_size("flash_decode", d)
+    require(size.value == want, f"flash_decode_wide_kernel at D {d}: "
+                                f"cluster of {size.value}, the wrapper "
+                                f"expects {want}")
+    require(active.value > 0, f"flash_decode_wide_kernel at D {d}: no "
+                              f"cluster of {size.value} fits on the card")
+    return size.value, active.value
+
+
+def check_wide_decode(torch, fa, F, gen):
+    """K3 wide at :data:`WIDE_DECODE_CASES`: each case per element against
+    the plain version with the decode tolerance, a row of length 0 at 0,
+    bit-equal across NaN tails, a paged gather, a doubled capacity and a
+    rerun (``decode_invariants``), and a negative control that must fail
+    (the plain side with V's last 128-column block zeroed: the last
+    cluster's last rank). Each timed as device time (torch.profiler) and
+    on CUDA events beside its bound (the keys its lengths need), the plain
+    version and the first SDPA backend that takes the head dim (with a
+    length mask)."""
+    dev = "cuda"
+    out = {}
+    for label, (b, tq, h, kvh, s, d, lens) in WIDE_DECODE_CASES.items():
+        lengths = torch.tensor(lens if lens is not None else [s] * b,
+                               dtype=torch.int32, device=dev)
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
+        rows = (h // kvh) * tq
+        cluster, fits = decode_cluster(fa, d, rows)
+        before = fa.launch_counts()["flash_decode"]
+        got = fa.flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+        launches = fa.launch_counts()["flash_decode"] - before
+        want = fa._decode_ref(q, k, v, lengths)
+        excess = decode_excess(torch, got, want)
+        require(launches == 1, f"wide decode {label}: {launches} launches")
+        require(excess <= 1.0, f"wide decode {label}: {excess} x its "
+                               f"per-element tolerance")
+        require(not bool(got[lengths <= 0].any()),
+                f"wide decode {label}: a row of length 0 is not 0")
+        blk = fa.kernel_head_dim("flash_decode", d) // 128 - 1
+        control = decode_excess(torch, got, fa._decode_ref(
+            q, k, _zero_block(v, blk), lengths))
+        require(control > 1.0, f"wide decode {label}: the zeroed V column "
+                               f"block control passed ({control})")
+        r = {"shape": {"B": b, "Tq": tq, "H": h, "KVH": kvh, "S": s, "D": d},
+             "rows": rows,
+             "kernel_head_dim": fa.kernel_head_dim("flash_decode", d),
+             "cluster_size": cluster, "max_active_clusters": fits,
+             "lengths": [int(x) for x in lengths.tolist()],
+             "max_abs_err": max_err(torch, got, want),
+             "max_abs_ref": float(want.float().abs().max()),
+             "worst_err_over_tol": excess,
+             "zeroed_v_column_block": blk,
+             "zeroed_v_column_block_control_worst_err_over_tol": control,
+             **decode_invariants(torch, fa, gen, q, k, v, lengths, got,
+                                 f"wide decode {label}")}
+        del want
+        keys = int(lengths.clamp(0, s).sum())
+        nbytes = 2.0 * (2 * keys * kvh * d + 2 * b * tq * h * d) + 4.0 * b
+        flops = 4.0 * keys * tq * h * d
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+
+        def kernel():
+            fa.flash_decode(q, k, v, lengths)
+
+        r["event_ms"] = time_ms(torch, kernel, reps=30)
+        r["ms"] = kernel_device_ms(torch, kernel, 20, (
+            "flash_decode_wide_kernel",))["flash_decode_wide_kernel"]
+        r["ms_is"] = "device time (torch.profiler), 20 calls"
+        if isinstance(r["ms"], float):
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["plain_ms"] = time_ms(torch, lambda: fa._decode_ref(q, k, v,
+                                                              lengths),
+                                reps=3)
+        qd, kd, vd = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+        pos = torch.arange(s, device=dev)
+        qpos = lengths[:, None] - tq + torch.arange(tq, device=dev)[None]
+        mask = (pos[None, None, :] <= qpos[:, :, None]) \
+            & (pos[None, None, :] < lengths[:, None, None])
+        mask = mask[:, None]  # [B, 1, Tq, S]
+        r["library_ms"], r["library"], r["library_backends"] = \
+            sdpa_yardstick(torch, F, lambda sdpa: sdpa(
+                qd, kd, vd, attn_mask=mask, enable_gqa=kvh != h))
+        out[label] = r
+        del q, k, v, got, qd, kd, vd
+    return out
+
+
 def check_wide_heads(torch, fa, F):
     """Every kernel at head dims above 128 (the wide path: a grid axis over
     column blocks, 256 columns for K1, dq and K4 and 128 for dkv and K3;
-    K1, dq, dkv and K4 compute each score tile once per thread-block
-    cluster of blocks, K3 in every block), per element against its plain
+    every wide kernel computes each score tile once per thread-block
+    cluster of blocks), per element against its plain
     version with the tolerances of the narrow cases: K1, dq and dkv at the
     tensor-parallel job's shard shape (B 16, T 2048, 1 / 1 head, D 1024,
     causal: clusters of 4 in K1 and dq, 8 in dkv) and at (B 4, T 2048,
@@ -1483,18 +1634,19 @@ def check_wide_heads(torch, fa, F):
     grads), and at other cluster sizes: D 384 (padded to 512: K1 and dq a
     cluster of 2, dkv of 4) with a ragged T and D 1536 (K1 and dq one
     cluster of 6, dkv two, its K / V streamed), K2 with given D, and K1 at
-    D 2304 (three clusters of 3, Q streamed); K3 at (B 8, Tq 1 and 4, S 2048, 8 / 2
-    heads, D 256) with ragged lengths (0 included); K4 into a live carry
+    D 2304 (three clusters of 3, Q streamed); K3 at
+    :data:`WIDE_DECODE_CASES` (:func:`check_wide_decode`); K4 into a live
+    carry
     at the ring shape (B 2, Tq = Tk = 2048, 16 / 4 heads, D 256, a
     cluster of 1) folding a striped block, at D 384 with a ragged T 1000
     (padded to 512, a cluster of 2) folding an earlier block at (Tq, 0, 1),
     and at D 1024 (B 1, T 1024, a cluster of 4) folding a stride-2 block.
     Negative controls: the plain side with one 128-column block of V
-    zeroed must fail for K1, K2 and K4 (block 1, or for the D 384, 1024
-    K4, 1536 and 2304 cases the last 128-column block: in the last
-    cluster). Each kernel is timed beside its bound, counted from the work
-    the case needs, and beside the first SDPA backend that accepts the
-    head dim."""
+    zeroed must fail for K1, K2, K3 and K4 (block 1, or for K3 and the
+    D 384, 1024 K4, 1536 and 2304 cases the last 128-column block: in the
+    last cluster). Each kernel is timed beside its bound, counted from the
+    work the case needs, and beside the first SDPA backend that accepts
+    the head dim."""
     gen = wide_generator(torch)
     dev = "cuda"
     res = {"fwd": {}, "bwd": {}, "decode": {}, "merge": {},
@@ -1661,62 +1813,7 @@ def check_wide_heads(torch, fa, F):
         res["bwd"][label] = r
         del inputs, q, k, v, g, L, o, D, qt, kt, vt, gt
 
-    b, s, h, kvh, d = 8, 2048, 8, 2, 256
-    lengths = torch.tensor([1, 17, 1920, 2048, 1000, 513, 64, 0],
-                           dtype=torch.int32, device=dev)
-    k = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
-    v = torch.randn(b, s, kvh, d, generator=gen, device=dev).bfloat16()
-    for tq in (1, 4):
-        q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
-        before = fa.launch_counts()["flash_decode"]
-        got = fa.flash_decode(q, k, v, lengths)
-        torch.cuda.synchronize()
-        launches = fa.launch_counts()["flash_decode"] - before
-        want = fa._decode_ref(q, k, v, lengths)
-        excess = decode_excess(torch, got, want)
-        require(launches == 1, f"wide decode Tq {tq}: {launches} launches")
-        require(excess <= 1.0, f"wide decode Tq {tq}: {excess} x its "
-                               f"per-element tolerance")
-        require(not bool(got[lengths <= 0].any()),
-                f"wide decode Tq {tq}: a row of length 0 is not 0")
-        # A NaN-poisoned tail past every length changes nothing.
-        kp, vp = k.clone(), v.clone()
-        for row, n in enumerate(lengths.tolist()):
-            kp[row, max(n, 0):] = float("nan")
-            vp[row, max(n, 0):] = float("nan")
-        again = fa.flash_decode(q, kp, vp, lengths)
-        equal = bool(torch.equal(got, again))
-        require(equal, f"wide decode Tq {tq}: a NaN tail changed the output")
-        del kp, vp, again
-        r = {"shape": {"B": b, "Tq": tq, "H": h, "KVH": kvh, "S": s, "D": d},
-             "kernel_head_dim": fa.kernel_head_dim("flash_decode", d),
-             "lengths": [int(x) for x in lengths.tolist()],
-             "max_abs_err": max_err(torch, got, want),
-             "worst_err_over_tol": excess,
-             "nan_tail_bit_equal": equal}
-        keys = int(lengths.clamp(min=0).sum())
-        nbytes = 2.0 * (2 * keys * kvh * d + 2 * b * tq * h * d)
-        flops = 4.0 * keys * tq * h * d
-        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, F32_FLOPS)
-        r["ms"] = time_ms(torch, lambda: fa.flash_decode(q, k, v, lengths))
-        r["device_ms"] = kernel_device_ms(
-            torch, lambda: fa.flash_decode(q, k, v, lengths), 20,
-            ("flash_decode_wide_kernel",))["flash_decode_wide_kernel"]
-        r["plain_ms"] = time_ms(torch, lambda: fa._decode_ref(q, k, v,
-                                                              lengths),
-                                reps=5)
-        qd, kd, vd = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
-        pos = torch.arange(s, device=dev)
-        qpos = lengths[:, None] - tq + torch.arange(tq, device=dev)[None]
-        mask = (pos[None, None, :] <= qpos[:, :, None]) \
-            & (pos[None, None, :] < lengths[:, None, None])
-        mask = mask[:, None]  # [B, 1, Tq, S]
-        r["library_ms"], r["library"], r["library_backends"] = \
-            sdpa_yardstick(torch, F, lambda sdpa: sdpa(
-                qd, kd, vd, attn_mask=mask, enable_gqa=True))
-        res["decode"][f"tq{tq}"] = r
-        del q, got, want, qd, kd, vd
-    del k, v
+    res["decode"] = check_wide_decode(torch, fa, F, gen)
 
     for label, (b, tq, tk, h, kvh, d, home, offs, blk, reps) in {
             "ring_d256": (2, 2048, 2048, 16, 4, 256, (1, 2, 4), (1, 0, 4), 1,
@@ -2158,16 +2255,28 @@ def post_decode(port: int, prompt, max_tokens: int, result: dict,
     result["status"] = "timeout"
 
 
-def run_serve(torch, fa, serve, bootstrap):
+# The serve cells' flags: the flagship GQA LM (serve), and the
+# tensor-parallel job's model (examples/tpujob-tensor-parallel.yml's
+# widths: dim 4096, 16 layers, 4 heads, MHA, vocab 256; head dim 1024)
+# served whole on one card (serve_wide).
+SERVE_CELL_COMMON = ["--batch", "8", "--window", "1920", "--decode-tokens",
+                     "128", "--page-size", "16", "--load", "8:1",
+                     "--queue-deadline", "600", "--seed", "0", "--device",
+                     "cuda", "--checkpoint-dir", ""]
+SERVE_FLAGSHIP = ["--vocab", "32768", "--dim", "2048", "--heads", "16",
+                  "--kv-heads", "4", "--layers", "8"]
+SERVE_WIDE = ["--dim", "4096", "--layers", "16", "--heads", "4",
+              "--kv-heads", "0", "--vocab", "256"]
+
+
+def run_serve(torch, fa, serve, bootstrap, widths=SERVE_FLAGSHIP):
+    """A full-width ServeLoop at ``widths`` under the serve cells' load and
+    one HTTP request: launch counts, nothing shed or failed, first-token
+    logits against the plain path."""
     import numpy as np
 
     port = free_port()
-    argv = ["--batch", "8", "--window", "1920", "--decode-tokens", "128",
-            "--page-size", "16", "--vocab", "32768", "--dim", "2048",
-            "--heads", "16", "--kv-heads", "4", "--layers", "8",
-            "--load", "8:1", "--queue-deadline", "600", "--seed", "0",
-            "--http-port", str(port), "--device", "cuda",
-            "--checkpoint-dir", ""]
+    argv = [*SERVE_CELL_COMMON, *widths, "--http-port", str(port)]
     args = serve.parse_args(argv)
     info = bootstrap.process_info_from_env({})
     loop = serve.ServeLoop(args, info, heartbeat=None, recorder=None)
@@ -2245,6 +2354,7 @@ def run_serve(torch, fa, serve, bootstrap):
         require(int(torch.argmax(plain)) == kern_tok,
                 "plain-path first token differs at a clear margin")
     return {
+        "argv": argv,
         "summary": summary,
         "launches": counts,
         "prefills": cache.prefills,
@@ -2287,11 +2397,12 @@ def _breakdown(rows, wall_ms: float):
     }
 
 
-def profile_engine(torch, loop, steps: int = 10):
+def profile_engine(torch, loop, steps: int = 10, names=()):
     """Where full-width prefill and decode time goes: one admission, then
     (all 8 slots admitted) ``steps`` decode steps, each under
     torch.profiler (device time by kernel) beside the host clock around
-    the synchronised call."""
+    the synchronised call; for each of ``names``, a decode step's device
+    ms and launches of the kernels whose name holds it."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2324,10 +2435,51 @@ def profile_engine(torch, loop, steps: int = 10):
     context = int(eng.cache._lengths.max())
     for slot in range(args.batch):
         eng.release(slot)
-    decode = _breakdown(_device_rows(torch, prof, steps), statistics.median(wall))
+    rows = _device_rows(torch, prof, steps)
+    decode = _breakdown(rows, statistics.median(wall))
+    if names:
+        decode["by_name"] = {
+            name: {"ms": sum(ms for key, ms, _n in rows if name in key),
+                   "calls": sum(n for key, _ms, n in rows if name in key)}
+            for name in names}
     return {"prefill": {"prompt_tokens": args.window, **prefill},
             "decode_step": {"slots": args.batch, "context_tokens": context,
                             "steps": steps, **decode}}
+
+
+def run_serve_wide(torch, fa, serve, bootstrap):
+    """serve_wide: the tensor-parallel job's model (head dim 1024, 3.2B
+    params) served on one card at the serve cell's load: the prefill runs
+    K1 wide and every decode step K3 wide, once a layer (run_serve's
+    gates), R = 1 (MHA, Tq 1). Then profile_engine's admission and ten
+    decode steps under torch.profiler: the step's wall and device time by
+    kernel, the idle share and K3 wide's share of the device time. The
+    peak memory is the phase's (the caller resets it before)."""
+    res, loop = run_serve(torch, fa, serve, bootstrap, SERVE_WIDE)
+    args = loop.args
+    require(args.dim // args.heads > 128 and args.kv_heads == 0,
+            f"serve_wide: head dim {args.dim // args.heads}, kv heads "
+            f"{args.kv_heads}: not the wide MHA path")
+    prof = profile_engine(torch, loop, names=("flash_decode_wide_kernel",))
+    step = prof["decode_step"]
+    k3 = step["by_name"]["flash_decode_wide_kernel"]
+    require(k3["calls"] > 0, f"serve_wide: the profiled decode steps "
+                             f"recorded no K3 wide ({step})")
+    # The profiler may keep fewer launches than ran (PERF.md): one launch's
+    # time over the launches it recorded, times the layers.
+    k3_ms = k3["ms"] / k3["calls"] * args.layers
+    busy = step["device_busy_ms"]
+    res["profile"] = prof
+    res["decode_step_wall_ms"] = step["wall_ms_median"]
+    res["decode_step_device_ms"] = busy
+    res["decode_step_idle_share"] = step["device_idle_share"]
+    res["k3_wide_ms_per_step"] = k3_ms
+    res["k3_wide_share_of_device"] = (k3_ms / busy
+                                      if isinstance(busy, float) else None)
+    res["k3_wide_ms_per_launch"] = k3_ms / args.layers
+    res["k3_wide_launches_recorded_per_step"] = k3["calls"]
+    del loop
+    return res
 
 
 # --- phase: train ------------------------------------------------------------
@@ -4925,6 +5077,10 @@ def main() -> int:
         emit({"phase": "profile", **profile_engine(torch, loop)})
         del loop
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        svw = run_serve_wide(torch, fa, serve, bootstrap)
+        emit({"phase": "serve_wide", **svw})
+        torch.cuda.empty_cache()
         tr, built = run_train(torch, fa, transformer, train, data)
         emit({"phase": "train", **tr})
         emit({"phase": "profile_train", **profile_train(torch, built)})
@@ -4993,6 +5149,7 @@ def main() -> int:
     serve_fwd, train_fwd = fwd["prefill_causal_gqa"], fwd["train_causal_gqa"]
     moe_fwd, moe_bwd = fwd["moe_causal_gqa"], bwd["moe_causal_gqa"]
     main_dec, main_bwd = dec["full"], bwd["train_causal_gqa"]
+    wide_dec = wide["decode"]["b_serve_tp_d1024"]
     ring_bwd = bwd["sp_ring_striped_given_d"]
     pipe_fwd, pipe_bwd = (x["pipeline_causal_mha_d64"] for x in (fwd, bwd))
     # This slice's path: the tensor_parallel, sp_tp and ulysses phases
@@ -5030,6 +5187,7 @@ def main() -> int:
                               **pipe_by_path["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "serve": sv["launches"]["flash_fwd"],
+                              "serve_wide": svw["launches"]["flash_fwd"],
                               "checkpoint_resume":
                                   ckp["launches_run_b"]["flash_fwd"],
                               "adam8": a8["launches"]["flash_fwd"],
@@ -5086,8 +5244,9 @@ def main() -> int:
         {"name": "flash_decode", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_decode.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:990",
-         "launches": sv["launches"]["flash_decode"],
-         "launches_by_path": {"serve": sv["launches"]["flash_decode"],
+         "launches": svw["launches"]["flash_decode"],
+         "launches_by_path": {"serve_wide": svw["launches"]["flash_decode"],
+                              "serve": sv["launches"]["flash_decode"],
                               "serve_reload":
                                   rld["launches"]["flash_decode"],
                               "defaults_serve":
@@ -5098,20 +5257,28 @@ def main() -> int:
                             (*dec.values(), *wide["decode"].values())),
          "worst_err_over_tol": max(r["worst_err_over_tol"] for r in
                                    (*dec.values(), *wide["decode"].values())),
-         "wide_d256_tq1": {k: wide["decode"]["tq1"][k] for k in (
-             "ms", "device_ms", "plain_ms", "library_ms", "library",
-             "bound_ms")},
-         "ms": main_dec["ms"], "plain_ms": main_dec["plain_ms"],
-         "bound_ms": main_dec["bound_ms"],
-         "bound_by": main_dec["bound_by"],
-         "library_ms": main_dec["library_ms"],
-         "share_of_bound": main_dec.get("share_of_bound"),
-         "shape": "serve decode B8 Tq1 S2048, full length",
-         "ms_is": main_dec["ms_is"], "library_ms_is": main_dec["library_ms_is"],
-         "event_ms": main_dec["event_ms"],
-         "library_event_ms": main_dec["library_event_ms"],
+         **{f"wide_{label}": {k: wide["decode"][label][k] for k in (
+             "ms", "event_ms", "plain_ms", "library_ms", "library",
+             "bound_ms", "share_of_bound", "cluster_size",
+             "max_active_clusters")}
+            for label in ("a_d256_ragged_tq1", "c_d256_full")},
+         # This slice's path (serve_wide) runs K3 wide at its case (b).
+         **{k: wide_dec[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library", "share_of_bound", "ms_is", "event_ms",
+             "cluster_size", "max_active_clusters")},
+         "shape": "serve_wide decode B8 Tq1 S2048 H4 KVH4 D1024, full "
+                  "length (wide path, a cluster of 8)",
+         "serve_wide_k3_ms_per_launch_profiled":
+             svw["k3_wide_ms_per_launch"],
+         "serve_shape": "serve decode B8 Tq1 S2048 H16 KVH4 D128, full "
+                        "length",
+         **{f"serve_{k}": main_dec[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "share_of_bound", "ms_is", "library_ms_is", "event_ms",
+             "library_event_ms")},
          "ptxas": {k: v for k, v in per_kernel.items()
-                   if "flash_decode_kernel" in k}},
+                   if "flash_decode" in k}},
     ]
     for name, line in (("dq", 629), ("dkv", 665)):
         kernels.append({

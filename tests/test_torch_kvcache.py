@@ -34,9 +34,9 @@ WINDOW, NEW, VOCAB, DIM, HEADS = 16, 4, 32, 16, 2
 LOGIT_TOL = 2.0 ** -4  # bf16, see tests/test_torch_models.py
 
 
-def jax_params(kv_heads=1, layers=2, seed=0):
+def jax_params(kv_heads=1, layers=2, seed=0, dim=DIM):
     shim = argparse.Namespace(
-        vocab=VOCAB, dim=DIM, heads=HEADS, kv_heads=kv_heads, layers=layers,
+        vocab=VOCAB, dim=dim, heads=HEADS, kv_heads=kv_heads, layers=layers,
         seq_len=WINDOW + NEW, seq_parallel=1, tensor_parallel=1,
         split_qkv="auto", sp_mode="ring", sp_layout="contiguous",
         remat=False)
@@ -52,14 +52,14 @@ def port_model(kv_heads=1, seed=0):
     return weights.from_flax(jax_params(kv_heads, seed=seed), heads=HEADS)
 
 
-def spec_of(kv_heads=1, layers=2):
-    return dict(vocab=VOCAB, dim=DIM, heads=HEADS, layers=layers,
+def spec_of(kv_heads=1, layers=2, dim=DIM):
+    return dict(vocab=VOCAB, dim=dim, heads=HEADS, layers=layers,
                 max_seq=WINDOW + NEW, kv_heads=kv_heads)
 
 
-def make_engine(kv_heads=1, slots=2, page_size=4, num_pages=0):
+def make_engine(kv_heads=1, slots=2, page_size=4, num_pages=0, dim=DIM):
     return kvcache.DecodeEngine(
-        kvcache.ModelSpec(**spec_of(kv_heads)), slots=slots,
+        kvcache.ModelSpec(**spec_of(kv_heads, dim=dim)), slots=slots,
         prompt_pad=WINDOW, max_new=NEW, page_size=page_size,
         num_pages=num_pages, device="cpu")
 
@@ -219,10 +219,22 @@ def test_decode_engine_matches_jax_engine(kv_heads):
     """Same converted weights, same prompts: the two engines' prefill
     logits agree within the bf16 tolerance, and their greedy tokens agree
     wherever the reference's top-1 margin exceeds twice it."""
-    params = jax_params(kv_heads)
+    engines_agree(kv_heads, DIM)
+
+
+@pytest.mark.parametrize("kv_heads", [0, 1])
+def test_decode_engine_matches_jax_engine_at_wide_head_dim(kv_heads):
+    """As above at head dim 256 (dim 512, 2 heads), MHA and GQA: the
+    port's prefill and decode take their wide path there (K1 and K3 on
+    the card), the reference its own kernels."""
+    engines_agree(kv_heads, 512)
+
+
+def engines_agree(kv_heads, dim):
+    params = jax_params(kv_heads, dim=dim)
     model = weights.from_flax(params, heads=HEADS)
-    spec = spec_of(kv_heads)
-    ours = make_engine(kv_heads=kv_heads)
+    spec = spec_of(kv_heads, dim=dim)
+    ours = make_engine(kv_heads=kv_heads, dim=dim)
     ref = jkv.DecodeEngine(jkv.ModelSpec(**spec), slots=2, prompt_pad=WINDOW,
                            max_new=NEW, page_size=4)
     prompts = [prompt_of(0, length=9), prompt_of(5)]

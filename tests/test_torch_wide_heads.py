@@ -4,7 +4,7 @@ Above 128 every kernel runs at the next multiple of its column block
 (``flash_attention.kernel_head_dim``, ``WIDE_BLOCKS``): a grid axis over
 blocks of the output, 256 columns for K1, dq and K4, 128 for dkv and K3
 (the backward pair pads to dq's 256);
-K1, dq, dkv and K4 compute each score tile once per thread-block cluster
+every wide kernel computes each score tile once per thread-block cluster
 of blocks, whose size (``flash_attention.wide_cluster_size``) is the
 largest divisor of the block count up to 8; the backward kernels take
 D = rowsum(dO O) given, since it spans every block. The kernels cannot
@@ -28,7 +28,8 @@ run here, so:
   a bf16 output also within one bf16 ulp, 2^-7 of its value; the routes
   run at head dims whose clusters hold 1 to 8 blocks, padded or not;
 - K4's plain version is held to the JAX ``_merge_pallas`` in interpret
-  mode at head dims 384 and 1024, into a live carry, at 2e-5.
+  mode at head dims 384 and 1024, into a live carry, at 2e-5, and K3's at
+  one query row (MHA, Tq 1) to the JAX ``flash_decode`` the same way.
 """
 
 import numpy as np
@@ -102,18 +103,19 @@ def test_plain_attention_matches_jax_at_wide_head_dim(monkeypatch, d):
         _close(x.grad, jg, JAX_TOL)
 
 
-@pytest.mark.parametrize("d,fwd,dq,bwd,merge", [
-    (129, 1, 1, 2, 1), (256, 1, 1, 2, 1), (300, 2, 2, 4, 2),
-    (384, 2, 2, 4, 2), (640, 3, 3, 6, 3), (1000, 4, 4, 8, 4),
-    (1024, 4, 4, 8, 4), (1408, 6, 6, 6, 6), (1536, 6, 6, 6, 6),
-    (2048, 8, 8, 8, 8), (2304, 3, 3, 6, 3), (2816, 1, 1, 2, 1)])
-def test_wide_cluster_size(d, fwd, dq, bwd, merge):
+@pytest.mark.parametrize("d,fwd,dq,bwd,merge,decode", [
+    (129, 1, 1, 2, 1, 2), (256, 1, 1, 2, 1, 2), (300, 2, 2, 4, 2, 3),
+    (384, 2, 2, 4, 2, 3), (640, 3, 3, 6, 3, 5), (1000, 4, 4, 8, 4, 8),
+    (1024, 4, 4, 8, 4, 8), (1408, 6, 6, 6, 6, 1), (1536, 6, 6, 6, 6, 6),
+    (2048, 8, 8, 8, 8, 8), (2304, 3, 3, 6, 3, 6), (2816, 1, 1, 2, 1, 2)])
+def test_wide_cluster_size(d, fwd, dq, bwd, merge, decode):
     """The largest divisor, at most 8, of the column-block count: K1's,
     dq's and K4's blocks are 256 columns, dkv's 128 at the backward pair's
-    head dim, which is padded to dq's 256 (a prime count above 8 gets
-    clusters of one)."""
+    head dim, which is padded to dq's 256, K3's 128 (a prime count above 8
+    gets clusters of one)."""
     for name, size in (("flash_fwd", fwd), ("flash_bwd_dq", dq),
-                       ("flash_bwd", bwd), ("flash_merge", merge)):
+                       ("flash_bwd", bwd), ("flash_merge", merge),
+                       ("flash_decode", decode)):
         padded = tfa.kernel_head_dim(tfa.CLUSTER_KERNELS[name], d)
         nb = padded // tfa.WIDE_BLOCKS[name]
         assert tfa.wide_cluster_size(name, d) == size
@@ -123,7 +125,7 @@ def test_wide_cluster_size(d, fwd, dq, bwd, merge):
 
 @pytest.mark.parametrize("name,d", [("flash_fwd", 128), ("flash_bwd", 64),
                                     ("flash_merge", 128),
-                                    ("flash_decode", 256)])
+                                    ("flash_decode", 128)])
 def test_wide_cluster_size_refuses_what_runs_no_cluster(name, d):
     with pytest.raises(ValueError):
         tfa.wide_cluster_size(name, d)
@@ -232,6 +234,32 @@ def test_merge_and_decode_routes(plain_launches, d):
     assert [x[:3] for x in plain_launches] == [
         ("flash_merge", merge_size, d ** -0.5),
         ("flash_decode", decode_size, d ** -0.5)]
+
+
+@pytest.mark.parametrize("d,cluster", [(384, 3), (1024, 8)])
+def test_decode_at_one_query_row_matches_jax_kernel(plain_launches, d,
+                                                    cluster):
+    """K3 wide at R = group x Tq = 1 (MHA, 4 / 4 heads, Tq 1), the shape
+    the serve_wide phase decodes the tensor-parallel job's model at (D
+    1024, a cluster of 8), and at D 384 (a cluster of 3). The port's
+    decode on its CPU path against the JAX ``flash_decode`` with its
+    Pallas kernel in interpret mode and against its ``_decode_ref`` at
+    2e-5 of the largest value, ragged lengths (0, 1, inside a tile,
+    full); then the CUDA wrapper's routing on bf16 inputs: one launch at
+    D itself with the true scale, its result the plain version's."""
+    b, s, h = 4, 96, 4
+    q, k, v, _g = _inputs(1100 + d, b, 1, h, h, d, tk=s)
+    lengths = torch.tensor([0, 1, 50, 96], dtype=torch.int32)
+    jargs = [jnp.asarray(x.numpy()) for x in (q, k, v, lengths)]
+    got = tfa.flash_decode(q, k, v, lengths)
+    _close(got, jfa.flash_decode(*jargs, use_pallas=True), JAX_TOL)
+    _close(got, jfa._decode_ref(*jargs), JAX_TOL)
+    assert not bool(got[0].any())
+    assert tfa.wide_cluster_size("flash_decode", d) == cluster
+    qb, kb, vb = _bf16(q, k, v)
+    out = tfa._flash_decode_cuda(qb, kb, vb, lengths)
+    assert plain_launches == [("flash_decode", d, d ** -0.5, None)]
+    _close_bf16(out, tfa._decode_ref(qb, kb, vb, lengths))
 
 
 @pytest.mark.parametrize("d", (384, 1024))

@@ -79,6 +79,8 @@ SIGNATURES = {
     "flash_bwd_dq_wide_cluster": [_I, _P, _P],
     "flash_bwd_dkv_wide_cluster": [_I, _P, _P],
     "flash_merge_wide_cluster": [_I, _P, _P],
+    # head_dim, query rows | cluster size out, max active clusters out
+    "flash_decode_wide_cluster": [_I, _I, _P, _P],
 }
 
 

@@ -297,47 +297,83 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // --- head dims above 128 ------------------------------------------------------
 //
 // Any multiple of 128: the grid gains an axis over the 128-column blocks of
-// O ((chunk, KV head x nc + column block cb, batch row)). Each CTA scores
-// its keys over the whole head dim, one 128-column chunk of K (and of the
-// query rows) per step, then folds P V_cb into the accumulator of its own
-// columns; every column block keeps its own partials and arrival counter
-// (B x KVH x nc of them), so the last CTA of a (batch row, KV head, column
-// block) merges that block's chunks. m and l are the same in every column
-// block. Steps, 2 stages of [64][128] bf16 each: for every key tile, nc
-// chunks of K (with the query rows' chunk), then V's column block cb.
-// Recomputes the scores once per column block (ROADMAP Queue B).
+// O ((chunk, KV head x nc + column block cb, batch row)), and the CTAs of
+// one (chunk, KV head, batch row) form thread-block clusters of
+// cs = wide_cluster_size(nc) consecutive column blocks along grid y
+// (hopper.cuh; cs = nc up to D 1024). Rank r = cb % cs of a cluster scores
+// the keys over the m = nc / cs head-dim blocks r, r + cs, ... (its own
+// block when m = 1, as flash_wide.cuh's K1 does past 8 blocks), so a
+// cluster reads each key's K once and computes each score tile once. Per
+// tile of 64 keys:
+// - m steps of K (one [64][128] block each, through a WNSTAGE-deep
+//   cp.async ring; the query rows' columns of those blocks stay resident)
+//   give rank r's partial scores [R][64] in f32: every thread scores one
+//   key over a quarter of each block's 16-byte chunks, and the key's four
+//   lanes add their quarters by two shuffles;
+// - the partial goes to shared memory (two buffers, by tile parity), one
+//   cluster barrier, and every rank sums all ranks' partials of the whole
+//   tile in rank order through distributed shared memory (the tile is only
+//   R x 64 floats): every rank holds bit-identical scores, so the same m,
+//   l and P, and nothing is pushed back. A rank overwrites a buffer two
+//   tiles later, after the next tile's barrier, which every reader of it
+//   has passed;
+// - one step of V's block cb: O_cb += P V_cb, each quarter of the threads
+//   over 16 of the tile's keys into its own accumulator (summed in key
+//   group order once per chunk), so every thread works at R = 1 too.
+// Every column block keeps its own partials and arrival counter (B x KVH x
+// nc of them), so the last CTA of a (batch row, KV head, column block)
+// merges that block's chunks, as in the narrow kernel; m and l are the
+// same in every block. Chunk and tile boundaries are absolute positions
+// and keys at or past lengths[b] are never read, as above. A cluster
+// shares its chunk and row, so its early return is uniform, and a last
+// cluster barrier keeps every rank's partials alive until its peers have
+// read them.
 
-constexpr int CD = 128;          // head-dim columns of one chunk
+constexpr int CD = 128;          // head-dim columns of one block
 constexpr int WPART = CD + 2;    // floats of one row's partial: acc[CD], m, l
+constexpr int WNSTAGE = 3;       // [64][128] blocks of K or V in flight
+constexpr int KG = NT / 64;      // key groups of P V (16 keys each)
+// The dynamic shared memory limit set for the wide kernel: sm_90's 227 KB
+// a CTA, less 1 KB for its static shared memory.
+constexpr size_t WIDE_SMEM_MAX = 232448 - 1024;
+static_assert(NT == 256 && BK == 64, "the score and P V thread maps");
 
-template <int R>
-constexpr size_t wide_smem_bytes() {
-  // Two stages of (a K or V chunk, the query rows' chunk), the tile's
-  // scores, the rescales.
-  return 2 * ((size_t)BK * CD + (size_t)R * CD) * sizeof(bf16) +
-         (size_t)R * BK * sizeof(float) + (size_t)R * sizeof(float);
+// The ring, this rank's columns of the query rows ([m][R][CD] bf16), the
+// two partial-score buffers, the tile's scores, the rescales. At the end
+// the ring holds the key groups' accumulators, [KG][R][CD] f32.
+__host__ __device__ constexpr size_t wide_smem_bytes(int R, int m) {
+  return (size_t)WNSTAGE * BK * CD * sizeof(bf16) + (size_t)m * R * CD * sizeof(bf16) +
+         3 * (size_t)R * BK * sizeof(float) + (size_t)R * sizeof(float);
 }
 
+// CTAs an SM holds: the accumulators and scores grow with R, so fewer
+// CTAs (more registers each) at more query rows, each as many as spill
+// nothing; at R = 1 four (64 registers), which took the serve_wide shape
+// from 0.129 to 0.119 ms (PERF.md).
 template <int R>
-__global__ void __launch_bounds__(NT, 3)
+__global__ void __launch_bounds__(NT, R >= 16 ? 1 : R >= 4 ? 2 : R == 2 ? 3 : 4)
 flash_decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const int* __restrict__ lengths,
                          bf16* __restrict__ o, float* __restrict__ ws,
                          int* __restrict__ counters, int Tq, int S, int H, int KVH, int group,
                          int nc, float scale) {
-  constexpr int RT = R >= 4 ? R / 4 : 1;
-  constexpr int RW = (R + NW - 1) / NW;
-  constexpr int STAGE = BK * CD + R * CD;  // bf16 elements: the K/V chunk, then the rows'
+  constexpr int RW = (R + NW - 1) / NW;  // rows per warp (softmax)
+  static_assert(WNSTAGE * BK * CD * sizeof(bf16) >= KG * R * CD * sizeof(float),
+                "the ring holds the key groups' accumulators");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sStage = reinterpret_cast<bf16*>(smem_raw);
-  float* sS = reinterpret_cast<float*>(sStage + 2 * STAGE);  // [R][BK] scores, then P
-  float* sAlpha = sS + R * BK;
+  const int cs = wide_cluster_size(nc), m = nc / cs;
+  bf16* sRing = reinterpret_cast<bf16*>(smem_raw);        // [WNSTAGE][BK][CD]
+  bf16* sQ = sRing + WNSTAGE * BK * CD;                   // [m][R][CD]
+  float* sPart = reinterpret_cast<float*>(sQ + m * R * CD);  // [2][R][BK]
+  float* sS = sPart + 2 * R * BK;                         // [R][BK] scores, then P
+  float* sAlpha = sS + R * BK;                            // [R]
   __shared__ int s_ticket;
 
   const int D = nc * CD;
   const int c = blockIdx.x;
   const int kvh = blockIdx.y / nc;
   const int cb = blockIdx.y - kvh * nc;
+  const int rank = cb % cs;  // cs divides nc: the cluster's rank of this CTA
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -346,21 +382,31 @@ flash_decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int len = lengths[b];
   const int n = min(max(len, 0), S);
   const int n_chunks = max(1, (n + CHUNK - 1) / CHUNK);
-  if (c >= n_chunks) return;
+  if (c >= n_chunks) return;  // the whole cluster: it shares c and b
   const int k_begin = c * CHUNK;
   const int k_end = min(k_begin + CHUNK, n);
   const int n_tiles = max(0, (k_end - k_begin + BK - 1) / BK);
-  const int per_tile = nc + 1;
+  const int per_tile = m + 1;
   const int steps = n_tiles * per_tile;
 
-  // Step j of tile t = j / (nc + 1): u = j % (nc + 1) < nc loads chunk u of
-  // K and of the query rows (zero-filled past `rows`); u = nc V's block cb.
-  auto load_step = [&](int j, int st) {
+  // The query rows' columns of blocks rank + cs u, zero-filled past `rows`.
+  for (int x = tid; x < m * R * 16; x += NT) {
+    const int u = x / (R * 16), r = (x >> 4) % R, ch = x & 15;
+    const bool ok = r < rows;
+    const int g = ok ? r / Tq : 0, i = ok ? r % Tq : 0;
+    cp_async_16(sQ + (u * R + r) * CD + ch * 8,
+                q + (((size_t)b * Tq + i) * H + kvh * group + g) * D + (rank + cs * u) * CD +
+                    ch * 8,
+                ok);
+  }
+  // Step j of tile t = j / (m + 1): u = j % (m + 1) < m loads block
+  // rank + cs u of K, u = m V's block cb, into ring slot j % WNSTAGE.
+  auto load_step = [&](int j) {
     const int t = j / per_tile, u = j - t * per_tile;
     const int k0 = k_begin + t * BK;
-    bf16* dst = sStage + st * STAGE;
-    const bf16* src = u < nc ? k : v;
-    const int col = u < nc ? u * CD : cb * CD;
+    bf16* dst = sRing + (j % WNSTAGE) * BK * CD;
+    const bf16* src = u < m ? k : v;
+    const int col = (u < m ? rank + cs * u : cb) * CD;
 #pragma unroll
     for (int x = 0; x < BK * 16 / NT; ++x) {
       const int jj = (tid + x * NT) >> 4, ch = tid & 15;
@@ -368,62 +414,67 @@ flash_decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const size_t off = (((size_t)b * S + (ok ? k0 + jj : 0)) * KVH + kvh) * D + col + ch * 8;
       cp_async_16(dst + jj * CD + ch * 8, src + off, ok);
     }
-    if (u < nc && tid < R * 16) {
-      const int r = tid >> 4, ch = tid & 15;
-      const bool ok = r < rows;
-      const int g = ok ? r / Tq : 0, i = ok ? r % Tq : 0;
-      cp_async_16(dst + BK * CD + r * CD + ch * 8,
-                  q + (((size_t)b * Tq + i) * H + kvh * group + g) * D + col + ch * 8, ok);
-    }
   };
-  if (steps > 0) load_step(0, 0);
-  cp_async_commit();
-  if (steps > 1) load_step(1, 1);
-  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < WNSTAGE - 1; ++j) {
+    if (j < steps) load_step(j);
+    cp_async_commit();  // the query rows ride with step 0
+  }
 
   const float cscale = scale * LOG2E;
-  const int kj = tid % BK;
-  const int rg = tid / BK;
-  float m_run[RW], l_run[RW], acc[RT][2], sacc[RT];
+  // Scores: key skey (8 a warp), its quarter sg of each block's chunks;
+  // the chunk rotates with the key, so a quarter-warp's 16-byte reads hit
+  // the 8 bank groups once each.
+  const int skey = warp * 8 + (lane >> 2), sg = lane & 3;
+  // P V: keys 16 pg .. 16 pg + 15, columns 2 pc and 2 pc + 1.
+  const int pg = tid >> 6, pc = tid & 63;
+  float m_run[RW], l_run[RW], acc[R][2], sacc[R];
 #pragma unroll
   for (int x = 0; x < RW; ++x) {
     m_run[x] = NEG_INF;
     l_run[x] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = sacc[i] = 0.f;
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = sacc[r] = 0.f;
 
   for (int j = 0; j < steps; ++j) {
-    const int st = j & 1;
     const int t = j / per_tile, u = j - t * per_tile;
     const int k0 = k_begin + t * BK;
-    cp_async_wait<1>();  // step j landed for this thread's copies
-    __syncthreads();     // ... and for every thread's
-    const bf16* sKV = sStage + st * STAGE;
-    const bf16* sQ = sKV + BK * CD;
+    cp_async_wait<WNSTAGE - 2>();  // step j landed for this thread's copies
+    __syncthreads();               // ... and every thread's; slot (j - 1) is free
+    if (j + WNSTAGE - 1 < steps) load_step(j + WNSTAGE - 1);
+    cp_async_commit();
+    const bf16* blk = sRing + (j % WNSTAGE) * BK * CD;
 
-    if (u < nc) {
-      // Key kj's scores against rows rg + 4 i, summed over the chunks.
-      if (rg < R) {
-        const bf16* kr = sKV + kj * CD;
+    if (u < m) {
+      const bf16* kr = blk + skey * CD;
+      const bf16* qu = sQ + u * R * CD;
 #pragma unroll
-        for (int cc = 0; cc < 16; ++cc) {
-          const int ch = (cc + kj) & 15;
-          const uint4 ku = *reinterpret_cast<const uint4*>(kr + ch * 8);
+      for (int cc = 0; cc < 4; ++cc) {
+        const int ch = sg + 4 * ((cc + skey) & 3);
+        const uint4 ku = *reinterpret_cast<const uint4*>(kr + ch * 8);
 #pragma unroll
-          for (int i = 0; i < RT; ++i)
-            sacc[i] = dot8(*reinterpret_cast<const uint4*>(sQ + (rg + 4 * i) * CD + ch * 8), ku,
-                           sacc[i]);
-        }
-        if (u == nc - 1) {
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            sS[(rg + 4 * i) * BK + kj] = sacc[i] * cscale;
-            sacc[i] = 0.f;
-          }
-        }
+        for (int r = 0; r < R; ++r)
+          sacc[r] = dot8(*reinterpret_cast<const uint4*>(qu + r * CD + ch * 8), ku, sacc[r]);
       }
-      if (u == nc - 1) {
+      if (u == m - 1) {
+        // This rank's partial, then the whole tile's scores: every rank's
+        // partial in rank order, in log2 units.
+        float* part = sPart + (t & 1) * R * BK;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float x = sacc[r];
+          x += __shfl_xor_sync(0xffffffffu, x, 1);
+          x += __shfl_xor_sync(0xffffffffu, x, 2);
+          if (sg == 0) part[r * BK + skey] = x;
+          sacc[r] = 0.f;
+        }
+        cluster_sync();
+        for (int x = tid; x < R * BK / 4; x += NT) {
+          const float4 s4 = cluster_sum_f4(part + 4 * x, cs);
+          *reinterpret_cast<float4*>(sS + 4 * x) =
+              make_float4(s4.x * cscale, s4.y * cscale, s4.z * cscale, s4.w * cscale);
+        }
         __syncthreads();
         // One max and one rescale per row for the tile; P in place of S.
 #pragma unroll
@@ -446,52 +497,64 @@ flash_decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           m_run[x] = m_new;
           if (lane == 0) sAlpha[r] = alpha;
         }
+        // P and alpha are published by the next step's barrier.
       }
-    } else if (rg < R) {
-      // O += P V_cb for rows rg + 4 i, columns 2 kj and 2 kj + 1 of block cb.
+    } else {
+      // O += P V_cb over this thread's 16 keys.
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float a = sAlpha[rg + 4 * i];
-        acc[i][0] *= a;
-        acc[i][1] *= a;
+      for (int r = 0; r < R; ++r) {
+        const float a = sAlpha[r];
+        acc[r][0] *= a;
+        acc[r][1] *= a;
       }
-#pragma unroll 4
-      for (int jj = 0; jj < BK; jj += 4) {
-        float4 p4[RT];
 #pragma unroll
-        for (int i = 0; i < RT; ++i)
-          p4[i] = *reinterpret_cast<const float4*>(sS + (rg + 4 * i) * BK + jj);
+      for (int jj = 0; jj < 16; jj += 4) {
+        const int key = pg * 16 + jj;
+        float2 vf[4];
 #pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const float2 vf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(sKV + (jj + w) * CD + 2 * kj));
+        for (int w = 0; w < 4; ++w)
+          vf[w] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(blk + (key + w) * CD + 2 * pc));
 #pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            const float p = w == 0 ? p4[i].x : w == 1 ? p4[i].y : w == 2 ? p4[i].z : p4[i].w;
-            acc[i][0] = fmaf(p, vf.x, acc[i][0]);
-            acc[i][1] = fmaf(p, vf.y, acc[i][1]);
-          }
+        for (int r = 0; r < R; ++r) {
+          const float4 p4 = *reinterpret_cast<const float4*>(sS + r * BK + key);
+          acc[r][0] = fmaf(p4.x, vf[0].x, acc[r][0]);
+          acc[r][1] = fmaf(p4.x, vf[0].y, acc[r][1]);
+          acc[r][0] = fmaf(p4.y, vf[1].x, acc[r][0]);
+          acc[r][1] = fmaf(p4.y, vf[1].y, acc[r][1]);
+          acc[r][0] = fmaf(p4.z, vf[2].x, acc[r][0]);
+          acc[r][1] = fmaf(p4.z, vf[2].y, acc[r][1]);
+          acc[r][0] = fmaf(p4.w, vf[3].x, acc[r][0]);
+          acc[r][1] = fmaf(p4.w, vf[3].y, acc[r][1]);
         }
       }
     }
-    __syncthreads();  // every thread is done with stage st (and the scores)
-    if (j + 2 < steps) load_step(j + 2, st);
-    cp_async_commit();
   }
   cp_async_wait<0>();
+  cluster_sync();  // every peer has read this rank's partials; the ring is free
 
-  // This chunk's partial state, [b][kvh][cb][chunk][row][acc CD, m, l].
+  // The key groups' accumulators, summed in group order: this chunk's
+  // partial state, [b][kvh][cb][chunk][row][acc CD, m, l].
+  float* sRed = reinterpret_cast<float*>(sRing);  // [KG][R][CD]
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < rows)
+      *reinterpret_cast<float2*>(sRed + (pg * R + r) * CD + 2 * pc) =
+          make_float2(acc[r][0], acc[r][1]);
+  __syncthreads();
   const size_t chunk_stride = (size_t)rows * WPART;
   const size_t pair = ((size_t)b * KVH + kvh) * nc + cb;
   float* part = ws + (pair * gridDim.x + c) * chunk_stride;
-  if (rg < R) {
+  for (int x = tid; x < rows * (CD / 2); x += NT) {
+    const int r = x / (CD / 2), col = 2 * (x % (CD / 2));
+    float2 y = *reinterpret_cast<const float2*>(sRed + r * CD + col);
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = rg + 4 * i;
-      if (r < rows)
-        *reinterpret_cast<float2*>(part + r * WPART + 2 * kj) =
-            make_float2(acc[i][0], acc[i][1]);
+    for (int g = 1; g < KG; ++g) {
+      const float2 z = *reinterpret_cast<const float2*>(sRed + (g * R + r) * CD + col);
+      y.x += z.x;
+      y.y += z.y;
     }
+    *reinterpret_cast<float2*>(part + r * WPART + col) = y;
   }
 #pragma unroll
   for (int x = 0; x < RW; ++x) {
@@ -518,10 +581,10 @@ flash_decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int cc = 0; cc < n_chunks; ++cc) mt = fmaxf(mt, __ldcg(row + cc * chunk_stride + CD));
     float l = 0.f, o0 = 0.f, o1 = 0.f;
     for (int cc = 0; cc < n_chunks; ++cc) {
-      const float* pc = row + cc * chunk_stride;
-      const float a = exp2f(__ldcg(pc + CD) - mt);
-      const float2 y = __ldcg(reinterpret_cast<const float2*>(pc + col));
-      l = fmaf(__ldcg(pc + CD + 1), a, l);
+      const float* pch = row + cc * chunk_stride;
+      const float a = exp2f(__ldcg(pch + CD) - mt);
+      const float2 y = __ldcg(reinterpret_cast<const float2*>(pch + col));
+      l = fmaf(__ldcg(pch + CD + 1), a, l);
       o0 = fmaf(y.x, a, o0);
       o1 = fmaf(y.y, a, o1);
     }
@@ -536,17 +599,32 @@ flash_decode_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int R>
-int launch_wide(const void* q, const void* k, const void* v, const void* lengths, void* o,
-                void* ws, void* counters, int B, int Tq, int S, int H, int KVH, int nc,
-                float scale, cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes<R>();
-  cudaError_t err = set_smem_once<flash_decode_wide_kernel<R>>(smem, false);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + CHUNK - 1) / CHUNK, KVH * nc, B);
-  flash_decode_wide_kernel<R><<<grid, NT, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths, (bf16*)o,
-      (float*)ws, (int*)counters, Tq, S, H, KVH, H / KVH, nc, scale);
-  return (int)cudaGetLastError();
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* lengths,
+                        void* o, void* ws, void* counters, int B, int Tq, int S, int H,
+                        int KVH, int nc, float scale, cudaStream_t stream) {
+  const int cs = wide_cluster_size(nc);
+  const size_t smem = wide_smem_bytes(R, nc / cs);
+  if (smem > WIDE_SMEM_MAX) return cudaErrorInvalidValue;
+  // The limit is set once for every head dim: the largest a CTA may take.
+  cudaError_t err = set_smem_once<flash_decode_wide_kernel<R>>(WIDE_SMEM_MAX, false);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(dim3((S + CHUNK - 1) / CHUNK, KVH * nc, B), NT, smem, cs, stream);
+  err = cudaLaunchKernelEx(&l.cfg, flash_decode_wide_kernel<R>, (const bf16*)q, (const bf16*)k,
+                           (const bf16*)v, (const int*)lengths, (bf16*)o, (float*)ws,
+                           (int*)counters, Tq, S, H, KVH, H / KVH, nc, scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t wide_cluster(int nc, int* cluster_size, int* max_clusters) {
+  const int cs = wide_cluster_size(nc);
+  const size_t smem = wide_smem_bytes(R, nc / cs);
+  if (smem > WIDE_SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem_once<flash_decode_wide_kernel<R>>(WIDE_SMEM_MAX, false);
+  if (err != cudaSuccess) return err;
+  *cluster_size = cs;
+  return max_active_clusters(flash_decode_wide_kernel<R>, NT, smem, cs, max_clusters);
 }
 
 template <int R>
@@ -588,11 +666,11 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (nc > 1) {
 #define WIDE_ARGS q, k, v, lengths, o, ws, counters, B, Tq, S, H, KVH, nc, scale, st
-    if (rows <= 1) return launch_wide<1>(WIDE_ARGS);
-    if (rows <= 2) return launch_wide<2>(WIDE_ARGS);
-    if (rows <= 4) return launch_wide<4>(WIDE_ARGS);
-    if (rows <= 8) return launch_wide<8>(WIDE_ARGS);
-    if (rows <= 16) return launch_wide<16>(WIDE_ARGS);
+    if (rows <= 1) return (int)launch_wide<1>(WIDE_ARGS);
+    if (rows <= 2) return (int)launch_wide<2>(WIDE_ARGS);
+    if (rows <= 4) return (int)launch_wide<4>(WIDE_ARGS);
+    if (rows <= 8) return (int)launch_wide<8>(WIDE_ARGS);
+    if (rows <= 16) return (int)launch_wide<16>(WIDE_ARGS);
 #undef WIDE_ARGS
     return (int)cudaErrorInvalidValue;
   }
@@ -602,5 +680,20 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
   if (rows <= 8) return launch<8>(q, k, v, lengths, o, ws, counters, B, Tq, S, H, KVH, scale, st);
   if (rows <= 16)
     return launch<16>(q, k, v, lengths, o, ws, counters, B, Tq, S, H, KVH, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide kernel's cluster at `head_dim` (a multiple of 128 above it) and
+// `rows` = group x Tq query rows (at most 16): its size and the most such
+// clusters the device holds at once.
+extern "C" int flash_decode_wide_cluster(int head_dim, int rows, int* cluster_size,
+                                         int* max_clusters) {
+  if (head_dim <= D || head_dim % CD != 0 || rows <= 0) return (int)cudaErrorInvalidValue;
+  const int nc = head_dim / CD;
+  if (rows <= 1) return (int)wide_cluster<1>(nc, cluster_size, max_clusters);
+  if (rows <= 2) return (int)wide_cluster<2>(nc, cluster_size, max_clusters);
+  if (rows <= 4) return (int)wide_cluster<4>(nc, cluster_size, max_clusters);
+  if (rows <= 8) return (int)wide_cluster<8>(nc, cluster_size, max_clusters);
+  if (rows <= 16) return (int)wide_cluster<16>(nc, cluster_size, max_clusters);
   return (int)cudaErrorInvalidValue;
 }

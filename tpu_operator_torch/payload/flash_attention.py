@@ -46,12 +46,12 @@ Head dims. K1 and K2 are built for head dims 64 and 128, K3 and K4 for
 128 (:data:`KERNEL_HEAD_DIMS`). Above 128 every kernel takes its wide
 path: a grid axis over column blocks of the output, 256 columns wide for
 K1, dq and K4 and 128 for dkv and K3 (:data:`WIDE_BLOCKS`; the backward
-pair pads to dq's 256). K1, dq, dkv and K4 compute each score tile once
+pair pads to dq's 256). Every wide kernel computes each score tile once
 per thread-block cluster of column blocks (:func:`wide_cluster_size`;
 ``csrc/flash_wide.cuh`` for K1 and K4, ``csrc/flash_bwd.cu`` for dq and
-dkv); K3 sums it in every block. K2's wide kernels take D = rowsum(dO O)
-given (:func:`row_dot`), since it spans every block. Any other head dim
-runs through :func:`at_kernel_head_dim`: q / k / v (and
+dkv, ``csrc/flash_decode.cu`` for K3). K2's wide kernels take D =
+rowsum(dO O) given (:func:`row_dot`), since it spans every block. Any
+other head dim runs through :func:`at_kernel_head_dim`: q / k / v (and
 dO, O, the merge carry's o) are zero-padded to the next size the kernel
 runs at, the kernel runs with the softmax scale of the true head dim, and
 the outputs are cut back. Zero columns add nothing to Q K^T or to
@@ -293,7 +293,9 @@ WIDE_CHUNK = 128
 # axis over blocks of this width ("flash_bwd" is dkv's, "flash_bwd_dq"
 # dq's). A 256-column CTA (K1, dq, K4) exchanges half the cluster's scores
 # per product that a 128-column one does; dkv keeps 128 (at 256 its
-# resident K, V and staged Q, dO would not fit in shared memory).
+# resident K, V and staged Q, dO would not fit in shared memory), and so
+# does K3: its exchange is one [group x Tq][64] score tile a key tile,
+# small beside the K and V blocks each rank streams.
 WIDE_BLOCKS: Dict[str, int] = {"flash_fwd": 2 * WIDE_CHUNK,
                                "flash_bwd": WIDE_CHUNK,
                                "flash_bwd_dq": 2 * WIDE_CHUNK,
@@ -304,7 +306,8 @@ WIDE_BLOCKS: Dict[str, int] = {"flash_fwd": 2 * WIDE_CHUNK,
 CLUSTER_KERNELS: Dict[str, str] = {"flash_fwd": "flash_fwd",
                                    "flash_bwd_dq": "flash_bwd",
                                    "flash_bwd": "flash_bwd",
-                                   "flash_merge": "flash_merge"}
+                                   "flash_merge": "flash_merge",
+                                   "flash_decode": "flash_decode"}
 
 
 def kernel_head_dim(name: str, d: int) -> int:
@@ -326,14 +329,14 @@ def kernel_head_dim(name: str, d: int) -> int:
 def wide_cluster_size(name: str, d: int) -> int:
     """The thread-block cluster of a wide cluster kernel at head dim ``d``
     (> 128): K1 (``name`` "flash_fwd"), dq ("flash_bwd_dq"), dkv
-    ("flash_bwd") or K4 ("flash_merge"). It is the largest divisor of the
-    kernel's column-block count (the head dim it runs at over its
-    :data:`WIDE_BLOCKS`) that is at most 8, the portable cluster size
-    (``csrc/hopper.cuh`` ``wide_cluster_size``). A cluster computes each
-    score tile once."""
+    ("flash_bwd"), K4 ("flash_merge") or K3 ("flash_decode"). It is the
+    largest divisor of the kernel's column-block count (the head dim it
+    runs at over its :data:`WIDE_BLOCKS`) that is at most 8, the portable
+    cluster size (``csrc/hopper.cuh`` ``wide_cluster_size``). A cluster
+    computes each score tile once."""
     if name not in CLUSTER_KERNELS or d <= WIDE_CHUNK:
         raise ValueError(f"{name} at head dim {d} runs no cluster: the "
-                         f"cluster kernels are K1, dq, dkv and K4 "
+                         f"cluster kernels are K1, dq, dkv, K4 and K3 "
                          f"({', '.join(CLUSTER_KERNELS)}) above head dim "
                          f"{WIDE_CHUNK}")
     nb = kernel_head_dim(CLUSTER_KERNELS[name], d) // WIDE_BLOCKS[name]
