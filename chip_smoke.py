@@ -222,6 +222,25 @@ one JSON line each:
     of the four shards this process holds), K4 never;
     the gate against the ring at the same weights; the step time beside
     train_sp's.
+14g. ``pipeline_tp``: examples/tpujob-pipeline-tp.yml's payload as
+    written (32 layers, ``--pipeline 4 --tensor-parallel 4``, 1f1b over
+    16 microbatches of 4 x 256, ``--zero1``; dim 256, head dim 64, one
+    head a shard), 4 steps with the 4 stages and 4 shards as units in
+    this process through ``pipeline.build`` and ``train.train_loop``: K1
+    2 x layers x microbatches x shards x steps (the input stash's
+    recompute), dq and dkv once that; before the loop, on a
+    2-layer-a-stage copy, the loss and every gradient at init against
+    ``--tensor-parallel 1 --split-qkv on`` (the same params); then the
+    same 4 steps at TP 1, the step times, peak memory and loss
+    trajectories side by side.
+14h. ``moe_tp``: examples/tpujob-moe-tp.yml's payload as written (8
+    experts, ``--expert-parallel 4 --tensor-parallel 2``, dim 1024, 16
+    heads, batch 32 x 256, capacity factor 1.25), the same way: K1, dq
+    and dkv once per layer, shard and step; the gate at init pins the
+    routes (``RoutePin``) for the gradients and compares the loss
+    routing its own way too; drop_frac, aux and z beside TP 1's. K1 and
+    K2 are also checked per element at both phases' shard shapes in the
+    kernels phases (``TP_SLICE_SHAPES``).
 15. ``classifier``: ``payload.cifar`` at its defaults (ResNet-20, batch
     1024, sgd 0.1 / 0.9) for 20 steps (the loss descends; the first 5
     losses against a CPU run of the same port from the same weights and
@@ -598,13 +617,30 @@ def head_dim_generator(torch):
     return gen
 
 
+def tp_slice_generator(torch):
+    """The cases at the pipeline_tp and moe_tp phases' shard shapes draw
+    from a generator of their own too."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    return gen
+
+
+# The shapes the pipeline_tp and moe_tp phases give K1 and K2: one TP
+# shard's attention, head dim 64. pipeline_tp: a 4-row microbatch of
+# tpujob-pipeline-tp.yml (64 rows / 16), T 256, 4 heads / TP 4; moe_tp:
+# tpujob-moe-tp.yml's 32 rows, T 256, 16 heads / TP 2.
+TP_SLICE_SHAPES = {"pipeline_tp_shard_d64": (4, 256, 1, 1),
+                   "moe_tp_shard_d64": (32, 256, 8, 8)}
+
+
 def check_flash_fwd(torch, fa, F, gen):
     """The forward kernel at the serve prefill shape, the training shape,
     the MoE row's (8 / 4 heads; causal GQA), the pipeline row's (B 4, 16
     heads, head dim 64: the kernel's D 64 build) and at a non-causal MHA
-    shape with a ragged T, and at head dim 32 (zero-padded to 64 by the
-    wrapper), per element against the plain version in f32 at the true
-    head dim. At the training shape, a negative control: the plain side
+    shape with a ragged T, at head dim 32 (zero-padded to 64 by the
+    wrapper), and at the pipeline_tp and moe_tp shard shapes
+    (``TP_SLICE_SHAPES``), per element against the plain version in f32
+    at the true head dim. At the training shape, a negative control: the plain side
     with V's last key tile zeroed (a fault that leaves L intact and
     touches only the last 64 rows) must fail."""
     dev = "cuda"
@@ -616,8 +652,11 @@ def check_flash_fwd(torch, fa, F, gen):
             "noncausal_mha_ragged": (2, 1000, 16, 16, False, 128),
             "moe_causal_gqa": (8, 2048, 8, 4, True, 128),
             "pipeline_causal_mha_d64": (4, 2048, 16, 16, True, 64),
-            "padded_d32_causal_gqa": (2, 1000, 8, 4, True, 32)}.items():
-        g = moe_generator(torch) if label.startswith("moe") else \
+            "padded_d32_causal_gqa": (2, 1000, 8, 4, True, 32),
+            **{label: (*shape, True, 64)
+               for label, shape in TP_SLICE_SHAPES.items()}}.items():
+        g = tp_slice_generator(torch) if label in TP_SLICE_SHAPES else \
+            moe_generator(torch) if label.startswith("moe") else \
             head_dims if d != 128 else gen
         q = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16()
         k = torch.randn(b, t, kvh, d, generator=g, device=dev).bfloat16()
@@ -999,9 +1038,10 @@ def check_flash_bwd(torch, fa, F, gen):
     row's (B 4, H = KVH = 16, head dim 64: the kernels' D 64 build), at
     two ragged T 1000 cases with offsets (group 4 with a stride and
     precomputed D; group 1), f32 grads, at head dim 32 (zero-padded to 64
-    by the wrapper; offsets with a stride, given D, f32 grads) and at the
+    by the wrapper; offsets with a stride, given D, f32 grads), at the
     SP ring's shape (B 2, Tq = Tk = 2048, striped offsets (1, 0, 4), given
-    D, f32 grads). A negative control (the plain side with D zeroed) must
+    D, f32 grads) and at the pipeline_tp and moe_tp shard shapes (fused D,
+    bf16 grads, as their training runs them). A negative control (the plain side with D zeroed) must
     fail the tolerance, and two launches must be bit-equal. The training,
     pipeline and ring shapes are timed beside the bound; the training, MoE
     and pipeline shapes also beside the plain version and SDPA's backward
@@ -1021,16 +1061,19 @@ def check_flash_bwd(torch, fa, F, gen):
                                     torch.bfloat16, 64),
         "padded_d32_offsets_stride_given_d": (
             2, 1000, 8, 4, True, (0, 3, 2), False, torch.float32, 32),
+        **{label: (*shape, True, (0, 0, 1), True, torch.bfloat16, 64)
+           for label, shape in TP_SLICE_SHAPES.items()},
     }
     timed = ("train_causal_gqa", "moe_causal_gqa", "sp_ring_striped_given_d",
-             "pipeline_causal_mha_d64")
+             "pipeline_causal_mha_d64", *TP_SLICE_SHAPES)
     beside_plain = ("train_causal_gqa", "moe_causal_gqa",
-                    "pipeline_causal_mha_d64")
+                    "pipeline_causal_mha_d64", *TP_SLICE_SHAPES)
     out = {}
     head_dims = head_dim_generator(torch)
     for label, (b, t, h, kvh, causal, offs, fused, gd, d) in cases.items():
         inputs, run = bwd_case(
-            torch, fa, moe_generator(torch) if label.startswith("moe")
+            torch, fa, tp_slice_generator(torch) if label in TP_SLICE_SHAPES
+            else moe_generator(torch) if label.startswith("moe")
             else head_dims if d != 128 else gen, b, t, h, kvh, causal, offs,
             fused, gd, d)
         q, k, v, g, L, o, D = inputs
@@ -4152,6 +4195,213 @@ def run_ulysses(torch, fa, transformer, train, ring_step_ms):
     return res
 
 
+# --- phases: pipeline_tp, moe_tp ------------------------------------------------
+
+# examples/tpujob-pipeline-tp.yml's payload as written; every other flag at
+# its default (dim 256, 4 heads: head dim 64 and one head a TP shard; T
+# 256; vocab 256; adam).
+PIPE_TP_ARGV = ["--steps", "4", "--layers", "32", "--pipeline", "4",
+                "--tensor-parallel", "4", "--schedule", "1f1b",
+                "--microbatches", "16", "--batch", "64", "--zero1",
+                *COMMON_ARGV]
+# examples/tpujob-moe-tp.yml's payload as written (4 layers, T 256, vocab
+# 256, MHA: head dim 64, 8 heads a TP shard; einsum dispatch; adam).
+MOE_TP_ARGV = ["--steps", "4", "--experts", "8", "--expert-parallel", "4",
+               "--tensor-parallel", "2", "--capacity-factor", "1.25",
+               "--dim", "1024", "--heads", "16", "--batch", "32",
+               *COMMON_ARGV]
+
+
+def gate_report(label, res) -> dict:
+    """``res`` (:func:`compare_grads`) held to SP_LOSS_TOL,
+    SP_GRAD_GLOBAL_TOL and SP_GRAD_REL_TOL, as :func:`gate_parity` holds
+    its sides."""
+    res.pop("_ratios", None)
+    res["tol"] = (f"loss {SP_LOSS_TOL}; the whole gradient "
+                  f"{SP_GRAD_GLOBAL_TOL} and each parameter "
+                  f"{SP_GRAD_REL_TOL} of the reference side's norm")
+    require(res["loss_abs_err"] <= SP_LOSS_TOL,
+            f"{label} gate: loss gap {res['loss_abs_err']}")
+    require(res["grad_rel_err_all"] <= SP_GRAD_GLOBAL_TOL,
+            f"{label} gate: the whole gradient off by "
+            f"{res['grad_rel_err_all']} of its norm")
+    name, worst = res["worst_grad_rel_err"][0]
+    require(worst <= SP_GRAD_REL_TOL,
+            f"{label} gate: {name} gradient off by {worst} of its norm")
+    return res
+
+
+def gate_pipeline_tp(torch, pipeline, argv, other_argv):
+    """At init, on copies of ``argv`` and ``other_argv`` with 2 layers a
+    stage, from the same seed (the init depends on neither the stages nor
+    the shards: the same params), one batch of the job's rows through
+    ``Pipeline.loss_and_grads``: the loss and every parameter's gradient
+    of ``argv`` against ``other_argv`` (:func:`gate_report`)."""
+    from tpu_operator_torch.payload import data as data_mod
+
+    sides = []
+    for flags in (argv, other_argv):
+        args = pipeline.parse_args(flags)
+        args = pipeline.parse_args(with_flags(
+            flags, layers=GATE_LAYERS * args.pipeline))
+        sides.append(pipeline.build(args))
+    a, b = (side.model.params for side in sides)
+    require(list(a) == list(b), "pipeline_tp gate: the param trees differ")
+    require(all(torch.equal(a[n], b[n]) for n in a),
+            "pipeline_tp gate: the two seeded inits differ")
+    (tok,) = next(data_mod.synthetic_lm(1, args.batch, args.seq_len,
+                                        vocab=args.vocab))
+    tokens = torch.from_numpy(tok).to(args.device)
+    got, want = ((float(loss), grads) for loss, grads in (
+        side.pipeline.loss_and_grads(tokens) for side in sides))
+    res = gate_report("pipeline_tp", compare_grads(got, want))
+    res.update(rows=int(tokens.shape[0]), layers=args.layers)
+    del sides, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def gate_moe_tp(torch, F, moe, argv, other_argv):
+    """At init, on ``GATE_LAYERS``-layer copies of ``argv`` and
+    ``other_argv`` (block 1 MoE) from the same seed, one batch of the
+    job's rows through ``moe.make_moe_loss``: the total loss and every
+    parameter's gradient with the routes pinned (``RoutePin``: the
+    ``other_argv`` side records each layer's choices and ``argv``'s
+    replays them; the split reorders the bf16 sums of the row-parallel
+    products, which can flip a choice near a tie), gated by
+    :func:`gate_report`; then ``argv``'s loss routing its own way, its
+    gap and its first choices apart by layer beside them, the loss gap
+    gated at SP_LOSS_TOL too. drop_frac, aux and z of both sides."""
+    from tpu_operator_torch.payload import data as data_mod
+
+    models = []
+    for flags in (argv, other_argv):
+        args = moe.parse_args(with_flags(flags, layers=GATE_LAYERS))
+        models.append(moe.build(args).model)
+    names = [[n for n, _ in m.named_parameters()] for m in models]
+    require(names[0] == names[1], "moe_tp gate: the param trees differ")
+    require(all(torch.equal(x, y) for x, y in zip(
+        models[0].parameters(), models[1].parameters())),
+        "moe_tp gate: the two seeded inits differ")
+    (tok,) = next(data_mod.synthetic_lm(1, args.batch, args.seq_len,
+                                        vocab=args.vocab))
+    tokens = torch.from_numpy(tok).to(args.device)
+    pin = RoutePin(torch, F, moe)
+
+    def run(model, side):
+        with pin.side(side):
+            total, metrics = moe.make_moe_loss(model, args)(tokens)
+            total.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        return (float(total.detach()), grads), {
+            k: float(v) for k, v in metrics.items()}
+
+    want, want_m = run(models[1], "kernels")
+    got, got_m = run(models[0], "tp")
+    res = gate_report("moe_tp", compare_grads(got, want))
+    def free_run():
+        total, metrics = moe.make_moe_loss(models[0], args)(tokens)
+        return float(total), {k: float(v) for k, v in metrics.items()}
+
+    with torch.no_grad():
+        (free, free_m), flips = pin.free(free_run)
+    res.update(rows=int(tokens.shape[0]), layers=GATE_LAYERS,
+               metrics_pinned={"tp": got_m, "tp1": want_m},
+               unpinned={"total_loss": free, "metrics": free_m,
+                         "total_loss_abs_err": abs(free - want[0]),
+                         "first_choices_apart_by_moe_layer": flips,
+                         "tokens_a_layer": int(tokens.numel())})
+    require(res["unpinned"]["total_loss_abs_err"] <= SP_LOSS_TOL,
+            f"moe_tp gate: the loss routing its own way, "
+            f"{res['unpinned']}")
+    del models, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_tp_job(torch, fa, train, mod, label, argv, wanted, gate_res):
+    """``argv`` (an example job's payload) through ``mod.build`` and
+    ``train.train_loop`` with every shard a unit of this one process,
+    launches gated at ``wanted(args)``; then the same steps at
+    ``--tensor-parallel 1 --split-qkv on`` (a comparison, not this
+    slice's path: its launches are gated but kept apart), so the step
+    times, peak memory and loss trajectories stand side by side."""
+    res = {"argv": argv, "gate_at_init": gate_res}
+    for side, flags in (("tp", argv),
+                        ("tp1", with_flags(argv, tensor_parallel=1,
+                                           split_qkv="on"))):
+        args = mod.parse_args(flags)
+        built = mod.build(args)
+        params = sum(t.numel() for t in built.state.params.values())
+        loop = drive_train(torch, fa, train, built, args,
+                           f"{label} {side}", wanted(args))
+        del built
+        torch.cuda.empty_cache()
+        loop.update(params=params, step_ms_median_steps_1_on=1e3
+                    * statistics.median(loop["step_seconds"][1:]))
+        if side == "tp":
+            res.update(loop)
+        else:
+            res["tp1_same_flags"] = {"argv": flags, **loop}
+    res["loss_gap_tp_minus_tp1"] = [
+        a - b for a, b in zip(res["loss_trajectory"],
+                              res["tp1_same_flags"]["loss_trajectory"])]
+    res["smoke_reading"] = (f"{len(res['loss_trajectory'])} steps from a "
+                            f"cold start, every shard in one process on one "
+                            f"card; not a throughput measurement")
+    res["nvidia_smi"] = nvidia_smi_line()
+    return res
+
+
+def run_pipeline_tp(torch, fa, pipeline, train):
+    """examples/tpujob-pipeline-tp.yml's payload as written (32 layers,
+    --pipeline 4 --tensor-parallel 4, 1f1b over 16 microbatches of 4 rows,
+    --zero1; head dim 64, one head a shard), 4 steps with the 4 stages and
+    4 shards as units in this process. Gate: at init on a 2-layer-a-stage
+    copy, against --tensor-parallel 1 --split-qkv on. Launches: K1 twice
+    per layer, microbatch, shard and step (1f1b's input stash: the
+    backward re-runs the forward), dq and dkv once."""
+    one = with_flags(PIPE_TP_ARGV, tensor_parallel=1, split_qkv="on")
+
+    def wanted(args):
+        per = args.layers * args.microbatches * args.tensor_parallel \
+            * args.steps
+        return {"flash_fwd": 2 * per, "flash_bwd_dq": per,
+                "flash_bwd_dkv": per, "flash_merge": 0, "flash_decode": 0}
+
+    return run_tp_job(torch, fa, train, pipeline, "pipeline_tp",
+                      PIPE_TP_ARGV, wanted,
+                      gate_pipeline_tp(torch, pipeline, PIPE_TP_ARGV, one))
+
+
+def run_moe_tp(torch, F, fa, moe, train):
+    """examples/tpujob-moe-tp.yml's payload as written (8 experts over
+    --expert-parallel 4 --tensor-parallel 2, dim 1024, 16 heads, batch 32
+    x 256, capacity factor 1.25; head dim 64, 8 heads a shard), 4 steps
+    with every expert and shard in this process. Gate: at init on a
+    2-layer copy against --tensor-parallel 1 --split-qkv on, routes
+    pinned (:func:`gate_moe_tp`). Launches: K1, dq and dkv once per
+    layer, shard and step. drop_frac, aux and z of every step printed
+    beside TP 1's."""
+    one = with_flags(MOE_TP_ARGV, tensor_parallel=1, split_qkv="on")
+
+    def wanted(args):
+        per = args.layers * args.grad_accum * args.tensor_parallel \
+            * args.steps
+        return {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+                "flash_merge": 0, "flash_decode": 0}
+
+    res = run_tp_job(torch, fa, train, moe, "moe_tp", MOE_TP_ARGV, wanted,
+                     gate_moe_tp(torch, F, moe, MOE_TP_ARGV, one))
+    for side in (res, res["tp1_same_flags"]):
+        mt = side["metric_trajectories"]
+        require(all(0.0 <= d <= 1.0 for d in mt["drop_frac"]),
+                f"moe_tp: drop_frac outside [0, 1]: {mt['drop_frac']}")
+        require(all(0.0 < a <= 8 for a in mt["aux_loss"]),
+                f"moe_tp: aux_loss outside (0, E]: {mt['aux_loss']}")
+    return res
+
+
 # --- phase: defaults ----------------------------------------------------------
 
 
@@ -5131,6 +5381,10 @@ def main() -> int:
         uly = run_ulysses(torch, fa, transformer, train, 1e3 * statistics.median(
             sp["step_seconds"][1:]))
         emit({"phase": "ulysses", **uly})
+        pptp = run_pipeline_tp(torch, fa, pipeline, train)
+        emit({"phase": "pipeline_tp", **pptp})
+        motp = run_moe_tp(torch, F, fa, moe, train)
+        emit({"phase": "moe_tp", **motp})
         cls, built = run_classifier(torch, cifar, train, checkpoint,
                                     steptrace)
         emit({"phase": "classifier", **cls})
@@ -5152,14 +5406,21 @@ def main() -> int:
     wide_dec = wide["decode"]["b_serve_tp_d1024"]
     ring_bwd = bwd["sp_ring_striped_given_d"]
     pipe_fwd, pipe_bwd = (x["pipeline_causal_mha_d64"] for x in (fwd, bwd))
-    # This slice's path: the tensor_parallel, sp_tp and ulysses phases
-    # together; K1 and K2 timed at the TP job's shard shape (D 1024).
+    # The earlier slice's paths (tensor_parallel, sp_tp, ulysses; K1 and
+    # K2 at the TP job's shard shape, D 1024, K4 on sp_tp's ring) and this
+    # slice's (pipeline_tp, moe_tp): K1 and K2 timed at the pipeline_tp
+    # shard shape, the moe_tp one beside it.
     tp_fwd, tp_bwd = (wide[x]["tp_shard_d1024"] for x in ("fwd", "bwd"))
-    slice_runs = {"tensor_parallel": tpr, "sp_tp": sptp, "ulysses": uly}
+    pptp_fwd, pptp_bwd = (x["pipeline_tp_shard_d64"] for x in (fwd, bwd))
+    motp_fwd, motp_bwd = (x["moe_tp_shard_d64"] for x in (fwd, bwd))
+    tp_runs = {"tensor_parallel": tpr, "sp_tp": sptp, "ulysses": uly}
+    slice_runs = {"pipeline_tp": pptp, "moe_tp": motp}
+    tp_launches = {k: sum(r["launches"][k] for r in tp_runs.values())
+                   for k in fa.LAUNCHES}
     slice_launches = {k: sum(r["launches"][k] for r in slice_runs.values())
                       for k in fa.LAUNCHES}
     slice_by_path = {k: {name: r["launches"][k]
-                         for name, r in slice_runs.items()}
+                         for name, r in {**tp_runs, **slice_runs}.items()}
                      for k in fa.LAUNCHES}
     pipe_launches = {k: sum(r["launches"][k] for r in pp["runs"].values())
                      for k in fa.LAUNCHES}
@@ -5210,13 +5471,21 @@ def main() -> int:
          **{f"ulysses_slab_{k}": par["ulysses_fwd"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "share_of_bound")},
-         "ms": tp_fwd["ms"], "plain_ms": tp_fwd["plain_ms"],
-         "bound_ms": tp_fwd["bound_ms"], "bound_by": tp_fwd["bound_by"],
-         "library_ms": tp_fwd["library_ms"], "library": tp_fwd["library"],
-         "device_ms": tp_fwd["device_ms"],
-         "share_of_bound": tp_fwd["share_of_bound"],
-         "shape": "tensor_parallel shard B16 T2048 H1 D1024 causal (wide "
-                  "path)",
+         "ms": pptp_fwd["ms"], "plain_ms": pptp_fwd["plain_ms"],
+         "bound_ms": pptp_fwd["bound_ms"], "bound_by": pptp_fwd["bound_by"],
+         "library_ms": pptp_fwd["library_ms"],
+         "library": "F.scaled_dot_product_attention",
+         "share_of_bound": pptp_fwd["share_of_bound"],
+         "shape": "pipeline_tp shard B4 T256 H1 D64 causal",
+         "moe_tp_shape": "moe_tp shard B32 T256 H8 KVH8 D64 causal",
+         **{f"moe_tp_{k}": motp_fwd[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "share_of_bound")},
+         "tensor_parallel_shape": "tensor_parallel shard B16 T2048 H1 "
+                                  "D1024 causal (wide path)",
+         **{f"tensor_parallel_{k}": tp_fwd[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library", "device_ms", "share_of_bound")},
          "wide_gqa_d256": {k: wide["fwd"]["gqa_d256"][k] for k in (
              "ms", "plain_ms", "library_ms", "library", "bound_ms",
              "share_of_bound")},
@@ -5320,19 +5589,32 @@ def main() -> int:
             "sp_tp_bwd_shape": "sp_tp chunk B8 Tq=Tk=4096 H8 KVH8, "
                                "(4096, 4096, 1) home and (4096, 0, 1) "
                                "earlier, given D, f32 grads",
-            "ms": tp_bwd[f"ms_{name}"],
-            "plain_ms": tp_bwd["plain_ms"],
-            "bound_ms": tp_bwd[f"bound_ms_{name}"],
-            "bound_by": tp_bwd[f"bound_by_{name}"],
-            "library_ms": tp_bwd["library_ms"],
-            "library": tp_bwd["library"],
-            "share_of_bound": tp_bwd.get(f"share_of_bound_{name}"),
-            "shape": "tensor_parallel shard B16 T2048 H1 D1024 causal "
-                     "(wide path; dkv's one cluster kernel)",
+            "ms": pptp_bwd[f"ms_{name}"],
+            "plain_ms": pptp_bwd["plain_ms"],
+            "bound_ms": pptp_bwd[f"bound_ms_{name}"],
+            "bound_by": pptp_bwd[f"bound_by_{name}"],
+            "library_ms": pptp_bwd["library_ms"],
+            "library": "F.scaled_dot_product_attention",
+            "share_of_bound": pptp_bwd.get(f"share_of_bound_{name}"),
+            "shape": "pipeline_tp shard B4 T256 H1 D64 causal, fused D, "
+                     "bf16 grads",
             "plain_ms_is": "_bwd_ref: dq, dk and dv together",
-            "library_ms_is": tp_bwd["library_ms_is"],
-            "pair_ms": tp_bwd["ms_pair"],
-            "pair_bound_ms": tp_bwd["bound_ms_pair"],
+            "library_ms_is": pptp_bwd["library_ms_is"],
+            "pair_ms": pptp_bwd["ms_pair"],
+            "pair_bound_ms": pptp_bwd["bound_ms_pair"],
+            "moe_tp_shape": "moe_tp shard B32 T256 H8 KVH8 D64 causal, "
+                            "fused D, bf16 grads",
+            **{f"moe_tp_{k}": motp_bwd.get(k) for k in (
+                f"ms_{name}", f"bound_ms_{name}", f"bound_by_{name}",
+                f"share_of_bound_{name}", "plain_ms", "library_ms",
+                "ms_pair")},
+            "tensor_parallel_shape": "tensor_parallel shard B16 T2048 H1 "
+                                     "D1024 causal (wide path; dkv's one "
+                                     "cluster kernel)",
+            **{f"tensor_parallel_{k}": tp_bwd.get(k) for k in (
+                f"ms_{name}", "plain_ms", f"bound_ms_{name}",
+                f"bound_by_{name}", "library_ms", "library",
+                f"share_of_bound_{name}", "ms_pair", "bound_ms_pair")},
             "wide_gqa_d256": {k: wide["bwd"]["gqa_d256"][k] for k in (
                 f"ms_{name}", f"bound_ms_{name}", "plain_ms", "library_ms",
                 "library")},
@@ -5376,7 +5658,8 @@ def main() -> int:
         "name": "flash_merge", "route": "cuda",
         "source": "tpu_operator_torch/kernels/csrc/flash_merge.cu",
         "replaces": "tpu_operator/payload/flash_attention.py:287",
-        "launches": slice_launches["flash_merge"],
+        # Not on this slice's path: the earlier slice's (sp_tp's ring).
+        "launches": tp_launches["flash_merge"],
         "launches_by_path": {
             **slice_by_path["flash_merge"],
             "train_sp": sp["launches"]["flash_merge"],

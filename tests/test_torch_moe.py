@@ -3,9 +3,12 @@ the JAX package's (``tpu_operator/payload/moe.py``) on the CPU.
 
 Inputs come from numpy with a seed; the reference runs as
 ``tests/test_moe.py`` runs it: plain attention, a one-device mesh from
-``make_moe_mesh(1)``. Weights cross over with ``weights.moe_from_flax``.
-Routes are compared exactly in f32; every other comparison states its
-tolerance.
+``make_moe_mesh(1)``, and for EP x TP the conftest's 8 devices as
+(data 2, expert 2, model 2) from ``make_moe_mesh(8, expert_parallel=2,
+tensor_parallel=2)``; the port holds every expert and shard in one
+process (the gloo tests split them over processes). Weights cross over
+with ``weights.moe_from_flax``. Routes are compared exactly in f32; every
+other comparison states its tolerance.
 """
 
 import math
@@ -493,11 +496,6 @@ def test_weights_round_trip_through_the_reference_tree(mesh1):
 # --- flags -----------------------------------------------------------------------
 
 
-def test_tensor_parallel_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        moe.build(_port_args(tensor_parallel=2))
-
-
 def test_indivisible_experts_raise_value_error():
     with pytest.raises(ValueError, match="divisible"):
         moe.build(_port_args(experts=3, expert_parallel=2))
@@ -563,3 +561,152 @@ def test_checkpoint_round_trip(tmp_path, optimizer):
     with pytest.raises(checkpoint.CheckpointError, match="experts"):
         checkpoint.Checkpointer(str(tmp_path)).restore(other.state)
     assert (tmp_path / "2").exists()
+
+
+
+# --- EP x TP ---------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mesh_ep_tp():
+    return jmoe.make_moe_mesh(8, expert_parallel=2, tensor_parallel=2)
+
+
+EP_TP = dict(expert_parallel=2, tensor_parallel=2)
+
+
+def test_ep_tp_loss_and_aux_match_the_unsharded_side():
+    """The counterpart of test_ep_tp_loss_matches_unsharded: one step of
+    EP 2 x TP 2 and of EP 1 x TP 1 (--split-qkv on, the same param tree
+    and seeded init) on the same batch, f32: the loss, aux, z and
+    drop_frac within 1e-5 (the reference's bound is 1e-4), and the
+    params before the step equal."""
+    sides = [moe.build(_port_args(split_qkv="on", **over))
+             for over in ({}, EP_TP)]
+    for (n, p), (m, q) in zip(sides[0].model.named_parameters(),
+                              sides[1].model.named_parameters()):
+        assert n == m and torch.equal(p, q), n
+    (tokens,) = next(sides[0].batches)
+    one, split = (b.step(torch.from_numpy(tokens)) for b in sides)
+    for key in ("loss", "aux_loss", "router_z", "drop_frac", "total_loss"):
+        assert abs(float(one[key]) - float(split[key])) <= 1e-5, key
+
+
+@pytest.mark.parametrize("kv_heads,dispatch", [(0, "einsum"), (0, "gather"),
+                                               (2, "einsum")],
+                         ids=["mha_einsum", "mha_gather", "gqa_einsum"])
+def test_ep_tp_loss_and_every_gradient_match_jax(mesh_ep_tp, kv_heads,
+                                                 dispatch):
+    """f32, 4 heads (2 a shard; GQA on 2 K/V heads, 1 a shard), 4 experts
+    over EP 2 x TP 2: the reference's loss and gradients on its 3-axis mesh
+    (the params placed under its ``state_shardings``) against the port's
+    in one process at the same params, within
+    test_lm_loss_and_every_gradient_match_jax's bounds (1e-5 on the loss
+    and its parts, 1e-4 of each gradient's largest entry)."""
+    over = dict(heads=4, kv_heads=kv_heads, dispatch=dispatch,
+                capacity_factor=1.0, **EP_TP)
+    args, (m, model, state, _s, batches) = _jax_build(mesh_ep_tp, **over)
+    assert state.params["block0"]["q"]["kernel"].shape == (32, 32)
+    (tokens,) = next(batches)
+    (dev,) = jdata.put_global_batch(m, tokens)
+    (jtotal, jm), jgrads = jax.jit(lambda p, t: _jax_loss_and_grads(
+        model, p, t, args))(state.params, dev)
+    pargs = _port_args(**over)
+    port = weights.moe_from_flax(jax.device_get(state.params), pargs,
+                                 device="cpu").requires_grad_(True)
+    assert port.tp.shards == 2 and port.blocks[1].moe.tp.shards == 2
+    total, metrics = moe.make_moe_loss(port, pargs)(torch.from_numpy(tokens))
+    total.backward()
+    np.testing.assert_allclose(float(total.detach()), float(jtotal),
+                               rtol=1e-5)
+    for key in ("loss", "aux_loss", "router_z", "drop_frac"):
+        np.testing.assert_allclose(float(metrics[key]), float(jm[key]),
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
+    grads = _flat_grads(weights.to_flax(_grad_model(port)))
+    want = _flat_grads(jax.device_get(jgrads))
+    assert set(grads) == set(want)
+    for name, ref in want.items():
+        np.testing.assert_allclose(grads[name], ref, rtol=0,
+                                   atol=1e-4 * max(np.abs(ref).max(), 1e-12),
+                                   err_msg=name)
+
+
+def test_ep_tp_weight_split():
+    """The counterpart of test_ep_tp_state_shardings: on each process of
+    an expert 2 x model 2 mesh, ``w1`` holds its experts' columns and
+    ``w2`` their rows of the hidden units, q / k / v and the lm_head split
+    by column, attn_out by row, the router whole; each part is that
+    process's share of the one-process model's seeded init."""
+    args = _port_args(heads=4, kv_heads=2, **EP_TP)
+    one = moe.build(args).model
+    whole = dict(one.named_parameters())
+    dims = one.tp_dims()
+    assert dims["blocks.1.moe.w1"] == (2, 1)
+    assert dims["blocks.1.moe.w2"] == (1, 1)
+    assert dims["blocks.0.q.weight"] == (0, 1)
+    assert dims["blocks.1.attn_out.weight"] == (1, 1)
+    assert dims["lm_head.weight"] == (0, 1)
+    assert "blocks.1.moe.router.weight" not in dims
+    for rank in range(4):
+        mesh = moe.make_moe_mesh(4, rank, expert_parallel=2,
+                                 tensor_parallel=2)
+        assert (mesh.expert_rank, mesh.model_rank) == divmod(rank, 2)
+        assert (mesh.batch_rank, mesh.batch_ranks) == (rank // 2, 2)
+        part = moe.build_model(args, torch.device("cpu"), mesh.shard(),
+                               mesh.tp())
+        for name, p in part.named_parameters():
+            want = whole[name]
+            if moe.is_expert_param(name):
+                want = want.chunk(2)[mesh.expert_rank]
+            if name in dims:
+                want = want.chunk(2, dim=dims[name][0])[mesh.model_rank]
+            assert torch.equal(p, want), name
+        assert tuple(part.blocks[1].moe.w1.shape) == (2, 32, 64)
+        assert tuple(part.blocks[1].moe.w2.shape) == (2, 64, 32)
+
+
+def test_ep_tp_validates_head_divisibility():
+    with pytest.raises(ValueError, match="heads"):
+        moe.build(_port_args(heads=3, **EP_TP))
+    with pytest.raises(ValueError, match="kv-heads"):
+        moe.build(_port_args(heads=4, kv_heads=1, **EP_TP))
+
+
+def test_ep_tp_checkpoint_round_trip(tmp_path):
+    """An EP 2 x TP 2 state saved after 2 steps restores bit-equal into a
+    fresh EP 2 x TP 2 build and into EP 1 x TP 1 (--split-qkv on: the
+    same param names), and both then take the same third step."""
+    def build(over):
+        return moe.build(_port_args(split_qkv="on", **over))
+
+    a = build(EP_TP)
+    for _ in range(2):
+        a.step(torch.from_numpy(next(a.batches)[0]))
+    ck = checkpoint.Checkpointer(str(tmp_path), save_every=1)
+    ck.save(2, a.state)
+    ck.close()
+    tokens = next(a.batches)[0]
+    ma = a.step(torch.from_numpy(tokens))
+    for over in (EP_TP, {}):
+        b = build(over)
+        state, start = checkpoint.Checkpointer(str(tmp_path)).restore(
+            b.state)
+        assert start == 2
+        for n, p in b.model.named_parameters():
+            assert torch.equal(p, state.params[n]), n
+        mb = b.step(torch.from_numpy(tokens))
+        assert abs(float(ma["loss"]) - float(mb["loss"])) <= 1e-6, over
+
+
+def test_ep_tp_entry_point_trains_on_the_cpu(monkeypatch):
+    """The entry point's ``run`` (what ``python -m
+    tpu_operator_torch.payload.moe --device cpu`` calls) at
+    ``--expert-parallel 2 --tensor-parallel 2``, small widths, in this
+    process: 2 steps through ``train.train_loop``, every metric finite."""
+    monkeypatch.delenv("TPU_CHECKPOINT_DIR", raising=False)
+    monkeypatch.delenv("TPUJOB_STATUS_URL", raising=False)
+    args = moe.parse_args(_argv(steps=2, log_every=1, **EP_TP)
+                          + ["--device", "cpu", "--checkpoint-dir", "",
+                             "--profile-dir", ""])
+    metrics = moe.run(bootstrap.process_info_from_env({}), args)
+    assert all(np.isfinite(float(v)) for v in metrics.values())

@@ -17,6 +17,10 @@ largest entry (the two sides compute the same f32 math in other orders;
 within 1e-5 and every parameter within 1e-4 of max(1, its largest entry)
 (adam's first steps divide by sqrt(v) ~ |g|, so f32 noise in a small
 gradient moves a parameter by up to lr).
+
+Tensor parallelism inside the stages (PP x TP) is held in
+test_torch_pipeline_tp.py, a file of its own so that ``--dist loadfile``
+runs it on another worker.
 """
 
 import numpy as np
@@ -329,16 +333,6 @@ def test_stash_depth_is_o_stages_not_microbatches(m):
         "interleaved_microbatches", "virtual_0"])
 def test_build_refuses_what_the_reference_refuses(over, match):
     with pytest.raises(ValueError, match=match):
-        pipeline.build(_port_args(**over))
-
-
-@pytest.mark.parametrize("over", [dict(tensor_parallel=2),
-                                  dict(split_qkv="on"),
-                                  dict(split_qkv="off")],
-                         ids=["tensor_parallel", "split_qkv_on",
-                              "split_qkv_off"])
-def test_unported_flags_raise_not_implemented(over):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 7"):
         pipeline.build(_port_args(**over))
 
 

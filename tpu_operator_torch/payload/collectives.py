@@ -49,6 +49,18 @@ def exchange(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def own_group(rank: int, members) -> Any:
+    """Create the process group of each rank list in ``members`` (every
+    process must create them all, in the same order: ``dist.new_group``
+    is collective) and return the one holding ``rank`` (None if none)."""
+    found = None
+    for ranks in members:
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            found = group
+    return found
+
+
 def part_of(t: torch.Tensor, dim: int, sections: int, size: int,
             rank: int) -> torch.Tensor:
     """Part ``rank`` of ``size`` of a whole tensor split along ``dim``:

@@ -254,7 +254,9 @@ class DecoderBlock(nn.Module):
     :data:`COMPUTE_DTYPE`, bf16; f32 for the MoE payload's ``--dtype
     f32``). ``mlp`` (the reference's ``DecoderBlock.mlp``) replaces the
     dense FFN: the block holds ``moe = mlp(param_dtype, device)`` in place
-    of ``mlp_up`` / ``mlp_down`` and returns ``x + moe(ln_mlp(x))``."""
+    of ``mlp_up`` / ``mlp_down`` and returns ``x + moe(ln_mlp(x))``; under
+    tensor parallelism the MLP is built on the block's ``tp`` and splits
+    its own products."""
 
     def __init__(self, dim: int, heads: int, kv_heads: int = 0,
                  split_qkv: Optional[bool] = None,
@@ -275,9 +277,6 @@ class DecoderBlock(nn.Module):
             raise ValueError("grouped K/V heads need split q/k/v")
         if tp.shards > 1:
             validate_heads_dims(heads, kv_heads, dim, tp.shards)
-            if mlp is not None:
-                raise ValueError("a block MLP does not take tensor "
-                                 "parallelism")
         self.dim, self.heads, self.kv_heads = dim, heads, kvh
         self.head_dim = dim // heads
         self.tp = tp
@@ -307,16 +306,23 @@ class DecoderBlock(nn.Module):
         """{param name: (split dim, sections)} of the params split over the
         tensor-parallel processes: column-parallel along dim 0 (the fused
         ``qkv`` in 3 sections), row-parallel along dim 1; the rest (the
-        LayerNorms, ``mlp_down``'s bias) is whole on every process."""
+        LayerNorms, ``mlp_down``'s bias) is whole on every process. A block
+        MLP adds its own (``moe.<name>``, from its ``tp_dims()``)."""
         if self.tp.shards == 1:
             return {}
         col = ["q.weight", "k.weight", "v.weight"] if self.split_qkv \
             else []
-        dims = {name: (0, 1) for name in col + ["mlp_up.weight",
-                                                "mlp_up.bias"]}
+        if self.moe is None:
+            col += ["mlp_up.weight", "mlp_up.bias"]
+        dims = {name: (0, 1) for name in col}
         if not self.split_qkv:
             dims["qkv.weight"] = (0, 3)
-        dims.update({"attn_out.weight": (1, 1), "mlp_down.weight": (1, 1)})
+        dims["attn_out.weight"] = (1, 1)
+        if self.moe is None:
+            dims["mlp_down.weight"] = (1, 1)
+        else:
+            dims.update({f"moe.{n}": d
+                         for n, d in self.moe.tp_dims().items()})
         return dims
 
     def _forward_tp(self, x: torch.Tensor, attend: Attend) -> torch.Tensor:
@@ -325,7 +331,8 @@ class DecoderBlock(nn.Module):
         ``attn_out`` and ``mlp_down`` row-parallel (partial products summed
         over every shard, ``mlp_down``'s bias added once after the sum);
         attention is head-local, ``attend`` once per shard on its H/N query
-        heads and KVH/N K/V heads."""
+        heads and KVH/N K/V heads. A block MLP (the MoE layer) takes the
+        ``ln_mlp`` output whole and splits its experts' work itself."""
         b, t, _ = x.shape
         hd, dt, tp = self.head_dim, self.compute_dtype, self.tp
         hq, hkv = self.heads // tp.shards, self.kv_heads // tp.shards
@@ -352,6 +359,9 @@ class DecoderBlock(nn.Module):
             x = x + tp.reduce([
                 _dense_part(self.attn_out, o.reshape(b, t, qw), 1, u * qw,
                             qw, dt) for u, o in enumerate(outs)])
+        if self.moe is not None:
+            # The block MLP splits its own work over the same shards.
+            return x + self.moe(_layer_norm(self.ln_mlp, x))
         hs = tp.enter(_layer_norm(self.ln_mlp, x))
         fw = 4 * self.dim // tp.shards
         parts = []

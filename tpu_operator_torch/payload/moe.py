@@ -30,22 +30,36 @@ forward and K2 backward kernels on the card, through the ``flash_fwd`` /
 ``flash_bwd`` custom ops), and the plain attention under ``--dtype f32``,
 as the reference's ``attend`` chooses.
 
-Expert parallelism (``--expert-parallel N``, :func:`make_moe_mesh`): ranks
-are data-major, ``P = min(world, N)`` neighbouring processes form an
-expert group and each holds ``E / P`` experts of every MoE layer and
-their optimizer moments. Unlike the reference, which shards the batch
-over ``data`` only and replicates it across an expert group, every
-process holds a batch shard of its own (``world`` shards): it routes its
+Expert parallelism (``--expert-parallel N``, :func:`make_moe_mesh`): the
+processes form a (data, expert, model) mesh, model innermost: ``P_m =
+min(world, --tensor-parallel)`` neighbouring processes form a model
+group, ``P_e = min(world / P_m, N)`` model groups an expert group, and
+each process holds ``E / P_e`` experts of every MoE layer and their
+optimizer moments. Unlike the reference, which shards the batch over
+``data`` only and replicates it across an expert group, every model group
+holds a batch shard of its own (``world / P_m`` shards): it routes its
 rows, sends each expert's slots to the process that holds the expert and
 takes the outputs back (two autograd all-to-alls a layer, the exchange
 the reference's docstring describes). Routing, capacity and the aux,
-z and drop scalars are per row, so the loss is the reference's; the
-replicated parameters' gradients are averaged over the world and the
-expert stacks' summed over the processes that hold the same experts
-(``train.all_reduce_grads``). A checkpoint holds whole stacks: process 0
-gathers them at a save, and a restore takes this process's part
-(``checkpoint.Shards``). ``--tensor-parallel`` > 1 (EP x TP) raises
-NotImplementedError (ROADMAP Queue A 7).
+z and drop scalars are per row, so the loss is the reference's.
+
+EP x TP (``--tensor-parallel``, the reference's ``moe.py:330-337`` and
+``:445-461``): inside each expert shard the FFN is the Megatron pair,
+``w1`` ``[E/P_e, D, 4D/N]`` column-parallel and ``w2`` ``[E/P_e, 4D/N,
+D]`` row-parallel, GELU per shard and one ``TPShards.reduce`` of the
+``w2`` products per layer, before the combine; the dense blocks and the
+vocab-split ``lm_head`` follow the transformer's rule
+(``models.DecoderBlock._forward_tp``) and the router stays whole. The N
+shards run as units of ``N / P_m`` a process (one process may hold them
+all). Every model rank computes the same routing, loss and aux / z /
+drop scalars, so those count once: the dense parameters' gradients
+(whole or split) and the metrics are averaged over the processes of one
+model rank, and the expert stacks' summed over the processes that hold
+the same experts and the same model part, divided by the batch shards
+(``train.all_reduce_grads``). A checkpoint holds whole stacks and whole
+split weights: process 0 gathers them at a save, and a restore takes
+this process's part (``checkpoint.Shards``), so a save under one layout
+restores under another.
 
 ``--checkpoint-dir`` (or ``$TPU_CHECKPOINT_DIR``), ``--profile-dir`` and
 ``--prefetch-depth`` work as in the transformer payload: the loop is
@@ -80,6 +94,7 @@ from tpu_operator_torch.payload import flash_attention as fa
 from tpu_operator_torch.payload import models
 from tpu_operator_torch.payload import optimizers
 from tpu_operator_torch.payload import train
+from tpu_operator_torch.payload import transformer
 
 log = logging.getLogger(__name__)
 
@@ -105,7 +120,9 @@ def parse_args(argv=None):
                         "processes, each holding E / that many experts")
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="tensor-parallel shards inside each expert shard "
-                        "(not ported: must be 1)")
+                        "(and of the dense blocks): model groups of "
+                        "min(world, N) neighbouring processes, N / that "
+                        "many shards a process")
     p.add_argument("--capacity-factor", type=float, default=1.25)
     p.add_argument("--split-qkv", choices=("auto", "on", "off"),
                    default="auto",
@@ -152,15 +169,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """NotImplementedError for EP x TP (ROADMAP Queue A 7), then the
-    reference's ValueError for experts that do not split over
-    ``--expert-parallel`` (``moe.py:368``); the head counts are the
+def check_flags(args) -> None:
+    """The reference's ValueErrors for experts that do not split over
+    ``--expert-parallel`` (``moe.py:368``) and, under tensor
+    parallelism, for heads, K/V heads or a width that do not split over
+    ``--tensor-parallel`` (``models.validate_heads_dims``, which the
+    reference's ``_build_model`` calls); at TP 1 the head counts are the
     block's to check (``models.DecoderBlock``)."""
-    if args.tensor_parallel != 1:
-        raise NotImplementedError(
-            f"--tensor-parallel {args.tensor_parallel!r} is not ported to "
-            f"the PyTorch payload yet (ROADMAP Queue A 7); leave it at 1")
+    if args.tensor_parallel > 1:
+        models.validate_heads_dims(args.heads, args.kv_heads, args.dim,
+                                   args.tensor_parallel)
     if args.expert_parallel < 1 or args.experts % args.expert_parallel:
         raise ValueError(
             f"--experts {args.experts} not divisible by the mesh expert "
@@ -345,9 +363,14 @@ class MoEMLP(nn.Module):
     ``[G, n, D]`` and returns ``[G, n, D]`` in the compute dtype.
 
     Params: ``router`` (``[E, D]``, no bias, f32 product on the f32
-    input), ``w1`` ``[E/P, D, 4D]`` and ``w2`` ``[E/P, 4D, D]`` (this
-    process's experts of the f32 master stacks, cast to the compute dtype
-    at use).
+    input, whole under TP), ``w1`` ``[E/P, D, 4D]`` and ``w2`` ``[E/P, 4D,
+    D]`` (this process's experts of the f32 master stacks, cast to the
+    compute dtype at use). Under ``tp`` (N shards, N / P_m a process) this
+    process holds ``w1``'s columns and ``w2``'s rows of its shards'
+    ``4D / N`` hidden units each: every shard takes the experts' input
+    through ``tp.enter``, runs its ``w1`` product and the GELU on its
+    hidden units, and the shards' ``w2`` partial products are summed once
+    (``tp.reduce``) before the combine.
 
     ``dispatch`` ``einsum``: the one-hot products ``gnec,gnd->egcd`` and
     ``gnec,egcd->gnd`` (plain matrix products in the reference too);
@@ -359,7 +382,8 @@ class MoEMLP(nn.Module):
                  dispatch: str = "einsum",
                  compute_dtype: Optional[torch.dtype] = None,
                  shard: ExpertShard = ExpertShard(),
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 tp: collectives.TPShards = collectives.TPShards()):
         super().__init__()
         if dispatch not in ("einsum", "gather"):
             raise ValueError(f"unknown dispatch {dispatch!r}")
@@ -369,25 +393,60 @@ class MoEMLP(nn.Module):
         self.dim, self.experts = dim, experts
         self.capacity_factor = capacity_factor
         self.dispatch, self.compute_dtype = dispatch, compute_dtype
-        self.shard = shard
+        self.shard, self.tp = shard, tp
         local = experts // shard.size
+        hidden = 4 * dim * tp.local // tp.shards
         w = dict(dtype=param_dtype, device=device)
         self.router = nn.Linear(dim, experts, bias=False, **w)
-        self.w1 = nn.Parameter(torch.empty(local, dim, 4 * dim, **w))
-        self.w2 = nn.Parameter(torch.empty(local, 4 * dim, dim, **w))
+        self.w1 = nn.Parameter(torch.empty(local, dim, hidden, **w))
+        self.w2 = nn.Parameter(torch.empty(local, hidden, dim, **w))
+
+    def tp_dims(self) -> Dict[str, Tuple[int, int]]:
+        """{param name: (split dim, sections)} of the stacks split over the
+        model group: ``w1`` by column (dim 2), ``w2`` by row (dim 1)."""
+        if self.tp.shards == 1:
+            return {}
+        return {"w1": (2, 1), "w2": (1, 1)}
+
+    def part(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This process's part of a whole ``[E, ...]`` stack: its experts,
+        and under TP over processes its model part of them."""
+        t = whole.chunk(self.shard.size)[self.shard.rank]
+        dims = self.tp_dims()
+        if name in dims and self.tp.procs > 1:
+            t = collectives.part_of(t, *dims[name], self.tp.procs,
+                                    self.tp.index)
+        return t
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The whole stacks drawn normal with std 1/sqrt(fan_in) (fan_in
         D for w1, 4D for w2: the expert dim is a batch dim, as
-        ``lecun_normal(batch_axis=0)`` has it), this process's experts
-        kept: any expert parallelism draws the same weights."""
-        for p, fan_in in ((self.w1, self.dim), (self.w2, 4 * self.dim)):
-            whole = torch.randn((self.experts, *p.shape[1:]),
-                                generator=generator, device=generator.device,
-                                dtype=torch.float32)
-            p.copy_(whole.chunk(self.shard.size)[self.shard.rank]
-                    .mul_(1.0 / math.sqrt(fan_in)))
+        ``lecun_normal(batch_axis=0)`` has it), this process's part kept:
+        any expert or tensor parallelism draws the same weights."""
+        d, f = self.dim, 4 * self.dim
+        for name, shape, fan_in in (("w1", (d, f), d), ("w2", (f, d), f)):
+            whole = torch.randn((self.experts, *shape), generator=generator,
+                                device=generator.device, dtype=torch.float32)
+            getattr(self, name).copy_(
+                self.part(name, whole).mul_(1.0 / math.sqrt(fan_in)))
+
+    def _experts(self, expert_in: torch.Tensor, dt) -> torch.Tensor:
+        """``[E/P, P*G, C, D]`` slots -> the experts' outputs, each shard
+        of ``tp`` on its hidden units and the ``w2`` partials summed."""
+        if self.tp.shards == 1:
+            h = torch.einsum("egcd,edf->egcf", expert_in, self.w1.to(dt))
+            h = F.gelu(h, approximate="tanh")
+            return torch.einsum("egcf,efd->egcd", h, self.w2.to(dt))
+        fw = 4 * self.dim // self.tp.shards
+        parts = []
+        for u, xu in enumerate(self.tp.enter(expert_in)):
+            h = torch.einsum("egcd,edf->egcf", xu,
+                             self.w1.narrow(2, u * fw, fw).to(dt))
+            h = F.gelu(h, approximate="tanh")
+            parts.append(torch.einsum("egcf,efd->egcd", h,
+                                      self.w2.narrow(1, u * fw, fw).to(dt)))
+        return self.tp.reduce(parts)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g, n, d = x.shape
@@ -424,12 +483,9 @@ class MoEMLP(nn.Module):
             # copies are held for the backward.
             dispatch, combine = dispatch.to(dt), combine.to(dt)
             expert_in = torch.einsum("gnec,gnd->egcd", dispatch, xd)
-        h = torch.einsum("egcd,edf->egcf",
-                         _to_experts(expert_in, self.shard),
-                         self.w1.to(dt))
-        h = F.gelu(h, approximate="tanh")
         expert_out = _from_experts(
-            torch.einsum("egcf,efd->egcd", h, self.w2.to(dt)), self.shard)
+            self._experts(_to_experts(expert_in, self.shard), dt),
+            self.shard)
         if self.dispatch == "gather":
             out_full = torch.cat([
                 expert_out.transpose(0, 1).reshape(g, e * capacity, d),
@@ -445,7 +501,8 @@ def compute_dtype(args) -> torch.dtype:
     return torch.bfloat16 if args.dtype == "bf16" else torch.float32
 
 
-def mlp_factory(args, shard: ExpertShard = ExpertShard()
+def mlp_factory(args, shard: ExpertShard = ExpertShard(),
+                tp: collectives.TPShards = collectives.TPShards()
                 ) -> models.MlpFactory:
     """The block MLP hook's factory of the flags' :class:`MoEMLP`."""
     dtype = compute_dtype(args)
@@ -453,7 +510,8 @@ def mlp_factory(args, shard: ExpertShard = ExpertShard()
     def make(param_dtype, device):
         return MoEMLP(args.dim, args.experts, args.capacity_factor,
                       dispatch=args.dispatch, compute_dtype=dtype,
-                      shard=shard, param_dtype=param_dtype, device=device)
+                      shard=shard, param_dtype=param_dtype, device=device,
+                      tp=tp)
 
     return make
 
@@ -465,22 +523,27 @@ def is_expert_param(name: str) -> bool:
                                                                     "w2")
 
 
-def build_model(args, device, shard: ExpertShard = ExpertShard()
+def build_model(args, device, shard: ExpertShard = ExpertShard(),
+                tp: Optional[collectives.TPShards] = None
                 ) -> models.TransformerLM:
     """``MoELM`` (``moe.py:397``): ``models.TransformerLM`` at the flags'
     widths and compute dtype with :class:`MoEMLP` in every odd block,
     f32 master params, the block of ``compute.lm_block`` (rematerialized
-    under ``--remat``), from a seeded init on ``device``."""
-    factory = mlp_factory(args, shard)
+    under ``--remat``), from a seeded init on ``device``. ``tp`` (default:
+    ``--tensor-parallel`` shards in this process) splits the dense blocks,
+    the ``lm_head`` and the experts' FFNs, and ``--split-qkv`` resolves as
+    the reference's does (split under TP)."""
+    tp = tp or collectives.TPShards(args.tensor_parallel, 1)
+    factory = mlp_factory(args, shard, tp)
+    split = models.resolve_split_qkv(args.split_qkv, tp.shards, log)
     # Every other block is MoE (GShard): dense blocks keep a gradient
     # path for every token when hot experts overflow.
     model = models.TransformerLM(
         args.vocab, args.dim, args.heads, args.layers, args.seq_len,
-        kv_heads=args.kv_heads,
-        split_qkv=True if args.split_qkv == "on" else None,
+        kv_heads=args.kv_heads, split_qkv=split or None,
         param_dtype=torch.float32, device=device,
         block=compute.lm_block(args), compute_dtype=compute_dtype(args),
-        mlp_for_layer=lambda i: factory if i % 2 == 1 else None)
+        mlp_for_layer=lambda i: factory if i % 2 == 1 else None, tp=tp)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(args.seed))
     return model.init_weights(gen)
@@ -501,14 +564,19 @@ def attend_for(dtype: torch.dtype) -> Callable[[int], models.Attend]:
 
 
 class MoEMesh(NamedTuple):
-    """The (data, expert) layout of the job's processes: ``world``
-    processes, ``procs`` (P) neighbouring ranks per expert group (the
-    ``--expert-parallel`` degree ``ep`` spread over them: ep / P shards a
-    process), ``data`` = world / P. Ranks are data-major: rank =
-    data_rank * P + expert_rank. Every process holds a batch shard of its
-    own (``batch_rank`` of ``batch_ranks`` = world). ``expert_group`` is
-    this process's expert group, ``replica_group`` the processes holding
-    the same experts (each None when it would hold one process)."""
+    """The (data, expert, model) layout of the job's processes: ``world``
+    processes, ``procs`` (P_e) neighbouring model groups per expert group
+    (the ``--expert-parallel`` degree ``ep`` spread over them: ep / P_e
+    shards a process), ``model_procs`` (P_m) neighbouring processes per
+    model group holding the ``tp`` (N = ``--tensor-parallel``) shards, N /
+    P_m each, ``data`` = world / (P_e·P_m). Ranks are data-major, model
+    innermost: rank = (data_rank·P_e + expert_rank)·P_m + model_rank.
+    Every model group holds a batch shard of its own (``batch_rank`` of
+    ``batch_ranks`` = world / P_m). ``expert_group`` is this process's
+    expert group (the same data and model rank), ``replica_group`` the
+    processes holding the same experts and model part, ``model_group`` its
+    model group and ``dense_group`` the processes of its model rank (each
+    None when it would hold one process, or when it is the world)."""
 
     world: int
     rank: int
@@ -516,64 +584,93 @@ class MoEMesh(NamedTuple):
     procs: int
     expert_group: Any = None
     replica_group: Any = None
+    tp_shards: int = 1
+    model_procs: int = 1
+    model_group: Any = None
+    dense_group: Any = None
 
     @property
     def data(self) -> int:
-        return self.world // self.procs
+        return self.world // (self.procs * self.model_procs)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.procs
+        return self.rank // (self.procs * self.model_procs)
 
     @property
     def expert_rank(self) -> int:
-        return self.rank % self.procs
+        return (self.rank // self.model_procs) % self.procs
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model_procs
 
     @property
     def batch_rank(self) -> int:
-        return self.rank
+        return self.rank // self.model_procs
 
     @property
     def batch_ranks(self) -> int:
-        return self.world
+        return self.world // self.model_procs
 
     def shard(self) -> ExpertShard:
         return ExpertShard(self.procs, self.expert_rank, self.expert_group)
 
+    def tp(self) -> collectives.TPShards:
+        return collectives.TPShards(self.tp_shards, self.model_procs,
+                                    self.model_rank, self.model_group)
+
 
 def make_moe_mesh(world: Optional[int] = None, rank: Optional[int] = None,
-                  expert_parallel: int = 1) -> MoEMesh:
-    """The (data, expert) mesh over the job's processes (default: the
-    process group, or one process without one): P = min(world, ep)
-    processes per expert group, data = world / P; ep must split over P and
-    P over the world. With a process group, every process creates every
-    expert and replica group (``dist.new_group`` is collective) and keeps
+                  expert_parallel: int = 1,
+                  tensor_parallel: int = 1) -> MoEMesh:
+    """The (data, expert, model) mesh over the job's processes (default:
+    the process group, or one process without one): P_m = min(world, tp)
+    processes per model group, P_e = min(world / P_m, ep) model groups per
+    expert group, data = world / (P_e·P_m); each degree must split over
+    its P, and the world over P_e·P_m (the reference's ``make_mesh3``
+    layout, model innermost). With a process group, every process creates
+    every group it may need (``dist.new_group`` is collective) and keeps
     its own."""
     grouped = dist.is_available() and dist.is_initialized()
     if world is None:
         world = dist.get_world_size() if grouped else 1
     if rank is None:
         rank = dist.get_rank() if grouped else 0
-    procs = min(world, expert_parallel)
-    if expert_parallel < 1 or expert_parallel % procs or world % procs:
-        raise ValueError(f"--expert-parallel {expert_parallel} does not lay "
+    if tensor_parallel < 1:
+        raise ValueError(f"--tensor-parallel must be >= 1, got "
+                         f"{tensor_parallel}")
+    mprocs = min(world, tensor_parallel)
+    if tensor_parallel % mprocs or world % mprocs:
+        raise ValueError(f"--tensor-parallel {tensor_parallel} does not lay "
                          f"out over {world} processes")
-    expert_group = replica_group = None
-    if grouped and world > 1 and procs > 1:
-        data = world // procs
-        for d in range(data):
-            ranks = list(range(d * procs, (d + 1) * procs))
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                expert_group = group
-        if data > 1:
-            for r in range(procs):
-                ranks = list(range(r, world, procs))
-                group = dist.new_group(ranks)
-                if rank in ranks:
-                    replica_group = group
-    return MoEMesh(world, rank, expert_parallel, procs, expert_group,
-                   replica_group)
+    procs = min(world // mprocs, expert_parallel)
+    if expert_parallel < 1 or expert_parallel % procs \
+            or world % (procs * mprocs):
+        raise ValueError(f"--expert-parallel {expert_parallel} does not lay "
+                         f"out over {world // mprocs} model groups")
+    mesh = MoEMesh(world, rank, expert_parallel, procs,
+                   tp_shards=tensor_parallel, model_procs=mprocs)
+    if not grouped or world == 1:
+        return mesh
+
+    inner = procs * mprocs
+    groups = {}
+    if procs > 1:
+        groups["expert_group"] = collectives.own_group(rank, (
+            list(range(first + m, first + inner, mprocs))
+            for first in range(0, world, inner) for m in range(mprocs)))
+    if inner > 1 and world > inner:
+        groups["replica_group"] = collectives.own_group(
+            rank, (list(range(r, world, inner)) for r in range(inner)))
+    if mprocs > 1:
+        groups["model_group"] = collectives.own_group(rank, (
+            list(range(first, first + mprocs))
+            for first in range(0, world, mprocs)))
+        if world > mprocs:
+            groups["dense_group"] = collectives.own_group(
+                rank, (list(range(m, world, mprocs)) for m in range(mprocs)))
+    return mesh._replace(**groups)
 
 
 # --- the step -------------------------------------------------------------------
@@ -616,20 +713,24 @@ def make_moe_train_step(model: models.TransformerLM, optimizer, opt_state,
                         args, mesh: Optional[MoEMesh] = None):
     """The reference's ``make_moe_train_step`` (``moe.py:467``) through
     ``train.make_loss_train_step`` with ``--grad-accum``. With more than
-    one process the gradients are averaged over the world after the last
-    microbatch, the expert stacks' summed only over the processes that
-    hold the same experts (``train.all_reduce_grads``)."""
+    one batch shard the gradients and metrics are averaged over the batch
+    shards after the last microbatch: summed over the processes of this
+    one's model rank (every model rank computes the same loss, so each
+    counts once), the expert stacks' only over the processes that hold the
+    same experts and model part (``train.all_reduce_grads``)."""
     mesh = mesh or make_moe_mesh(1, 0, 1)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _n, p in named]
     reduce = None
-    if mesh.world > 1:
+    if mesh.batch_ranks > 1:
+        split = mesh.procs > 1 or mesh.model_procs > 1
         sharded = [i for i, (n, _p) in enumerate(named)
-                   if mesh.procs > 1 and is_expert_param(n)]
+                   if split and is_expert_param(n)]
 
         def reduce(ps, metrics):
-            return train.all_reduce_grads(ps, metrics, mesh.world, sharded,
-                                          mesh.replica_group)
+            return train.all_reduce_grads(ps, metrics, mesh.batch_ranks,
+                                          sharded, mesh.replica_group,
+                                          group=mesh.dense_group)
 
     return train.make_loss_train_step(make_moe_loss(model, args), params,
                                       optimizer, opt_state,
@@ -640,11 +741,15 @@ def make_moe_train_step(model: models.TransformerLM, optimizer, opt_state,
 def state_shards(model: models.TransformerLM, opt_state,
                  mesh: MoEMesh) -> Optional[checkpoint.Shards]:
     """The reference's ``state_shardings`` (``moe.py:429``) as what each
-    process holds: E / P experts of every ``w1`` / ``w2`` stack and their
-    optimizer moments (adam's, adam8's and sgd's state is per parameter),
-    everything else whole. None when a process holds every expert."""
+    process holds: E / P_e experts of every ``w1`` / ``w2`` stack and
+    their optimizer moments (adam's, adam8's and sgd's state is per
+    parameter) over the expert group, and under TP over processes the
+    model part of every split weight and of its moments over the model
+    group (``transformer.tp_shards``; the expert stacks split on both);
+    everything else whole. None when a process holds every part."""
+    tp_level = transformer.tp_shards(model, opt_state)
     if mesh.procs == 1:
-        return None
+        return tp_level
     names = [n for n, _p in model.named_parameters()]
     experts = {i for i, n in enumerate(names) if is_expert_param(n)}
     opt_names = frozenset(
@@ -654,7 +759,8 @@ def state_shards(model: models.TransformerLM, opt_state,
     return checkpoint.Shards(
         {checkpoint.PARAMS_FILE: frozenset(names[i] for i in experts),
          checkpoint.OPT_FILE: opt_names},
-        mesh.expert_group, mesh.procs, mesh.expert_rank)
+        mesh.expert_group, mesh.procs, mesh.expert_rank, inner=tp_level)
+
 
 
 class Built(NamedTuple):
@@ -681,24 +787,29 @@ class Built(NamedTuple):
 def build(args, device=None, mesh: Optional[MoEMesh] = None) -> Built:
     """Model (seeded init, gradients on), optimizer and its state, step
     and host batches for the flags. ``device`` defaults to ``--device``
-    (CUDA unless it says ``cpu``); ``mesh`` to the (data, expert) mesh of
-    the job's process group at ``--expert-parallel``."""
-    check_ported(args)
-    mesh = mesh or make_moe_mesh(expert_parallel=args.expert_parallel)
-    if mesh.ep != args.expert_parallel:
-        raise ValueError(f"mesh has expert parallelism {mesh.ep}, "
-                         f"--expert-parallel is {args.expert_parallel}")
-    if args.batch % mesh.world:
+    (CUDA unless it says ``cpu``); ``mesh`` to the (data, expert, model)
+    mesh of the job's process group at ``--expert-parallel`` and
+    ``--tensor-parallel``."""
+    check_flags(args)
+    mesh = mesh or make_moe_mesh(expert_parallel=args.expert_parallel,
+                                 tensor_parallel=args.tensor_parallel)
+    if (mesh.ep, mesh.tp_shards) != (args.expert_parallel,
+                                     args.tensor_parallel):
+        raise ValueError(f"mesh has expert and tensor parallelism "
+                         f"{mesh.ep} x {mesh.tp_shards}, the flags "
+                         f"{args.expert_parallel} x {args.tensor_parallel}")
+    if args.batch % mesh.batch_ranks:
         raise ValueError(f"--batch {args.batch} must split over "
-                         f"{mesh.world} processes")
-    rows = args.batch // mesh.world
+                         f"{mesh.batch_ranks} batch shards")
+    rows = args.batch // mesh.batch_ranks
     if args.grad_accum < 1 or rows % args.grad_accum:
-        raise ValueError(f"{rows} rows per process must divide by "
+        raise ValueError(f"{rows} rows per batch shard must divide by "
                          f"--grad-accum {args.grad_accum} >= 1")
     dev = resolve_device(device if device is not None
                          else (args.device or None))
     optimizer = optimizers.from_args(args)
-    model = build_model(args, dev, mesh.shard()).requires_grad_(True)
+    model = build_model(args, dev, mesh.shard(),
+                        mesh.tp()).requires_grad_(True)
     opt_state = optimizer.init(list(model.parameters()))
     step = make_moe_train_step(model, optimizer, opt_state, args, mesh)
     return Built(model, optimizer, opt_state, step,
@@ -709,11 +820,13 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     args = args or parse_args([])
     built = build(args)
     mesh = built.mesh
-    log.info("mesh: {'data': %d, 'expert': %d} over %d processes (%d "
-             "experts a process); %d experts, capacity factor %.2f, "
-             "dispatch %s, %s on %s", mesh.data, mesh.procs, mesh.world,
-             args.experts // mesh.procs, args.experts, args.capacity_factor,
-             args.dispatch, args.dtype, built.device)
+    log.info("mesh: {'data': %d, 'expert': %d, 'model': %d} over %d "
+             "processes (%d experts and %d tensor-parallel shards a "
+             "process); %d experts, capacity factor %.2f, dispatch %s, %s "
+             "on %s", mesh.data, mesh.procs, mesh.model_procs, mesh.world,
+             args.experts // mesh.procs, mesh.tp_shards // mesh.model_procs,
+             args.experts, args.capacity_factor, args.dispatch, args.dtype,
+             built.device)
     ckpt = checkpoint.from_env_or_args(args.checkpoint_dir,
                                        save_every=args.checkpoint_every)
     if ckpt is not None and ckpt.latest_step() is not None:

@@ -36,30 +36,46 @@ that one executor runs (:class:`Pipeline`):
   scan) and one loss over the whole batch between the two phases;
   ``--grad-accum K`` runs it K times on K slices.
 
-Placement (:func:`make_pipe_mesh`): the processes form a (data, pipe)
-mesh, data outer, pipe inner: rank r is data rank ``r // P`` and pipe
-rank ``r % P`` with ``P = min(world, S)``, and holds ``S / P``
-consecutive stages (one process with ``--pipeline 4`` holds all four and
-hands activations on in memory). Across processes each tick's sends and
-receives are posted together through ``batch_isend_irecv``. The
-processes of a pipe group share a batch shard. Stage gradients take the
-mean over their data group; the embedding's and the head's (held only by
-the boundary stages) the sum over the world divided by the data ranks, as
-does the loss. ``--zero1`` keeps on each data rank 1/N of every optimizer
-leaf of at least 1024 elements, split on its first divisible dim that the
-pipe does not split; the rank updates that part and the parameters are
-all-gathered.
+Placement (:func:`make_pipe_mesh`): the processes form the reference's
+(data, pipe, model) mesh, model innermost: ``P_m = min(world, N)``
+neighbouring processes form a model group holding the ``N =
+--tensor-parallel`` shards (N / P_m each), ``P = min(world / P_m, S)``
+model groups a pipe group, each holding ``S / P`` consecutive stages (one
+process with ``--pipeline 4`` holds all four and hands activations on in
+memory); rank = (data_rank·P + pipe_rank)·P_m + model_rank. Across
+processes each tick's sends and receives are posted together through
+``batch_isend_irecv``, each to the same model rank of the next pipe rank.
+The processes of a pipe group share a batch shard. Stage gradients take
+the mean over their data group (the same pipe and model rank); the
+embedding's and the head's (held only by the boundary stages) the sum
+over the data x pipe processes of one model rank divided by the data
+ranks, as does the loss. ``--zero1`` keeps on each data rank 1/N of every
+optimizer leaf of at least 1024 elements, split on its first divisible
+dim that neither the pipe nor the model axis splits; the rank updates
+that part and the parameters are all-gathered.
+
+Tensor parallelism inside the stages (``--tensor-parallel N``, the
+reference's ``stage_param_spec``): every block is the Megatron pair of
+``models.DecoderBlock._forward_tp`` on ``PipeMesh.tp()`` (q / k / v and
+``mlp_up`` with its bias split by column, ``attn_out`` and ``mlp_down``
+by row, the LayerNorms and ``mlp_down``'s bias whole), the shards run as
+units; the embedding and the head stay whole (the head is not
+vocab-split). ``--split-qkv`` resolves as the reference's
+``_stage_module`` does (``models.resolve_split_qkv``: auto splits under
+TP; off under TP warns and splits the fused ``qkv`` by head). The init
+draws every weight whole and keeps this process's part, so it depends on
+neither S, V nor N.
 
 On the card attention is the differentiable flash attention in bf16 (K1
 through the ``flash_fwd`` op, K2 through ``flash_bwd``); under ``--dtype
 f32`` it is the plain attention, as the reference's ``attend`` chooses.
 
 Checkpoints go through ``checkpoint.py``: process 0 gathers the stage
-stacks (and the ZeRO-1 parts) at a save and a restore takes each
-process's part (``checkpoint.Shards``); ``meta.json`` names the layout
-(S, V, zero1) and a restore across another is refused.
-``--tensor-parallel`` > 1 and ``--split-qkv`` away from ``auto`` raise
-NotImplementedError (ROADMAP Queue A 7).
+stacks (and their model parts, and the ZeRO-1 parts) at a save, so a
+checkpoint holds whole arrays, and a restore takes each process's part
+(``checkpoint.Shards``); ``meta.json`` names the layout (S, V, zero1) and
+a restore across another is refused. N is not part of it: a save under
+one ``--tensor-parallel`` restores under another.
 """
 
 from __future__ import annotations
@@ -81,6 +97,7 @@ from tpu_operator_torch.device import resolve_device
 from tpu_operator_torch.payload import autotune
 from tpu_operator_torch.payload import bootstrap
 from tpu_operator_torch.payload import checkpoint
+from tpu_operator_torch.payload import collectives
 from tpu_operator_torch.payload import compute
 from tpu_operator_torch.payload import data as data_mod
 from tpu_operator_torch.payload import flash_attention as fa
@@ -113,12 +130,15 @@ def parse_args(argv=None):
                    help="pipeline stages; they spread over the processes "
                         "of a pipe group, S / P a process")
     p.add_argument("--tensor-parallel", type=int, default=1,
-                   help="tensor-parallel shards inside every stage (not "
-                        "ported: must be 1)")
+                   help="tensor-parallel shards inside every stage: model "
+                        "groups of min(world, N) neighbouring processes, "
+                        "N / that many shards a process")
     p.add_argument("--split-qkv", choices=("auto", "on", "off"),
                    default="auto",
-                   help="separate q/k/v stage projections (not ported: "
-                        "auto, which splits under GQA and fuses otherwise)")
+                   help="separate q/k/v stage projections: auto splits "
+                        "under --tensor-parallel (each shard owns whole "
+                        "heads) and under GQA; off under TP is allowed but "
+                        "warned")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: each data rank keeps 1/N of the optimizer "
                         "state, updates that part and all-gathers the "
@@ -169,24 +189,6 @@ def parse_args(argv=None):
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "PyTorch path)")
     return p.parse_args(argv)
-
-
-# flag -> (its default, the ROADMAP Queue A item that ports it)
-_NOT_PORTED = {
-    "tensor_parallel": (1, "7"),
-    "split_qkv": ("auto", "7"),
-}
-
-
-def check_ported(args) -> None:
-    """NotImplementedError for a flag set away from the reference's
-    default that the port cannot honour yet."""
-    for name, (default, item) in _NOT_PORTED.items():
-        if getattr(args, name, default) != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} {getattr(args, name)!r} is not "
-                f"ported to the PyTorch payload yet (ROADMAP Queue A "
-                f"{item}); leave it at {default!r}")
 
 
 def virtual_stages(args) -> int:
@@ -423,12 +425,17 @@ def unit_table(schedule: str, num_stages: int, virtual: int,
 
 
 class PipeMesh(NamedTuple):
-    """The (data, pipe) layout of the job's processes: ``world``
-    processes, ``procs`` (P) neighbouring ranks per pipe group sharing the
-    ``stages`` (S) stages, S / P each, ``data`` = world / P. Ranks are
-    data-major: rank = data_rank * P + pipe_rank. ``pipe_group`` is this
-    process's pipe group, ``data_group`` the processes holding the same
-    stages (each None when it would hold one process)."""
+    """The (data, pipe, model) layout of the job's processes: ``world``
+    processes, ``model_procs`` (P_m) neighbouring ranks per model group
+    holding the ``tp_shards`` (N) tensor-parallel shards, N / P_m each,
+    ``procs`` (P) model groups per pipe group sharing the ``stages`` (S)
+    stages, S / P each, ``data`` = world / (P·P_m). Ranks are data-major,
+    model innermost: rank = (data_rank·P + pipe_rank)·P_m + model_rank.
+    ``pipe_group`` is this process's pipe group (the same data and model
+    rank), ``data_group`` the processes holding the same stages and model
+    part, ``model_group`` its model group and ``replica_group`` the
+    processes of its model rank (each None when it would hold one
+    process, or when it is the world)."""
 
     world: int
     rank: int
@@ -436,21 +443,29 @@ class PipeMesh(NamedTuple):
     procs: int
     pipe_group: Any = None
     data_group: Any = None
+    tp_shards: int = 1
+    model_procs: int = 1
+    model_group: Any = None
+    replica_group: Any = None
 
     @property
     def data(self) -> int:
-        return self.world // self.procs
+        return self.world // (self.procs * self.model_procs)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.procs
+        return self.rank // (self.procs * self.model_procs)
 
     @property
     def pipe_rank(self) -> int:
-        return self.rank % self.procs
+        return (self.rank // self.model_procs) % self.procs
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model_procs
 
     # The batch shard this process holds (data.lm_batches): its data
-    # rank's, which its pipe group shares.
+    # rank's, which its pipe and model groups share.
     @property
     def batch_rank(self) -> int:
         return self.data_rank
@@ -468,43 +483,63 @@ class PipeMesh(NamedTuple):
         return range(first, first + self.per_proc)
 
     def owner(self, stage: int) -> int:
-        """The rank of the process of this data rank that holds
+        """The rank of the process of this data and model rank that holds
         ``stage``."""
-        return self.data_rank * self.procs + stage // self.per_proc
+        return (self.data_rank * self.procs + stage // self.per_proc) \
+            * self.model_procs + self.model_rank
+
+    def tp(self) -> collectives.TPShards:
+        return collectives.TPShards(self.tp_shards, self.model_procs,
+                                    self.model_rank, self.model_group)
 
 
 def make_pipe_mesh(world: Optional[int] = None, rank: Optional[int] = None,
-                   pipeline: int = 1) -> PipeMesh:
-    """The (data, pipe) mesh over the job's processes (default: the process
-    group, or one process without one): P = min(world, S) processes per
-    pipe group, data = world / P; S must split over P and P over the world.
-    With a process group, every process creates every pipe and data group
+                   pipeline: int = 1, tensor_parallel: int = 1) -> PipeMesh:
+    """The (data, pipe, model) mesh over the job's processes (default: the
+    process group, or one process without one): P_m = min(world, N)
+    processes per model group, P = min(world / P_m, S) model groups per
+    pipe group, data = world / (P·P_m); S must split over P, N over P_m
+    and the world over P·P_m.
+    With a process group, every process creates every group it may need
     (``dist.new_group`` is collective) and keeps its own."""
     grouped = dist.is_available() and dist.is_initialized()
     if world is None:
         world = dist.get_world_size() if grouped else 1
     if rank is None:
         rank = dist.get_rank() if grouped else 0
-    procs = min(world, pipeline)
-    if pipeline < 1 or pipeline % procs or world % procs:
+    if tensor_parallel < 1:
+        raise ValueError(f"--tensor-parallel must be >= 1, got "
+                         f"{tensor_parallel}")
+    mprocs = min(world, tensor_parallel)
+    if tensor_parallel % mprocs or world % mprocs:
+        raise ValueError(f"--tensor-parallel {tensor_parallel} does not lay "
+                         f"out over {world} processes")
+    procs = min(world // mprocs, pipeline)
+    if pipeline < 1 or pipeline % procs or world % (procs * mprocs):
         raise ValueError(f"--pipeline {pipeline} does not lay out over "
                          f"{world} processes")
-    pipe_group = data_group = None
-    if grouped and world > 1:
-        data = world // procs
-        if procs > 1:
-            for d in range(data):
-                ranks = list(range(d * procs, (d + 1) * procs))
-                group = dist.new_group(ranks)
-                if rank in ranks:
-                    pipe_group = group
-        if data > 1:
-            for r in range(procs):
-                ranks = list(range(r, world, procs))
-                group = dist.new_group(ranks)
-                if rank in ranks:
-                    data_group = group
-    return PipeMesh(world, rank, pipeline, procs, pipe_group, data_group)
+    mesh = PipeMesh(world, rank, pipeline, procs, tp_shards=tensor_parallel,
+                    model_procs=mprocs)
+    if not grouped or world == 1:
+        return mesh
+
+    inner = procs * mprocs
+    groups = {}
+    if procs > 1:
+        groups["pipe_group"] = collectives.own_group(rank, (
+            list(range(first + m, first + inner, mprocs))
+            for first in range(0, world, inner) for m in range(mprocs)))
+    if world > inner:
+        groups["data_group"] = collectives.own_group(
+            rank, (list(range(r, world, inner)) for r in range(inner)))
+    if mprocs > 1:
+        groups["model_group"] = collectives.own_group(rank, (
+            list(range(first, first + mprocs))
+            for first in range(0, world, mprocs)))
+        if world > mprocs:
+            groups["replica_group"] = collectives.own_group(
+                rank, (list(range(m, world, mprocs)) for m in range(mprocs)))
+    return mesh._replace(**groups)
 
 
 # --- the model ----------------------------------------------------------------------
@@ -512,17 +547,21 @@ def make_pipe_mesh(world: Optional[int] = None, rank: Optional[int] = None,
 
 class Stage(nn.Module):
     """One chunk of the block stack: ``blocks`` decoder blocks named
-    ``block0``, ``block1``, ... (the reference's ``Stage``)."""
+    ``block0``, ``block1``, ... (the reference's ``Stage``), each on the
+    tensor-parallel shards ``tp`` with the q/k/v layout ``split_qkv``
+    (None: split under GQA only)."""
 
-    def __init__(self, args, blocks: int, device=None):
+    def __init__(self, args, blocks: int, device=None,
+                 tp: collectives.TPShards = collectives.TPShards(),
+                 split_qkv: Optional[bool] = None):
         super().__init__()
         block = compute.lm_block(args)
         dtype = moe.compute_dtype(args)
         self.blocks = blocks
         for i in range(blocks):
             self.add_module(f"block{i}", block(
-                args.dim, args.heads, args.kv_heads, None, torch.float32,
-                device, compute_dtype=dtype))
+                args.dim, args.heads, args.kv_heads, split_qkv,
+                torch.float32, device, compute_dtype=dtype, tp=tp))
 
     def forward(self, x: torch.Tensor, attend: models.Attend) -> torch.Tensor:
         for i in range(self.blocks):
@@ -541,12 +580,22 @@ def _layer_generator(device, seed: int, index: int) -> torch.Generator:
 @torch.no_grad()
 def _init_block(block: models.DecoderBlock, gen: torch.Generator) -> None:
     """Dense weights normal with std 1/sqrt(fan_in), zero biases, unit
-    LayerNorm scales (``TransformerLM.init_weights``'s scales)."""
-    for module in block.modules():
+    LayerNorm scales (``TransformerLM.init_weights``'s scales). A weight
+    split over tensor-parallel processes is drawn whole and this process's
+    part kept, so the draw does not depend on the split."""
+    split, tp = block.tp_dims(), block.tp
+    for name, module in block.named_modules():
         if isinstance(module, nn.Linear):
-            draw = torch.randn(module.weight.shape, generator=gen,
-                               device=gen.device)
-            module.weight.copy_(draw / math.sqrt(module.in_features))
+            shape, fan_in = list(module.weight.shape), module.in_features
+            dims = split.get(f"{name}.weight") if tp.procs > 1 else None
+            if dims is not None:
+                shape[dims[0]] *= tp.procs
+                if dims[0] == 1:
+                    fan_in *= tp.procs  # row-parallel: a part of the input
+            draw = torch.randn(shape, generator=gen, device=gen.device)
+            if dims is not None:
+                draw = collectives.part_of(draw, *dims, tp.procs, tp.index)
+            module.weight.copy_(draw / math.sqrt(fan_in))
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, nn.LayerNorm):
@@ -556,7 +605,8 @@ def _init_block(block: models.DecoderBlock, gen: torch.Generator) -> None:
 
 class PipelineLM:
     """This process's part of the pipelined LM: the embedding and the head
-    whole, and the stage stacks of the chunks it holds.
+    whole, and the stage stacks of the chunks it holds (under tensor
+    parallelism over processes, its model part of each split weight).
 
     ``params`` are the state's tensors by name: ``tok_embed`` [vocab,
     dim], ``pos_embed`` [seq, dim], ``stages.block{i}.<param>`` (a block
@@ -580,10 +630,16 @@ class PipelineLM:
                                if self.V > 1 else ""))
         self.blocks = args.layers // self.n_chunks
         self.local = list(mesh.local_stages())
+        self.tp = mesh.tp()
+        if self.tp.shards > 1:
+            models.validate_heads_dims(args.heads, args.kv_heads, args.dim,
+                                       self.tp.shards)
+        split = models.resolve_split_qkv(args.split_qkv, self.tp.shards, log)
         self.chunks: Dict[Tuple[int, int], Stage] = {}
         for j in range(max(self.V, 1)):
             for d in self.local:
-                stage = Stage(args, self.blocks, device)
+                stage = Stage(args, self.blocks, device, self.tp,
+                              split or None)
                 c = j * self.S + d
                 for i in range(self.blocks):
                     _init_block(getattr(stage, f"block{i}"), _layer_generator(
@@ -632,6 +688,18 @@ class PipelineLM:
     def stack_dim(self) -> int:
         """The stacks' pipe dim (the one split over a pipe group)."""
         return 1 if self.V else 0
+
+    def tp_dims(self) -> Dict[str, Tuple[int, int]]:
+        """{param name: (split dim, sections)} of the stage stacks split
+        over the model group (``DecoderBlock.tp_dims`` one past the stack
+        dims); empty without tensor parallelism."""
+        stage = next(iter(self.chunks.values()))
+        dims = {}
+        for i in range(self.blocks):
+            block = getattr(stage, f"block{i}")
+            dims.update({f"stages.block{i}.{n}": (self.stack_dim + 1 + d, k)
+                         for n, (d, k) in block.tp_dims().items()})
+        return dims
 
     def head_params(self) -> List[torch.Tensor]:
         return [self.ln_f_scale, self.ln_f_bias, self.head]
@@ -847,8 +915,11 @@ class Pipeline:
         """(loss, f32 gradients by parameter name) of this data rank's
         ``tokens``, reduced over the mesh: stage gradients the mean over
         the data group, the embedding's and head's and the loss the sum
-        over the world divided by the data ranks
-        (``_reduce_pipeline_grads``)."""
+        over the data x pipe processes of this model rank divided by the
+        data ranks (``_reduce_pipeline_grads``). Every model rank holds the
+        same embedding, head and loss (``TPShards.enter`` has already
+        summed the stage input's gradient over the model group), so each
+        counts once; a split stage weight's gradient is its part's."""
         model, mesh = self.model, self.mesh
         acc = {n: torch.zeros_like(p, dtype=torch.float32)
                for n, p in model.params.items()}
@@ -861,11 +932,11 @@ class Pipeline:
                        for part in tokens.chunk(k))
         else:
             loss = self._run(tokens, 1.0, acc)
-        if mesh.world > 1:
+        if mesh.procs * mesh.data > 1:
             replicated = [n for n in acc if not n.startswith("stages.")]
             flat = torch.cat([acc[n].reshape(-1) for n in replicated]
                              + [loss.reshape(1)])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=mesh.replica_group)
             flat /= mesh.data
             offset = 0
             for n in replicated:
@@ -907,17 +978,23 @@ class Zero1(NamedTuple):
 def zero1_dims(model: PipelineLM, data: int, optimizer: str) -> Dict[str, int]:
     """The reference's ``state_shardings(zero1=True)`` rule for each
     parameter: a leaf of at least 1024 elements (counted on its whole
-    stack) splits on its first dim that the pipe does not split and that
-    ``data`` divides. adam8's moments are blocked along the last dim
-    (``train.quantized_aware``): they split there only when the blocks
-    split evenly (the part a multiple of the block), else stay whole."""
+    array) splits on its first dim that neither the pipe nor the model
+    axis splits (under ``--tensor-parallel`` N > 1, whether or not the
+    shards share a process) and that ``data`` divides. adam8's moments are
+    blocked along the last dim (``train.quantized_aware``): they split
+    there only when the blocks split evenly (the part a multiple of the
+    block), else stay whole."""
+    tp_dims = model.tp_dims()
     dims = {}
     for name, p in model.params.items():
         shape = list(p.shape)
-        pipe_dim = None
+        taken = set()
         if name.startswith("stages."):
-            pipe_dim = model.stack_dim
-            shape[pipe_dim] = model.S  # the whole stack
+            taken.add(model.stack_dim)
+            shape[model.stack_dim] = model.S  # the whole stack
+        if name in tp_dims:
+            taken.add(tp_dims[name][0])
+            shape[tp_dims[name][0]] *= model.tp.procs
         last = len(shape) - 1
         if optimizer == "adam8":
             blocks = -(-shape[-1] // optimizers.BLOCK)
@@ -925,7 +1002,7 @@ def zero1_dims(model: PipelineLM, data: int, optimizer: str) -> Dict[str, int]:
         if math.prod(shape) < ZERO1_MIN_ELEMENTS:
             continue
         for i, size in enumerate(shape):
-            if i == pipe_dim or size % data:
+            if i in taken or size % data:
                 continue
             if optimizer == "adam8" and i == last and \
                     p.shape[-1] % (data * optimizers.BLOCK):
@@ -969,10 +1046,11 @@ class Built(NamedTuple):
     @property
     def state(self) -> checkpoint.TrainState:
         """The params and optimizer state the step updates in place, with
-        the split of the stage stacks over the pipe group and of the
-        ZeRO-1 moments over the data group, and the layout (a restore
-        across another ``--pipeline``, ``--virtual-stages`` or
-        ``--zero1`` is refused)."""
+        the split of the stage stacks over the pipe group, of the split
+        weights and their moments over the model group and of the ZeRO-1
+        moments over the data group, and the layout (a restore across
+        another ``--pipeline``, ``--virtual-stages`` or ``--zero1`` is
+        refused; ``--tensor-parallel`` is not part of it)."""
         model, mesh = self.model, self.mesh
         shards = None
         if self.zero1 is not None and mesh.data > 1:
@@ -980,6 +1058,8 @@ class Built(NamedTuple):
                 {checkpoint.OPT_FILE: opt_state_dims(
                     self.opt_state, list(model.params), self.zero1.dims)},
                 mesh.data_group, mesh.data, mesh.data_rank)
+        if mesh.model_procs > 1:
+            shards = self._tp_shards(shards)
         if mesh.procs > 1:
             names = list(model.params)
             staged = {i for i, n in enumerate(names)
@@ -997,6 +1077,37 @@ class Built(NamedTuple):
             dict(model.params), self.opt_state, shards=shards,
             model={"name": "pipeline", "pipeline": model.S,
                    "virtualStages": model.V, "zero1": self.zero1 is not None})
+
+    def _tp_shards(self, inner: Optional[checkpoint.Shards]
+                   ) -> checkpoint.Shards:
+        """The split stage weights and their moments (``mu.<i>`` /
+        ``nu.<i>``, shaped as their param or as its ZeRO-1 part) over the
+        model group. adam8's block-quantized moments do not split along a
+        param's dims: refused, as the transformer payload refuses them."""
+        model, mesh = self.model, self.mesh
+        dims = model.tp_dims()
+        names = list(model.params)
+        opt = {}
+        for key, t in self.opt_state.state_dict().items():
+            index = key.rsplit(".", 1)[-1]
+            if not t.dim() or not index.isdigit():
+                continue
+            name = names[int(index)]
+            if name not in dims:
+                continue
+            param = model.params[name]
+            want = self.zero1.view(name, param) if self.zero1 else param
+            if t.shape != want.shape:
+                raise ValueError(
+                    f"optimizer state {key} {tuple(t.shape)} is not shaped "
+                    f"as its param {name} {tuple(want.shape)}: it does not "
+                    f"split over --tensor-parallel processes for a "
+                    f"checkpoint (use --optimizer adam)")
+            opt[key] = dims[name]
+        return checkpoint.Shards({checkpoint.PARAMS_FILE: dims,
+                                  checkpoint.OPT_FILE: opt},
+                                 mesh.model_group, mesh.model_procs,
+                                 mesh.model_rank, inner=inner)
 
 
 def opt_targets(model: PipelineLM, zero1: Optional[Zero1]
@@ -1072,13 +1183,15 @@ def check_schedule(args, mesh: PipeMesh) -> None:
 def build(args, device=None, mesh: Optional[PipeMesh] = None) -> Built:
     """Model (seeded init), optimizer and its state, step and host batches
     for the flags. ``device`` defaults to ``--device`` (CUDA unless it
-    says ``cpu``); ``mesh`` to the (data, pipe) mesh of the job's process
-    group at ``--pipeline``."""
-    check_ported(args)
-    mesh = mesh or make_pipe_mesh(pipeline=args.pipeline)
-    if mesh.stages != args.pipeline:
-        raise ValueError(f"mesh has {mesh.stages} stages, --pipeline is "
-                         f"{args.pipeline}")
+    says ``cpu``); ``mesh`` to the (data, pipe, model) mesh of the job's
+    process group at ``--pipeline`` and ``--tensor-parallel``."""
+    mesh = mesh or make_pipe_mesh(pipeline=args.pipeline,
+                                  tensor_parallel=args.tensor_parallel)
+    if (mesh.stages, mesh.tp_shards) != (args.pipeline,
+                                         args.tensor_parallel):
+        raise ValueError(f"mesh has {mesh.stages} stages and "
+                         f"{mesh.tp_shards} tensor-parallel shards, the "
+                         f"flags {args.pipeline} and {args.tensor_parallel}")
     grad_accum = args.grad_accum
     if grad_accum < 1 or \
             args.batch % (mesh.data * args.microbatches * grad_accum):
@@ -1108,11 +1221,13 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     args = args or parse_args([])
     built = build(args)
     mesh = built.mesh
-    log.info("mesh: {'data': %d, 'pipe': %d} over %d processes (%d stages "
-             "a process); %d layers / %d stages, %d microbatches, schedule "
-             "%s, %s on %s", mesh.data, mesh.procs, mesh.world,
-             mesh.per_proc, args.layers, args.pipeline, args.microbatches,
-             args.schedule, args.dtype, built.device)
+    log.info("mesh: {'data': %d, 'pipe': %d, 'model': %d} over %d "
+             "processes (%d stages and %d tensor-parallel shards a "
+             "process); %d layers / %d stages, %d microbatches, schedule "
+             "%s, %s on %s", mesh.data, mesh.procs, mesh.model_procs,
+             mesh.world, mesh.per_proc, mesh.tp_shards // mesh.model_procs,
+             args.layers, args.pipeline, args.microbatches, args.schedule,
+             args.dtype, built.device)
     ckpt = checkpoint.from_env_or_args(args.checkpoint_dir,
                                        save_every=args.checkpoint_every)
     if ckpt is not None and ckpt.latest_step() is not None:

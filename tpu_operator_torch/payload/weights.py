@@ -23,7 +23,8 @@ The pipeline LM (:func:`pipeline_from_flax`, :func:`pipeline_to_flax`):
 the reference's ``pipeline.py`` tree (``tok_embed``, ``pos_embed``, the
 ``stages`` stacks of ``block{i}`` subtrees, ``ln_f``, ``head``), each
 stage leaf ``[S, ...]`` or ``[V, S, ...]``; a process takes and gives
-back the stages it holds.
+back the stages it holds (under tensor parallelism over processes, its
+model part of each split weight).
 
 The classifier: conv kernels HWIO <-> OIHW, the dense head ``[in, out]``
 <-> ``Linear.weight [out, in]``, BatchNorm ``scale`` / ``bias`` and the
@@ -40,7 +41,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_operator_torch.payload.collectives import TPShards
+from tpu_operator_torch.payload.collectives import TPShards, part_of
 from tpu_operator_torch.payload.models import (BatchNorm, CifarResNet, Conv,
                                                LinearRegressor, TransformerLM)
 
@@ -103,7 +104,7 @@ def _load_lm(model: TransformerLM, params: Mapping[str, Any]) -> None:
             _load_dense(moe.router, sub["router"])
             for name in ("w1", "w2"):
                 whole = _t(sub[name])
-                part = whole.chunk(moe.shard.size)[moe.shard.rank]
+                part = moe.part(name, whole)
                 live = getattr(moe, name)
                 if tuple(part.shape) != tuple(live.shape):
                     raise ValueError(f"block{i}/moe/{name} "
@@ -374,13 +375,19 @@ def pipeline_from_flax(params: Mapping[str, Any], model) -> None:
     are, and of every ``stages`` leaf (``[S, ...]``, or ``[V, S, ...]``
     under the interleaved schedule: chunk c = j·S + d at ``[j, d]``) the
     stages this process holds, dense kernels transposed to ``Linear``'s
-    ``[out, in]``. Raises ValueError where a shape does not fit."""
+    ``[out, in]``, and under tensor parallelism over processes its model
+    part of each split weight. Raises ValueError where a shape does not
+    fit."""
     lo, k = model.local[0], len(model.local)
+    tp, split = model.tp, model.tp_dims()
     for name, (path, transpose) in _stage_leaf_paths(model).items():
         leaf = np.asarray(_get(params["stages"], path))
         part = _t(leaf[:, lo:lo + k] if model.V else leaf[lo:lo + k])
         if transpose:
             part = part.transpose(-1, -2)
+        if f"stages.{name}" in split and tp.procs > 1:
+            part = part_of(part, *split[f"stages.{name}"], tp.procs,
+                           tp.index)
         live = model.stacks[name]
         if tuple(part.shape) != tuple(live.shape):
             raise ValueError(f"stages/{'/'.join(path)} {leaf.shape} does not "
@@ -404,7 +411,8 @@ def pipeline_to_flax(model, tensors: Optional[Mapping[str, torch.Tensor]]
     (``pipeline.PipelineLM``) as f32 numpy arrays, or of ``tensors`` (the
     same names as ``model.params``, e.g. the gradients of
     ``Pipeline.loss_and_grads``): the inverse of
-    :func:`pipeline_from_flax` over the stages this process holds."""
+    :func:`pipeline_from_flax` over the stages (and model parts) this
+    process holds."""
     values = model.params if tensors is None else tensors
     tree: Dict[str, Any] = {
         "tok_embed": _np(values["tok_embed"]),
