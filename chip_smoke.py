@@ -126,6 +126,14 @@ one JSON line each:
    times); a plain side with D from the bf16 O shows how much of the gap
    to autograd that alone makes. ``profile_train``: one training step and
    one adam update under torch.profiler.
+9a. ``fsdp``: the train cell with ``--fsdp`` in this one process (data
+   1: every leaf an FSDP shard of one part), 6 steps: the gathers, the
+   saved-tensor hooks that gather again in the backward, the recompute's
+   gathers under dots_attn and the reduce-scatter seam at full width.
+   The loss trajectory must be bit-equal to the train phase's, K1, dq and
+   dkv launched as often, and the peak memory's rise above the loop's
+   start within 1.5 GB of the train phase's; the step ms and the peak
+   are printed on lines of their own.
 10. ``checkpoint``: the training phase's flagship at full width and
     depth, checkpointed and resumed through ``checkpoint.Checkpointer``
     in a ``tempfile.mkdtemp()`` directory (it fails with fewer than 3 x
@@ -285,6 +293,17 @@ Then the total wall time, one JSON line of per-kernel numbers, the
 {...}}``. Any failed check exits
 non-zero. Without a CUDA device, or outside a checkout, it exits 1 or 2
 and prints no result.
+
+    python3 chip_smoke.py --fsdp-cards 4
+
+is a separate measurement on a machine with four cards (no phase above
+runs): examples/tpujob-tensor-parallel.yml's payload with ``--fsdp`` in
+place of ``--tensor-parallel 4`` (dim 4096, 16 layers, 4 heads, batch
+16, ``--remat``; 3.2B params) as four NCCL processes, one a card (data
+4), 4 steps: each card's peak memory (after the build, and over the
+steps), the fenced step ms and the losses; then one card at the same
+flags without ``--fsdp``, its losses beside them. One JSON line each,
+the last ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -2557,6 +2576,7 @@ def drive_train(torch, fa, train, built, args, label, wanted):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    start_memory = torch.cuda.memory_allocated() / 1e9
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     last = train.train_loop(step, built.batches, args.steps,
@@ -2585,7 +2605,7 @@ def drive_train(torch, fa, train, built, args, label, wanted):
             "loop_seconds": end - t0,
             "step_seconds": [b - a for a, b in zip(starts,
                                                     starts[1:] + [end])],
-            "peak_memory_gb": peak}
+            "peak_memory_gb": peak, "start_memory_gb": start_memory}
 
 
 def run_train(torch, fa, transformer, train, data):
@@ -2627,6 +2647,69 @@ def run_train(torch, fa, transformer, train, data):
         "crosscheck_at_init": at_init,
         "crosscheck_trained": trained,
     }, built
+
+
+# --- phase: fsdp -------------------------------------------------------------
+
+
+# The train cell (TRAIN_ARGV) with --fsdp, in one process: data 1.
+FSDP_ARGV = [*TRAIN_ARGV, "--fsdp"]
+# What the fsdp phase may peak above the train phase: about two blocks'
+# gathered f32 weights (a gathered copy that is never freed adds ~2 GB).
+FSDP_PEAK_SLACK_GB = 1.5
+
+
+def run_fsdp(torch, fa, transformer, train, reference):
+    """The train cell with ``--fsdp`` (FSDP_ARGV) in one process, data 1:
+    every leaf is an FSDP shard of one part, so the gathers (a cast each),
+    the saved-tensor hooks that keep a shard in place of a gathered weight
+    and gather it again in the backward, the recompute's gathers under
+    dots_attn and the per-microbatch reduce-scatter seam all run at full
+    width, with K1 and K2 as custom ops and the bf16 first moment. Gated
+    against ``reference`` (the train phase's reading): the loss trajectory
+    bit-equal (at data 1 every sum keeps its order), K1, dq and dkv
+    launched as often, the peak memory within FSDP_PEAK_SLACK_GB of it,
+    each peak counted above the memory allocated when its loop starts (the
+    model and optimizer state, the same in both; what earlier phases left
+    allocated is not the step's)."""
+    args = transformer.parse_args(FSDP_ARGV)
+    built = transformer.build(args)
+    shards = [p for p in built.model.parameters()
+              if getattr(p, "fsdp", None) is not None]
+    require(len(shards) == len(list(built.model.parameters())),
+            f"fsdp: {len(shards)} shards of "
+            f"{len(list(built.model.parameters()))} params (every leaf of "
+            f"the flagship has >= 1024 elements)")
+    per_path = args.layers * args.grad_accum * args.steps
+    wanted = {"flash_fwd": per_path, "flash_bwd_dq": per_path,
+              "flash_bwd_dkv": per_path, "flash_merge": 0}
+    loop = drive_train(torch, fa, train, built, args, "fsdp", wanted)
+    for name in wanted:
+        require(loop["launches"][name] == reference["launches"][name],
+                f"fsdp: {name} launched {loop['launches'][name]} times, the "
+                f"train phase {reference['launches'][name]}")
+    require(loop["loss_trajectory"] == reference["loss_trajectory"],
+            f"fsdp: losses {loop['loss_trajectory']} are not the train "
+            f"phase's {reference['loss_trajectory']}")
+    extra = (loop["peak_memory_gb"] - loop["start_memory_gb"]) \
+        - (reference["peak_memory_gb"] - reference["start_memory_gb"])
+    require(extra <= FSDP_PEAK_SLACK_GB,
+            f"fsdp: peak {loop['peak_memory_gb']:.2f} GB from "
+            f"{loop['start_memory_gb']:.2f} at the loop's start, {extra:.2f} "
+            f"GB above the train phase's rise")
+    step_ms = 1e3 * statistics.median(loop["step_seconds"][1:4])
+    train_ms = 1e3 * statistics.median(reference["step_seconds"][1:4])
+    print(f"fsdp step ms (median of steps 1-3): {step_ms:.1f} "
+          f"(train {train_ms:.1f})", flush=True)
+    print(f"fsdp peak memory GB: {loop['peak_memory_gb']:.3f} from "
+          f"{loop['start_memory_gb']:.3f} at the loop's start (train "
+          f"{reference['peak_memory_gb']:.3f} from "
+          f"{reference['start_memory_gb']:.3f})", flush=True)
+    del built
+    return {"argv": FSDP_ARGV, "shards": len(shards), **loop,
+            "step_ms": step_ms, "train_step_ms": train_ms,
+            "rise_above_train_gb": extra,
+            "losses_bit_equal_to_train": True}
 
 
 # --- phase: checkpoint -------------------------------------------------------
@@ -5245,6 +5328,125 @@ def profile_train(torch, built):
             "adam_update": _breakdown(opt_rows, opt_wall)}
 
 
+# --- four cards: the TP job's model under --fsdp -----------------------------
+
+
+# examples/tpujob-tensor-parallel.yml's payload with --fsdp in place of
+# --tensor-parallel 4.
+FSDP_CARDS_ARGV = ["--steps", "4", "--fsdp", "--dim", "4096", "--layers",
+                   "16", "--batch", "16", "--remat", "--seed", "0",
+                   "--log-every", "0", "--device", "cuda",
+                   "--checkpoint-dir", "", "--profile-dir", ""]
+
+
+def fsdp_card_steps(torch, transformer, argv) -> dict:
+    """Build ``argv`` on this process's card and train its steps, each
+    fenced (synchronized before and after): the losses, the step ms, the
+    peak memory after the build and over the steps, and the shards."""
+    torch.cuda.reset_peak_memory_stats()
+    args = transformer.parse_args(argv)
+    built = transformer.build(args)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(args.steps):
+        (tokens,) = next(built.batches)
+        tokens = torch.from_numpy(tokens).to(built.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(built.step(tokens)["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"losses": losses, "step_ms": ms,
+            "build_peak_gb": build_peak,
+            "steps_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_here": sum(p.numel() for p in built.model.parameters()),
+            "shards": sum(getattr(p, "fsdp", None) is not None
+                          for p in built.model.parameters())}
+
+
+def fsdp_card_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One process of the four-card run: an NCCL group over
+    ``127.0.0.1:port``, card ``rank``; writes its reading to ``out``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from tpu_operator_torch.payload import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = fsdp_card_steps(torch, transformer, FSDP_CARDS_ARGV)
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump({"rank": rank, **res}, f)
+    return 0
+
+
+def fsdp_cards(world: int) -> int:
+    """``--fsdp-cards N``: the TP job's model under --fsdp over N cards,
+    then one card at the same flags without it."""
+    sys.path.insert(0, ROOT)
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f"chip_smoke: --fsdp-cards {world} needs {world} CUDA cards",
+              file=sys.stderr)
+        return 1
+    from tpu_operator_torch.kernels import build
+    from tpu_operator_torch.payload import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__})
+    build.library()  # once, before the workers load it
+    port = free_port()
+    tmp = tempfile.mkdtemp()
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fsdp-worker",
+         str(r), str(world), str(port), outs[r]]) for r in range(world)]
+    try:
+        codes = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(codes):
+        emit({"phase": "failed", "error": f"worker exit codes {codes}"})
+        return 1
+    ranks = [json.load(open(o)) for o in outs]
+    for r in ranks:
+        emit({"phase": "fsdp_cards", **r})
+    require(all(r["losses"] == ranks[0]["losses"] for r in ranks),
+            "the ranks logged different losses")
+    one = fsdp_card_steps(torch, transformer, [
+        a for a in FSDP_CARDS_ARGV if a != "--fsdp"])
+    emit({"phase": "fsdp_cards_one_card", **one})
+    emit({"phase": "fsdp_cards_summary", "cards": world,
+          "losses": ranks[0]["losses"], "one_card_losses": one["losses"],
+          "step_ms": [statistics.median(r["step_ms"][1:]) for r in ranks],
+          "one_card_step_ms": statistics.median(one["step_ms"][1:]),
+          "peak_gb": [max(r["build_peak_gb"], r["steps_peak_gb"])
+                      for r in ranks],
+          "one_card_peak_gb": max(one["build_peak_gb"],
+                                  one["steps_peak_gb"])})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -5336,6 +5538,9 @@ def main() -> int:
         emit({"phase": "profile_train", **profile_train(torch, built)})
         del built
         torch.cuda.empty_cache()
+        fs = run_fsdp(torch, fa, transformer, train, tr)
+        emit({"phase": "fsdp", **fs})
+        torch.cuda.empty_cache()
         ckp, unbroken = run_checkpoint(torch, fa, transformer, train, serve,
                                        bootstrap, checkpoint, steptrace)
         emit({"phase": "checkpoint", **ckp})
@@ -5406,10 +5611,11 @@ def main() -> int:
     wide_dec = wide["decode"]["b_serve_tp_d1024"]
     ring_bwd = bwd["sp_ring_striped_given_d"]
     pipe_fwd, pipe_bwd = (x["pipeline_causal_mha_d64"] for x in (fwd, bwd))
-    # The earlier slice's paths (tensor_parallel, sp_tp, ulysses; K1 and
-    # K2 at the TP job's shard shape, D 1024, K4 on sp_tp's ring) and this
-    # slice's (pipeline_tp, moe_tp): K1 and K2 timed at the pipeline_tp
-    # shard shape, the moe_tp one beside it.
+    # This slice's path (fsdp: K1 and K2 at the train shape) leads each
+    # kernel's line; the earlier slices' paths (tensor_parallel, sp_tp,
+    # ulysses: K1 and K2 at the TP job's shard shape, D 1024, K4 on
+    # sp_tp's ring; pipeline_tp and moe_tp at their shard shapes) stay
+    # beside it.
     tp_fwd, tp_bwd = (wide[x]["tp_shard_d1024"] for x in ("fwd", "bwd"))
     pptp_fwd, pptp_bwd = (x["pipeline_tp_shard_d64"] for x in (fwd, bwd))
     motp_fwd, motp_bwd = (x["moe_tp_shard_d64"] for x in (fwd, bwd))
@@ -5417,8 +5623,6 @@ def main() -> int:
     slice_runs = {"pipeline_tp": pptp, "moe_tp": motp}
     tp_launches = {k: sum(r["launches"][k] for r in tp_runs.values())
                    for k in fa.LAUNCHES}
-    slice_launches = {k: sum(r["launches"][k] for r in slice_runs.values())
-                      for k in fa.LAUNCHES}
     slice_by_path = {k: {name: r["launches"][k]
                          for name, r in {**tp_runs, **slice_runs}.items()}
                      for k in fa.LAUNCHES}
@@ -5443,8 +5647,9 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_fwd.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:462",
-         "launches": slice_launches["flash_fwd"],
-         "launches_by_path": {**slice_by_path["flash_fwd"],
+         "launches": fs["launches"]["flash_fwd"],
+         "launches_by_path": {"fsdp": fs["launches"]["flash_fwd"],
+                              **slice_by_path["flash_fwd"],
                               **pipe_by_path["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "serve": sv["launches"]["flash_fwd"],
@@ -5471,12 +5676,18 @@ def main() -> int:
          **{f"ulysses_slab_{k}": par["ulysses_fwd"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "share_of_bound")},
-         "ms": pptp_fwd["ms"], "plain_ms": pptp_fwd["plain_ms"],
-         "bound_ms": pptp_fwd["bound_ms"], "bound_by": pptp_fwd["bound_by"],
-         "library_ms": pptp_fwd["library_ms"],
+         # This slice's path (fsdp) runs K1 at the train shape.
+         "ms": train_fwd["ms"], "plain_ms": train_fwd["plain_ms"],
+         "bound_ms": train_fwd["bound_ms"],
+         "bound_by": train_fwd["bound_by"],
+         "library_ms": train_fwd["library_ms"],
          "library": "F.scaled_dot_product_attention",
-         "share_of_bound": pptp_fwd["share_of_bound"],
-         "shape": "pipeline_tp shard B4 T256 H1 D64 causal",
+         "share_of_bound": train_fwd["share_of_bound"],
+         "shape": "fsdp / train B8 T2048 H16 KVH4 D128 causal",
+         "pipeline_tp_shape": "pipeline_tp shard B4 T256 H1 D64 causal",
+         **{f"pipeline_tp_{k}": pptp_fwd[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "share_of_bound")},
          "moe_tp_shape": "moe_tp shard B32 T256 H8 KVH8 D64 causal",
          **{f"moe_tp_{k}": motp_fwd[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -5554,8 +5765,9 @@ def main() -> int:
             "name": f"flash_bwd_{name}", "route": "cuda",
             "source": "tpu_operator_torch/kernels/csrc/flash_bwd.cu",
             "replaces": f"tpu_operator/payload/flash_attention.py:{line}",
-            "launches": slice_launches[f"flash_bwd_{name}"],
+            "launches": fs["launches"][f"flash_bwd_{name}"],
             "launches_by_path": {
+                "fsdp": fs["launches"][f"flash_bwd_{name}"],
                 **slice_by_path[f"flash_bwd_{name}"],
                 **pipe_by_path[f"flash_bwd_{name}"],
                 "train_sp": sp["launches"][f"flash_bwd_{name}"],
@@ -5589,19 +5801,26 @@ def main() -> int:
             "sp_tp_bwd_shape": "sp_tp chunk B8 Tq=Tk=4096 H8 KVH8, "
                                "(4096, 4096, 1) home and (4096, 0, 1) "
                                "earlier, given D, f32 grads",
-            "ms": pptp_bwd[f"ms_{name}"],
-            "plain_ms": pptp_bwd["plain_ms"],
-            "bound_ms": pptp_bwd[f"bound_ms_{name}"],
-            "bound_by": pptp_bwd[f"bound_by_{name}"],
-            "library_ms": pptp_bwd["library_ms"],
+            # This slice's path (fsdp) runs K2 at the train shape.
+            "ms": main_bwd[f"ms_{name}"],
+            "plain_ms": main_bwd["plain_ms"],
+            "bound_ms": main_bwd[f"bound_ms_{name}"],
+            "bound_by": main_bwd[f"bound_by_{name}"],
+            "library_ms": main_bwd["library_ms"],
             "library": "F.scaled_dot_product_attention",
-            "share_of_bound": pptp_bwd.get(f"share_of_bound_{name}"),
-            "shape": "pipeline_tp shard B4 T256 H1 D64 causal, fused D, "
-                     "bf16 grads",
+            "share_of_bound": main_bwd.get(f"share_of_bound_{name}"),
+            "shape": "fsdp / train B8 T2048 H16 KVH4 D128 causal, fused "
+                     "D, bf16 grads",
             "plain_ms_is": "_bwd_ref: dq, dk and dv together",
-            "library_ms_is": pptp_bwd["library_ms_is"],
-            "pair_ms": pptp_bwd["ms_pair"],
-            "pair_bound_ms": pptp_bwd["bound_ms_pair"],
+            "library_ms_is": main_bwd.get("library_ms_is"),
+            "pair_ms": main_bwd["ms_pair"],
+            "pair_bound_ms": main_bwd.get("bound_ms_pair"),
+            "pipeline_tp_shape": "pipeline_tp shard B4 T256 H1 D64 causal, "
+                                 "fused D, bf16 grads",
+            **{f"pipeline_tp_{k}": pptp_bwd.get(k) for k in (
+                f"ms_{name}", f"bound_ms_{name}", f"bound_by_{name}",
+                f"share_of_bound_{name}", "plain_ms", "library_ms",
+                "ms_pair")},
             "moe_tp_shape": "moe_tp shard B32 T256 H8 KVH8 D64 causal, "
                             "fused D, bf16 grads",
             **{f"moe_tp_{k}": motp_bwd.get(k) for k in (
@@ -5661,6 +5880,7 @@ def main() -> int:
         # Not on this slice's path: the earlier slice's (sp_tp's ring).
         "launches": tp_launches["flash_merge"],
         "launches_by_path": {
+            "fsdp": fs["launches"]["flash_merge"],
             **slice_by_path["flash_merge"],
             "train_sp": sp["launches"]["flash_merge"],
             "train": tr["launches"]["flash_merge"],
@@ -5700,4 +5920,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fsdp-worker"]:
+        sys.exit(fsdp_card_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                  int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1:2] == ["--fsdp-cards"]:
+        try:
+            sys.exit(fsdp_cards(int(sys.argv[2])))
+        except SmokeFailure as e:
+            emit({"phase": "failed", "error": str(e)})
+            sys.exit(1)
     sys.exit(main())

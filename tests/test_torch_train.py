@@ -284,25 +284,20 @@ def test_build_without_cuda_raises(monkeypatch):
         transformer.build(args)
 
 
-@pytest.mark.parametrize("flag", [["--fsdp"]], ids=lambda f: f[0])
-def test_unported_flags_raise(flag):
-    """Sequence parallelism (ring and Ulysses), tensor parallelism and
-    --split-qkv are ported (tests/test_torch_ring_attention.py,
-    test_torch_ulysses.py, test_torch_tensor_parallel.py); FSDP is not."""
-    args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.build(args)
-
-
 @pytest.mark.parametrize("flag", [
     ["--loss-chunk", "32"], ["--remat"], ["--optimizer", "adam8"],
     ["--remat", "--remat-policy", "attn", "--optimizer", "adam8",
      "--loss-chunk", "16"],
-], ids=["loss_chunk", "remat", "adam8", "longctx_row_flags"])
+    ["--fsdp"],
+    ["--fsdp", "--remat", "--remat-policy", "attn", "--optimizer", "adam8",
+     "--loss-chunk", "16"],
+], ids=["loss_chunk", "remat", "adam8", "longctx_row_flags", "fsdp",
+        "fsdp_longctx_row_flags"])
 def test_flags_ported_in_this_slice_build_and_train(flag):
-    """--remat, --optimizer adam8 and --loss-chunk build and take a step
-    (tests/test_torch_remat.py, test_torch_adam8.py and
-    test_torch_loss_chunk.py hold them against the reference)."""
+    """--remat, --optimizer adam8, --loss-chunk and --fsdp build and take
+    a step (tests/test_torch_remat.py, test_torch_adam8.py,
+    test_torch_loss_chunk.py and test_torch_fsdp.py hold them against the
+    reference)."""
     args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
     built = transformer.build(args)
     (tokens,) = next(built.batches)
@@ -337,7 +332,7 @@ def test_checkpoint_dir_now_builds_a_checkpointer(tmp_path, monkeypatch):
         "seq_len_not_divisible"])
 def test_sp_flags_the_reference_refuses_raise(flag, match):
     """The combinations the reference refuses (transformer.py:169-174,
-    311-319) raise ValueError here too, before any unported flag."""
+    311-319) raise ValueError here too."""
     args = transformer.parse_args(TINY + flag + ["--device", "cpu"])
     with pytest.raises(ValueError, match=match):
         transformer.build(args)

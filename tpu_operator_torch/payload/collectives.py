@@ -16,11 +16,18 @@
   process; the shards a process holds run as units one after another, so
   one process holding all ``N`` runs the same code as ``P`` processes, with
   local sums in place of the collectives.
+- :class:`FSDPShard` and :func:`fsdp_gather`, the transformer's ``--fsdp``
+  (the reference's ``train.fsdp_shardings``): a param split over the
+  data group is gathered whole where it is used, and the backward
+  reduce-scatters the whole gradient into the f32 shard's; with
+  :func:`regather_saved` around the forward, autograd keeps the shard in
+  place of a gathered weight it saves and gathers again when the
+  backward unpacks it.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -156,3 +163,95 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, grad):
         part = grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
         return part.contiguous(), None, None, None, None
+
+
+# --- FSDP ---------------------------------------------------------------------
+
+
+class FSDPShard(NamedTuple):
+    """Where a param's FSDP shard lies (the shard's attribute ``fsdp``):
+    the whole split along ``dim`` into ``size`` equal parts over the
+    processes of ``group`` (the data group; None with one process in it),
+    this process holding part ``rank``. With a group of one both
+    collectives are the identity and everything around them runs the
+    same."""
+
+    dim: int
+    size: int = 1
+    rank: int = 0
+    group: Any = None
+
+    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole: every process's part joined along ``dim`` in rank
+        order (the list forms of the collectives, in every torch this
+        payload runs on)."""
+        if self.size == 1:
+            return shard
+        shard = shard.contiguous()
+        parts = [torch.empty_like(shard) for _ in range(self.size)]
+        dist.all_gather(parts, shard, group=self.group)
+        return torch.cat(parts, dim=self.dim)
+
+    def scatter(self, whole: torch.Tensor) -> torch.Tensor:
+        """This process's part of the sum over the group of every
+        process's ``whole``."""
+        if self.size == 1:
+            return whole
+        chunks = [c.contiguous()
+                  for c in whole.chunk(self.size, dim=self.dim)]
+        out = torch.empty_like(chunks[self.rank])
+        dist.reduce_scatter(out, chunks, group=self.group)
+        return out
+
+
+def fsdp_gather(shard: torch.Tensor, spec: FSDPShard,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The whole of ``shard`` (split as ``spec`` says) in ``dtype``
+    (default its own): gathered, then cast, which is exact. The backward
+    casts the whole gradient to the shard's dtype (f32) and
+    reduce-scatters it over the group: the gradient of this process's
+    part, summed over the data ranks (the train step divides by them
+    once, after the last microbatch, as it does every gradient)."""
+    return _FSDPGather.apply(shard, spec, dtype or shard.dtype)
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, spec, dtype):
+        ctx.spec, ctx.dtype = spec, shard.dtype
+        whole = spec.gather(shard).to(dtype)
+        if whole is not shard:
+            # For regather_saved: what to gather again in place of this.
+            whole._fsdp_source = (shard, spec, dtype)
+        return whole
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.spec.scatter(grad.to(ctx.dtype)), None, None
+
+
+def _pack(t: torch.Tensor):
+    base = t if t._base is None else t._base
+    source = getattr(base, "_fsdp_source", None)
+    if source is None:
+        return t
+    return source, t.size(), t.stride(), t.storage_offset()
+
+
+def _unpack(packed):
+    if isinstance(packed, torch.Tensor):
+        return packed
+    (shard, spec, dtype), size, stride, offset = packed
+    with torch.no_grad():
+        whole = spec.gather(shard).to(dtype)
+    return whole.as_strided(size, stride, offset)
+
+
+def regather_saved():
+    """A ``saved_tensors_hooks`` context: a gathered whole (or a view of
+    it) that autograd saves for the backward is kept as its shard, and
+    gathered again when the backward unpacks it, so no gathered weight
+    outlives the op that used it. Inside a rematerialized block the
+    checkpoint's own hooks take precedence: there the policy recomputes
+    the gather (``models.gathered``)."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)

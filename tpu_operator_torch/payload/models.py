@@ -54,6 +54,7 @@ own :class:`BatchNorm` with flax's numerics in f32, the head in f32.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import threading
@@ -66,7 +67,8 @@ from torch import nn
 from torch.utils import checkpoint as checkpoint_mod
 
 from tpu_operator_torch.payload import flash_attention as fa
-from tpu_operator_torch.payload.collectives import TPShards, part_of
+from tpu_operator_torch.payload.collectives import (TPShards, fsdp_gather,
+                                                    part_of, regather_saved)
 
 LN_EPS = 1e-6
 COMPUTE_DTYPE = torch.bfloat16
@@ -165,15 +167,29 @@ def checkpointed(fn: Callable, mode: str, *args):
                                      preserve_rng_state=False, **kwargs)
 
 
+def gathered(p: torch.Tensor,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``p`` whole in ``dtype`` (default its own): an FSDP shard (a param
+    with ``fsdp``, a :class:`~collectives.FSDPShard`) gathered over its
+    data group and cast, any other param cast. The gather runs outside
+    every named region, so no remat policy saves it: a rematerialized
+    block gathers again in its recompute."""
+    spec = getattr(p, "fsdp", None)
+    if spec is None:
+        return p if dtype is None else p.to(dtype)
+    with checkpoint_name():
+        return fsdp_gather(p, spec, dtype)
+
+
 def _dense(layer: nn.Linear, x: torch.Tensor,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """flax ``Dense(dtype=bf16)``: cast the input and the weight to the
     compute dtype (``dtype``, default :data:`COMPUTE_DTYPE`), matmul, then
     add the bias in that dtype."""
     dtype = dtype or COMPUTE_DTYPE
-    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    y = F.linear(x.to(dtype), gathered(layer.weight, dtype))
     if layer.bias is not None:
-        y = y + layer.bias.to(dtype)
+        y = y + gathered(layer.bias, dtype)
     return y
 
 
@@ -232,13 +248,14 @@ def _embed(table: nn.Embedding, ids: torch.Tensor,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """flax ``Embed(dtype=bf16)``: the rows of the table in the compute
     dtype (gathered, then cast: the same values as casting the table)."""
-    return table(ids).to(dtype or COMPUTE_DTYPE)
+    return F.embedding(ids, gathered(table.weight)).to(
+        dtype or COMPUTE_DTYPE)
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """f32 LayerNorm, f32 output (flax ``LayerNorm(dtype=float32)``)."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps)
+    return F.layer_norm(x.float(), ln.normalized_shape, gathered(ln.weight),
+                        gathered(ln.bias), ln.eps)
 
 
 # A block's MLP in place of the dense FFN: ``mlp(param_dtype, device)``
@@ -466,6 +483,9 @@ class TransformerLM(nn.Module):
         self.ln_final = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.lm_head = nn.Linear(dim, vocab // tp.procs, bias=False, **w)
         self.requires_grad_(False)
+        # Set by transformer.shard_fsdp: the forward then keeps a gathered
+        # weight that autograd saves as its shard (regather_saved).
+        self.fsdp = False
 
     def tp_dims(self) -> Dict[str, Tuple[int, int]]:
         """{param name: (split dim, sections)} of every param split over
@@ -527,24 +547,25 @@ class TransformerLM(nn.Module):
         """Logits, or with ``return_hidden`` the ``ln_final`` output in
         bf16 before ``lm_head`` (the reference's ``return_hidden``: the
         chunked loss applies the head itself, chunk by chunk)."""
-        if positions is None:
-            positions = torch.arange(tokens.shape[1],
-                                     device=tokens.device)[None, :]
-        dt = self.compute_dtype
-        x = _embed(self.tok_embed, tokens, dt) \
-            + _embed(self.pos_embed, positions, dt)
-        for i, block in enumerate(self.blocks):
-            x = block(x, attend_for_layer(i))
-        x = _layer_norm(self.ln_final, x)
-        if return_hidden:
-            return x.to(dt or COMPUTE_DTYPE)
-        if self.tp.shards == 1:
-            return _dense(self.lm_head, x, dt)
-        # Column-parallel over vocab: each shard's rows, joined.
-        vw = self.vocab // self.tp.shards
-        logits = [_dense_part(self.lm_head, xu, 0, u * vw, vw, dt)
-                  for u, xu in enumerate(self.tp.enter(x))]
-        return self.tp.gather(torch.cat(logits, dim=-1), dim=-1)
+        with regather_saved() if self.fsdp else contextlib.nullcontext():
+            if positions is None:
+                positions = torch.arange(tokens.shape[1],
+                                         device=tokens.device)[None, :]
+            dt = self.compute_dtype
+            x = _embed(self.tok_embed, tokens, dt) \
+                + _embed(self.pos_embed, positions, dt)
+            for i, block in enumerate(self.blocks):
+                x = block(x, attend_for_layer(i))
+            x = _layer_norm(self.ln_final, x)
+            if return_hidden:
+                return x.to(dt or COMPUTE_DTYPE)
+            if self.tp.shards == 1:
+                return _dense(self.lm_head, x, dt)
+            # Column-parallel over vocab: each shard's rows, joined.
+            vw = self.vocab // self.tp.shards
+            logits = [_dense_part(self.lm_head, xu, 0, u * vw, vw, dt)
+                      for u, xu in enumerate(self.tp.enter(x))]
+            return self.tp.gather(torch.cat(logits, dim=-1), dim=-1)
 
 
 def add_remat_policy_flag(parser) -> None:

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, \
-    Sequence
+    Sequence, Tuple
 
 import numpy as np
 import torch
@@ -261,6 +261,26 @@ class Adam8State:
 
 
 Uniform = Callable[..., torch.Tensor]
+
+
+def part_uniform(uniform: Uniform,
+                 parts: Dict[int, Tuple[int, int, int]]) -> Uniform:
+    """``uniform`` for a parameter list of which this process holds parts
+    (``--fsdp``): leaf ``i`` in ``parts``, (dim, size, rank), draws the
+    whole leaf's uniforms and keeps part ``rank`` of ``size`` along
+    ``dim`` (the same index in the block layout: a part is whole blocks),
+    so every element rounds as it would unsplit."""
+
+    def draw(shape, device, seed, count, leaf, moment):
+        if leaf not in parts:
+            return uniform(shape, device, seed, count, leaf, moment)
+        dim, size, rank = parts[leaf]
+        whole = list(shape)
+        whole[dim] *= size
+        return uniform(whole, device, seed, count, leaf, moment).chunk(
+            size, dim)[rank]
+
+    return draw
 
 
 class Adam8:

@@ -20,6 +20,9 @@ part of ``tpu_operator/payload/train.py`` that one process per card uses).
   In a multi-process job :func:`all_reduce_grads` then sums the gradients
   over the world and divides by the data-parallel size, as the
   reference's psums over its (data, seq) mesh do.
+- :func:`fsdp_dims`: the reference's ``fsdp_shardings`` rule, which of
+  the transformer's params ``--fsdp`` splits over the data ranks and
+  along which dim.
 - :func:`train_loop`: the reference's loop (``train.py:766``) as far as
   one process per card uses it: the DATA / DISPATCH / COMPUTE /
   CHECKPOINT / HOST laps of the flight recorder, the COMPUTE fence one
@@ -52,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import logging
+import math
 import os
 import threading
 import time
@@ -69,9 +73,11 @@ from tpu_operator_torch.payload import bootstrap as bootstrap_mod
 from tpu_operator_torch.payload import data as data_mod
 from tpu_operator_torch.payload import heartbeat as heartbeat_mod
 from tpu_operator_torch.payload import models as models_mod
+from tpu_operator_torch.payload import optimizers as optimizers_mod
 from tpu_operator_torch.payload import profile as profile_mod
 from tpu_operator_torch.payload import startup as startup_mod
 from tpu_operator_torch.payload import steptrace as steptrace_mod
+from tpu_operator_torch.payload import weights as weights_mod
 
 log = logging.getLogger(__name__)
 
@@ -108,7 +114,8 @@ def _chunk_nll_sum(xc: torch.Tensor, w_head: torch.Tensor,
     # The cast sits inside the chunk: its backward hands the f32 head
     # weight one gradient per chunk, summed in f32 (a cast hoisted out
     # would sum them in bf16; the reference measured 3.3x the error).
-    logits = F.linear(xc, w_head.to(xc.dtype))
+    # Under --fsdp the gather sits there too: recomputed with the chunk.
+    logits = F.linear(xc, models_mod.gathered(w_head, xc.dtype))
     lse = torch.logsumexp(logits.float(), dim=-1)
     tgt = logits.gather(-1, tc.long()[..., None])[..., 0].float()
     return ((lse - tgt) * mc).sum()
@@ -209,6 +216,41 @@ def all_reduce_grads(params: Sequence[torch.Tensor], metrics: Metrics,
                shard_group is not None
                and dist.get_world_size(shard_group) > 1)
     return {k: rest[j] for j, k in enumerate(keys)}
+
+
+# The reference's size floor (train.fsdp_shardings' min_size): smaller
+# leaves replicate, where a collective's latency would dominate.
+FSDP_MIN_ELEMENTS = 1024
+
+
+def fsdp_dims(model, data: int, optimizer: str = "adam") -> Dict[str, int]:
+    """The reference's ``fsdp_shardings`` rule (``train.py:374``) for the
+    transformer's params at ``data`` data ranks: {param name: the dim its
+    1/``data`` parts are cut along} for every leaf of at least 1024
+    elements whose dim 0 in the reference's tree divides by ``data``
+    (``weights.lm_leaf_paths``: a dense kernel is the transposed
+    ``Linear`` weight, so its dim 0 is the port's dim 1); every other leaf
+    stays whole on every process.
+
+    The cut is the port's dim 0 where ``data`` divides it (a ``Linear``'s
+    output rows, an embedding's rows, a 1-D leaf), else the reference's
+    own dim (a ``Linear``'s input columns). Rows first: adam8 blocks each
+    param along its last dim (``optimizers.BLOCK``), and a row cut never
+    splits a block. Under ``optimizer`` ``adam8`` a leaf cut along its
+    last dim stays whole unless each part is a whole number of blocks, as
+    ``pipeline.zero1_dims`` decides, so every block lies on one process."""
+    dims = {}
+    for name, (_path, transposed) in weights_mod.lm_leaf_paths(model).items():
+        shape = model.get_parameter(name).shape
+        dim0 = 1 if transposed else 0
+        if math.prod(shape) < FSDP_MIN_ELEMENTS or shape[dim0] % data:
+            continue
+        dim = 0 if shape[0] % data == 0 else dim0
+        if optimizer == "adam8" and dim == len(shape) - 1 \
+                and shape[dim] // data % optimizers_mod.BLOCK:
+            continue
+        dims[name] = dim
+    return dims
 
 
 def make_loss_train_step(loss_fn: Callable[[torch.Tensor],

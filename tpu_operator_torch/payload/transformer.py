@@ -53,8 +53,17 @@ and each shard takes its heads' rows of each third of the fused
 ``qkv``). Checkpoints hold whole arrays, so a step saved at one TP degree
 restores at another.
 
-``--fsdp`` is not ported yet: it parses with the reference's default and
-raises NotImplementedError when set (ROADMAP Queue A).
+``--fsdp`` shards the params over the data group (:func:`shard_fsdp`,
+the reference's ``train.fsdp_shardings`` rule, ``train.fsdp_dims``):
+each process keeps 1/N of every leaf of at least 1024 elements whose
+reference dim 0 divides by N = ``LMMesh.data``, of its f32 gradient and
+of its adam / adam8 moments. A layer gathers its whole weights where it
+uses them (``models.gathered``) and drops them after; the backward
+gathers them again (``collectives.regather_saved``, or the recompute
+under ``--remat``) and reduce-scatters each weight's gradient as soon as
+it is formed. It excludes ``--tensor-parallel``, as the reference does.
+Checkpoints hold whole arrays, so a step saved under ``--fsdp`` restores
+at another data size or without it.
 """
 
 from __future__ import annotations
@@ -63,7 +72,8 @@ import argparse
 import json
 import logging
 import os
-from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -135,7 +145,10 @@ def parse_args(argv=None):
                         "whole. 0 = off. Must divide --seq-len; "
                         "--seq-parallel 1 only")
     p.add_argument("--fsdp", action="store_true",
-                   help="param and optimizer sharding (not ported)")
+                   help="ZeRO/FSDP param+optimizer sharding over the data "
+                        "group (train.fsdp_dims): per-process params, "
+                        "gradients and moments O(1/N), each layer's "
+                        "weights gathered where used")
     p.add_argument("--adam-mu-dtype", choices=("f32", "bf16"), default="f32",
                    help="dtype of adam's first moment")
     p.add_argument("--vocab", type=int, default=256)
@@ -167,16 +180,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-# flag -> (its default, the ROADMAP Queue A item that ports it)
-_NOT_PORTED = {
-    "fsdp": (False, "7"),
-}
-
-
 def check_ported(args) -> None:
-    """Raise ValueError for the sequence-parallel combinations the
-    reference refuses, then NotImplementedError for a flag set away from
-    the reference's default that the port cannot honour yet."""
+    """Raise ValueError for the flag combinations the reference refuses
+    (and ``--loss-chunk`` with tensor parallelism, which it accepts
+    silently)."""
     shards = getattr(args, "seq_parallel", 1)
     if shards < 1 or args.seq_len % shards:
         raise ValueError(f"--seq-len {args.seq_len} must split into "
@@ -216,12 +223,6 @@ def check_ported(args) -> None:
     if chunk and (chunk < 0 or args.seq_len % chunk):
         raise ValueError(f"--loss-chunk {chunk} must divide --seq-len "
                          f"{args.seq_len}")
-    for name, (default, item) in _NOT_PORTED.items():
-        if getattr(args, name, default) != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} {getattr(args, name)!r} is not "
-                f"ported to the PyTorch payload yet (ROADMAP Queue A "
-                f"{item}); leave it at {default!r}")
 
 
 def _causal_attend(_i):
@@ -238,8 +239,10 @@ class LMMesh(NamedTuple):
     seq_rank)·P_m + model_rank. The groups are this process's (None
     without a process group or with one process in them):
     ``seq_group`` (its seq group: the Ulysses exchange), ``model_group``
-    (its model group) and ``replica_group`` (every process with its
-    model rank: the gradient reduce under tensor parallelism)."""
+    (its model group), ``replica_group`` (every process with its
+    model rank: the gradient reduce under tensor parallelism) and
+    ``data_group`` (every process with its seq and model rank: the
+    ``--fsdp`` gathers and reduce-scatters)."""
 
     world: int
     rank: int
@@ -250,6 +253,7 @@ class LMMesh(NamedTuple):
     seq_group: Any = None
     model_group: Any = None
     replica_group: Any = None
+    data_group: Any = None
 
     @property
     def data(self) -> int:
@@ -300,7 +304,7 @@ def make_lm_mesh(world: Optional[int] = None, rank: Optional[int] = None,
     processes per model group, P_s = min(world / P_m, N_s) per seq group,
     data = world / (P_s·P_m). Each N must split over its P, and the world
     over P_s·P_m. With a process group, every process creates every seq,
-    model and replica group it may need (``dist.new_group`` is
+    model, replica and data group it may need (``dist.new_group`` is
     collective) and keeps its own."""
     import torch.distributed as dist
 
@@ -343,6 +347,9 @@ def make_lm_mesh(world: Optional[int] = None, rank: Optional[int] = None,
             group = dist.new_group(ranks)
             if rank in ranks:
                 groups["replica_group"] = group
+    if world > inner:
+        groups["data_group"] = collectives.own_group(
+            rank, (list(range(r, world, inner)) for r in range(inner)))
     return mesh._replace(**groups)
 
 
@@ -358,12 +365,14 @@ class Built(NamedTuple):
     def state(self) -> checkpoint.TrainState:
         """The params and optimizer state the step updates in place: what
         a checkpoint saves and a restore copies back. Under tensor
-        parallelism over several processes the split params and their
-        moments are named as such (:func:`tp_shards`): a checkpoint holds
+        parallelism over several processes, or ``--fsdp`` over several
+        data ranks, the split params and their moments are named as such
+        (:func:`tp_shards`, :func:`fsdp_shards`): a checkpoint holds
         whole arrays."""
         return checkpoint.TrainState(
             dict(self.model.named_parameters()), self.opt_state,
-            shards=tp_shards(self.model, self.opt_state))
+            shards=(tp_shards(self.model, self.opt_state)
+                    or fsdp_shards(self.model, self.opt_state)))
 
 
 def tp_shards(model: TransformerLM, opt_state
@@ -396,6 +405,55 @@ def tp_shards(model: TransformerLM, opt_state
     return checkpoint.Shards({checkpoint.PARAMS_FILE: dims,
                               checkpoint.OPT_FILE: opt},
                              tp.group, tp.procs, tp.index)
+
+
+def shard_fsdp(model: TransformerLM, mesh: LMMesh,
+               optimizer: str = "adam") -> Dict[str, int]:
+    """``--fsdp``: every param that the reference's rule shards at
+    ``mesh.data`` data ranks (``train.fsdp_dims``, which also says the
+    cut) becomes a param holding this data rank's part, with its
+    :class:`~collectives.FSDPShard` as ``fsdp``; the model then gathers it
+    where it is used. Call before the optimizer's ``init``, so that the
+    moments take the parts' shapes. Returns the dims."""
+    dims = train.fsdp_dims(model, mesh.data, optimizer)
+    with torch.no_grad():
+        for name, dim in dims.items():
+            owner, attr = name.rsplit(".", 1)
+            module = model.get_submodule(owner)
+            whole = getattr(module, attr)
+            shard = torch.nn.Parameter(
+                collectives.part_of(whole, dim, 1, mesh.data,
+                                    mesh.data_rank).clone(),
+                requires_grad=whole.requires_grad)
+            shard.fsdp = collectives.FSDPShard(dim, mesh.data,
+                                               mesh.data_rank,
+                                               mesh.data_group)
+            setattr(module, attr, shard)
+    model.fsdp = True
+    return dims
+
+
+def fsdp_shards(model: TransformerLM, opt_state
+                ) -> Optional[checkpoint.Shards]:
+    """The params split over the data group by :func:`shard_fsdp` and
+    their moments (adam's ``mu.<i>`` / ``nu.<i>`` shaped as the part,
+    adam8's ``m.q.<i>`` / ``m.scale.<i>`` / ... whose block dims keep the
+    param's dim index: the cut never splits a block), each along its cut;
+    None unless the data group holds more than one process."""
+    params = list(model.named_parameters())
+    specs = {n: p.fsdp for n, p in params
+             if getattr(p, "fsdp", None) is not None and p.fsdp.size > 1}
+    if not specs:
+        return None
+    opt = {}
+    for key, t in opt_state.state_dict().items():
+        index = key.rsplit(".", 1)[-1]
+        if t.dim() and index.isdigit() and params[int(index)][0] in specs:
+            opt[key] = specs[params[int(index)][0]].dim
+    spec = next(iter(specs.values()))
+    return checkpoint.Shards(
+        {checkpoint.PARAMS_FILE: {n: s.dim for n, s in specs.items()},
+         checkpoint.OPT_FILE: opt}, spec.group, spec.size, spec.rank)
 
 
 def build_model(args, device, tp: Optional[collectives.TPShards] = None
@@ -505,13 +563,21 @@ def make_lm_train_step(model: TransformerLM, optimizer, opt_state,
     ``model``'s trainable params (the ones ``opt_state`` was initialised
     on). With more than one process it all-reduces the gradients after the
     last microbatch: summed over the processes with this one's model rank
-    (the world without tensor parallelism), divided by the data ranks."""
+    (the world without tensor parallelism), divided by the data ranks.
+    An ``--fsdp`` shard's gradient comes out of each microbatch's
+    backward already summed over the data group (``collectives.
+    fsdp_gather``), so after the last it sums over the seq group only,
+    then takes the same division."""
     mesh = mesh or make_lm_mesh(1, 0, 1)
     params = [p for p in model.parameters() if p.requires_grad]
+    sharded = [i for i, p in enumerate(params)
+               if getattr(p, "fsdp", None) is not None]
     reduce = None
     if mesh.world > 1:
         def reduce(ps, metrics):
             return train.all_reduce_grads(ps, metrics, mesh.data,
+                                          sharded=sharded,
+                                          shard_group=mesh.seq_group,
                                           group=mesh.replica_group)
 
     return train.make_loss_train_step(make_lm_loss(model, mesh, sp_layout,
@@ -546,6 +612,13 @@ def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
                          else (args.device or None))
     optimizer = optimizers.from_args(args)
     model = build_model(args, dev, mesh.tp()).requires_grad_(True)
+    if getattr(args, "fsdp", False):
+        shard_fsdp(model, mesh, getattr(args, "optimizer", "adam"))
+        if isinstance(optimizer, optimizers.Adam8):
+            optimizer.uniform = optimizers.part_uniform(optimizer.uniform, {
+                i: (p.fsdp.dim, p.fsdp.size, p.fsdp.rank)
+                for i, p in enumerate(model.parameters())
+                if getattr(p, "fsdp", None) is not None})
     opt_state = optimizer.init(list(model.parameters()))
     step = make_lm_train_step(model, optimizer, opt_state,
                               grad_accum=args.grad_accum, mesh=mesh,
@@ -559,13 +632,16 @@ def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
 def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     args = args or parse_args([])
     built = build(args)
-    n_params = sum(p.numel() for p in built.model.parameters())
-    log.info("training %d params on %s; batch %d seq %d grad-accum %d "
-             "seq-parallel %d (%s, %s); tensor-parallel %d; remat %s; "
-             "optimizer %s; loss chunk %d",
-             n_params, built.device, args.batch, args.seq_len,
+    here = sum(p.numel() for p in built.model.parameters())
+    n_params = sum(p.numel() * (p.fsdp.size if hasattr(p, "fsdp") else 1)
+                   for p in built.model.parameters())
+    log.info("training %d params (%d on this process) on %s; batch %d "
+             "seq %d grad-accum %d seq-parallel %d (%s, %s); "
+             "tensor-parallel %d; fsdp %s; remat %s; optimizer %s; loss "
+             "chunk %d",
+             n_params, here, built.device, args.batch, args.seq_len,
              args.grad_accum, args.seq_parallel, args.sp_mode,
-             args.sp_layout, args.tensor_parallel,
+             args.sp_layout, args.tensor_parallel, args.fsdp,
              args.remat_policy if args.remat else "off", args.optimizer,
              args.loss_chunk)
     ckpt = checkpoint.from_env_or_args(args.checkpoint_dir,

@@ -62,11 +62,6 @@ def _load_dense(layer: torch.nn.Linear, tree: Mapping[str, Any]) -> None:
         raise ValueError("unexpected dense bias")
 
 
-def _load_ln(ln: torch.nn.LayerNorm, tree: Mapping[str, Any]) -> None:
-    ln.weight.copy_(_t(tree["scale"]))
-    ln.bias.copy_(_t(tree["bias"]))
-
-
 def _lm_shape(params: Mapping[str, Any], heads: int) -> Dict[str, Any]:
     """TransformerLM's arguments read from the tree (``heads`` is not
     recoverable from shapes): vocab, dim, layers, max_seq, the K/V head
@@ -86,34 +81,59 @@ def _lm_shape(params: Mapping[str, Any], heads: int) -> Dict[str, Any]:
                 kv_heads=kv_heads, split_qkv=split)
 
 
+def lm_leaf_paths(model: TransformerLM
+                  ) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    """Each param name of ``model`` outside a block MLP -> (its path in
+    the reference's tree, whether the leaf is a transposed dense kernel):
+    the one map of the LM's names that :func:`from_flax`, :func:`to_flax`
+    and ``train.fsdp_dims`` read."""
+    paths = {}
+    for name, _p in model.named_parameters():
+        *owner, kind = name.split(".")
+        if owner[0] == "blocks":
+            if owner[2] == "moe":
+                continue
+            tree = (f"block{owner[1]}", owner[2])
+        else:
+            tree = (owner[0],)
+        module = model.get_submodule(".".join(owner))
+        if isinstance(module, torch.nn.Embedding):
+            paths[name] = (tree + ("embedding",), False)
+        elif isinstance(module, torch.nn.LayerNorm):
+            paths[name] = (tree + ("scale" if kind == "weight" else "bias",),
+                           False)
+        else:
+            paths[name] = (tree + ("kernel" if kind == "weight" else "bias",),
+                           kind == "weight")
+    return paths
+
+
 def _load_lm(model: TransformerLM, params: Mapping[str, Any]) -> None:
     """Copy the tree into ``model``; a block holding ``moe`` takes the
     router and its part of the expert stacks."""
-    model.tok_embed.weight.copy_(_t(params["tok_embed"]["embedding"]))
-    model.pos_embed.weight.copy_(_t(params["pos_embed"]["embedding"]))
+    for name, (path, transposed) in lm_leaf_paths(model).items():
+        leaf = _t(_get(params, path))
+        if transposed:
+            leaf = leaf.t()
+        live = model.get_parameter(name)
+        if tuple(leaf.shape) != tuple(live.shape):
+            raise ValueError(f"{'/'.join(path)} {tuple(leaf.shape)} does not "
+                             f"fit {tuple(live.shape)}")
+        live.copy_(leaf)
     for i, block in enumerate(model.blocks):
-        tree = params[f"block{i}"]
-        _load_ln(block.ln_attn, tree["ln_attn"])
-        names = ("q", "k", "v") if block.split_qkv else ("qkv",)
         if block.moe is None:
-            names += ("mlp_up", "mlp_down")
-        for name in names + ("attn_out",):
-            _load_dense(getattr(block, name), tree[name])
-        if block.moe is not None:
-            moe, sub = block.moe, tree["moe"]
-            _load_dense(moe.router, sub["router"])
-            for name in ("w1", "w2"):
-                whole = _t(sub[name])
-                part = moe.part(name, whole)
-                live = getattr(moe, name)
-                if tuple(part.shape) != tuple(live.shape):
-                    raise ValueError(f"block{i}/moe/{name} "
-                                     f"{tuple(whole.shape)} does not fit "
-                                     f"{tuple(live.shape)} a process")
-                live.copy_(part)
-        _load_ln(block.ln_mlp, tree["ln_mlp"])
-    _load_ln(model.ln_final, params["ln_final"])
-    _load_dense(model.lm_head, params["lm_head"])
+            continue
+        moe, sub = block.moe, params[f"block{i}"]["moe"]
+        _load_dense(moe.router, sub["router"])
+        for name in ("w1", "w2"):
+            whole = _t(sub[name])
+            part = moe.part(name, whole)
+            live = getattr(moe, name)
+            if tuple(part.shape) != tuple(live.shape):
+                raise ValueError(f"block{i}/moe/{name} "
+                                 f"{tuple(whole.shape)} does not fit "
+                                 f"{tuple(live.shape)} a process")
+            live.copy_(part)
 
 
 @torch.no_grad()
@@ -167,32 +187,22 @@ def _dense_tree(layer: torch.nn.Linear) -> Dict[str, np.ndarray]:
     return tree
 
 
-def _ln_tree(ln: torch.nn.LayerNorm) -> Dict[str, np.ndarray]:
-    return {"scale": _np(ln.weight), "bias": _np(ln.bias)}
-
-
 def to_flax(model: TransformerLM) -> Dict[str, Any]:
     """The flax param tree of ``model`` as f32 numpy arrays (the inverse
     of :func:`from_flax`, and of :func:`moe_from_flax` for a MoE LM:
     :func:`moe_to_flax`)."""
-    tree: Dict[str, Any] = {
-        "tok_embed": {"embedding": _np(model.tok_embed.weight)},
-        "pos_embed": {"embedding": _np(model.pos_embed.weight)},
-    }
+    tree: Dict[str, Any] = {}
+    for name, (path, transposed) in lm_leaf_paths(model).items():
+        arr = _np(model.get_parameter(name))
+        dst = tree
+        for key in path[:-1]:
+            dst = dst.setdefault(key, {})
+        dst[path[-1]] = arr.T.copy() if transposed else arr
     for i, block in enumerate(model.blocks):
-        names = ("q", "k", "v") if block.split_qkv else ("qkv",)
-        if block.moe is None:
-            names += ("mlp_up", "mlp_down")
-        sub = {name: _dense_tree(getattr(block, name))
-               for name in names + ("attn_out",)}
         if block.moe is not None:
-            sub["moe"] = {"router": _dense_tree(block.moe.router),
-                          "w1": _np(block.moe.w1), "w2": _np(block.moe.w2)}
-        sub["ln_attn"] = _ln_tree(block.ln_attn)
-        sub["ln_mlp"] = _ln_tree(block.ln_mlp)
-        tree[f"block{i}"] = sub
-    tree["ln_final"] = _ln_tree(model.ln_final)
-    tree["lm_head"] = _dense_tree(model.lm_head)
+            tree[f"block{i}"]["moe"] = {
+                "router": _dense_tree(block.moe.router),
+                "w1": _np(block.moe.w1), "w2": _np(block.moe.w2)}
     return tree
 
 
