@@ -257,6 +257,14 @@ one JSON line each:
     tpu_operator_torch.payload.linear --steps 200`` in a subprocess on
     the card exits 0. ``profile_classifier``: one cifar step under
     torch.profiler.
+15a. ``classifier_tp``: the classifier cell with ``--model-parallel 2``,
+    both shards as units on the card (stage-2 convs 32 of 64 channels a
+    shard, the head 5 of 10 classes): at init the loss and every gradient
+    against ``--model-parallel 1`` from the same seed on the same batch
+    (within the bf16 tolerances it states), 20 steps (finite, descending;
+    images/s beside the classifier phase's; peak memory), a kill and
+    resume at model 2 bit-equal, and the resumed run's step restored at
+    model 1 bit-equal.
 
 16. ``warm_restart`` (after ``checkpoint``): the train cell as two
     attempts of ``python -m tpu_operator_torch.payload.transformer`` with
@@ -1062,9 +1070,9 @@ def check_flash_bwd(torch, fa, F, gen):
     D, f32 grads) and at the pipeline_tp and moe_tp shard shapes (fused D,
     bf16 grads, as their training runs them). A negative control (the plain side with D zeroed) must
     fail the tolerance, and two launches must be bit-equal. The training,
-    pipeline and ring shapes are timed beside the bound; the training, MoE
-    and pipeline shapes also beside the plain version and SDPA's backward
-    (a yardstick only)."""
+    pipeline and ring shapes are timed beside the bound, and beside the
+    plain version and SDPA's backward (a yardstick only; at the ring
+    block the causal mask, which equals striped (1, 0, 4)'s)."""
     cases = {
         "train_causal_gqa": (8, 2048, 16, 4, True, (0, 0, 1), True,
                              torch.bfloat16, 128),
@@ -1086,7 +1094,8 @@ def check_flash_bwd(torch, fa, F, gen):
     timed = ("train_causal_gqa", "moe_causal_gqa", "sp_ring_striped_given_d",
              "pipeline_causal_mha_d64", *TP_SLICE_SHAPES)
     beside_plain = ("train_causal_gqa", "moe_causal_gqa",
-                    "pipeline_causal_mha_d64", *TP_SLICE_SHAPES)
+                    "sp_ring_striped_given_d", "pipeline_causal_mha_d64",
+                    *TP_SLICE_SHAPES)
     out = {}
     head_dims = head_dim_generator(torch)
     for label, (b, t, h, kvh, causal, offs, fused, gd, d) in cases.items():
@@ -1158,31 +1167,54 @@ def check_flash_bwd(torch, fa, F, gen):
         res["plain_ms"] = time_ms(
             torch, lambda: fa._bwd_ref(qt, kt, vt, gt, L, D, offs, causal),
             reps=5)
-        # Yardstick: SDPA's backward, timed as forward+backward minus
-        # forward on the same inputs ([B,H,T,D] copies); never called by
-        # the port.
-        ql, kl, vl = (x.detach().contiguous().requires_grad_(True)
-                      for x in (qt, kt, vt))
-        gl = gt.contiguous()
-
-        gqa = kvh != h
-
-        def sdpa_fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                               enable_gqa=gqa)
-
-        def sdpa_fwd_bwd():
-            F.scaled_dot_product_attention(
-                ql, kl, vl, is_causal=True, enable_gqa=gqa).backward(gl)
-
-        res["library_fwd_bwd_ms"] = time_ms(torch, sdpa_fwd_bwd, reps=20)
-        res["library_fwd_ms"] = time_ms(torch, sdpa_fwd, reps=20)
-        res["library_ms"] = res["library_fwd_bwd_ms"] - res["library_fwd_ms"]
-        res["library_ms_is"] = ("F.scaled_dot_product_attention backward: "
-                                "forward+backward minus forward")
-        del inputs, ql, kl, vl, gl
+        res.update(sdpa_backward_ms(torch, F, qt, kt, vt, gt,
+                                    sdpa_is_causal(offs, t)))
+        del inputs
     return out
+
+
+def sdpa_is_causal(offsets, t: int) -> bool:
+    """The SDPA mask that equals K2's at these offsets on a Tq = Tk = t
+    block: causal where the query and key positions step alike from one
+    start (the key at or before the query: the home block, and striped
+    (1, 0, s), where key j <= query i), none where every key precedes
+    every query (an earlier ring block); anything else has no SDPA
+    counterpart."""
+    q_off, k_off, stride = offsets
+    if k_off + stride * (t - 1) <= q_off:
+        return False
+    if q_off - k_off in range(stride):
+        return True
+    raise ValueError(f"no SDPA mask for offsets {offsets}")
+
+
+def sdpa_backward_ms(torch, F, qt, kt, vt, gt, causal: bool,
+                     reps: int = 20) -> dict:
+    """Yardstick: SDPA's backward on [B,H,T,D] copies of the inputs, with
+    ``is_causal`` as given (:func:`sdpa_is_causal`), timed as
+    forward+backward minus forward; never called by the port."""
+    ql, kl, vl = (x.detach().contiguous().requires_grad_(True)
+                  for x in (qt, kt, vt))
+    gl = gt.contiguous()
+    gqa = kl.shape[1] != ql.shape[1]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                           enable_gqa=gqa)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=causal, enable_gqa=gqa).backward(gl)
+
+    res = {"library_fwd_bwd_ms": time_ms(torch, sdpa_fwd_bwd, reps=reps),
+           "library_fwd_ms": time_ms(torch, sdpa_fwd, reps=reps),
+           "library_causal": causal,
+           "library_ms_is": "F.scaled_dot_product_attention backward: "
+                            "forward+backward minus forward"}
+    res["library_ms"] = res["library_fwd_bwd_ms"] - res["library_fwd_ms"]
+    del ql, kl, vl, gl
+    return res
 
 
 def check_attention_autograd(torch, fa):
@@ -1995,8 +2027,9 @@ def check_parallel_shapes(torch, fa, F):
 
     The plain side runs a batch row and a few GQA groups at a time (the
     scores of the whole slab would take tens of GB). Each case is timed
-    beside its bound and the plain version; K1 and K2 at the Ulysses slab
-    also beside SDPA (a yardstick only)."""
+    beside its bound and the plain version; K1 at the Ulysses slab and K2
+    at every case also beside SDPA (a yardstick only; the earlier SP x TP
+    block with no mask, as every key precedes every query)."""
     gen = parallel_generator(torch)
     dev = "cuda"
     res = {}
@@ -2118,6 +2151,8 @@ def check_parallel_shapes(torch, fa, F):
         r["plain_ms"] = time_ms(
             torch, lambda: fa._bwd_ref(qt, kt, vt, gt, L, D, offs, True),
             reps=3)
+        r.update(sdpa_backward_ms(torch, F, qt, kt, vt, gt,
+                                  sdpa_is_causal(offs, t), reps=5))
         del got, inputs, q, k, v, g, L, o, D, qt, kt, vt, gt
         return r
 
@@ -3410,6 +3445,37 @@ LONGCTX_ARGV = ["--steps", "3", "--batch", "2", "--seq-len", "32768",
 CHUNK_REL_TOL = 1e-4
 
 
+def longctx_kernel_times(torch, fa, t: int, h: int, kvh: int,
+                         d: int) -> dict:
+    """K1 and K2 at the long-context row's attention shape (one row of
+    ``t`` tokens, ``h`` / ``kvh`` heads, causal, fused D, bf16 grads; K1
+    on CUDA events, dq and dkv as profiler device time) beside SDPA's
+    forward and backward at the same shape and mask (a yardstick only).
+    No plain version: its scores would take tens of GB."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    inputs, run = bwd_case(torch, fa, gen, 1, t, h, kvh, True, (0, 0, 1),
+                           True, torch.bfloat16, d)
+    q, k, v, g, _L, _o, _D = inputs
+    res = {"ms_fwd": time_ms(torch, lambda: fa.flash_attention_with_lse(
+        q, k, v, causal=True), reps=5)}
+    per = kernel_device_ms(torch, run, 3, ("flash_bwd_dq_kernel",
+                                           "flash_bwd_dkv_kernel"))
+    res["ms_dq"] = per["flash_bwd_dq_kernel"]
+    res["ms_dkv"] = per["flash_bwd_dkv_kernel"]
+    res["ms_pair"] = time_ms(torch, run, reps=5)
+    qt, kt, vt, gt = (x.permute(0, 2, 1, 3) for x in (q, k, v, g))
+    lib = sdpa_backward_ms(torch, torch.nn.functional, qt, kt, vt, gt, True,
+                           reps=5)
+    res.update({"library_fwd_ms": lib["library_fwd_ms"],
+                "library_bwd_ms": lib["library_ms"],
+                "library_fwd_bwd_ms": lib["library_fwd_bwd_ms"],
+                "library": "F.scaled_dot_product_attention (causal, GQA)"})
+    del inputs, q, k, v, g, qt, kt, vt, gt
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_longctx(torch, fa, transformer, train, data):
     """lm_longctx_T32768_gqa as written (bench.py:675: B 2 x T 32768 as 2
     microbatches of one row, remat under attn, adam8, --loss-chunk 2048),
@@ -3419,8 +3485,9 @@ def run_longctx(torch, fa, transformer, train, data):
     outputs). Before the loop, on one row from another seed, the chunked
     loss (forward only) against the unchunked loss of the same model,
     within CHUNK_REL_TOL. Every loss finite; prints the step time,
-    tokens/s and the peak memory. Returns the readings and the build (for
-    its profile)."""
+    tokens/s and the peak memory. Before the build, K1 and K2 at the
+    row's attention shape beside SDPA (:func:`longctx_kernel_times`).
+    Returns the readings and the build (for its profile)."""
     args = transformer.parse_args(LONGCTX_ARGV)
     # The kernels' bounds at this row's attention shape (one row of 32768
     # tokens a microbatch, 16 / 4 heads, D 128, causal, fused D, bf16).
@@ -3434,7 +3501,8 @@ def run_longctx(torch, fa, transformer, train, data):
               "bound_ms_fwd": k1_ms, "bound_by_fwd": k1_by,
               **{k: v for k, v in bwd_bounds(
                   torch, 1, t, t, h, kvh, True, (0, 0, 1), True, 2,
-                  d).items() if k.startswith("bound")}}
+                  d).items() if k.startswith("bound")},
+              **longctx_kernel_times(torch, fa, t, h, kvh, d)}
     built = transformer.build(args)
     (rows,) = next(data.synthetic_lm(args.seed + 1, 1, args.seq_len,
                                      vocab=args.vocab))
@@ -4585,15 +4653,7 @@ def run_classifier(torch, cifar, train, checkpoint, steptrace):
     require(all(x == x and abs(x) < float("inf") for x in losses)
             and losses[-1] < losses[0],
             f"cifar: losses {losses} are not finite or do not descend")
-    step_times = []
-    x, y = (torch.from_numpy(a).to(built.device)
-            for a in next(built.batches))
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        built.step(x, y)
-        torch.cuda.synchronize()
-        step_times.append(time.perf_counter() - t0)
+    step_times = _fenced_step_seconds(torch, built)
 
     cpu = cifar.build(cifar.parse_args(
         [a if a != "cuda" else "cpu" for a in CIFAR_ARGV]))
@@ -4663,6 +4723,193 @@ def run_classifier(torch, cifar, train, checkpoint, steptrace):
             "linear": {"exit_code": lin.returncode, "seconds": lin_s,
                        "final": final[-1] if final else ""},
             "nvidia_smi": nvidia_smi_line()}, built
+
+
+# --- phase: classifier_tp ----------------------------------------------------
+
+
+# The classifier cell with --model-parallel 2: both shards as units on the
+# card (stage-2 convs 32 of 64 channels a shard, the head 5 of 10 classes).
+CIFAR_TP_ARGV = [*CIFAR_ARGV, "--model-parallel", "2"]
+# The gate at init (--model-parallel 2 against 1, the same params, one
+# batch). The forward is the same function: each unit's conv is the whole
+# conv's channel slice, so the logits agree up to cuDNN choosing another
+# algorithm for the half-width conv (a bf16 rounding of an activation,
+# 2^-8 of it, that BatchNorm and the pool average down): the loss to
+# 1e-3 of ln 10. The backward differs by construction: each unit's input
+# gradient is a bf16 product of its own channels, summed in f32 across the
+# units, where one conv rounds the sum once; the CPU tests see 1.3e-2 of
+# a BatchNorm bias's gradient (which BatchNorm nearly cancels) and 1.6e-6
+# with f32 convs. So the whole gradient to 2^-7 of its norm and each
+# param's to 2^-5 of its own (tests/test_torch_classifier_tp.py's bound);
+# a missing sum over the units or a wrong channel slice is off by O(1).
+CIFAR_TP_LOSS_TOL = 1e-3
+CIFAR_TP_GRAD_GLOBAL_TOL = 2.0 ** -7
+CIFAR_TP_GRAD_REL_TOL = 2.0 ** -5
+
+
+def _fenced_step_seconds(torch, built, reps: int = 5) -> list:
+    """``reps`` steps on one batch, each fenced by a synchronize."""
+    x, y = (torch.from_numpy(a).to(built.device)
+            for a in next(built.batches))
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built.step(x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def gate_classifier_tp(torch, cifar):
+    """At init, ``--model-parallel 2`` (both shards as units) against 1
+    from the same seed on the same batch: the params equal, then the loss
+    and every gradient, gated at CIFAR_TP_LOSS_TOL,
+    CIFAR_TP_GRAD_GLOBAL_TOL and CIFAR_TP_GRAD_REL_TOL."""
+    sides = []
+    for argv in (CIFAR_TP_ARGV, CIFAR_ARGV):
+        built = cifar.build(cifar.parse_args(argv))
+        sides.append(built)
+    names = [[n for n, _ in b.model.named_parameters()] for b in sides]
+    require(names[0] == names[1], "classifier_tp gate: the param trees differ")
+    require(all(torch.equal(a, b) for a, b in zip(
+        sides[0].model.parameters(), sides[1].model.parameters())),
+        "classifier_tp gate: the two seeded inits differ")
+    x, y = (torch.from_numpy(a).to(sides[0].device)
+            for a in next(sides[0].batches))
+    out = []
+    for built in sides:
+        logits, _stats = built.model(x)
+        loss = torch.nn.functional.cross_entropy(logits, y.long())
+        loss.backward()
+        out.append((float(loss.detach()),
+                    {n: p.grad for n, p in built.model.named_parameters()},
+                    logits.detach()))
+    (got_loss, got, got_logits), (want_loss, want, want_logits) = out
+    num = sum(float((got[n] - g).float().norm() ** 2) for n, g in want.items())
+    den = sum(float(g.float().norm() ** 2) for g in want.values())
+    rel = sorted(((float((got[n] - g).norm() / g.norm()), n)
+                  for n, g in want.items()), reverse=True)
+    res = {"loss": got_loss, "loss_model_1": want_loss,
+           "loss_abs_err": abs(got_loss - want_loss),
+           "logits_max_abs_err": float((got_logits - want_logits).abs().max()),
+           "logits_bit_equal": bool(torch.equal(got_logits, want_logits)),
+           "grad_rel_err_all": (num / den) ** 0.5,
+           "worst_grad_rel_err": [[n, r] for r, n in rel[:4]],
+           "rows": int(x.shape[0]),
+           "tol": f"loss {CIFAR_TP_LOSS_TOL}; the whole gradient "
+                  f"{CIFAR_TP_GRAD_GLOBAL_TOL} and each parameter "
+                  f"{CIFAR_TP_GRAD_REL_TOL} of model 1's norm"}
+    del sides, out, got, want
+    torch.cuda.empty_cache()
+    require(res["loss_abs_err"] <= CIFAR_TP_LOSS_TOL,
+            f"classifier_tp gate: loss gap {res['loss_abs_err']}")
+    require(res["grad_rel_err_all"] <= CIFAR_TP_GRAD_GLOBAL_TOL,
+            f"classifier_tp gate: the whole gradient off by "
+            f"{res['grad_rel_err_all']} of its norm")
+    require(rel[0][0] <= CIFAR_TP_GRAD_REL_TOL,
+            f"classifier_tp gate: {rel[0][1]} gradient off by {rel[0][0]} "
+            f"of its norm")
+    return res
+
+
+def run_classifier_tp(torch, cifar, train, checkpoint, steptrace, cls):
+    """``payload.cifar`` at its defaults with ``--model-parallel 2``
+    (CIFAR_TP_ARGV), both shards as units on the card:
+
+    - the gate at init against ``--model-parallel 1``
+      (:func:`gate_classifier_tp`);
+    - 20 steps through cifar.build and train.train_loop: every loss
+      finite, the last below the first; images/s over five fenced steps
+      beside the ``classifier`` phase's (``cls``), and the peak memory;
+    - a kill and resume through checkpoint.Checkpointer at model 2 (6
+      steps unbroken; run A 3 steps, saved; run B restores 3 and trains
+      4-6): B's losses, params, BatchNorm statistics and sgd trace
+      bit-equal to the unbroken run's; then B's last step restored into a
+      ``--model-parallel 1`` build: every param, statistic and trace
+      bit-equal to B's (one process holds both shards, so its tensors are
+      the whole arrays the checkpoint holds)."""
+    import shutil
+    import tempfile
+
+    gate = gate_classifier_tp(torch, cifar)
+    torch.cuda.reset_peak_memory_stats()
+    args = cifar.parse_args(CIFAR_TP_ARGV)
+    built = cifar.build(args)
+    losses, seconds, _rows = _ckpt_drive(torch, train, steptrace, built,
+                                         args.steps, None)
+    require(all(x == x and abs(x) < float("inf") for x in losses)
+            and losses[-1] < losses[0],
+            f"classifier_tp: losses {losses} are not finite or do not "
+            f"descend")
+    step_times = _fenced_step_seconds(torch, built)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del built
+    torch.cuda.empty_cache()
+
+    resume_argv = ["--steps", "6", *CIFAR_TP_ARGV[2:]]
+    rargs = cifar.parse_args(resume_argv)
+    whole = cifar.build(rargs)
+    w_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, whole,
+                                      rargs.steps, None)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_cifar_tp_")
+    try:
+        run_a = cifar.build(rargs)
+        ck_a = checkpoint.Checkpointer(ckdir, save_every=3)
+        a_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_a, 3,
+                                          ck_a)
+        ck_a.close()
+        run_b = cifar.build(rargs)
+        ck_b = checkpoint.Checkpointer(ckdir, save_every=3)
+        b_losses, _s, _rows = _ckpt_drive(torch, train, steptrace, run_b,
+                                          rargs.steps, ck_b)
+        ck_b.close()
+        one = cifar.build(cifar.parse_args(
+            with_flag(resume_argv, "--model-parallel", "1")))
+        ck_one = checkpoint.Checkpointer(ckdir)
+        try:
+            _state, one_step = ck_one.restore(one.state)
+        finally:
+            ck_one.close()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    require(a_losses == w_losses[:3] and b_losses == w_losses[3:],
+            f"classifier_tp resume: losses A {a_losses} B {b_losses} vs "
+            f"unbroken {w_losses}")
+
+    def tensors(state):
+        return {**state.params, **state.batch_stats,
+                **state.opt.state_dict()}
+
+    want, got = tensors(whole.state), tensors(run_b.state)
+    off = [n for n, t in want.items() if not torch.equal(t, got[n])]
+    require(not off, f"classifier_tp resume: state differs from the "
+                     f"unbroken run's: {off[:8]}")
+    require(one_step == rargs.steps,
+            f"classifier_tp: the model-1 restore found step {one_step}")
+    mine = tensors(one.state)
+    off = [n for n, t in got.items() if not torch.equal(t, mine[n])]
+    require(not off, f"classifier_tp: restored at model 1, {off[:8]} "
+                     f"differ from the model-2 run's")
+    del whole, run_a, run_b, one
+    torch.cuda.empty_cache()
+    median = statistics.median(step_times)
+    cls_median = statistics.median(cls["fenced_step_seconds"])
+    return {"model": "cifar ResNet-20 (payload.cifar defaults) with "
+                     "--model-parallel 2, both shards as units on one card",
+            "argv": CIFAR_TP_ARGV, "loss_trajectory": losses,
+            "loop_seconds": seconds, "fenced_step_seconds": step_times,
+            "images_per_s": args.batch / median,
+            "classifier_images_per_s": args.batch / cls_median,
+            "step_ms_over_classifier": median / cls_median,
+            "peak_memory_gb": peak_gb,
+            "gate_at_init": gate,
+            "resume": {"unbroken": w_losses, "run_a": a_losses,
+                       "run_b": b_losses, "bit_equal": True,
+                       "restored_at_model_1_step": one_step,
+                       "model_1_bit_equal": True},
+            "nvidia_smi": nvidia_smi_line()}
 
 
 # --- the warm-restart and operator-runtime phases ----------------------------
@@ -5596,6 +5843,9 @@ def main() -> int:
         emit({"phase": "profile_classifier", **profile_train(torch, built)})
         del built
         torch.cuda.empty_cache()
+        ctp = run_classifier_tp(torch, cifar, train, checkpoint, steptrace,
+                                cls)
+        emit({"phase": "classifier_tp", **ctp})
         atn = run_autotune(torch, cifar, train, autotune, heartbeat,
                            steptrace, fa)
         emit({"phase": "autotune", **atn})
@@ -5672,6 +5922,10 @@ def main() -> int:
          "worst_err_over_tol": max(r["worst_err_over_tol_O"] for r in
                                    (*fwd.values(), *wide["fwd"].values(),
                                     par["ulysses_fwd"])),
+         "longctx_shape": "longctx B1 T32768 H16 KVH4 D128 causal",
+         **{f"longctx_{k}": lc["kernel_bounds"][k2] for k, k2 in (
+             ("ms", "ms_fwd"), ("library_ms", "library_fwd_ms"),
+             ("bound_ms", "bound_ms_fwd"), ("bound_by", "bound_by_fwd"))},
          "ulysses_slab_shape": "ulysses slab B2 T8192 H16 KVH4 causal",
          **{f"ulysses_slab_{k}": par["ulysses_fwd"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -5795,7 +6049,13 @@ def main() -> int:
                 for n in (("dq",) if name == "dq" else ("dk", "dv")))),
             **{f"{c}_{k}": par[c][k] for c in par_bwd for k in (
                 f"ms_{name}", f"bound_ms_{name}", f"bound_by_{name}",
-                "plain_ms")},
+                "plain_ms", "library_ms")},
+            "longctx_shape": "longctx B1 T32768 H16 KVH4 D128 causal, fused "
+                             "D, bf16 grads",
+            **{f"longctx_{k}": lc["kernel_bounds"][k2] for k, k2 in (
+                ("ms", f"ms_{name}"), ("library_ms", "library_bwd_ms"),
+                ("bound_ms", f"bound_ms_{name}"),
+                ("bound_by", f"bound_by_{name}"))},
             "ulysses_bwd_shape": "ulysses slab B2 T8192 H16 KVH4 causal, "
                                  "fused D, bf16 grads",
             "sp_tp_bwd_shape": "sp_tp chunk B8 Tq=Tk=4096 H8 KVH8, "
@@ -5851,6 +6111,8 @@ def main() -> int:
             "sp_ring_bound_ms": ring_bwd[f"bound_ms_{name}"],
             "sp_ring_tflops": ring_bwd.get(f"tflops_{name}"),
             "sp_ring_share_of_bound": ring_bwd.get(f"share_of_bound_{name}"),
+            "sp_ring_plain_ms": ring_bwd["plain_ms"],
+            "sp_ring_library_ms": ring_bwd["library_ms"],
             "moe_shape": "moe B8 T2048 H8 KVH4",
             "moe_ms": moe_bwd[f"ms_{name}"],
             "moe_bound_ms": moe_bwd[f"bound_ms_{name}"],

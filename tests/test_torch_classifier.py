@@ -202,15 +202,6 @@ def test_classifier_flags_and_defaults():
     assert compute.make_optimizer(lin).momentum is None
 
 
-@pytest.mark.parametrize("flag,match", [
-    (["--model-parallel", "2"], "Queue A 7"),
-], ids=["model_parallel"])
-def test_cifar_unported_flags_raise(flag, match):
-    args = cifar.parse_args(TINY + flag + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=match):
-        cifar.build(args)
-
-
 def _jax_cifar(extra):
     args = jcifar.parse_args(TINY[:-4] + list(extra))
     return jcifar.build(args)

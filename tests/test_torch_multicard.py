@@ -20,11 +20,15 @@ a timeout of its own. Each worker:
   through ``train.train_loop`` (the gradient all-reduce over NCCL, the
   drain agreement over the gloo group beside it) and hashes its params;
 - process 0 then trains the same config with the whole ring on its card
-  (P = 1, no collective) for the loss comparison.
+  (P = 1, no collective) for the loss comparison;
+- the classifier cell at ``--model-parallel 2`` over the four cards (data
+  2 x model 2) for 3 steps, and process 0 the same with both shards and
+  the whole batch on its card.
 
 Beside it, a two-card run (``pair_runs``, two cards or more): tensor
 parallelism and Ulysses over NCCL, one shard a card, against one card
-holding both shards.
+holding both shards, and the classifier at ``--model-parallel 2`` the same
+way.
 """
 
 import json
@@ -47,7 +51,8 @@ SCRIPT = textwrap.dedent('''
     import numpy as np
     import torch
     sys.path.insert(0, sys.argv[1])
-    from tpu_operator_torch.payload import bootstrap, train, transformer
+    from tpu_operator_torch.payload import bootstrap, cifar, train
+    from tpu_operator_torch.payload import transformer
     from tpu_operator_torch.payload import ring_attention as ring
 
     out = sys.argv[2]
@@ -78,6 +83,25 @@ SCRIPT = textwrap.dedent('''
             for _ in range(args.steps):
                 (tokens,) = next(built.batches)
                 step(torch.from_numpy(tokens).to(built.device))
+        digest = hashlib.sha256()
+        for p in built.model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        return [float(x) for x in losses], digest.hexdigest()
+
+    def classifier_run(mesh):
+        """The classifier cell (ResNet-20, batch 1024) at
+        --model-parallel 2 on ``mesh``, 3 steps: its losses and a digest
+        of the params this card holds."""
+        args = cifar.parse_args(["--steps", "3", "--model-parallel", "2",
+                                 "--seed", "0", "--log-every", "0",
+                                 "--device", "cuda", "--checkpoint-dir", "",
+                                 "--profile-dir", ""])
+        built = cifar.build(args, mesh=mesh)
+        losses = []
+        for _ in range(args.steps):
+            x, y = (torch.from_numpy(a).to(built.device)
+                    for a in next(built.batches))
+            losses.append(built.step(x, y)["loss"])
         digest = hashlib.sha256()
         for p in built.model.parameters():
             digest.update(p.detach().cpu().numpy().tobytes())
@@ -114,6 +138,11 @@ SCRIPT = textwrap.dedent('''
         if rank == 0:
             res["losses_one_process"], _ = train_run(
                 transformer.make_lm_mesh(1, 0, 4))
+        res["classifier_d2m2"] = classifier_run(
+            cifar.make_cifar_mesh(model_parallel=2))
+        if rank == 0:
+            res["classifier_one_card"] = classifier_run(
+                cifar.CifarMesh(1, 0, 1, 2))
         with open(f"{out}/r{rank}.json", "w") as f:
             json.dump(res, f)
 
@@ -200,6 +229,26 @@ def test_losses_match_one_process_holding_the_whole_ring(runs):
             assert abs(got - want) <= 1e-2
 
 
+@pytest.mark.cuda
+def test_classifier_data_2_model_2_over_four_cards(runs):
+    """The classifier at ``--model-parallel 2`` over four cards (data 2 x
+    model 2): the two data ranks' cards of one model rank hold bit-equal
+    params after three steps (the same all-reduced gradient), and the
+    losses stay within 1e-2 a step of one card holding both shards with
+    the whole batch (each data half's bf16 weight gradient rounds before
+    the all-reduce; a wrong group for BatchNorm's sums or the gradient
+    reduce moves the loss by O(1))."""
+    digests = {r: res["classifier_d2m2"][1] for r, (_c, res) in runs.items()}
+    assert digests[0] == digests[2] and digests[1] == digests[3]
+    assert digests[0] != digests[1]
+    one = runs[0][1]["classifier_one_card"][0]
+    for _code, res in runs.values():
+        losses = res["classifier_d2m2"][0]
+        assert len(losses) == len(one) == 3
+        for got, want in zip(losses, one):
+            assert abs(got - want) <= 1e-2
+
+
 # --- two cards: tensor parallelism and Ulysses over NCCL ------------------------
 #
 #     python -m pytest tests/test_torch_multicard.py --noconftest -m cuda -q -s
@@ -214,10 +263,11 @@ def test_losses_match_one_process_holding_the_whole_ring(runs):
 PAIR = 2
 
 PAIR_SCRIPT = textwrap.dedent('''
-    import json, sys
+    import hashlib, json, sys
     import torch
     sys.path.insert(0, sys.argv[1])
-    from tpu_operator_torch.payload import bootstrap, train, transformer
+    from tpu_operator_torch.payload import bootstrap, cifar, collectives
+    from tpu_operator_torch.payload import train, transformer
 
     out = sys.argv[2]
     BASE = ["--steps", "2", "--batch", "2", "--seq-len", "4096",
@@ -248,9 +298,55 @@ PAIR_SCRIPT = textwrap.dedent('''
                 step(torch.from_numpy(tokens).to(built.device))
         return [float(x) for x in losses]
 
+    # The classifier cell (ResNet-20, batch 1024) at --model-parallel 2.
+    CIFAR = ["--steps", "3", "--model-parallel", "2", "--seed", "0",
+             "--log-every", "0", "--device", "cuda", "--checkpoint-dir", "",
+             "--profile-dir", ""]
+
+    def digests(model, rank, procs):
+        """sha256 of each param as model rank ``rank`` of ``procs`` holds
+        it (the part of each split one)."""
+        dims = model.tp_dims()
+        out = {}
+        for n, p in model.named_parameters():
+            t = p.detach()
+            if model.tp.procs == 1 and procs > 1 and n in dims:
+                t = collectives.part_of(t, *dims[n], procs, rank)
+            out[n] = hashlib.sha256(
+                t.contiguous().cpu().numpy().tobytes()).hexdigest()
+        return out
+
+    def classifier_run(mesh, rank):
+        args = cifar.parse_args(CIFAR)
+        built = cifar.build(args, mesh=mesh)
+        losses = []
+
+        def step(x, y):
+            metrics = built.step(x, y)
+            losses.append(metrics["loss"])
+            return metrics
+
+        if mesh.world > 1:
+            train.train_loop(step, built.batches, args.steps,
+                             device=built.device, heartbeat=None,
+                             steptrace=None)
+        else:
+            for _ in range(args.steps):
+                x, y = (torch.from_numpy(a).to(built.device)
+                        for a in next(built.batches))
+                step(x, y)
+        return {"losses": [float(x) for x in losses],
+                "params": {r: digests(built.model, r, 2)
+                           for r in ([rank] if mesh.world > 1
+                                     else range(2))}}
+
     def payload(info):
         rank = info.process_id
-        res = {}
+        res = {"classifier_tp": classifier_run(
+            cifar.make_cifar_mesh(model_parallel=2), rank)}
+        if rank == 0:
+            res["classifier_tp_one_card"] = classifier_run(
+                cifar.CifarMesh(1, 0, 1, 2), rank)
         for name, flags in CONFIGS.items():
             args = transformer.parse_args(BASE + flags)
             mesh = transformer.make_lm_mesh(
@@ -302,6 +398,23 @@ def pair_runs(tmp_path_factory):
         result[rank] = (proc.returncode, json.loads(path.read_text()))
     print(json.dumps({str(r): v for r, v in result.items()}))
     return result
+
+
+@pytest.mark.cuda
+def test_classifier_over_two_cards_is_bit_equal_to_one_card(pair_runs):
+    """The classifier at ``--model-parallel 2``, one shard a card, against
+    one card holding both: each shard's convolutions run at the same
+    shapes (cuDNN deterministic), the joins move the bytes unchanged and
+    the gradient sums add two values, so the three losses are equal and
+    each card's params after them are bit-equal to its part of the one
+    card's."""
+    one = pair_runs[0][1]["classifier_tp_one_card"]
+    assert len(one["losses"]) == 3
+    for rank, (code, res) in pair_runs.items():
+        assert code == 0
+        mine = res["classifier_tp"]
+        assert mine["losses"] == one["losses"]
+        assert mine["params"][str(rank)] == one["params"][str(rank)]
 
 
 @pytest.mark.cuda

@@ -68,6 +68,31 @@ def own_group(rank: int, members) -> Any:
     return found
 
 
+def check_slices(world: int, inner: int, label: str,
+                 num_slices: int = 1) -> None:
+    """The reference's multi-slice rule (``train._mesh_device_layout``)
+    over the job's processes. ``num_slices`` > 1 (``MEGASCALE_NUM_SLICES``)
+    needs a world that divides into that many slices of adjacent ranks
+    (the operator orders ``JAX_PROCESS_ID`` slice-major), and an inner
+    group (``inner`` adjacent ranks: the processes of one model, seq,
+    pipe or expert group) that fits whole inside one slice, so that its
+    per-op collectives never cross a slice (on GPUs, a node) boundary and
+    only the data axis spans slices. Raises ValueError otherwise; one
+    slice accepts every layout."""
+    if num_slices < 1:
+        raise ValueError(f"num_slices must be >= 1, got {num_slices}")
+    if num_slices == 1:
+        return
+    if world % num_slices:
+        raise ValueError(f"{world} processes not divisible by "
+                         f"num_slices={num_slices}")
+    per_slice = world // num_slices
+    if per_slice % inner:
+        raise ValueError(f"{label}={inner} processes do not fit within one "
+                         f"slice ({per_slice} processes): inner-axis "
+                         f"collectives must stay inside a slice")
+
+
 def part_of(t: torch.Tensor, dim: int, sections: int, size: int,
             rank: int) -> torch.Tensor:
     """Part ``rank`` of ``size`` of a whole tensor split along ``dim``:

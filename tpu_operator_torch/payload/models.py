@@ -49,7 +49,9 @@ saved, and so does the port's.
 
 The classifier (``BasicBlock``, ``CifarResNet``): convolutions and the
 stem in bf16 with flax's SAME padding (asymmetric at stride 2), the port's
-own :class:`BatchNorm` with flax's numerics in f32, the head in f32.
+own :class:`BatchNorm` with flax's numerics in f32, the head in f32; under
+tensor parallelism the stage-2 blocks split by output channel and the head
+by class, each shard a unit (``CifarResNet``'s ``tp``).
 """
 
 from __future__ import annotations
@@ -590,17 +592,17 @@ BN_MOMENTUM = 0.99
 BN_EPS = 1e-5
 
 
-def _data_group_size() -> int:
-    """Processes whose batches one BatchNorm reduces over: the whole
-    process group (the classifier payloads are data parallel only)."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
+def _data_group_size(group=None) -> int:
+    """Processes whose batches one BatchNorm reduces over: ``group`` (the
+    classifier's data ranks), or this process alone when it is None."""
+    if group is not None and dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(group)
     return 1
 
 
-def _all_reduce_sums(sums: torch.Tensor) -> torch.Tensor:
-    if _data_group_size() > 1:
-        dist.all_reduce(sums)
+def _all_reduce_sums(sums: torch.Tensor, group=None) -> torch.Tensor:
+    if _data_group_size(group) > 1:
+        dist.all_reduce(sums, group=group)
     return sums
 
 
@@ -608,21 +610,21 @@ class _BatchNormTrain(torch.autograd.Function):
     """flax ``BatchNorm(use_running_average=False, dtype=float32)`` over
     the global batch: per channel of [N, C, H, W], in f32, the mean and
     ``var = max(E[x^2] - E[x]^2, 0)`` (flax's fast variance) from sums
-    all-reduced over the process group, then ``(x - mean) * (rsqrt(var +
-    eps) * scale) + bias``. The backward all-reduces the matching sums
-    (sum dy, sum dy * xhat), so every process's dx is its share of the
-    global batch's gradient; the scale and bias gradients stay local (the
-    train step's gradient all-reduce sums them). Returns (y f32, mean,
-    var), the statistics without gradient."""
+    all-reduced over ``group`` (None: none), then ``(x -
+    mean) * (rsqrt(var + eps) * scale) + bias``. The backward all-reduces
+    the matching sums (sum dy, sum dy * xhat), so every process's dx is
+    its share of the global batch's gradient; the scale and bias
+    gradients stay local (the train step's gradient all-reduce sums them).
+    Returns (y f32, mean, var), the statistics without gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float):
+    def forward(ctx, x, scale, bias, eps: float, group):
         xf = x.float()
         dims = (0, 2, 3)
         count = torch.full((1,), xf.numel() // xf.shape[1],
                            dtype=torch.float32, device=x.device)
         sums = _all_reduce_sums(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
-                                           count]))
+                                           count]), group)
         c = xf.shape[1]
         total = sums[-1]
         mean = sums[:c] / total
@@ -633,6 +635,7 @@ class _BatchNormTrain(torch.autograd.Function):
         y = (xf - mean.view(shape)) * mul.view(shape) + bias.view(shape)
         ctx.save_for_backward(x, mean, rstd, mul, total)
         ctx.mark_non_differentiable(mean, var)
+        ctx.group = group
         return y, mean, var
 
     @staticmethod
@@ -645,10 +648,19 @@ class _BatchNormTrain(torch.autograd.Function):
         local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
         c = mean.shape[0]
         dbias, dscale = local[:c].clone(), local[c:].clone()
-        sums = _all_reduce_sums(local) / total
+        sums = _all_reduce_sums(local, ctx.group) / total
         dx = mul.view(shape) * (dy - sums[:c].view(shape)
                                 - xhat * sums[c:].view(shape))
-        return dx.to(x.dtype), dscale, dbias, None
+        return dx.to(x.dtype), dscale, dbias, None, None
+
+
+# A tensor-parallel unit's channels of a split layer: (first, count)
+# within this process's part of its params (None: every channel).
+Part = Optional[Tuple[int, int]]
+
+
+def _rows(t: torch.Tensor, part: Part) -> torch.Tensor:
+    return t if part is None else t.narrow(0, *part)
 
 
 class BatchNorm(nn.Module):
@@ -659,7 +671,10 @@ class BatchNorm(nn.Module):
     reduction differ. The running statistics are never updated in place
     by the forward: in training it returns the new ones beside the output
     (:meth:`CifarResNet.forward`), so a recompute under remat cannot
-    apply them twice."""
+    apply them twice. ``group`` is the processes whose batches it reduces
+    over (None: this process's batch is the whole). A forward given
+    ``part`` normalizes that slice of the channels (a tensor-parallel
+    unit's)."""
 
     def __init__(self, features: int, device=None):
         super().__init__()
@@ -667,21 +682,23 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
+        self.group = None
 
     def forward(self, x: torch.Tensor, train: bool,
-                stats: Optional[list]) -> torch.Tensor:
+                stats: Optional[list], part: Part = None) -> torch.Tensor:
+        scale, bias = _rows(self.scale, part), _rows(self.bias, part)
         if not train:
-            mul = torch.rsqrt(self.var + BN_EPS) * self.scale
+            mul = torch.rsqrt(_rows(self.var, part) + BN_EPS) * scale
             shape = (1, -1, 1, 1)
-            return (x.float() - self.mean.view(shape)) * mul.view(shape) \
-                + self.bias.view(shape)
-        y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias,
-                                             BN_EPS)
+            return (x.float() - _rows(self.mean, part).view(shape)) \
+                * mul.view(shape) + bias.view(shape)
+        y, mean, var = _BatchNormTrain.apply(x, scale, bias, BN_EPS,
+                                             self.group)
         if stats is not None:
             with torch.no_grad():
-                stats.append((self, BN_MOMENTUM * self.mean
+                stats.append((self, BN_MOMENTUM * _rows(self.mean, part)
                               + (1 - BN_MOMENTUM) * mean,
-                              BN_MOMENTUM * self.var
+                              BN_MOMENTUM * _rows(self.var, part)
                               + (1 - BN_MOMENTUM) * var))
         return y
 
@@ -698,7 +715,8 @@ class Conv(nn.Module):
     """flax ``nn.Conv(features, (k, k), strides, padding="SAME",
     use_bias=False, dtype=bfloat16)`` on NCHW: the input and the OIHW
     kernel cast to bf16, flax's SAME padding applied explicitly (not
-    ``padding=1``, which would sample a shifted grid at stride 2)."""
+    ``padding=1``, which would sample a shifted grid at stride 2). A
+    forward given ``part`` computes that slice of the output channels."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, device=None):
@@ -707,40 +725,112 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, in_features, kernel,
                                                kernel, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, part: Part = None) -> torch.Tensor:
         h_lo, h_hi = same_padding(x.shape[2], self.kernel, self.stride)
         w_lo, w_hi = same_padding(x.shape[3], self.kernel, self.stride)
         x = x.to(COMPUTE_DTYPE)
         if h_lo or h_hi or w_lo or w_hi:
             x = F.pad(x, (w_lo, w_hi, h_lo, h_hi))
-        return F.conv2d(x, self.weight.to(COMPUTE_DTYPE), stride=self.stride)
+        return F.conv2d(x, _rows(self.weight, part).to(COMPUTE_DTYPE),
+                        stride=self.stride)
+
+
+def _join(tp: TPShards, units: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Every shard's channels (dim 1) joined in shard order: this
+    process's units, then over the model group. Its gradient keeps this
+    process's part, so before a layer that needs every channel
+    ``tp.enter`` of the join sums that gradient over the group first
+    (all-gather forward, reduce-scatter backward). Activations join
+    channels-last (the layout the NHWC images give every convolution),
+    whether the shards are units or processes, so that both layouts
+    reduce every BatchNorm sum in one order."""
+    if units[0].dim() == 4:
+        nhwc = [u.permute(0, 2, 3, 1) for u in units]
+        return tp.gather(torch.cat(nhwc, dim=-1), dim=-1).permute(0, 3, 1, 2)
+    return tp.gather(torch.cat(list(units), dim=1), dim=1)
 
 
 class BasicBlock(nn.Module):
     """The reference's CIFAR basic block: two 3x3 convs with BatchNorm,
     a 1x1 projection (+ BatchNorm) when the shape changes, relu of the
-    f32 sum."""
+    f32 sum.
+
+    Split over ``tp``'s shards (``tp.shards`` > 1: the reference's
+    ``param_partition_spec`` of a stage-2 block), each conv is
+    column-parallel over its output channels: its params hold this
+    process's ``features * local / shards`` channels, and each shard this
+    process holds computes its ``features / shards`` as a unit, one after
+    another, its BatchNorms normalizing its channels. A conv that needs
+    every input channel takes the join of every shard's (``_join`` then
+    ``tp.enter``); the identity residual takes the unit's own channels. A
+    split block returns its units' outputs as a list, an unsplit one a
+    tensor; either takes either (an unsplit one joins a list over
+    ``joins``, the model's shards)."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 device=None):
+                 device=None, tp: TPShards = TPShards(),
+                 joins: TPShards = TPShards()):
         super().__init__()
-        self.conv1 = Conv(in_features, features, 3, strides, device)
-        self.bn1 = BatchNorm(features, device)
-        self.conv2 = Conv(features, features, 3, 1, device)
-        self.bn2 = BatchNorm(features, device)
+        self.tp, self.joins = tp, joins
+        self.width = features // tp.shards
+        here = self.width * tp.local
+        self.conv1 = Conv(in_features, here, 3, strides, device)
+        self.bn1 = BatchNorm(here, device)
+        self.conv2 = Conv(features, here, 3, 1, device)
+        self.bn2 = BatchNorm(here, device)
         self.project = in_features != features or strides != 1
         if self.project:
-            self.proj = Conv(in_features, features, 1, strides, device)
-            self.bn_proj = BatchNorm(features, device)
+            self.proj = Conv(in_features, here, 1, strides, device)
+            self.bn_proj = BatchNorm(here, device)
 
-    def forward(self, x: torch.Tensor, train: bool,
-                stats: Optional[list]) -> torch.Tensor:
+    @property
+    def split(self) -> bool:
+        return self.tp.shards > 1
+
+    def forward(self, x, train: bool, stats: Optional[list]):
+        if not self.split:
+            if isinstance(x, list):
+                x = _join(self.joins, x)
+            return self._forward_whole(x, train, stats)
+        tp, n = self.tp, self.width
+        ins = tp.enter(_join(tp, x) if isinstance(x, list) else x)
+        parts = [(u * n, n) for u in range(tp.local)]
+        hidden = [F.relu(self.bn1(self.conv1(xu, p), train, stats, p))
+                  for xu, p in zip(ins, parts)]
+        mids = tp.enter(_join(tp, hidden))
+        out = []
+        for u, (yu, p) in enumerate(zip(mids, parts)):
+            y = self.bn2(self.conv2(yu, p), train, stats, p)
+            if self.project:
+                residual = self.bn_proj(self.proj(ins[u], p), train, stats,
+                                        p)
+            elif isinstance(x, list):
+                residual = x[u]
+            else:
+                residual = ins[u].narrow(1, (tp.index * tp.local + u) * n, n)
+            out.append(F.relu(y + residual.to(y.dtype)))
+        return out
+
+    def _forward_whole(self, x: torch.Tensor, train: bool,
+                       stats: Optional[list]) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x), train, stats))
         y = self.bn2(self.conv2(y), train, stats)
         residual = x
         if self.project:
             residual = self.bn_proj(self.proj(x), train, stats)
         return F.relu(y + residual.to(y.dtype))
+
+
+def split_blocks(stages: int, blocks_per_stage: int,
+                 scan_blocks: bool) -> List[str]:
+    """The blocks whose convs the reference's ``param_partition_spec``
+    splits over the model axis (its 4-D ``stage2*`` kernels): every
+    ``stage2_block{b}``, or under ``scan_blocks`` (blocks 1.. stacked
+    into 5-D kernels, left whole) only ``stage2_block0``."""
+    if stages < 3:
+        return []
+    count = 1 if scan_blocks and blocks_per_stage > 1 else blocks_per_stage
+    return [f"stage2_block{b}" for b in range(count)]
 
 
 class CifarResNet(nn.Module):
@@ -751,14 +841,33 @@ class CifarResNet(nn.Module):
 
     ``scan_blocks`` changes only the reference's param tree (each stage's
     blocks 1..n-1 stacked under ``stage{s}_scan/block``); the port keeps
-    one module per block, and ``weights`` maps the stacked tree."""
+    one module per block, and ``weights`` maps the stacked tree.
+
+    ``tp`` (``--model-parallel``): the reference's ``param_partition_spec``
+    over ``tp.shards`` model shards, ``tp.local`` of them in this process:
+    the blocks of :func:`split_blocks` split by output channel
+    (:class:`BasicBlock`), their BatchNorms' params and statistics with
+    their channels, and the head column-parallel over classes, its bias
+    with it; the rest is whole on every process. ``data_group`` is the
+    processes whose rows every BatchNorm reduces over, one a data rank
+    (None: this process's rows are the whole batch). The seeded init
+    draws every whole tensor and keeps the part, so every layout holds
+    one model."""
 
     def __init__(self, num_classes: int = 10, blocks_per_stage: int = 3,
                  widths: Sequence[int] = (16, 32, 64),
-                 scan_blocks: bool = False, device=None):
+                 scan_blocks: bool = False, device=None,
+                 tp: TPShards = TPShards(), data_group=None):
         super().__init__()
         self.num_classes, self.blocks_per_stage = num_classes, blocks_per_stage
         self.widths, self.scan_blocks = tuple(widths), bool(scan_blocks)
+        self.tp = tp
+        split = split_blocks(len(widths), blocks_per_stage, scan_blocks)
+        for what, size in (("the classes", num_classes),
+                           ("the stage-2 width", widths[-1])):
+            if size % tp.shards:
+                raise ValueError(f"--model-parallel {tp.shards} does not "
+                                 f"divide {what} ({size})")
         self.stem = Conv(3, widths[0], 3, 1, device)
         self.bn_stem = BatchNorm(widths[0], device)
         self.block_names: List[str] = []
@@ -767,24 +876,50 @@ class CifarResNet(nn.Module):
             for block in range(blocks_per_stage):
                 strides = 2 if (stage > 0 and block == 0) else 1
                 name = f"stage{stage}_block{block}"
-                self.add_module(name, BasicBlock(prev, width, strides,
-                                                 device))
+                self.add_module(name, BasicBlock(
+                    prev, width, strides, device,
+                    tp if name in split else TPShards(), tp))
                 self.block_names.append(name)
                 prev = width
-        self.head = nn.Linear(prev, num_classes, device=device)
+        self.head = nn.Linear(prev, num_classes // tp.shards * tp.local,
+                              device=device)
+        for module in self.modules():
+            if isinstance(module, BatchNorm):
+                module.group = data_group
+
+    def tp_dims(self) -> Dict[str, Tuple[int, int]]:
+        """{name: (split dim, sections)} of every param and running
+        statistic split over the model shards, each along dim 0 (a conv's
+        output channels, a BatchNorm's channels, the head's classes);
+        empty without tensor parallelism."""
+        if self.tp.shards == 1:
+            return {}
+        dims = {"head.weight": (0, 1), "head.bias": (0, 1)}
+        for name in self.block_names:
+            block = getattr(self, name)
+            if block.split:
+                dims.update((f"{name}.{n}", (0, 1)) for n, _t in (
+                    *block.named_parameters(), *block.named_buffers()))
+        return dims
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "CifarResNet":
         """Seeded init from ``generator``: conv and dense kernels normal
         with std 1/sqrt(fan_in), zero head bias; BatchNorm scale 1, bias
-        0, running mean 0 and var 1."""
-        for module in self.modules():
+        0, running mean 0 and var 1. A split kernel draws the whole and
+        keeps this process's part."""
+        dims, tp = self.tp_dims(), self.tp
+        for name, module in self.named_modules():
             if isinstance(module, (Conv, nn.Linear)):
                 w = module.weight
-                fan_in = w[0].numel()
-                w.copy_(torch.randn(w.shape, generator=generator,
-                                    device=generator.device)
-                        .mul_(1.0 / math.sqrt(fan_in)))
+                split = f"{name}.weight" in dims
+                shape = (w.shape[0] * tp.procs, *w.shape[1:]) if split \
+                    else w.shape
+                whole = torch.randn(shape, generator=generator,
+                                    device=generator.device).mul_(
+                    1.0 / math.sqrt(w[0].numel()))
+                w.copy_(part_of(whole, 0, 1, tp.procs, tp.index) if split
+                        else whole)
                 if getattr(module, "bias", None) is not None:
                     module.bias.zero_()
         return self
@@ -798,15 +933,35 @@ class CifarResNet(nn.Module):
         x = F.relu(self.bn_stem(self.stem(x), train, stats))
         for name in self.block_names:
             x = getattr(self, name)(x, train, stats)
-        logits = self.head(x.mean(dim=(2, 3)))
+        logits = self._head(x)
         if not train:
             return logits
+        # A split BatchNorm gives one piece a unit, in unit order.
         names = {id(m): n for n, m in self.named_modules()}
-        new = {}
+        pieces: Dict[str, list] = {}
         for module, mean, var in stats:
-            new[f"{names[id(module)]}.mean"] = mean
-            new[f"{names[id(module)]}.var"] = var
+            pieces.setdefault(names[id(module)], []).append((mean, var))
+        new = {}
+        for name, parts in pieces.items():
+            for i, key in enumerate(("mean", "var")):
+                new[f"{name}.{key}"] = parts[0][i] if len(parts) == 1 \
+                    else torch.cat([p[i] for p in parts])
         return logits, new
+
+    def _head(self, x) -> torch.Tensor:
+        """The pooled features through the f32 head; under tensor
+        parallelism column-parallel over classes (each unit its classes),
+        the pooled features joined before it and the logits after."""
+        tp = self.tp
+        pooled = _join(tp, [u.mean(dim=(2, 3)) for u in x]) \
+            if isinstance(x, list) else x.mean(dim=(2, 3))
+        if tp.shards == 1:
+            return self.head(pooled)
+        c = self.num_classes // tp.shards
+        logits = [F.linear(xu, self.head.weight.narrow(0, u * c, c),
+                           self.head.bias.narrow(0, u * c, c))
+                  for u, xu in enumerate(tp.enter(pooled))]
+        return tp.gather(torch.cat(logits, dim=-1), dim=-1)
 
     @torch.no_grad()
     def load_batch_stats(self, stats: Dict[str, torch.Tensor]) -> None:

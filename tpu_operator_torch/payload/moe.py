@@ -623,15 +623,16 @@ class MoEMesh(NamedTuple):
 
 def make_moe_mesh(world: Optional[int] = None, rank: Optional[int] = None,
                   expert_parallel: int = 1,
-                  tensor_parallel: int = 1) -> MoEMesh:
+                  tensor_parallel: int = 1, num_slices: int = 1) -> MoEMesh:
     """The (data, expert, model) mesh over the job's processes (default:
     the process group, or one process without one): P_m = min(world, tp)
     processes per model group, P_e = min(world / P_m, ep) model groups per
     expert group, data = world / (P_e·P_m); each degree must split over
     its P, and the world over P_e·P_m (the reference's ``make_mesh3``
-    layout, model innermost). With a process group, every process creates
-    every group it may need (``dist.new_group`` is collective) and keeps
-    its own."""
+    layout, model innermost); with ``num_slices`` > 1 each expert x model
+    group must fit inside one slice (:func:`collectives.check_slices`).
+    With a process group, every process creates every group it may need
+    (``dist.new_group`` is collective) and keeps its own."""
     grouped = dist.is_available() and dist.is_initialized()
     if world is None:
         world = dist.get_world_size() if grouped else 1
@@ -649,6 +650,8 @@ def make_moe_mesh(world: Optional[int] = None, rank: Optional[int] = None,
             or world % (procs * mprocs):
         raise ValueError(f"--expert-parallel {expert_parallel} does not lay "
                          f"out over {world // mprocs} model groups")
+    collectives.check_slices(world, procs * mprocs, "expert x model",
+                             num_slices)
     mesh = MoEMesh(world, rank, expert_parallel, procs,
                    tp_shards=tensor_parallel, model_procs=mprocs)
     if not grouped or world == 1:
@@ -784,15 +787,17 @@ class Built(NamedTuple):
             model={"name": "moe", "experts": self.experts})
 
 
-def build(args, device=None, mesh: Optional[MoEMesh] = None) -> Built:
+def build(args, device=None, mesh: Optional[MoEMesh] = None,
+          num_slices: int = 1) -> Built:
     """Model (seeded init, gradients on), optimizer and its state, step
     and host batches for the flags. ``device`` defaults to ``--device``
     (CUDA unless it says ``cpu``); ``mesh`` to the (data, expert, model)
     mesh of the job's process group at ``--expert-parallel`` and
-    ``--tensor-parallel``."""
+    ``--tensor-parallel`` over ``num_slices`` slices."""
     check_flags(args)
     mesh = mesh or make_moe_mesh(expert_parallel=args.expert_parallel,
-                                 tensor_parallel=args.tensor_parallel)
+                                 tensor_parallel=args.tensor_parallel,
+                                 num_slices=num_slices)
     if (mesh.ep, mesh.tp_shards) != (args.expert_parallel,
                                      args.tensor_parallel):
         raise ValueError(f"mesh has expert and tensor parallelism "
@@ -818,7 +823,7 @@ def build(args, device=None, mesh: Optional[MoEMesh] = None) -> Built:
 
 def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     args = args or parse_args([])
-    built = build(args)
+    built = build(args, num_slices=info.num_slices)
     mesh = built.mesh
     log.info("mesh: {'data': %d, 'expert': %d, 'model': %d} over %d "
              "processes (%d experts and %d tensor-parallel shards a "

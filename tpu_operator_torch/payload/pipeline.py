@@ -494,12 +494,14 @@ class PipeMesh(NamedTuple):
 
 
 def make_pipe_mesh(world: Optional[int] = None, rank: Optional[int] = None,
-                   pipeline: int = 1, tensor_parallel: int = 1) -> PipeMesh:
+                   pipeline: int = 1, tensor_parallel: int = 1,
+                   num_slices: int = 1) -> PipeMesh:
     """The (data, pipe, model) mesh over the job's processes (default: the
     process group, or one process without one): P_m = min(world, N)
     processes per model group, P = min(world / P_m, S) model groups per
     pipe group, data = world / (P·P_m); S must split over P, N over P_m
-    and the world over P·P_m.
+    and the world over P·P_m; with ``num_slices`` > 1 each pipe x model
+    group must fit inside one slice (:func:`collectives.check_slices`).
     With a process group, every process creates every group it may need
     (``dist.new_group`` is collective) and keeps its own."""
     grouped = dist.is_available() and dist.is_initialized()
@@ -518,6 +520,8 @@ def make_pipe_mesh(world: Optional[int] = None, rank: Optional[int] = None,
     if pipeline < 1 or pipeline % procs or world % (procs * mprocs):
         raise ValueError(f"--pipeline {pipeline} does not lay out over "
                          f"{world} processes")
+    collectives.check_slices(world, procs * mprocs, "pipe x model",
+                             num_slices)
     mesh = PipeMesh(world, rank, pipeline, procs, tp_shards=tensor_parallel,
                     model_procs=mprocs)
     if not grouped or world == 1:
@@ -1180,13 +1184,16 @@ def check_schedule(args, mesh: PipeMesh) -> None:
                 f"({mesh.stages})")
 
 
-def build(args, device=None, mesh: Optional[PipeMesh] = None) -> Built:
+def build(args, device=None, mesh: Optional[PipeMesh] = None,
+          num_slices: int = 1) -> Built:
     """Model (seeded init), optimizer and its state, step and host batches
     for the flags. ``device`` defaults to ``--device`` (CUDA unless it
     says ``cpu``); ``mesh`` to the (data, pipe, model) mesh of the job's
-    process group at ``--pipeline`` and ``--tensor-parallel``."""
+    process group at ``--pipeline`` and ``--tensor-parallel`` over
+    ``num_slices`` slices."""
     mesh = mesh or make_pipe_mesh(pipeline=args.pipeline,
-                                  tensor_parallel=args.tensor_parallel)
+                                  tensor_parallel=args.tensor_parallel,
+                                  num_slices=num_slices)
     if (mesh.stages, mesh.tp_shards) != (args.pipeline,
                                          args.tensor_parallel):
         raise ValueError(f"mesh has {mesh.stages} stages and "
@@ -1219,7 +1226,7 @@ def build(args, device=None, mesh: Optional[PipeMesh] = None) -> Built:
 
 def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     args = args or parse_args([])
-    built = build(args)
+    built = build(args, num_slices=info.num_slices)
     mesh = built.mesh
     log.info("mesh: {'data': %d, 'pipe': %d, 'model': %d} over %d "
              "processes (%d stages and %d tensor-parallel shards a "

@@ -298,14 +298,16 @@ class LMMesh(NamedTuple):
 
 
 def make_lm_mesh(world: Optional[int] = None, rank: Optional[int] = None,
-                 seq_parallel: int = 1, tensor_parallel: int = 1) -> LMMesh:
+                 seq_parallel: int = 1, tensor_parallel: int = 1,
+                 num_slices: int = 1) -> LMMesh:
     """The (data, seq, model) mesh over the job's processes (default: the
     process group, or one process without one): P_m = min(world, N_m)
     processes per model group, P_s = min(world / P_m, N_s) per seq group,
     data = world / (P_s·P_m). Each N must split over its P, and the world
-    over P_s·P_m. With a process group, every process creates every seq,
-    model, replica and data group it may need (``dist.new_group`` is
-    collective) and keeps its own."""
+    over P_s·P_m; with ``num_slices`` > 1 each seq x model group must fit
+    inside one slice (:func:`collectives.check_slices`). With a process
+    group, every process creates every seq, model, replica and data group
+    it may need (``dist.new_group`` is collective) and keeps its own."""
     import torch.distributed as dist
 
     grouped = dist.is_available() and dist.is_initialized()
@@ -324,6 +326,7 @@ def make_lm_mesh(world: Optional[int] = None, rank: Optional[int] = None,
     if seq_parallel % procs or world % (procs * mprocs):
         raise ValueError(f"--seq-parallel {seq_parallel} does not lay out "
                          f"over {world // mprocs} processes")
+    collectives.check_slices(world, procs * mprocs, "seq x model", num_slices)
     mesh = LMMesh(world, rank, procs, seq_parallel, mprocs, tensor_parallel)
     if not grouped or world == 1:
         return mesh
@@ -586,15 +589,17 @@ def make_lm_train_step(model: TransformerLM, optimizer, opt_state,
                                       grad_accum=grad_accum, reduce=reduce)
 
 
-def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
+def build(args, device=None, mesh: Optional[LMMesh] = None,
+          num_slices: int = 1) -> Built:
     """Model (seeded init, gradients on), optimizer and its state, step
     and host batches for the flags. ``device`` defaults to ``--device``
     (CUDA unless it says ``cpu``); ``mesh`` to the (data, seq, model) mesh
     of the job's process group at ``--seq-parallel`` and
-    ``--tensor-parallel``."""
+    ``--tensor-parallel`` over ``num_slices`` slices."""
     check_ported(args)
     mesh = mesh or make_lm_mesh(seq_parallel=args.seq_parallel,
-                                tensor_parallel=args.tensor_parallel)
+                                tensor_parallel=args.tensor_parallel,
+                                num_slices=num_slices)
     if mesh.seq_shards != args.seq_parallel \
             or mesh.model_shards != args.tensor_parallel:
         raise ValueError(f"mesh has {mesh.seq_shards} seq and "
@@ -631,7 +636,7 @@ def build(args, device=None, mesh: Optional[LMMesh] = None) -> Built:
 
 def run(info: bootstrap.ProcessInfo, args=None) -> dict:
     args = args or parse_args([])
-    built = build(args)
+    built = build(args, num_slices=info.num_slices)
     here = sum(p.numel() for p in built.model.parameters())
     n_params = sum(p.numel() * (p.fsdp.size if hasattr(p, "fsdp") else 1)
                    for p in built.model.parameters())

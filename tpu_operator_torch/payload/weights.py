@@ -252,11 +252,14 @@ def _unscanned(tree: Mapping[str, Any], stages: int,
 
 @torch.no_grad()
 def cifar_from_flax(params: Mapping[str, Any],
-                    batch_stats: Mapping[str, Any], device=None
+                    batch_stats: Mapping[str, Any], device=None,
+                    tp: TPShards = TPShards(), data_group=None
                     ) -> CifarResNet:
     """``CifarResNet`` holding the flax classifier's params and running
     statistics, f32. Widths, blocks per stage, classes and the scan
-    layout are read from the tree."""
+    layout are read from the tree. Under tensor parallelism (``tp``, and
+    ``data_group`` as :class:`CifarResNet` takes it) each split tensor
+    holds this process's part of the whole (``CifarResNet.tp_dims``)."""
     stages = 0
     while f"stage{stages}_block0" in params:
         stages += 1
@@ -272,15 +275,22 @@ def cifar_from_flax(params: Mapping[str, Any],
             blocks += 1
     num_classes = np.shape(params["head"]["kernel"])[1]
     model = CifarResNet(num_classes, blocks, widths, scan_blocks=scan,
-                        device=device)
+                        device=device, tp=tp, data_group=data_group)
+    dims = model.tp_dims()
+
+    def part(name: str, whole: torch.Tensor) -> torch.Tensor:
+        if name not in dims:
+            return whole
+        return part_of(whole, *dims[name], tp.procs, tp.index)
+
     flat_p = _unscanned(params, stages, blocks)
     flat_s = _unscanned(batch_stats, stages, blocks)
     for name, module in model.named_modules():
         path = name.split(".")
         if isinstance(module, Conv):
             kernel = np.asarray(_get(flat_p, path)["kernel"], np.float32)
-            w = torch.from_numpy(np.ascontiguousarray(
-                kernel.transpose(3, 2, 0, 1)))
+            w = part(f"{name}.weight", torch.from_numpy(
+                np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))))
             if tuple(w.shape) != tuple(module.weight.shape):
                 raise ValueError(f"{name}: conv kernel {kernel.shape} does "
                                  f"not fit {tuple(module.weight.shape)} "
@@ -290,9 +300,11 @@ def cifar_from_flax(params: Mapping[str, Any],
             p, st = _get(flat_p, path), _get(flat_s, path)
             for attr, src in (("scale", p), ("bias", p), ("mean", st),
                               ("var", st)):
-                getattr(module, attr).copy_(_t(src[attr]))
-    model.head.weight.copy_(_t(params["head"]["kernel"]).t())
-    model.head.bias.copy_(_t(params["head"]["bias"]))
+                getattr(module, attr).copy_(part(f"{name}.{attr}",
+                                                 _t(src[attr])))
+    model.head.weight.copy_(part("head.weight",
+                                 _t(params["head"]["kernel"]).t()))
+    model.head.bias.copy_(part("head.bias", _t(params["head"]["bias"])))
     return model
 
 
@@ -306,7 +318,11 @@ def cifar_to_flax(model: CifarResNet) -> Tuple[Dict[str, Any],
                                                 Dict[str, Any]]:
     """(params, batch_stats) of ``model`` as f32 numpy trees in the
     reference's layout (the scanned one when ``model.scan_blocks``): the
-    inverse of :func:`cifar_from_flax`."""
+    inverse of :func:`cifar_from_flax`, for a model that holds whole
+    tensors (every model shard in this process)."""
+    if model.tp.procs > 1:
+        raise ValueError("cifar_to_flax: the model holds a part of each "
+                         "split tensor (its model group spans processes)")
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for name, module in model.named_modules():
