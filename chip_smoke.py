@@ -134,6 +134,14 @@ one JSON line each:
    dkv launched as often, and the peak memory's rise above the loop's
    start within 1.5 GB of the train phase's; the step ms and the peak
    are printed on lines of their own.
+9b. ``launch``: the train cell through the pod launcher (``python -m
+   tpu_operator_torch.payload.launch --cards 1 -- transformer ...``, one
+   pod of one card) with a checkpoint dir, SIGTERM to the launcher once
+   card 0 logs step 4: exit 143, the card drained and saved at one step
+   k; the first 3 losses bit-equal to the train phase's, K1, dq and dkv
+   layers x microbatches x k in the card process's own count (this
+   slice's path); the time to first step through the launcher beside
+   the payload run directly for one step.
 10. ``checkpoint``: the training phase's flagship at full width and
     depth, checkpointed and resumed through ``checkpoint.Checkpointer``
     in a ``tempfile.mkdtemp()`` directory (it fails with fewer than 3 x
@@ -312,12 +320,24 @@ place of ``--tensor-parallel 4`` (dim 4096, 16 layers, 4 heads, batch
 steps), the fenced step ms and the losses; then one card at the same
 flags without ``--fsdp``, its losses beside them. One JSON line each,
 the last ``{"ok": true, ...}``.
+
+    python3 chip_smoke.py --launch-cards 4
+
+is another (four cards): examples/torch/gpujob-tensor-parallel.yml's
+payload line as written (``-- transformer --tensor-parallel 4 --dim 4096
+--layers 16 --batch 16 --remat``) through the pod launcher as one pod of
+four cards, 4 steps (TP 4 over NCCL): each card's losses, model group,
+peak memory and step ms from its log; then one card holding the four
+shards as units at the same flags, gated as LAUNCH_CARDS_STEP1_RTOL
+says.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
+import signal
 import socket
 import statistics
 import subprocess
@@ -2745,6 +2765,164 @@ def run_fsdp(torch, fa, transformer, train, reference):
             "step_ms": step_ms, "train_step_ms": train_ms,
             "rise_above_train_gb": extra,
             "losses_bit_equal_to_train": True}
+
+
+# --- phase: launch -------------------------------------------------------------
+
+
+LAUNCH_MODULE = "tpu_operator_torch.payload.launch"
+
+
+def _streamed(cmd, env, on_line=None, timeout=900):
+    """Run ``cmd`` from the checkout, reading its merged output as it
+    comes: (exit code, [(seconds since the start, line)]). ``on_line(proc,
+    line)`` sees each line as it arrives."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+            if on_line is not None:
+                on_line(proc, line)
+        code = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return code, lines
+
+
+def card_log(lines, card):
+    """The lines of card ``card``, its ``[card c]`` prefix taken off."""
+    prefix = f"[card {card}] "
+    return [(t, ln[len(prefix):]) for t, ln in lines
+            if ln.startswith(prefix)]
+
+
+def logged_losses(lines):
+    """The loss trajectory from a transformer log (``lines`` of (t,
+    line)): after step 1 the loop logs step k with step k - 1's loss (its
+    fence), and the last step's as ``final``."""
+    steps, final = {}, None
+    for _t, ln in lines:
+        m = re.search(r" step (\d+) loss (\S+)$", ln)
+        if m:
+            steps[int(m.group(1))] = float(m.group(2))
+        m = re.search(r" final: loss (\S+)$", ln)
+        if m:
+            final = float(m.group(1))
+    require(steps and final is not None, "no logged losses")
+    return [steps[1]] + [steps[k] for k in range(3, max(steps) + 1)] \
+        + [final]
+
+
+def _launch_env():
+    """A one-pod job's operator env (rank 0 of 1 on a free local port)."""
+    return _payload_env({
+        "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+        "JAX_PROCESS_ID": "0", "JAX_NUM_PROCESSES": "1",
+        "TPUJOB_ATTEMPT": "0"})
+
+
+def _seconds_to(lines, text):
+    """Seconds from the command's start to its first line holding
+    ``text``."""
+    for t, ln in lines:
+        if text in ln:
+            return t
+    raise SmokeFailure(f"no {text!r} in the log")
+
+
+def run_launch(torch, transformer, reference):
+    """The train cell through the pod launcher as one pod of one card
+    (``python -m tpu_operator_torch.payload.launch --cards 1 --
+    transformer ...``, every step logged in full) with a checkpoint dir,
+    SIGTERM to the launcher once card 0 logs step 4 (which carries step
+    3's loss). Gates: the launcher exits 143, the card drained at one
+    step k and saved it; the first 3 losses bit-equal to the train
+    phase's (``reference``); K1, dq and dkv launched layers x
+    microbatches x k times (the card process's own count, logged at its
+    exit). Before it, the payload run directly for one step: the time to
+    the first step of each, from the process's start to its first step's
+    log line, with the launcher's start of the card process and each
+    process's model built (its ``training`` line) beside it."""
+    import shutil
+    import tempfile
+
+    argv = with_flags(TRAIN_ARGV, steps=100, log_every=1)
+    args = transformer.parse_args(argv)
+    code, direct_lines = _streamed(
+        [sys.executable, "-m", "tpu_operator_torch.payload.transformer",
+         *with_flags(argv, steps=1)], _launch_env())
+    require(code == 0, f"launch: the direct run exited {code}")
+    direct = _seconds_to(direct_lines, " step 1 loss ")
+    direct_built = _seconds_to(direct_lines, " training ")
+    ck = tempfile.mkdtemp(prefix="launch-ck-")
+    sent = []
+
+    def sigterm_after_step_4(proc, line):
+        if not sent and line.startswith("[card 0] ") \
+                and " step 4 loss " in line:
+            proc.send_signal(signal.SIGTERM)
+            sent.append(time.perf_counter())
+
+    try:
+        code, lines = _streamed(
+            [sys.executable, "-m", LAUNCH_MODULE, "--cards", "1", "--",
+             "transformer", *with_flags(argv, checkpoint_dir=ck,
+                                        checkpoint_every=1000000)],
+            _launch_env(), on_line=sigterm_after_step_4)
+        log = card_log(lines, 0)
+        drained = [ln for _t, ln in log
+                   if "drain: checkpointed step " in ln]
+        require(sent and code == 143 and drained,
+                f"launch: SIGTERM after step 4 gave exit {code}\n"
+                + "\n".join(ln for _t, ln in lines[-30:]))
+        step = int(drained[0].split("drain: checkpointed step ", 1)[1]
+                   .split(",")[0])
+        require(os.path.isdir(os.path.join(ck, str(step))),
+                f"launch: no checkpoint of the drained step {step} in "
+                f"{sorted(os.listdir(ck))}")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    steps = {int(m.group(1)): float(m.group(2)) for m in (
+        re.search(r" step (\d+) loss (\S+)$", ln) for _t, ln in log) if m}
+    losses = [steps[1], steps[3], steps[4]]
+    require(losses == reference["loss_trajectory"][:3],
+            f"launch: losses {losses} are not the train phase's first 3 "
+            f"{reference['loss_trajectory'][:3]}")
+    counts = _logged_launches("\n".join(ln for _t, ln in log))
+    per_path = args.layers * args.grad_accum * step
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        require(counts[name] == per_path,
+                f"launch: {name} launched {counts[name]} times in {step} "
+                f"steps, wanted {per_path}")
+    through = _seconds_to(log, " step 1 loss ")
+    spawned = _seconds_to(lines, "card process(es)")
+    built = _seconds_to(log, " training ")
+    print(f"launch: time to first step {through:.2f} s through the "
+          f"launcher (card process started at {spawned:.2f} s, its model "
+          f"built at {built:.2f} s), {direct:.2f} s direct (model built "
+          f"at {direct_built:.2f} s)", flush=True)
+    return {"argv": argv, "launches": counts,
+            "loss_trajectory": losses,
+            "losses_bit_equal_to_train": True,
+            "first_step_s_through_launcher": through,
+            "first_step_s_direct": direct,
+            "launcher_spawns_card_at_s": spawned,
+            "model_built_at_s_through_launcher": built,
+            "model_built_at_s_direct": direct_built,
+            "first_step_is": "seconds from the process's start to its "
+                             "first step's log line (kernel library "
+                             "built; warm file cache)",
+            "sigterm": {"exit": code, "drained_at_step": step,
+                        "checkpoint_of_that_step": True},
+            "nvidia_smi": nvidia_smi_line()}
 
 
 # --- phase: checkpoint -------------------------------------------------------
@@ -5694,6 +5872,108 @@ def fsdp_cards(world: int) -> int:
     return 0
 
 
+# examples/torch/gpujob-tensor-parallel.yml's payload line as written
+# (tests/test_torch_launch.py holds it to the file), and the steps and
+# logging the gate reads: the tensor_parallel phase's 4 steps.
+GPUJOB_TP_PAYLOAD = ["transformer", "--tensor-parallel", "4", "--dim",
+                     "4096", "--layers", "16", "--batch", "16", "--remat"]
+LAUNCH_CARDS_EXTRA = ["--steps", "4", "--seed", "0", "--log-every", "1",
+                      "--checkpoint-dir", "", "--profile-dir", ""]
+
+
+def launch_card_reading(lines, card: int) -> dict:
+    """One card's losses, model group, peak memory and step ms from its
+    log (the ms are the host clock between its logged steps 2 to the end:
+    the loop logs a step once the one before it is fenced)."""
+    log = card_log(lines, card)
+    times = [t for t, ln in log if re.search(r" step \d+ loss ", ln)
+             or " final: loss " in ln]
+    mesh = [ln for _t, ln in log if "mesh: process " in ln]
+    peak = [float(ln.split("peak memory: ", 1)[1].split(" GB")[0])
+            for _t, ln in log if "peak memory: " in ln]
+    require(mesh and peak, f"card {card}: no mesh or peak memory line")
+    return {"card": card, "losses": logged_losses(log),
+            "mesh": mesh[0].split("mesh: ", 1)[1],
+            "peak_gb": peak[0],
+            "step_ms_host_between_logged_steps": [
+                1e3 * (b - a) for a, b in zip(times[1:], times[2:])]}
+
+
+# TP 4 over NCCL against one card holding the four shards as units. The
+# row-parallel partials and the gradients entering a shard are summed in
+# shard order on one card, but by NCCL's ring all-reduce over four cards,
+# which adds the four terms in a rank-rotated order per chunk: f32
+# reassociation, so the losses are not bit-equal (TP 2 is: two terms
+# commute). Step 1 within 1e-5 relative (measured 1.3e-6); step 2, after
+# an adam step from gradients summed in another order, within 5e-3 (the
+# CPU tests' bound for the steps after the first); from step 3 on the
+# TP job's lr-3e-3 spike (a loss of ~24) amplifies any difference, so
+# those steps are printed, not gated.
+LAUNCH_CARDS_STEP1_RTOL = 1e-5
+LAUNCH_CARDS_STEP2_ATOL = 5e-3
+
+
+def launch_cards(world: int) -> int:
+    """``--launch-cards N``: examples/torch/gpujob-tensor-parallel.yml's
+    payload line as written through the pod launcher as one pod of N
+    cards (TP 4 over NCCL at N 4), 4 steps; then one card holding the
+    four shards as units at the same flags (the tensor_parallel phase's
+    run). Gates: every card logs the same losses; against one card, steps
+    1 and 2 within LAUNCH_CARDS_STEP1_RTOL / LAUNCH_CARDS_STEP2_ATOL (see
+    there why not bit-equal)."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f"chip_smoke: --launch-cards {world} needs {world} CUDA "
+              f"cards", file=sys.stderr)
+        return 1
+    from tpu_operator_torch.payload import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__})
+    t0 = time.perf_counter()
+    code, lines = _streamed(
+        [sys.executable, "-m", LAUNCH_MODULE, "--cards", str(world), "--",
+         *GPUJOB_TP_PAYLOAD, *LAUNCH_CARDS_EXTRA], _launch_env(),
+        timeout=1500)
+    wall = time.perf_counter() - t0
+    if code != 0:
+        emit({"phase": "failed", "error": f"launcher exit {code}",
+              "tail": [ln for _t, ln in lines[-40:]]})
+        return 1
+    cards = [launch_card_reading(lines, c) for c in range(world)]
+    for r in cards:
+        emit({"phase": "launch_cards", **r})
+    require(all(r["losses"] == cards[0]["losses"] for r in cards),
+            "the cards logged different losses")
+    one = fsdp_card_steps(torch, transformer, TP_ARGV)
+    gap = [a - b for a, b in zip(cards[0]["losses"], one["losses"])]
+    emit({"phase": "launch_cards_summary", "cards": world,
+          "launcher_wall_s": wall, "losses": cards[0]["losses"],
+          "one_card_losses": one["losses"], "loss_gap": gap,
+          "loss_gap_step1_relative": gap[0] / one["losses"][0],
+          "step_ms": [statistics.median(r[
+              "step_ms_host_between_logged_steps"]) for r in cards],
+          "peak_gb": [r["peak_gb"] for r in cards],
+          "one_card_step_ms": statistics.median(one["step_ms"][1:]),
+          "one_card_peak_gb": max(one["build_peak_gb"],
+                                  one["steps_peak_gb"]),
+          "one_card_params": one["params_here"]})
+    require(abs(gap[0]) <= LAUNCH_CARDS_STEP1_RTOL * abs(one["losses"][0])
+            and abs(gap[1]) <= LAUNCH_CARDS_STEP2_ATOL,
+            f"TP {world} over NCCL parts from one card holding the shards "
+            f"as units by {gap}")
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -5788,6 +6068,8 @@ def main() -> int:
         fs = run_fsdp(torch, fa, transformer, train, tr)
         emit({"phase": "fsdp", **fs})
         torch.cuda.empty_cache()
+        lch = run_launch(torch, transformer, tr)
+        emit({"phase": "launch", **lch})
         ckp, unbroken = run_checkpoint(torch, fa, transformer, train, serve,
                                        bootstrap, checkpoint, steptrace)
         emit({"phase": "checkpoint", **ckp})
@@ -5861,9 +6143,10 @@ def main() -> int:
     wide_dec = wide["decode"]["b_serve_tp_d1024"]
     ring_bwd = bwd["sp_ring_striped_given_d"]
     pipe_fwd, pipe_bwd = (x["pipeline_causal_mha_d64"] for x in (fwd, bwd))
-    # This slice's path (fsdp: K1 and K2 at the train shape) leads each
-    # kernel's line; the earlier slices' paths (tensor_parallel, sp_tp,
-    # ulysses: K1 and K2 at the TP job's shard shape, D 1024, K4 on
+    # This slice's path (launch: the train cell through the pod launcher,
+    # K1 and K2 at the train shape, counted by the card process) leads each
+    # kernel's line; the earlier slices' paths (fsdp; tensor_parallel,
+    # sp_tp, ulysses: K1 and K2 at the TP job's shard shape, D 1024, K4 on
     # sp_tp's ring; pipeline_tp and moe_tp at their shard shapes) stay
     # beside it.
     tp_fwd, tp_bwd = (wide[x]["tp_shard_d1024"] for x in ("fwd", "bwd"))
@@ -5897,8 +6180,9 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_fwd.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:462",
-         "launches": fs["launches"]["flash_fwd"],
-         "launches_by_path": {"fsdp": fs["launches"]["flash_fwd"],
+         "launches": lch["launches"]["flash_fwd"],
+         "launches_by_path": {"launch": lch["launches"]["flash_fwd"],
+                              "fsdp": fs["launches"]["flash_fwd"],
                               **slice_by_path["flash_fwd"],
                               **pipe_by_path["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
@@ -5930,14 +6214,14 @@ def main() -> int:
          **{f"ulysses_slab_{k}": par["ulysses_fwd"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "share_of_bound")},
-         # This slice's path (fsdp) runs K1 at the train shape.
+         # This slice's path (launch) runs K1 at the train shape.
          "ms": train_fwd["ms"], "plain_ms": train_fwd["plain_ms"],
          "bound_ms": train_fwd["bound_ms"],
          "bound_by": train_fwd["bound_by"],
          "library_ms": train_fwd["library_ms"],
          "library": "F.scaled_dot_product_attention",
          "share_of_bound": train_fwd["share_of_bound"],
-         "shape": "fsdp / train B8 T2048 H16 KVH4 D128 causal",
+         "shape": "launch / fsdp / train B8 T2048 H16 KVH4 D128 causal",
          "pipeline_tp_shape": "pipeline_tp shard B4 T256 H1 D64 causal",
          **{f"pipeline_tp_{k}": pptp_fwd[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -6019,8 +6303,9 @@ def main() -> int:
             "name": f"flash_bwd_{name}", "route": "cuda",
             "source": "tpu_operator_torch/kernels/csrc/flash_bwd.cu",
             "replaces": f"tpu_operator/payload/flash_attention.py:{line}",
-            "launches": fs["launches"][f"flash_bwd_{name}"],
+            "launches": lch["launches"][f"flash_bwd_{name}"],
             "launches_by_path": {
+                "launch": lch["launches"][f"flash_bwd_{name}"],
                 "fsdp": fs["launches"][f"flash_bwd_{name}"],
                 **slice_by_path[f"flash_bwd_{name}"],
                 **pipe_by_path[f"flash_bwd_{name}"],
@@ -6061,7 +6346,7 @@ def main() -> int:
             "sp_tp_bwd_shape": "sp_tp chunk B8 Tq=Tk=4096 H8 KVH8, "
                                "(4096, 4096, 1) home and (4096, 0, 1) "
                                "earlier, given D, f32 grads",
-            # This slice's path (fsdp) runs K2 at the train shape.
+            # This slice's path (launch) runs K2 at the train shape.
             "ms": main_bwd[f"ms_{name}"],
             "plain_ms": main_bwd["plain_ms"],
             "bound_ms": main_bwd[f"bound_ms_{name}"],
@@ -6069,8 +6354,8 @@ def main() -> int:
             "library_ms": main_bwd["library_ms"],
             "library": "F.scaled_dot_product_attention",
             "share_of_bound": main_bwd.get(f"share_of_bound_{name}"),
-            "shape": "fsdp / train B8 T2048 H16 KVH4 D128 causal, fused "
-                     "D, bf16 grads",
+            "shape": "launch / fsdp / train B8 T2048 H16 KVH4 D128 causal, "
+                     "fused D, bf16 grads",
             "plain_ms_is": "_bwd_ref: dq, dk and dv together",
             "library_ms_is": main_bwd.get("library_ms_is"),
             "pair_ms": main_bwd["ms_pair"],
@@ -6142,6 +6427,7 @@ def main() -> int:
         # Not on this slice's path: the earlier slice's (sp_tp's ring).
         "launches": tp_launches["flash_merge"],
         "launches_by_path": {
+            "launch": lch["launches"]["flash_merge"],
             "fsdp": fs["launches"]["flash_merge"],
             **slice_by_path["flash_merge"],
             "train_sp": sp["launches"]["flash_merge"],
@@ -6185,10 +6471,12 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--fsdp-worker"]:
         sys.exit(fsdp_card_worker(int(sys.argv[2]), int(sys.argv[3]),
                                   int(sys.argv[4]), sys.argv[5]))
-    if sys.argv[1:2] == ["--fsdp-cards"]:
-        try:
-            sys.exit(fsdp_cards(int(sys.argv[2])))
-        except SmokeFailure as e:
-            emit({"phase": "failed", "error": str(e)})
-            sys.exit(1)
+    for flag, run in (("--fsdp-cards", fsdp_cards),
+                      ("--launch-cards", launch_cards)):
+        if sys.argv[1:2] == [flag]:
+            try:
+                sys.exit(run(int(sys.argv[2])))
+            except SmokeFailure as e:
+                emit({"phase": "failed", "error": str(e)})
+                sys.exit(1)
     sys.exit(main())

@@ -16,6 +16,18 @@ from tpu_operator_torch.payload import train
 from tpu_operator_torch.payload import transformer
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the whole module: beside the suite's other
+    workers, a torch op that spreads over every core waits on threads the
+    other workers hold (a 20-step run of these widths took 230 s in a
+    full parallel run and 5 s alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _case(b=2, t=64, d=32, v=96, seed=0):
     """bf16 hidden [B, T, d], an f32 head weight in the port's layout
     [vocab, d] (the reference's kernel is its transpose), tokens."""

@@ -31,6 +31,18 @@ from tpu_operator_torch.payload import checkpoint
 from tpu_operator_torch.payload import moe
 from tpu_operator_torch.payload import weights
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the whole module: beside the suite's other
+    workers, a torch op that spreads over every core waits on threads the
+    other workers hold (a 20-step run of these widths took 230 s in a
+    full parallel run and 5 s alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 REPO = Path(__file__).resolve().parent.parent
 
 # The reference's test_moe sizes, one process.

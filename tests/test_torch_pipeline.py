@@ -37,6 +37,18 @@ from tpu_operator.payload import train as jtrain
 from tpu_operator_torch.payload import pipeline
 from tpu_operator_torch.payload import weights
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the whole module: beside the suite's other
+    workers, a torch op that spreads over every core waits on threads the
+    other workers hold (a 20-step run of these widths took 230 s in a
+    full parallel run and 5 s alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TINY = dict(batch=8, seq_len=32, dim=32, heads=2, layers=4, microbatches=4,
             dtype="f32", lr=1e-2, seed=0, log_every=0)
 LOSS_TOL = 1e-5

@@ -25,6 +25,18 @@ from tpu_operator_torch.payload import optimizers
 from tpu_operator_torch.payload import transformer
 from tpu_operator_torch.payload import weights
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the whole module: beside the suite's other
+    workers, a torch op that spreads over every core waits on threads the
+    other workers hold (a 20-step run of these widths took 230 s in a
+    full parallel run and 5 s alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TINY = ["--dim", "64", "--layers", "2", "--heads", "4", "--kv-heads", "2",
         "--vocab", "256", "--seq-len", "64", "--batch", "4",
         "--grad-accum", "2", "--log-every", "0", "--seed", "0",

@@ -30,6 +30,18 @@ from tpu_operator_torch.payload import optimizers
 from tpu_operator_torch.payload import transformer
 from tpu_operator_torch.payload import weights
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the whole module: beside the suite's other
+    workers, a torch op that spreads over every core waits on threads the
+    other workers hold (a 20-step run of these widths took 230 s in a
+    full parallel run and 5 s alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 # bf16 logits differ by up to 2^-5 between the frameworks (the bound of
 # tests/test_torch_train.py and test_torch_sp_train.py): a step's loss
 # within 5e-3. A wrong split (a head's columns in the wrong shard, a

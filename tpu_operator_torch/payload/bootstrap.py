@@ -14,7 +14,11 @@ device_count)``; the backend follows the device the entry point runs on
 (NCCL for CUDA, gloo only when the caller asked for the CPU; NCCL never
 falls back to gloo; beside NCCL a gloo group carries the host-side
 agreement of the drain code). A one-process job (a serve replica, the
-one-card trainer) forms no group.
+one-card trainer) forms no group. Under the pod launcher (``launch.py``:
+one process per card, ``TPUJOB_POD_CARDS`` cards a pod) global rank 0
+first checks that every pod runs that many cards (:func:`check_pods`),
+so pods that disagree fail with a clear error instead of waiting out the
+rendezvous.
 
 The remote warm-start store's prefetch (``warmstore.py``) starts before
 the rendezvous and is joined after it, so the download overlaps the wait
@@ -66,6 +70,11 @@ class ProcessInfo:
     slice_id: int = 0
     runtime_id: str = ""
     replica_index: int = 0
+    pod_cards: int = 0  # cards of this pod under the launcher, else 0
+
+
+# Set by the pod launcher on each card process: the pod's card count.
+ENV_POD_CARDS = "TPUJOB_POD_CARDS"
 
 
 def process_info_from_env(env: Optional[dict] = None) -> ProcessInfo:
@@ -85,6 +94,7 @@ def process_info_from_env(env: Optional[dict] = None) -> ProcessInfo:
         slice_id=int(e.get("MEGASCALE_SLICE_ID", "0")),
         runtime_id=e.get("TPUJOB_RUNTIME_ID", ""),
         replica_index=int(e.get("TPUJOB_REPLICA_INDEX", "0")),
+        pod_cards=int(e.get(ENV_POD_CARDS, "0")),
     )
 
 
@@ -158,10 +168,17 @@ def initialize(info: Optional[ProcessInfo] = None,
     else:
         raise ValueError(f"no process-group backend for device {dev}")
     wait_for_coordinator(info.coordinator_address)
+    host, port = info.coordinator_address.rsplit(":", 1)
+    # Rank 0 hosts the store without waiting for the others to connect,
+    # so that it can check the pods before the group's rendezvous.
+    store = dist.TCPStore(host, int(port), info.num_processes,
+                          info.process_id == 0, GROUP_TIMEOUT,
+                          wait_for_workers=False)
+    if info.pod_cards:
+        check_pods(store, info)
     dist.init_process_group(
-        backend, init_method=f"tcp://{info.coordinator_address}",
-        rank=info.process_id, world_size=info.num_processes,
-        timeout=GROUP_TIMEOUT)
+        backend, store=store, rank=info.process_id,
+        world_size=info.num_processes, timeout=GROUP_TIMEOUT)
     global _host_group
     # Host-side agreement (the drain code) rides gloo on CPU tensors, so
     # reading it never waits on the card's stream.
@@ -176,6 +193,35 @@ def initialize(info: Optional[ProcessInfo] = None,
 
 
 _host_group = None
+
+
+def check_pods(store, info: ProcessInfo,
+               timeout: timedelta = GROUP_TIMEOUT) -> None:
+    """The launched world's check: the launcher gives pod p's card c the
+    rank p·C + c of P·C, which holds only when every pod runs the same C.
+    Each pod's card 0 writes its C under its pod index; global rank 0
+    waits for all P pods and raises RuntimeError naming the pods whose
+    count differs from its own. The other pods' processes then fail when
+    rank 0's store goes away, instead of waiting out the rendezvous with
+    ranks that collide or never come."""
+    cards = info.pod_cards
+    pod, card = divmod(info.process_id, cards)
+    if card == 0:
+        store.set(f"tpujob/pod/{pod}/cards", str(cards))
+    if info.process_id != 0:
+        return
+    pods = info.num_processes // cards
+    keys = [f"tpujob/pod/{q}/cards" for q in range(pods)]
+    store.wait(keys, timeout)
+    counts = [int(store.get(k)) for k in keys]
+    other = {q: n for q, n in enumerate(counts) if n != cards}
+    if other or info.num_processes % cards:
+        raise RuntimeError(
+            f"the pods of this job run different card counts: pod 0 runs "
+            f"{cards} (a world of {info.num_processes} processes), "
+            + ", ".join(f"pod {q} runs {n}" for q, n in other.items())
+            + "; every pod of a GPU job must ask for the same number of "
+              "cards")
 
 
 def enable_compilation_cache(env: Optional[dict] = None) -> str:

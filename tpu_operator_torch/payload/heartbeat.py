@@ -327,17 +327,28 @@ def _take_new(directive: Any, seen: set,
     return dict(directive)
 
 
+# Set by the pod launcher (``launch.py``) on each card process: the pod's
+# own JAX_PROCESS_ID on the pod's card 0, NO_BEATS on its other cards. The
+# operator's straggler detector and its remediation address pods by that
+# id, so a pod beats once, under it, whatever its card count.
+ENV_BEAT_ID = "TPUJOB_HEARTBEAT_ID"
+NO_BEATS = "none"
+
+
 def from_env(env: Optional[Dict[str, str]] = None,
              tokens_per_batch: int = 0) -> Optional[HeartbeatReporter]:
     """Reporter from the operator's env contract, or None when heartbeats
     are not wired (no TPUJOB_STATUS_URL). Process 0 sends the full stream,
     every other process cadence-only beats; those exist for the straggler
     detector, so a non-zero process sends none when the flight recorder is
-    off (TPUJOB_STEPTRACE_ENABLED=0)."""
+    off (TPUJOB_STEPTRACE_ENABLED=0). Under the pod launcher the process
+    id is the pod's (``TPUJOB_HEARTBEAT_ID``), and a card other than the
+    pod's first sends none."""
     e = env if env is not None else os.environ
     url = e.get("TPUJOB_STATUS_URL", "")
     job = e.get("TPUJOB_NAME", "")
-    if not url or not job:
+    beat_id = e.get(ENV_BEAT_ID)
+    if not url or not job or beat_id == NO_BEATS:
         return None
 
     # Best-effort contract: malformed env must not kill the payload.
@@ -348,7 +359,8 @@ def from_env(env: Optional[Dict[str, str]] = None,
             log.warning("ignoring malformed %s=%r", var, e.get(var))
             return default
 
-    process_id = _num("JAX_PROCESS_ID", 0, int)
+    process_id = _num(ENV_BEAT_ID if beat_id is not None
+                      else "JAX_PROCESS_ID", 0, int)
     if process_id != 0 and str(e.get("TPUJOB_STEPTRACE_ENABLED", "1")
                                ).lower() in ("0", "false"):
         return None

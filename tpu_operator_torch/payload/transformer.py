@@ -609,6 +609,12 @@ def build(args, device=None, mesh: Optional[LMMesh] = None,
     if args.batch % mesh.data:
         raise ValueError(f"--batch {args.batch} must split over "
                          f"{mesh.data} data ranks")
+    if mesh.world > 1:
+        first = mesh.rank - mesh.model_rank
+        log.info("mesh: process %d of %d, data rank %d of %d, seq group "
+                 "%s, model group %s", mesh.rank, mesh.world, mesh.data_rank,
+                 mesh.data, list(mesh.seq_ranks()),
+                 list(range(first, first + mesh.model_procs)))
     rows = args.batch // mesh.data
     if args.grad_accum < 1 or rows % args.grad_accum:
         raise ValueError(f"{rows} rows per data rank must divide by "
@@ -658,16 +664,22 @@ def run(info: bootstrap.ProcessInfo, args=None) -> dict:
         metrics = train.train_loop(
             built.step, built.batches, args.steps, device=built.device,
             log_every=args.log_every,
-            log_fn=lambda i, m: log.info("step %d loss %.4f", i, m["loss"]),
+            # The loss in full (repr): the launcher's tests and chip_smoke
+            # compare these lines bit for bit across processes.
+            log_fn=lambda i, m: log.info("step %d loss %r", i, m["loss"]),
             prefetch=prefetch_depth(args), checkpointer=ckpt,
             state=built.state, profile_dir=args.profile_dir,
             compile_fn=train.kernel_loader(built.device))
     finally:
         if ckpt is not None:
             ckpt.close()
-    log.info("final: loss %.4f", metrics.get("loss", float("nan")))
-    if built.device.type == "cuda":
-        log.info("kernel launches: %s", json.dumps(fa.launch_counts()))
+        if built.device.type == "cuda":
+            # On every exit, a drained one (143, 160) included.
+            log.info("kernel launches: %s", json.dumps(fa.launch_counts()))
+            log.info("peak memory: %.3f GB on %s",
+                     torch.cuda.max_memory_allocated(built.device) / 1e9,
+                     built.device)
+    log.info("final: loss %r", metrics.get("loss", float("nan")))
     return metrics
 
 
