@@ -102,7 +102,24 @@ one JSON line each:
 8. ``profile``: one full-width admission and ten 8-slot decode steps
    under torch.profiler: device time by kernel, device-busy time and the
    idle share beside the host clock.
-8a. ``serve_wide``: the serve phase's load, HTTP request and gates at
+8a. ``serve_pod``: serving across a pod's cards. (b) ``ServeLoop(devices=
+   [cuda:0, cuda:0])`` at the serve cell's flags with ``--batch 16``: two
+   card engines of 8 slots on this card (the loop stepping both in turn,
+   the page pool split with the slots, one ingress) under a
+   burst of 16 requests, the cell's load and two HTTP requests: nothing
+   shed or failed, both engines served, each engine's K1 / K3 launches
+   (counted by its launch scope, zeroed just before the run) layers x
+   its admissions / decode steps, and every request's tokens bit-equal
+   to the serve phase's one-engine, 8-slot server's for its prompt. (a),
+   in a subprocess started first and running beside (b): the pod
+   launcher as the container's entry point, ``python -m
+   tpu_operator_torch.payload.launch -- serve`` with the serve cell's
+   flags at 8 slots a card (``--batch 8`` on one card) on every card
+   this machine has, and the serve phase's HTTP prompt: exit 0, the 128
+   tokens bit-equal to the serve phase's answer, and each card's K1 / K3
+   counts, logged by the serve process at its exit, layers x its
+   admissions / decode steps.
+8b. ``serve_wide``: the serve phase's load, HTTP request and gates at
    the tensor-parallel job's widths (examples/tpujob-tensor-parallel.yml:
    dim 4096, 16 layers, 4 heads, ``--kv-heads 0``, vocab 256; head dim
    1024, 3.2B params, bf16, whole on one card): K1 wide 16 times per
@@ -212,7 +229,8 @@ one JSON line each:
     overhead_vs_dense); a save at step 2 resumed to step 4 bit-equal.
 14c. ``defaults``: ``python -m tpu_operator_torch.payload.transformer``,
     ``.pipeline`` and ``.moe`` at their default flags with ``--steps 3``
-    in fresh processes, and ``serve`` at its defaults under a short load:
+    in fresh processes, all three at once, and ``serve`` at its defaults
+    under a short load:
     head dims 64, 64, 32 and 16, the last two through the wrappers' zero
     padding; exit codes and launch counts gated.
 14d. ``tensor_parallel``: examples/tpujob-tensor-parallel.yml's payload
@@ -263,8 +281,8 @@ one JSON line each:
     batches within 2e-2; images/s); a kill and resume through
     ``checkpoint.Checkpointer``, bit-equal; ``python -m
     tpu_operator_torch.payload.linear --steps 200`` in a subprocess on
-    the card exits 0. ``profile_classifier``: one cifar step under
-    torch.profiler.
+    the card, beside the CPU run and the resume, exits 0.
+    ``profile_classifier``: one cifar step under torch.profiler.
 15a. ``classifier_tp``: the classifier cell with ``--model-parallel 2``,
     both shards as units on the card (stage-2 convs 32 of 64 channels a
     shard, the head 5 of 10 classes): at init the loss and every gradient
@@ -330,10 +348,25 @@ four cards, 4 steps (TP 4 over NCCL): each card's losses, model group,
 peak memory and step ms from its log; then one card holding the four
 shards as units at the same flags, gated as LAUNCH_CARDS_STEP1_RTOL
 says.
+
+    python3 chip_smoke.py --serve-cards 4
+
+is a third (four cards): examples/torch/gpujob-serve.yml's payload line
+(``-- serve --load 200:0 --batch 8 --kv-heads 2``) through the pod
+launcher as one pod of four cards, with its ``--load 200:0`` (held
+forever) replaced by ``SERVE_CARDS_LOAD``; then the serve cell at
+flagship widths with ``--batch 32`` (8 slots a card) over the four cards
+in this process, and at ``--batch 8`` on one card, each under a burst
+that fills its slots, the cell's load and 4 HTTP requests a card: every
+request answered, nothing shed or failed, each card's K1 / K3 counts,
+and every request of the pod bit-equal to the one card's tokens for its
+prompt. It prints the pod's tokens/s beside the one card's, each card's
+decode-step wall and peak memory.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -2390,15 +2423,12 @@ def run_serve(torch, fa, serve, bootstrap, widths=SERVE_FLAGSHIP):
     """A full-width ServeLoop at ``widths`` under the serve cells' load and
     one HTTP request: launch counts, nothing shed or failed, first-token
     logits against the plain path."""
-    import numpy as np
-
     port = free_port()
     argv = [*SERVE_CELL_COMMON, *widths, "--http-port", str(port)]
     args = serve.parse_args(argv)
     info = bootstrap.process_info_from_env({})
     loop = serve.ServeLoop(args, info, heartbeat=None, recorder=None)
-    rng = np.random.default_rng(7)
-    http_prompt = [int(x) for x in rng.integers(0, args.vocab, 1000)]
+    http_prompt = serve_http_prompt(args.vocab)
     http_result: dict = {}
     poster = threading.Thread(
         target=post_decode, args=(port, http_prompt, 128, http_result),
@@ -2477,6 +2507,7 @@ def run_serve(torch, fa, serve, bootstrap, widths=SERVE_FLAGSHIP):
         "prefills": cache.prefills,
         "decode_steps": cache.decode_steps,
         "http_tokens": len(http_tokens),
+        "http_answer": http_tokens,
         "first_token_logit_max_abs_err": logit_err,
         "logit_tol": logit_tol,
         "plain_top1_margin": margin,
@@ -2597,6 +2628,437 @@ def run_serve_wide(torch, fa, serve, bootstrap):
     res["k3_wide_launches_recorded_per_step"] = k3["calls"]
     del loop
     return res
+
+
+# --- phase: serve_pod --------------------------------------------------------
+
+
+def serve_http_prompt(vocab: int) -> list:
+    """The serve phase's HTTP prompt: 1000 tokens from a seeded draw."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    return [int(x) for x in rng.integers(0, vocab, 1000)]
+
+
+def recorded_requests(loop) -> list:
+    """Every request ``loop`` queues (HTTP, synthetic or direct)."""
+    reqs = []
+    real = loop.submit
+
+    def submit(*a, **kw):
+        req = real(*a, **kw)
+        if req is not None:
+            reqs.append(req)
+        return req
+
+    loop.submit = submit
+    return reqs
+
+
+def replay_greedy(loop, prompts_and_budgets) -> list:
+    """Each (prompt, budget)'s greedy tokens through ``loop``'s card 0
+    engine (idle), up to its slot count at a time in slots 0.. (a
+    one-card server's decode of those requests)."""
+    import numpy as np
+
+    eng, model, slots = loop.engine, loop.model, loop.args.batch
+    out = []
+    for first in range(0, len(prompts_and_budgets), slots):
+        group = prompts_and_budgets[first:first + slots]
+        toks = []
+        for slot, (prompt, budget) in enumerate(group):
+            admitted, token = eng.admit(slot, prompt, budget, model)
+            require(admitted, "replay: the one-card pool refused a request")
+            toks.append([int(token)])
+        while True:
+            live = [s for s, (_p, n) in enumerate(group) if len(toks[s]) < n]
+            if not live:
+                break
+            active = np.zeros(slots, bool)
+            active[live] = True
+            step = eng.step(model, active)
+            for s in live:
+                toks[s].append(int(step[s]))
+        for slot in range(len(group)):
+            eng.release(slot)
+        out.extend(toks)
+    return out
+
+
+def pod_burst(vocab: int, window: int, n: int, seed: int) -> list:
+    """``n`` prompts of seeded lengths (half the window to the whole) and
+    tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(window // 2, window + 1))
+                         ).astype(np.int32) for _ in range(n)]
+
+
+def gate_pod_counts(label, per_card, layers):
+    """Each card's K1 launches = layers x its admissions (prefills) and
+    K3 = layers x its decode steps, both non-zero."""
+    for c in per_card:
+        k1, k3 = c["launches"]["flash_fwd"], c["launches"]["flash_decode"]
+        require(k1 == layers * c["prefills"] > 0,
+                f"{label}: card {c['card']} launched K1 {k1} times for "
+                f"{c['prefills']} admissions x {layers} layers")
+        require(k3 == layers * c["decodeSteps"] > 0,
+                f"{label}: card {c['card']} launched K3 {k3} times for "
+                f"{c['decodeSteps']} decode steps x {layers} layers")
+
+
+def logged_serve_cards(lines) -> list:
+    """The ``serve card c: {...}`` lines a serve process logs at its exit
+    (the launcher's ``[card 0]`` prefix on each)."""
+    return [json.loads(ln.split("serve card ", 1)[1].split(": ", 1)[1])
+            for _t, ln in card_log(lines, 0) if "serve card " in ln]
+
+
+def logged_serve_summary(lines) -> dict:
+    """steps, completed, arrivals, shed and failed steps from a serve
+    process's summary line."""
+    for _t, ln in card_log(lines, 0):
+        m = re.search(r"serve: (\d+) steps, (\d+)/(\d+) requests completed "
+                      r"\((\d+) shed\), (\S+) tokens/sec, (\d+) reloads, "
+                      r"(\d+) failed steps", ln)
+        if m:
+            keys = ("steps", "completed", "arrivals", "shed",
+                    "tokensPerSecond", "reloads", "failedSteps")
+            return {k: float(v) if k == "tokensPerSecond" else int(v)
+                    for k, v in zip(keys, m.groups())}
+    raise SmokeFailure("no serve summary line in the log")
+
+
+def run_serve_pod_launcher(torch, answer) -> dict:
+    """serve_pod (a): the pod launcher as the container's entry point,
+    ``python -m tpu_operator_torch.payload.launch -- serve`` with the serve
+    cell's flags at 8 slots a card (``--batch 8 x C``: on one card the
+    cell's own flags) on every card this machine has, one HTTP request
+    with the serve phase's prompt: exit 0, its 128 tokens bit-equal to
+    the serve phase's ``answer``, nothing shed or failed, and each card's
+    K1 / K3 counts (logged by the serve process at its exit) layers x its
+    admissions / decode steps."""
+    cards = torch.cuda.device_count()
+    port = free_port()
+    payload = ["serve", *with_flag(SERVE_CELL_COMMON, "--batch",
+                                   str(8 * cards)),
+               *SERVE_FLAGSHIP, "--http-port", str(port)]
+    http = {}
+    poster = threading.Thread(
+        target=post_decode, daemon=True,
+        args=(port, serve_http_prompt(int(_flag(SERVE_FLAGSHIP, "--vocab"))),
+              128, http))
+    poster.start()
+    t0 = time.perf_counter()
+    code, lines = _streamed([sys.executable, "-m", LAUNCH_MODULE, "--",
+                             *payload],
+                            {**_launch_env(), "TPUJOB_SERVE": "1"},
+                            timeout=600)
+    wall = time.perf_counter() - t0
+    poster.join(timeout=60)
+    tail = "\n".join(ln for _t, ln in lines[-30:])
+    require(code == 0, f"serve_pod: the launcher exited {code}\n{tail}")
+    require(http.get("status") == 200,
+            f"serve_pod: HTTP decode through the launcher failed: {http}")
+    require(http["body"]["tokens"] == answer,
+            "serve_pod: the launcher's pod answered the serve phase's "
+            "prompt with other tokens")
+    summary = logged_serve_summary(lines)
+    require(summary["shed"] == 0 and summary["failedSteps"] == 0
+            and summary["completed"] == summary["arrivals"] + 1,
+            f"serve_pod: the launcher's pod {summary}")
+    per_card = logged_serve_cards(lines)
+    require([c["card"] for c in per_card] == list(range(cards)),
+            f"serve_pod: {len(per_card)} card lines for {cards} cards")
+    gate_pod_counts("serve_pod launcher",
+                    per_card, int(_flag(SERVE_FLAGSHIP, "--layers")))
+    return {"payload": payload, "cards": cards, "exit": code,
+            "wall_s": wall, "summary": summary, "per_card": per_card,
+            "launches": _logged_launches("\n".join(
+                ln for _t, ln in card_log(lines, 0))),
+            "http_tokens_bit_equal_to_serve": True,
+            "spawned_at_s": _seconds_to(lines, "card process(es)"),
+            "ready_at_s": _seconds_to(lines, "HTTP ingress on port")}
+
+
+SERVE_POD_HTTP = 2
+
+
+def run_serve_pod_engines(torch, fa, serve, bootstrap, one_card, answer):
+    """serve_pod (b): ``ServeLoop(devices=[cuda:0, cuda:0])`` at the serve
+    cell's flags with ``--batch 16``: two card engines of 8 slots on this
+    card, stepped in turn by the loop, the pool split with the slots, one
+    ingress. A burst of 16 requests (every slot), the cell's
+    load and two HTTP requests (one the serve phase's prompt). Launch
+    counts zeroed just before the run and read just after. Gates: nothing
+    shed or failed, both engines served, each engine's K1 / K3 launches
+    (by its launch scope) layers x its admissions / decode steps, and
+    every request's tokens bit-equal to the serve phase's one-engine,
+    8-slot server's (``one_card``) for the same prompt."""
+    dev = torch.device("cuda", 0)
+    port = free_port()
+    argv = [*with_flag(SERVE_CELL_COMMON, "--batch", "16"), *SERVE_FLAGSHIP,
+            "--http-port", str(port)]
+    args = serve.parse_args(argv)
+    loop = serve.ServeLoop(args, bootstrap.process_info_from_env({}),
+                           heartbeat=None, recorder=None, store=None,
+                           devices=[dev, dev])
+    reqs = recorded_requests(loop)
+    burst = [loop.submit(p, args.decode_tokens)
+             for p in pod_burst(args.vocab, args.window, 16, seed=11)]
+    prompts = [serve_http_prompt(args.vocab),
+               [int(x) for x in pod_burst(args.vocab, args.window, 1,
+                                          seed=12)[0]]]
+    http = [{} for _ in range(SERVE_POD_HTTP)]
+    posters = [threading.Thread(target=post_decode, daemon=True,
+                                args=(port, p, 128, r))
+               for p, r in zip(prompts, http)]
+    for t in posters:
+        t.start()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    summary = loop.run()
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    per_card = [{**c, "launches": fa.launch_counts(scope=c["card"])}
+                for c in summary["cards"]]
+    for t in posters:
+        t.join(timeout=60)
+    require(all(r.get("status") == 200 for r in http),
+            f"serve_pod engines: HTTP decode failed: {http}")
+    require(http[0]["body"]["tokens"] == answer,
+            "serve_pod engines: the serve phase's prompt got other tokens")
+    require(summary["shed"] == 0 and summary["failedSteps"] == 0,
+            f"serve_pod engines: shed {summary['shed']}, failed "
+            f"{summary['failedSteps']}")
+    require(summary["completed"] == summary["arrivals"] + len(burst)
+            + len(http) == len(reqs),
+            f"serve_pod engines: completed {summary['completed']} of "
+            f"{len(reqs)}")
+    require([c["slots"] for c in per_card] == [8, 8]
+            and all(c["completed"] > 0 for c in per_card),
+            f"serve_pod engines: {per_card}")
+    gate_pod_counts("serve_pod engines", per_card, args.layers)
+    require(counts["flash_fwd"] == sum(c["launches"]["flash_fwd"]
+                                       for c in per_card)
+            and counts["flash_decode"] == sum(
+                c["launches"]["flash_decode"] for c in per_card),
+            f"serve_pod engines: {counts} launched outside the engines")
+    t0 = time.perf_counter()
+    want = replay_greedy(one_card, [(r.prompt, r.max_tokens) for r in reqs])
+    replay_s = time.perf_counter() - t0
+    differ = [i for i, (r, w) in enumerate(zip(reqs, want))
+              if r.tokens != w]
+    require(not differ, f"serve_pod engines: {len(differ)} of {len(reqs)} "
+                        f"requests' tokens differ from the one-engine "
+                        f"server's (first: request {differ[:1]})")
+    del loop
+    gc.collect()  # the loop's HTTP server holds cycles to it
+    return {"argv": argv, "summary": summary, "launches": counts,
+            "per_card": per_card, "requests": len(reqs),
+            "tokens_bit_equal_to_one_engine": True,
+            "replay_s": replay_s}
+
+
+def run_serve_pod(torch, fa, serve, bootstrap, one_card, answer):
+    """serve_pod: (a) the launcher's pod on every card, in a subprocess
+    started first, and while it starts (b) two engines on this card in
+    this process (the launcher's readings include that overlap)."""
+    t0 = time.perf_counter()
+    launched = {}
+
+    def launcher():
+        try:
+            launched["result"] = run_serve_pod_launcher(torch, answer)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            launched["error"] = e
+
+    thread = threading.Thread(target=launcher, daemon=True)
+    thread.start()
+    engines = run_serve_pod_engines(torch, fa, serve, bootstrap, one_card,
+                                    answer)
+    thread.join(timeout=900)
+    if "error" in launched:
+        raise launched["error"]
+    require("result" in launched, "serve_pod: the launcher did not end")
+    return {"engines": engines, "launcher": launched["result"],
+            "launches": engines["launches"],
+            "wall_s": time.perf_counter() - t0,
+            "nvidia_smi": nvidia_smi_line()}
+
+
+# examples/torch/gpujob-serve.yml's payload line as written, and the finite
+# schedule ``--serve-cards`` runs in place of its ``--load 200:0`` (200
+# requests/s held forever: the run must end).
+GPUJOB_SERVE_PAYLOAD = ["serve", "--load", "200:0", "--batch", "8",
+                        "--kv-heads", "2"]
+SERVE_CARDS_LOAD = "100:2"
+
+
+def serve_cards_payload() -> list:
+    return with_flag(GPUJOB_SERVE_PAYLOAD, "--load", SERVE_CARDS_LOAD)
+
+
+def timed_steps(loop) -> dict:
+    """Wrap each card's engine.step with the host clock (the step ends in
+    the argmax's copy to the host, so it is fenced): card -> [ms]."""
+    walls = {}
+    for card in loop.cards:
+        real, ms = card.engine.step, walls.setdefault(card.index, [])
+
+        def step(*a, _real=real, _ms=ms, **kw):
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            _ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        card.engine.step = step
+    return walls
+
+
+def serve_cell_on(torch, fa, serve, bootstrap, cards: int) -> dict:
+    """The serve cell at flagship widths on ``cards`` cards with 8 slots
+    a card: a burst of 8 x cards requests (every slot), the cell's load and
+    4 x cards concurrent HTTP requests. Returns the summary, the requests,
+    the per-card launch counts (by launch scope), each card's decode-step
+    walls, the pod steps' walls and each card's peak memory."""
+    torch.cuda.init()
+    devices = [torch.device("cuda", c) for c in range(cards)]
+    port = free_port()
+    argv = [*with_flag(SERVE_CELL_COMMON, "--batch", str(8 * cards)),
+            *SERVE_FLAGSHIP, "--http-port", str(port)]
+    args = serve.parse_args(argv)
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    loop = serve.ServeLoop(args, bootstrap.process_info_from_env({}),
+                           heartbeat=None, recorder=None, store=None,
+                           devices=devices)
+    reqs = recorded_requests(loop)
+    walls = timed_steps(loop)
+    burst = [loop.submit(p, args.decode_tokens)
+             for p in pod_burst(args.vocab, args.window, 8 * cards,
+                                seed=21)]
+    prompts = pod_burst(args.vocab, args.window, 4 * cards, seed=22)
+    http = [{} for _ in prompts]
+    posters = [threading.Thread(target=post_decode, daemon=True,
+                                args=(port, [int(x) for x in p], 128, r))
+               for p, r in zip(prompts, http)]
+    for t in posters:
+        t.start()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    fa.reset_launch_counts()
+    summary = loop.run()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    per_card = [{**c, "launches": fa.launch_counts(scope=c["card"])}
+                for c in summary["cards"]]
+    for t in posters:
+        t.join(timeout=60)
+    require(all(r.get("status") == 200 for r in http),
+            f"serve cell on {cards} cards: HTTP decode failed")
+    require(summary["shed"] == 0 and summary["failedSteps"] == 0
+            and summary["completed"] == summary["arrivals"] + len(burst)
+            + len(http) == len(reqs),
+            f"serve cell on {cards} cards: {summary}")
+    require(all(c["completed"] > 0 for c in per_card),
+            f"serve cell on {cards} cards: a card served nothing")
+    gate_pod_counts(f"serve cell on {cards} cards", per_card, args.layers)
+    return {"loop": loop, "summary": summary, "requests": reqs,
+            "per_card": per_card,
+            "step_ms_median": [statistics.median(walls[c.index])
+                               for c in loop.cards],
+            "peak_gb": [torch.cuda.max_memory_allocated(d) / 1e9
+                        for d in devices]}
+
+
+def serve_cards(world: int) -> int:
+    """``--serve-cards N``: (a) examples/torch/gpujob-serve.yml's payload
+    line through the pod launcher as one pod of N cards, its ``--load
+    200:0`` (held forever) replaced by ``SERVE_CARDS_LOAD``: exit 0,
+    nothing shed or failed, an engine on every card, each card's K1 / K3
+    counts (card 0 admits at each arrival, so a light load may leave the
+    others their warm-up alone).
+    (b) The serve cell at flagship widths with ``--batch 8N`` on the N
+    cards in this process, then on one card with ``--batch 8`` (the
+    burst, load and HTTP requests scaled with the slots): the gates of
+    ``serve_cell_on``, and every request of the pod bit-equal to the
+    one-card server's tokens for its prompt. Readings: the pod's
+    tokens/s beside the one card's, each card's decode-step wall and
+    peak memory."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f"chip_smoke: --serve-cards {world} needs {world} CUDA "
+              f"cards", file=sys.stderr)
+        return 1
+    from tpu_operator_torch.payload import bootstrap
+    from tpu_operator_torch.payload import flash_attention as fa
+    from tpu_operator_torch.payload import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__})
+    payload = serve_cards_payload()
+    t0 = time.perf_counter()
+    code, lines = _streamed(
+        [sys.executable, "-m", LAUNCH_MODULE, "--cards", str(world), "--",
+         *payload], {**_launch_env(), "TPUJOB_SERVE": "1"}, timeout=900)
+    wall = time.perf_counter() - t0
+    if code != 0:
+        emit({"phase": "failed", "error": f"launcher exit {code}",
+              "tail": [ln for _t, ln in lines[-40:]]})
+        return 1
+    summary = logged_serve_summary(lines)
+    per_card = logged_serve_cards(lines)
+    args = serve.parse_args(payload[1:])
+    emit({"phase": "serve_cards_example", "payload": payload,
+          "load_replaced": {"written": "200:0", "ran": SERVE_CARDS_LOAD},
+          "launcher_wall_s": wall, "summary": summary,
+          "per_card": per_card})
+    require(summary["shed"] == 0 and summary["failedSteps"] == 0
+            and summary["completed"] == summary["arrivals"] > 0,
+            f"the example's pod: {summary}")
+    require([c["card"] for c in per_card] == list(range(world)),
+            f"the example's pod: {per_card}")
+    gate_pod_counts("the example's pod", per_card, args.layers)
+    pod = serve_cell_on(torch, fa, serve, bootstrap, world)
+    del pod["loop"]
+    gc.collect()  # the loop's HTTP server holds cycles to it
+    torch.cuda.empty_cache()
+    one = serve_cell_on(torch, fa, serve, bootstrap, 1)
+    reqs = pod.pop("requests")
+    t1 = time.perf_counter()
+    want = replay_greedy(one["loop"], [(r.prompt, r.max_tokens)
+                                       for r in reqs])
+    differ = [i for i, (r, w) in enumerate(zip(reqs, want))
+              if r.tokens != w]
+    one.pop("loop")
+    one.pop("requests")
+    emit({"phase": "serve_cards", "cards": world,
+          "pod_tokens_per_s": pod["summary"]["tokensPerSecond"],
+          "one_card_tokens_per_s": one["summary"]["tokensPerSecond"],
+          "speedup": pod["summary"]["tokensPerSecond"]
+          / one["summary"]["tokensPerSecond"],
+          "pod_step_ms_median_by_card": pod["step_ms_median"],
+          "one_card_step_ms_median": one["step_ms_median"][0],
+          "pod_peak_gb_by_card": pod["peak_gb"],
+          "one_card_peak_gb": one["peak_gb"][0],
+          "pod": pod, "one_card": one,
+          "requests_checked": len(reqs), "requests_differing": len(differ),
+          "replay_s": time.perf_counter() - t1, "nvidia_smi": smi})
+    require(not differ, f"{len(differ)} of {len(reqs)} requests' tokens "
+                        f"differ from one card's")
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 # --- phase: train ------------------------------------------------------------
@@ -4739,18 +5201,20 @@ def run_defaults(torch, fa, transformer, pipeline, moe, serve, bootstrap):
     ``python -m tpu_operator_torch.payload.transformer``, ``.pipeline``
     and ``.moe`` with ``--steps 3`` in fresh processes (exit 0; the
     launches each logs at its end: K1, dq and dkv layers x microbatches x
-    steps), and the server at its defaults under a short load in this
-    process (K1 and K3 launched, every request completed). Head dims 64,
-    64, 32 and 16: K1 / K2's own D 64 for the first two, the wrappers'
-    zero padding for the others."""
+    steps; the three processes run at once, so each one's seconds are
+    its wall beside the others), and the server at its defaults under a
+    short load in this process (K1 and K3 launched, every request
+    completed). Head dims 64, 64, 32 and 16: K1 / K2's own D 64 for the
+    first two, the wrappers' zero padding for the others."""
     out = {}
-    for name, mod in (("transformer", transformer), ("pipeline", pipeline),
-                      ("moe", moe)):
-        argv = ["--steps", "3", "--log-every", "1", "--checkpoint-dir", "",
-                "--profile-dir", ""]
+    mods = (("transformer", transformer), ("pipeline", pipeline),
+            ("moe", moe))
+    argv = ["--steps", "3", "--log-every", "1", "--checkpoint-dir", "",
+            "--profile-dir", ""]
+    runs = _attempts_together([(argv, _payload_env({}), name)
+                               for name, _mod in mods], timeout=300)
+    for (name, mod), (code, seconds, log) in zip(mods, runs):
         args = mod.parse_args(argv)
-        code, seconds, log = _attempt(argv, _payload_env({}), timeout=300,
-                                      payload=name)
         require(code == 0, f"defaults {name}: exit {code}\n{log[-3000:]}")
         counts = _logged_launches(log)
         micro = args.microbatches if name == "pipeline" else args.grad_accum
@@ -4816,7 +5280,8 @@ def run_classifier(torch, cifar, train, checkpoint, steptrace):
       params, BatchNorm statistics and sgd trace bit-equal to the unbroken
       run's;
     - ``python -m tpu_operator_torch.payload.linear --steps 200`` in a
-      subprocess on the card exits 0.
+      subprocess on the card exits 0 (it runs beside the CPU check and
+      the resume, after the timed steps).
 
     Returns the readings and the 20-step build (for its profile)."""
     import shutil
@@ -4832,6 +5297,12 @@ def run_classifier(torch, cifar, train, checkpoint, steptrace):
             and losses[-1] < losses[0],
             f"cifar: losses {losses} are not finite or do not descend")
     step_times = _fenced_step_seconds(torch, built)
+    env = {k: v for k, v in os.environ.items() if k != "TPUJOB_STATUS_URL"}
+    t0 = time.perf_counter()
+    lin = subprocess.Popen(
+        [sys.executable, "-m", "tpu_operator_torch.payload.linear",
+         "--steps", "200"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
 
     cpu = cifar.build(cifar.parse_args(
         [a if a != "cuda" else "cpu" for a in CIFAR_ARGV]))
@@ -4877,16 +5348,16 @@ def run_classifier(torch, cifar, train, checkpoint, steptrace):
     del whole, run_a, run_b
     torch.cuda.empty_cache()
 
-    env = {k: v for k, v in os.environ.items() if k != "TPUJOB_STATUS_URL"}
-    t0 = time.perf_counter()
-    lin = subprocess.run(
-        [sys.executable, "-m", "tpu_operator_torch.payload.linear",
-         "--steps", "200"], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=300)
+    try:
+        _out, lin_err = lin.communicate(timeout=300)
+    finally:
+        if lin.poll() is None:
+            lin.kill()
+            lin.wait()
     lin_s = time.perf_counter() - t0
-    final = [ln for ln in lin.stderr.splitlines() if "final loss" in ln]
+    final = [ln for ln in lin_err.splitlines() if "final loss" in ln]
     require(lin.returncode == 0,
-            f"linear exited {lin.returncode}: {lin.stderr[-2000:]}")
+            f"linear exited {lin.returncode}: {lin_err[-2000:]}")
     median = statistics.median(step_times)
     return {"model": "cifar ResNet-20 (payload.cifar defaults), 20 steps",
             "argv": CIFAR_ARGV, "loss_trajectory": losses,
@@ -5169,6 +5640,34 @@ def _attempt(argv, env, timeout=900, payload="transformer"):
         timeout=timeout)
     return proc.returncode, time.perf_counter() - t0, \
         proc.stdout + proc.stderr
+
+
+def _attempts_together(runs, timeout=900):
+    """``_attempt`` of each (argv, env, payload) in ``runs``, all started
+    at once: [(exit code, wall seconds, log)] in order."""
+    import tempfile
+
+    procs = []
+    t0 = time.perf_counter()
+    for argv, env, payload in runs:
+        out = tempfile.TemporaryFile(mode="w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", f"tpu_operator_torch.payload.{payload}",
+             *argv], cwd=ROOT, env=env, stdout=out,
+            stderr=subprocess.STDOUT, text=True), out))
+    results = []
+    for proc, out in procs:
+        try:
+            code = proc.wait(timeout=max(1.0, timeout - (
+                time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        seconds = time.perf_counter() - t0
+        out.seek(0)
+        results.append((code, seconds, out.read()))
+        out.close()
+    return results
 
 
 def _logged_launches(log: str) -> dict:
@@ -5974,6 +6473,18 @@ def launch_cards(world: int) -> int:
     return 0
 
 
+def timed_case(case: dict) -> dict:
+    """A decode case's numbers, its ``ms`` the CUDA-event time where the
+    profiler recorded no device time for it (late in a run it keeps
+    only some launches, or none)."""
+    out = dict(case)
+    if not isinstance(out.get("ms"), float):
+        out["ms"] = out["event_ms"]
+        out["ms_is"] = "CUDA events: the profiler recorded no device time"
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -6054,6 +6565,10 @@ def main() -> int:
         sv, loop = run_serve(torch, fa, serve, bootstrap)
         emit({"phase": "serve", **sv})
         emit({"phase": "profile", **profile_engine(torch, loop)})
+        torch.cuda.reset_peak_memory_stats()
+        spod = run_serve_pod(torch, fa, serve, bootstrap, loop,
+                             sv["http_answer"])
+        emit({"phase": "serve_pod", **spod})
         del loop
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -6139,16 +6654,17 @@ def main() -> int:
         return 1
     serve_fwd, train_fwd = fwd["prefill_causal_gqa"], fwd["train_causal_gqa"]
     moe_fwd, moe_bwd = fwd["moe_causal_gqa"], bwd["moe_causal_gqa"]
-    main_dec, main_bwd = dec["full"], bwd["train_causal_gqa"]
-    wide_dec = wide["decode"]["b_serve_tp_d1024"]
+    main_dec, main_bwd = timed_case(dec["full"]), bwd["train_causal_gqa"]
+    wide_dec = timed_case(wide["decode"]["b_serve_tp_d1024"])
     ring_bwd = bwd["sp_ring_striped_given_d"]
     pipe_fwd, pipe_bwd = (x["pipeline_causal_mha_d64"] for x in (fwd, bwd))
-    # This slice's path (launch: the train cell through the pod launcher,
-    # K1 and K2 at the train shape, counted by the card process) leads each
-    # kernel's line; the earlier slices' paths (fsdp; tensor_parallel,
-    # sp_tp, ulysses: K1 and K2 at the TP job's shard shape, D 1024, K4 on
-    # sp_tp's ring; pipeline_tp and moe_tp at their shard shapes) stay
-    # beside it.
+    # This slice's path (serve_pod: the serve cell's K1 at the prefill
+    # shape and K3 at the decode step's, on two engines of one card; the
+    # launcher's pod counted by its serve process) leads K1's and K3's
+    # lines; the earlier slices' paths (launch and fsdp: K1 and K2 at the
+    # train shape; tensor_parallel, sp_tp, ulysses: K1 and K2 at the TP
+    # job's shard shape, D 1024, K4 on sp_tp's ring; pipeline_tp and
+    # moe_tp at their shard shapes) stay beside it.
     tp_fwd, tp_bwd = (wide[x]["tp_shard_d1024"] for x in ("fwd", "bwd"))
     pptp_fwd, pptp_bwd = (x["pipeline_tp_shard_d64"] for x in (fwd, bwd))
     motp_fwd, motp_bwd = (x["moe_tp_shard_d64"] for x in (fwd, bwd))
@@ -6180,8 +6696,11 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_fwd.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:462",
-         "launches": lch["launches"]["flash_fwd"],
-         "launches_by_path": {"launch": lch["launches"]["flash_fwd"],
+         "launches": spod["launches"]["flash_fwd"],
+         "launches_by_path": {"serve_pod": spod["launches"]["flash_fwd"],
+                              "serve_pod_launcher":
+                                  spod["launcher"]["launches"]["flash_fwd"],
+                              "launch": lch["launches"]["flash_fwd"],
                               "fsdp": fs["launches"]["flash_fwd"],
                               **slice_by_path["flash_fwd"],
                               **pipe_by_path["flash_fwd"],
@@ -6214,14 +6733,14 @@ def main() -> int:
          **{f"ulysses_slab_{k}": par["ulysses_fwd"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "share_of_bound")},
-         # This slice's path (launch) runs K1 at the train shape.
-         "ms": train_fwd["ms"], "plain_ms": train_fwd["plain_ms"],
-         "bound_ms": train_fwd["bound_ms"],
-         "bound_by": train_fwd["bound_by"],
-         "library_ms": train_fwd["library_ms"],
+         # This slice's path (serve_pod) runs K1 at the prefill shape.
+         "ms": serve_fwd["ms"], "plain_ms": serve_fwd["plain_ms"],
+         "bound_ms": serve_fwd["bound_ms"],
+         "bound_by": serve_fwd["bound_by"],
+         "library_ms": serve_fwd["library_ms"],
          "library": "F.scaled_dot_product_attention",
-         "share_of_bound": train_fwd["share_of_bound"],
-         "shape": "launch / fsdp / train B8 T2048 H16 KVH4 D128 causal",
+         "share_of_bound": serve_fwd["share_of_bound"],
+         "shape": "serve_pod / serve prefill B1 T1920 H16 KVH4 D128 causal",
          "pipeline_tp_shape": "pipeline_tp shard B4 T256 H1 D64 causal",
          **{f"pipeline_tp_{k}": pptp_fwd[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -6238,7 +6757,8 @@ def main() -> int:
          "wide_gqa_d256": {k: wide["fwd"]["gqa_d256"][k] for k in (
              "ms", "plain_ms", "library_ms", "library", "bound_ms",
              "share_of_bound")},
-         "train_shape": "train B8 T2048", "train_ms": train_fwd["ms"],
+         "train_shape": "launch / fsdp / train B8 T2048",
+         "train_ms": train_fwd["ms"],
          "train_plain_ms": train_fwd["plain_ms"],
          "train_bound_ms": train_fwd["bound_ms"],
          "train_library_ms": train_fwd["library_ms"],
@@ -6262,8 +6782,12 @@ def main() -> int:
         {"name": "flash_decode", "route": "cuda",
          "source": "tpu_operator_torch/kernels/csrc/flash_decode.cu",
          "replaces": "tpu_operator/payload/flash_attention.py:990",
-         "launches": svw["launches"]["flash_decode"],
-         "launches_by_path": {"serve_wide": svw["launches"]["flash_decode"],
+         "launches": spod["launches"]["flash_decode"],
+         "launches_by_path": {"serve_pod":
+                                  spod["launches"]["flash_decode"],
+                              "serve_pod_launcher": spod["launcher"][
+                                  "launches"]["flash_decode"],
+                              "serve_wide": svw["launches"]["flash_decode"],
                               "serve": sv["launches"]["flash_decode"],
                               "serve_reload":
                                   rld["launches"]["flash_decode"],
@@ -6275,23 +6799,31 @@ def main() -> int:
                             (*dec.values(), *wide["decode"].values())),
          "worst_err_over_tol": max(r["worst_err_over_tol"] for r in
                                    (*dec.values(), *wide["decode"].values())),
-         **{f"wide_{label}": {k: wide["decode"][label][k] for k in (
+         **{f"wide_{label}": {k: wide["decode"][label].get(k) for k in (
              "ms", "event_ms", "plain_ms", "library_ms", "library",
              "bound_ms", "share_of_bound", "cluster_size",
              "max_active_clusters")}
             for label in ("a_d256_ragged_tq1", "c_d256_full")},
-         # This slice's path (serve_wide) runs K3 wide at its case (b).
-         **{k: wide_dec[k] for k in (
+         # This slice's path (serve_pod) runs K3 at the serve decode
+         # step's shape; serve_wide's K3 wide case (b) beside it.
+         **{k: main_dec.get(k) for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "share_of_bound", "ms_is", "event_ms")},
+         "library": "F.scaled_dot_product_attention",
+         "shape": "serve_pod / serve decode B8 Tq1 S2048 H16 KVH4 D128, "
+                  "full length",
+         "serve_wide_shape": "serve_wide decode B8 Tq1 S2048 H4 KVH4 "
+                             "D1024, full length (wide path, a cluster "
+                             "of 8)",
+         **{f"serve_wide_{k}": wide_dec.get(k) for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "library", "share_of_bound", "ms_is", "event_ms",
              "cluster_size", "max_active_clusters")},
-         "shape": "serve_wide decode B8 Tq1 S2048 H4 KVH4 D1024, full "
-                  "length (wide path, a cluster of 8)",
          "serve_wide_k3_ms_per_launch_profiled":
              svw["k3_wide_ms_per_launch"],
          "serve_shape": "serve decode B8 Tq1 S2048 H16 KVH4 D128, full "
                         "length",
-         **{f"serve_{k}": main_dec[k] for k in (
+         **{f"serve_{k}": main_dec.get(k) for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "share_of_bound", "ms_is", "library_ms_is", "event_ms",
              "library_event_ms")},
@@ -6305,6 +6837,9 @@ def main() -> int:
             "replaces": f"tpu_operator/payload/flash_attention.py:{line}",
             "launches": lch["launches"][f"flash_bwd_{name}"],
             "launches_by_path": {
+                "serve_pod": spod["launches"][f"flash_bwd_{name}"],
+                "serve_pod_launcher":
+                    spod["launcher"]["launches"][f"flash_bwd_{name}"],
                 "launch": lch["launches"][f"flash_bwd_{name}"],
                 "fsdp": fs["launches"][f"flash_bwd_{name}"],
                 **slice_by_path[f"flash_bwd_{name}"],
@@ -6346,7 +6881,8 @@ def main() -> int:
             "sp_tp_bwd_shape": "sp_tp chunk B8 Tq=Tk=4096 H8 KVH8, "
                                "(4096, 4096, 1) home and (4096, 0, 1) "
                                "earlier, given D, f32 grads",
-            # This slice's path (launch) runs K2 at the train shape.
+            # Not on this slice's path: the launch path's K2 at the train
+            # shape.
             "ms": main_bwd[f"ms_{name}"],
             "plain_ms": main_bwd["plain_ms"],
             "bound_ms": main_bwd[f"bound_ms_{name}"],
@@ -6427,6 +6963,8 @@ def main() -> int:
         # Not on this slice's path: the earlier slice's (sp_tp's ring).
         "launches": tp_launches["flash_merge"],
         "launches_by_path": {
+            "serve_pod": spod["launches"]["flash_merge"],
+            "serve_pod_launcher": spod["launcher"]["launches"]["flash_merge"],
             "launch": lch["launches"]["flash_merge"],
             "fsdp": fs["launches"]["flash_merge"],
             **slice_by_path["flash_merge"],
@@ -6472,7 +7010,8 @@ if __name__ == "__main__":
         sys.exit(fsdp_card_worker(int(sys.argv[2]), int(sys.argv[3]),
                                   int(sys.argv[4]), sys.argv[5]))
     for flag, run in (("--fsdp-cards", fsdp_cards),
-                      ("--launch-cards", launch_cards)):
+                      ("--launch-cards", launch_cards),
+                      ("--serve-cards", serve_cards)):
         if sys.argv[1:2] == [flag]:
             try:
                 sys.exit(run(int(sys.argv[2])))

@@ -19,7 +19,9 @@ READ_UNINJECTED = {
     "TPUJOB_HEARTBEAT_ID": "launcher: the pod's process id on its card 0, "
                            "'none' on the others (heartbeat.from_env)",
     "TPUJOB_POD_CARDS": "launcher: the pod's card count, which rank 0 "
-                        "checks across pods (bootstrap.check_pods)",
+                        "checks across pods (bootstrap.check_pods) and a "
+                        "serve pod's one process drives "
+                        "(serve.pod_devices)",
     # User knobs, as the reference's allowlist has them.
     "TPUJOB_HEARTBEAT_INTERVAL": "user-tunable via template env; the "
                                  "default is in code",

@@ -270,3 +270,11 @@ def engines_agree(kv_heads, dim):
             if not clear[i]:
                 break
             assert ours_toks[s][i] == ref_toks[s][i], (s, i)
+
+
+def test_decode_engine_matches_jax_engine_at_head_dim_1024():
+    """As above at the tensor-parallel job's head dim (dim 2048, 2 heads,
+    MHA, 2 layers): whether the bf16 gap between the port and the
+    reference grows with the head dim (the card's serve_wide reads it at
+    1024)."""
+    engines_agree(0, 2048)

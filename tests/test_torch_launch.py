@@ -15,7 +15,8 @@ the operator gives a GPU pod to one payload process per card, on the CPU
     process holding the same work with its two TP shards as units (a pod
     of one card), and one pod of two cards (TP 2 alone).
 (c) The exit contract: a failed card, SIGTERM, a drain directive.
-(d) The refusals.
+(d) Serve pods: one process for the pod's cards (its env, and two CPU
+    cards behind one HTTP ingress end to end); the refusals.
 
 Every job of (b) and (c) starts at once in one module-scoped fixture (each
 process imports torch; one intra-op thread each, so that the CPU kernels
@@ -32,6 +33,8 @@ import sys
 import textwrap
 import threading
 import time
+import urllib.error
+import urllib.request
 from datetime import timedelta
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
@@ -544,20 +547,94 @@ def test_chip_smoke_runs_the_example_payload_as_written():
     assert cmd[cmd.index("--") + 1:] == chip_smoke.GPUJOB_TP_PAYLOAD
 
 
-# --- (d) the refusals ------------------------------------------------------------
+# --- (d) serve pods and the refusals ---------------------------------------------
 
 
-def test_a_serve_pod_of_two_cards_is_refused():
-    with pytest.raises(ValueError, match="ROADMAP Queue A"):
-        launch.plan(["--device", "cpu", "--cards", "2", "--", "serve"], {})
-    with pytest.raises(ValueError, match="serve pod runs one card"):
-        launch.plan(["--device", "cpu", "--cards", "2", "--", "transformer"],
-                    {"TPUJOB_SERVE": "1"})
-    commands, envs, _ = launch.plan(["--device", "cpu", "--", "serve"],
-                                    {"TPUJOB_SERVE": "1",
-                                     "JAX_PROCESS_ID": "3"})
-    assert len(commands) == 1 and envs[0]["JAX_PROCESS_ID"] == "3"
+@pytest.mark.parametrize("payload,env,cards", [
+    ("serve", {}, 2), ("serve", {"TPUJOB_SERVE": "1"}, 4),
+    ("transformer", {"TPUJOB_SERVE": "1"}, 2), ("serve", {}, 1)],
+    ids=["serve-2", "serve-mode-4", "serve-mode-transformer-2", "serve-1"])
+def test_a_serve_pod_plans_one_process_for_its_cards(payload, env, cards):
+    """A serve pod (the serve payload, or TPUJOB_SERVE=1) of C cards is
+    one process: the pod's rank and world pass through (serve replicas
+    form no group), it beats under the pod's id, and it is told C."""
+    env = {**env, "JAX_PROCESS_ID": "3", "JAX_NUM_PROCESSES": "1",
+           "TPUJOB_STATUS_URL": "http://status:8080", "TPUJOB_NAME": "svc"}
+    commands, envs, _ = launch.plan(
+        ["--device", "cpu", "--cards", str(cards), "--", payload], env)
+    assert len(commands) == len(envs) == 1
+    (e,) = envs
+    assert (e["JAX_PROCESS_ID"], e["JAX_NUM_PROCESSES"]) == ("3", "1")
+    assert e[heartbeat.ENV_BEAT_ID] == "3"
+    assert e[bootstrap.ENV_POD_CARDS] == str(cards)
+    info = bootstrap.process_info_from_env(e)
+    assert (info.process_id, info.num_processes, info.pod_cards) \
+        == (3, 1, cards)
+    reporter = heartbeat.from_env(e)
+    assert (reporter.process_id, reporter.cadence_only) == (3, True)
     assert commands[0][-2:] == ["--device", "cpu"]
+    assert commands[0][2] == f"tpu_operator_torch.payload.{payload}"
+
+
+def test_a_serve_pod_of_two_cards_serves_end_to_end():
+    """``launch --device cpu --cards 2 -- serve ...``: one process drives
+    two CPU cards behind one HTTP ingress, answers a request, logs each
+    card's counts, and the pod exits 0."""
+    port = _free_port()
+    pod = Launch(["--device", "cpu", "--cards", "2", "--", "serve",
+                  "--vocab", "32", "--dim", "16", "--heads", "2",
+                  "--kv-heads", "1", "--layers", "2", "--window", "16",
+                  "--decode-tokens", "4", "--batch", "4", "--load", "20:1",
+                  "--http-port", str(port), "--checkpoint-dir", ""],
+                 _pod_env(_free_port(), TPUJOB_SERVE="1"))
+    result = {}
+    body = json.dumps({"prompt": [3, 1, 4, 1, 5], "maxTokens": 4}).encode()
+    deadline = time.monotonic() + TIMEOUT
+    while time.monotonic() < deadline and pod.proc.poll() is None:
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/decode", data=body,
+                method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                result = json.loads(resp.read())
+            break
+        except (ConnectionError, urllib.error.URLError):
+            time.sleep(0.02)
+    code, lines = pod.finish()
+    assert code == 0, "\n".join(lines[-40:])
+    assert len(result.get("tokens", [])) == 4, "\n".join(lines[-40:])
+    assert not card_lines(lines, 1)  # one process for the pod
+    cards = [json.loads(ln.split("serve card ", 1)[1].split(": ", 1)[1])
+             for ln in card_lines(lines, 0) if "serve card " in ln]
+    assert [(c["card"], c["slots"]) for c in cards] == [(0, 2), (1, 2)]
+    assert sum(c["completed"] for c in cards) >= 2
+    assert all(c["launches"] == dict.fromkeys(c["launches"], 0)
+               for c in cards)  # the CPU runs the plain paths
+
+
+def test_chip_smoke_runs_the_serve_example_payload():
+    """``chip_smoke.py --serve-cards N`` runs examples/torch/gpujob-serve.yml's
+    payload line as the file writes it, but for its ``--load`` (200:0
+    holds forever), which it replaces by a finite schedule."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    with open(REPO / "examples" / "torch" / "gpujob-serve.yml",
+              encoding="utf-8") as f:
+        (doc,) = [d for d in yaml.safe_load_all(f) if d]
+    assert doc["spec"]["mode"] == "serve"
+    (container,) = doc["spec"]["replicaSpecs"][0]["template"]["spec"][
+        "containers"]
+    cmd = container["command"]
+    assert cmd[:4] == ["python", "-m", "tpu_operator_torch.payload.launch",
+                       "--"]
+    assert container["resources"]["limits"]["nvidia.com/gpu"] == "4"
+    line = cmd[cmd.index("--") + 1:]
+    ran = chip_smoke.serve_cards_payload()
+    load = line.index("--load")
+    assert line[load + 1] == "200:0" and ran[load + 1] != "200:0"
+    assert ran[:load + 1] + ran[load + 2:] == line[:load + 1] + line[load + 2:]
+    assert ran[load + 1] == chip_smoke.SERVE_CARDS_LOAD
 
 
 def test_a_pod_with_no_card_raises():

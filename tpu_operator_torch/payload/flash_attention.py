@@ -63,12 +63,18 @@ adds exactly 0 once its row has seen a valid key, and a row that saw none
 yields O = 0 and L = 0.
 
 ``LAUNCHES`` counts kernel launches per kernel (the plain versions never
-count), so a run can show that its main path went through the kernels.
+count), so a run can show that its main path went through the kernels;
+:func:`launch_counts` also gives them by the caller's :func:`launch_scope`
+(a serve pod's card). Threads may launch at once, so every count is taken
+under one lock.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+import contextlib
+import threading
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
+    Tuple
 
 import torch
 
@@ -76,19 +82,52 @@ NEG_INF = -1e30
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # o, l, m
 
-# Kernel launches since the last reset, by kernel.
+_LAUNCH_LOCK = threading.Lock()
+# Kernel launches since the last reset, by kernel; by (scope, kernel) for
+# launches inside a launch_scope.
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_decode": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                            "flash_merge": 0}
+                            "flash_merge": 0}  # guarded-by: _LAUNCH_LOCK
+_BY_SCOPE: Dict[Tuple[Any, str], int] = {}  # guarded-by: _LAUNCH_LOCK
+_SCOPE = threading.local()  # .name: the calling thread's launch scope
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        _BY_SCOPE.clear()
 
 
-def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+def launch_counts(scope: Any = None) -> Dict[str, int]:
+    """Launches by kernel since the last reset: every launch, or those made
+    inside ``launch_scope(scope)``."""
+    with _LAUNCH_LOCK:
+        if scope is None:
+            return dict(LAUNCHES)
+        return {name: _BY_SCOPE.get((scope, name), 0) for name in LAUNCHES}
+
+
+@contextlib.contextmanager
+def launch_scope(scope: Any) -> Iterator[None]:
+    """Count the calling thread's launches under ``scope`` as well, until
+    the block ends (a serve pod's card index)."""
+    previous = getattr(_SCOPE, "name", None)
+    _SCOPE.name = scope
+    try:
+        yield
+    finally:
+        _SCOPE.name = previous
+
+
+def _count(name: str) -> None:
+    """One launch of kernel ``name``: the wrappers call it where they
+    launch, and nowhere else."""
+    scope = getattr(_SCOPE, "name", None)
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+        if scope is not None:
+            _BY_SCOPE[(scope, name)] = _BY_SCOPE.get((scope, name), 0) + 1
 
 
 def _group_of(hq: int, hkv: int) -> int:
@@ -431,7 +470,7 @@ def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 k.shape[2], d, int(bool(causal)), scale,
                                 stream)
     build.check(rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd")
     return out, lse
 
 
@@ -441,18 +480,22 @@ DECODE_CHUNK = 256
 
 # The decode kernel's arrival counters (int32, one per (batch row, KV
 # head)), by (device index, stream): zero before the first launch, and
-# every launch leaves them zero.
+# every launch leaves them zero. Launches on one stream run in order, so
+# threads that share a device's stream share its counters.
+_DECODE_COUNTERS_LOCK = threading.Lock()
+# guarded-by: _DECODE_COUNTERS_LOCK
 _DECODE_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _decode_counters(device: torch.device, stream: int,
                      n: int) -> torch.Tensor:
     key = (device.index, stream)
-    counters = _DECODE_COUNTERS.get(key)
-    if counters is None or counters.numel() < n:
-        counters = torch.zeros(n, dtype=torch.int32, device=device)
-        _DECODE_COUNTERS[key] = counters
-    return counters
+    with _DECODE_COUNTERS_LOCK:
+        counters = _DECODE_COUNTERS.get(key)
+        if counters is None or counters.numel() < n:
+            counters = torch.zeros(n, dtype=torch.int32, device=device)
+            _DECODE_COUNTERS[key] = counters
+        return counters
 
 
 # Query rows (group x Tq) of one decode-kernel launch: a longer Tq is
@@ -541,7 +584,7 @@ def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    ws.data_ptr(), counters.data_ptr(), b, tq,
                                    s, h, kvh, d, ws_floats, scale, stream)
     build.check(rc, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
+    _count("flash_decode")
     return out
 
 
@@ -638,13 +681,13 @@ def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             L.data_ptr(), o_ptr, None if fused else D.data_ptr(),
             D.data_ptr() if fused else None, dq.data_ptr(), *scalars, stream)
         build.check(rc, "flash_bwd_dq")
-        LAUNCHES["flash_bwd_dq"] += 1
+        _count("flash_bwd_dq")
         rc = lib.flash_bwd_dkv_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                     g.data_ptr(), L.data_ptr(), D.data_ptr(),
                                     dk.data_ptr(), dv.data_ptr(), *scalars,
                                     stream)
         build.check(rc, "flash_bwd_dkv")
-        LAUNCHES["flash_bwd_dkv"] += 1
+        _count("flash_bwd_dkv")
     return dq, dk, dv
 
 
@@ -700,7 +743,7 @@ def _merge_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m_out.data_ptr(), b, tq, tk, h, kvh, d, int(bool(causal)),
             *offsets, scale, stream)
     build.check(rc, "flash_merge")
-    LAUNCHES["flash_merge"] += 1
+    _count("flash_merge")
     return o_out, l_out, m_out
 
 

@@ -1,4 +1,5 @@
-"""The pod entry point of a GPU job: one payload process per card.
+"""The pod entry point of a GPU job: one payload process per card (one
+for a serve pod's cards).
 
     python -m tpu_operator_torch.payload.launch [--cards N] [--device cpu]
         -- <payload> <args...>
@@ -7,9 +8,10 @@
 ``pipeline``, ``linear`` or ``serve``. The operator gives each pod one
 process identity (``JAX_PROCESS_ID`` p of ``JAX_NUM_PROCESSES`` P, one
 ``JAX_COORDINATOR_ADDRESS``), and a JAX payload drives every chip of its
-host from that one process. A port payload process drives one card, so
-this launcher turns the pod's identity into C card processes, C being the
-cards the container sees (``torch.cuda.device_count()``: what the device
+host from that one process. A port training payload process drives one
+card, so this launcher turns the pod's identity into C card processes
+(a serve pod: one process for its C cards), C being the cards the
+container sees (``torch.cuda.device_count()``: what the device
 plugin gave the pod), or fewer with ``--cards``. ``--device cpu --cards N``
 runs N gloo processes on the CPU (tests); with no CUDA device and no
 ``--device cpu`` the launcher raises, and nothing falls back to the CPU.
@@ -43,9 +45,13 @@ runs N gloo processes on the CPU (tests); with no CUDA device and no
   code the cards agreed on, the largest of theirs (160 over 143 over 0,
   the operator's precedence). Codes it forced by killing siblings do not
   count. Each line a card prints is prefixed with ``[card c]``.
-- **Serve pods run one card.** The port's server drives one card, where
-  the JAX replica spreads its slots over its host's chips; a serve pod
-  (``TPUJOB_SERVE=1`` or the ``serve`` payload) of more cards raises.
+- **A serve pod is one process.** A serve pod (``TPUJOB_SERVE=1`` or the
+  ``serve`` payload) runs one process for its C cards, as the JAX replica
+  drives its host's chips: ``JAX_PROCESS_ID`` and ``JAX_NUM_PROCESSES``
+  pass through (serve replicas form no process group),
+  ``TPUJOB_HEARTBEAT_ID`` is the pod's id and ``TPUJOB_POD_CARDS`` is C;
+  the server spreads its slots over ``cuda:0`` ... ``cuda:C-1`` behind one
+  ingress (``serve.py``).
 
 The launcher has no counterpart module in the JAX package: it is the
 port's counterpart of one JAX process driving its host's chips.
@@ -99,21 +105,24 @@ def card_count(cards: int, device: str) -> int:
     return cards or seen
 
 
+def is_serve(payload: str, env: Dict[str, str]) -> bool:
+    return payload == "serve" or env.get("TPUJOB_SERVE") == "1"
+
+
 def card_envs(env: Dict[str, str], cards: int,
               payload: str = "") -> List[Dict[str, str]]:
-    """The env of each card process of the pod whose operator env is
-    ``env``: rank p·C + c of P·C, the heartbeat identity and the card
-    count; every other variable unchanged. Raises ValueError for a serve
-    pod of more than one card."""
+    """The env of each process of the pod whose operator env is ``env``:
+    per card, rank p·C + c of P·C, the heartbeat identity and the card
+    count; a serve pod's one process keeps the pod's rank and world and
+    beats under the pod's id. Every other variable is unchanged."""
     if cards < 1:
         raise ValueError(f"a pod runs at least one card, got {cards}")
-    if cards > 1 and (payload == "serve" or env.get("TPUJOB_SERVE") == "1"):
-        raise ValueError(
-            f"a serve pod runs one card, not {cards}: the port's server "
-            f"drives one card (serving across a pod's cards is the next "
-            f"item of ROADMAP Queue A); ask for nvidia.com/gpu 1 or pass "
-            f"--cards 1")
     pod = int(env.get("JAX_PROCESS_ID", "0"))
+    if is_serve(payload, env):
+        e = dict(env)
+        e[heartbeat.ENV_BEAT_ID] = str(pod)
+        e[bootstrap.ENV_POD_CARDS] = str(cards)
+        return [e]
     pods = int(env.get("JAX_NUM_PROCESSES", "1"))
     out = []
     for card in range(cards):
@@ -289,7 +298,8 @@ def parse_args(argv: Sequence[str]):
 
 
 def plan(argv: Sequence[str], env: Optional[Dict[str, str]] = None):
-    """(commands, envs, options) of the pod that ``argv`` describes."""
+    """(commands, envs, options) of the pod that ``argv`` describes: one
+    process per card, or one for a serve pod's cards."""
     opts, payload, args = parse_args(argv)
     env = dict(env if env is not None else os.environ)
     cards = card_count(opts.cards, opts.device)
@@ -299,7 +309,7 @@ def plan(argv: Sequence[str], env: Optional[Dict[str, str]] = None):
         # when a pipe's buffer fills (or never, when it is killed).
         e.setdefault("PYTHONUNBUFFERED", "1")
     command = card_command(payload, args, opts.device)
-    return [command] * cards, envs, opts
+    return [command] * len(envs), envs, opts
 
 
 def build_kernels() -> None:
@@ -323,11 +333,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except Exception:  # noqa: BLE001 — the contract: a pod error is permanent
         log.exception("pod launch failed")
         return 1
-    log.info("pod %s of %s: %d card process(es), ranks %s of %s",
-             os.environ.get("JAX_PROCESS_ID", "0"),
+    log.info("pod %s of %s: %d card process(es), ranks %s of %s, %s "
+             "card(s)", os.environ.get("JAX_PROCESS_ID", "0"),
              os.environ.get("JAX_NUM_PROCESSES", "1"), len(commands),
-             [int(e["JAX_PROCESS_ID"]) for e in envs],
-             envs[0]["JAX_NUM_PROCESSES"])
+             [int(e.get("JAX_PROCESS_ID", "0")) for e in envs],
+             envs[0].get("JAX_NUM_PROCESSES", "1"),
+             envs[0][bootstrap.ENV_POD_CARDS])
     code = supervise(commands, envs)
     log.info("pod exits %d", code)
     return code

@@ -40,6 +40,27 @@ so the copy is ordered with the decode stream); ``reloads`` counts it
 and readiness returns. Live KV pages are left alone: in-flight requests
 go on decoding on the new weights. A failed restore keeps the old
 weights and re-readies.
+
+**A pod's cards.** Under the pod launcher a serve pod of C cards is one
+process (``TPUJOB_POD_CARDS`` = C): it drives ``cuda:0`` ... ``cuda:C-1``
+(``--device cpu`` gives C CPU "cards", for the tests) behind one ingress
+queue, one HTTP listener, one readiness and one heartbeat identity, as the
+reference's replica drives its host's chips. Each card holds a full replica
+of the weights (card 0's, copied: the reference replicates ``params``; the
+serve model is never split) and its own engine over a contiguous block of
+the ``--batch`` slots: slot s on card floor(s·C / B), the block that the
+reference's ``P("data", None)`` gives when C divides B; when it does not,
+the first B mod C cards take one slot more, and a card with no slot holds
+no engine. The paged pool is split with the slots (``--kv-pages`` x
+slots / B a card). The loop's one thread drives every card in turn: at
+each iteration boundary it admits into every card's free slots, then
+steps every card that holds a request (one pod step). A reload restores
+into card 0's replica and copies it to every other card before the next
+pod step (no card steps on mixed weights); readiness returns once every
+card holds the new step. ``MAX_CONSECUTIVE_FAILURES`` failed steps in a
+row on any card stop the pod (exit 1), and every request still queued or
+in flight is shed. A bare ``python -m tpu_operator_torch.payload.serve``
+drives one card.
 """
 
 from __future__ import annotations
@@ -271,9 +292,11 @@ class LatencyWindow:
 class Request:
     """One decode request: prompt in, up to ``max_tokens`` out. ``done``
     is set on completion or shed; ``tokens`` is written only by the decode
-    loop, and readers wait for ``done`` first."""
+    loop (``card``: the index of the card that admitted it), and readers
+    wait for ``done`` first."""
 
-    __slots__ = ("arrived", "prompt", "max_tokens", "tokens", "done", "shed")
+    __slots__ = ("arrived", "prompt", "max_tokens", "tokens", "done", "shed",
+                 "card")
 
     def __init__(self, prompt, max_tokens: int, arrived: float):
         self.arrived = float(arrived)
@@ -282,6 +305,7 @@ class Request:
         self.tokens: List[int] = []
         self.done = threading.Event()
         self.shed = False
+        self.card: Optional[int] = None
 
     def finish(self) -> None:
         self.done.set()
@@ -294,17 +318,30 @@ class Request:
 # --- the decode engines -------------------------------------------------------
 
 
+def _lm(args, device) -> TransformerLM:
+    return TransformerLM(args.vocab, args.dim, args.heads, args.layers,
+                         args.window + args.decode_tokens,
+                         kv_heads=args.kv_heads, device=device)
+
+
 def build_model(args, device=None) -> TransformerLM:
     """The serve model at the flags' widths, from a seeded init on the
     device. Its position table spans ``window + decode_tokens``, so paged
     decode's grown contexts have positions."""
     dev = resolve_device(device)
-    model = TransformerLM(args.vocab, args.dim, args.heads, args.layers,
-                          args.window + args.decode_tokens,
-                          kv_heads=args.kv_heads, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(args.seed))
-    return model.init_weights(gen).eval()
+    return _lm(args, dev).init_weights(gen).eval()
+
+
+@torch.no_grad()
+def copy_weights(dst: TransformerLM, src: TransformerLM) -> None:
+    """``src``'s weights into ``dst``'s in place (another card's replica).
+    A copy across cards runs on the source card's stream, fenced both ways
+    against the two cards' streams."""
+    source = dict(src.named_parameters())
+    for name, p in dst.named_parameters():
+        p.copy_(source[name])
 
 
 def _causal_attend(_i):
@@ -350,6 +387,9 @@ class ReforwardEngine:
     def utilization(self) -> float:
         return 0.0
 
+    def page_counts(self) -> Tuple[int, int]:
+        return 0, 0
+
     def warmup(self, params) -> None:
         self.step(params, np.zeros(self.args.batch, bool))
 
@@ -390,6 +430,10 @@ class PagedEngine:
     def utilization(self) -> float:
         return self.cache.utilization()
 
+    def page_counts(self) -> Tuple[int, int]:
+        """(held, all) pages of this engine's pool."""
+        return self.cache.allocator.held_pages, self.cache.num_pages
+
     def warmup(self, params) -> None:
         """Run both paths (prefill + step) once before readiness, through
         a throwaway request in slot 0: the kernels are built and loaded
@@ -410,30 +454,110 @@ def make_engine(args, device=None):
     return PagedEngine(args, device)
 
 
+# --- the pod's cards ----------------------------------------------------------
+
+
+def pod_devices(device: str = "", cards: int = 0) -> List[torch.device]:
+    """The devices a serve process drives: ``cuda:0`` ... ``cuda:C-1`` for
+    a pod of C > 1 cards (``TPUJOB_POD_CARDS``, set by the pod launcher),
+    C CPU "cards" when ``device`` is the CPU, else the one ``device``.
+    Raises RuntimeError when the container sees fewer than C cards."""
+    dev = resolve_device(device or None)
+    if cards <= 1:
+        return [dev]
+    if dev.type == "cpu":
+        return [dev] * cards
+    seen = torch.cuda.device_count()
+    if cards > seen:
+        raise RuntimeError(f"a serve pod of {cards} cards, but this "
+                           f"container sees {seen}")
+    return [torch.device("cuda", c) for c in range(cards)]
+
+
+def slot_blocks(batch: int, cards: int) -> List[Tuple[int, int]]:
+    """[first, end) of each card's slots: slot s lies on card floor(s·C /
+    B), so the first B mod C cards take one slot more, and a card is empty
+    when B < C."""
+    return [(-(-c * batch // cards), -(-(c + 1) * batch // cards))
+            for c in range(cards)]
+
+
+def card_pages(kv_pages: int, batch: int, first: int, end: int) -> int:
+    """The pages of ``--kv-pages`` that the card of slots [first, end)
+    holds: the pod's cards hold exactly ``kv_pages`` together (0: each
+    card its slots' full span)."""
+    if kv_pages <= 0:
+        return 0
+    return kv_pages * end // batch - kv_pages * first // batch
+
+
+class Card:
+    """One card of the pod: its weight replica, its engine over the pod's
+    slots [first, first + args.batch) (``args``: the pod's flags with this
+    card's ``--batch`` and ``--kv-pages``), the requests in those slots,
+    and its counts."""
+
+    def __init__(self, index: int, device: torch.device, first: int, args,
+                 model: TransformerLM):
+        self.index = index
+        self.device = device
+        self.first = first
+        self.args = args
+        self.model = model
+        self.engine = make_engine(args, device)
+        self.requests: List[Optional[Request]] = [None] * args.batch
+        self.steps = 0
+        self.completed = 0
+        self.tokens_generated = 0
+        self.failed_steps = 0
+        self.consecutive_failures = 0
+        self.latencies: List[float] = []
+
+    def busy(self) -> bool:
+        return any(r is not None for r in self.requests)
+
+    def summary(self) -> Dict[str, Any]:
+        out = {"card": self.index, "device": str(self.device),
+               "slots": len(self.requests), "steps": self.steps,
+               "completed": self.completed,
+               "tokensGenerated": self.tokens_generated,
+               "failedSteps": self.failed_steps}
+        cache = getattr(self.engine, "cache", None)
+        if cache is not None:
+            out.update(prefills=cache.prefills,
+                       decodeSteps=cache.decode_steps)
+        return out
+
+
 # --- the serve loop -----------------------------------------------------------
 
 
 class ServeLoop:
     """One replica's decode service: the ingress queue, slot-level
-    continuous batching over the decode engine, readiness, and serving
+    continuous batching over each card's engine, readiness, and serving
     heartbeats.
 
-    Single-threaded decode (the step loop owns the model and the engine);
-    HTTP ingress threads touch only the queue (under ``_ingress_lock``)
-    and each Request's ``done`` event; the store watcher only arms the
-    reload target (under ``_reload_lock``), which the loop consumes at a
-    step boundary. ``store`` is the warm-start store (``"auto"``: from the
-    env when ``TPUJOB_SERVE`` is set; or a WarmStartStore, or None)."""
+    ``devices`` are the pod's cards (default: the one ``device``, or
+    ``--device``). The thread that calls :meth:`run` alone touches the
+    cards' engines, models and requests, one card after another. HTTP
+    ingress threads touch only the queue (under ``_ingress_lock``) and
+    each Request's ``done`` event; the store watcher only arms the reload
+    target (under ``_reload_lock``), which the loop consumes between pod
+    steps. ``store`` is the warm-start store (``"auto"``: from the env
+    when ``TPUJOB_SERVE`` is set; or a WarmStartStore, or None)."""
 
     def __init__(self, args, info: bootstrap.ProcessInfo,
                  heartbeat: Optional[Any] = "auto",
                  recorder: Optional[Any] = "auto",
                  clock: Callable[[], float] = time.monotonic,
-                 device=None, store: Optional[Any] = "auto"):
+                 device=None, store: Optional[Any] = "auto",
+                 devices: Optional[List[Any]] = None):
         self.args = args
         self.info = info
         self._clock = clock
-        self.device = resolve_device(device or args.device or None)
+        self.devices = [torch.device(d) for d in devices] if devices \
+            else [resolve_device(device or args.device or None)]
+        self.device = self.devices[0]
         if heartbeat == "auto":
             heartbeat = heartbeat_mod.from_env()
         self.heartbeat = heartbeat
@@ -443,21 +567,16 @@ class ServeLoop:
             store = warmstore.store_from_env() \
                 if os.environ.get(ENV_SERVE) else None
         self.store = store
-        self.model = build_model(args, self.device)
-        self.engine = make_engine(args, self.device)
+        self.cards = self._place(build_model(args, self.device))
         self.window = LatencyWindow(clock=clock)
         self.ready = False
         self.reloads = 0
         # Seconds each reload kept the replica unready.
         self.reload_gaps: List[float] = []
-        self.failed_steps = 0
-        self._consecutive_failures = 0
-        self.completed = 0
+        # Pod steps (one step of every card that holds a request), the
+        # warm-up's included: the heartbeat's step.
         self.steps = 0
-        self.tokens_generated = 0
-        self._requests: List[Optional[Request]] = [None] * args.batch
         self._arrival_seq = 0
-        self._run_latencies: List[float] = []
         self._ingress_lock = threading.Lock()
         self._queue: List[Request] = []  # guarded-by: _ingress_lock
         self._shed = 0  # guarded-by: _ingress_lock
@@ -469,6 +588,61 @@ class ServeLoop:
         self._stop = threading.Event()
         self._watcher: Optional[threading.Thread] = None
         self._http: Optional[Any] = None
+
+    def _place(self, model: TransformerLM) -> List[Card]:
+        """One Card a device that holds a slot: card 0 keeps ``model``,
+        every other card a copy of it on its device."""
+        args, n = self.args, len(self.devices)
+        cards: List[Card] = []
+        for index, (dev, (first, end)) in enumerate(
+                zip(self.devices, slot_blocks(args.batch, n))):
+            if end == first:
+                log.info("serve: card %d (%s) holds no slot (--batch %d "
+                         "over %d cards): no engine", index, dev, args.batch,
+                         n)
+                continue
+            pages = card_pages(args.kv_pages, args.batch, first, end)
+            if args.kv_pages > 0 and pages == 0:
+                raise ValueError(f"--kv-pages {args.kv_pages} leaves card "
+                                 f"{index} of {n} no page")
+            card_args = argparse.Namespace(**{**vars(args),
+                                              "batch": end - first,
+                                              "kv_pages": pages})
+            if cards:
+                replica = _lm(args, dev).eval()
+                copy_weights(replica, model)
+            else:
+                replica = model
+            cards.append(Card(index, dev, first, card_args, replica))
+        if n > 1:
+            log.info("serve: a pod of %d cards: %s", n, ", ".join(
+                f"card {c.index} ({c.device}) slots {c.first}-"
+                f"{c.first + c.args.batch - 1}" for c in cards))
+        return cards
+
+    @property
+    def model(self) -> TransformerLM:
+        """Card 0's replica: the one the restore reads into."""
+        return self.cards[0].model
+
+    @property
+    def engine(self):
+        return self.cards[0].engine
+
+    @property
+    def completed(self) -> int:
+        return sum(c.completed for c in self.cards)
+
+    @property
+    def tokens_generated(self) -> int:
+        return sum(c.tokens_generated for c in self.cards)
+
+    @property
+    def failed_steps(self) -> int:
+        return sum(c.failed_steps for c in self.cards)
+
+    def _failing(self) -> bool:
+        return any(c.consecutive_failures for c in self.cards)
 
     @property
     def loaded_step(self) -> int:
@@ -488,6 +662,14 @@ class ServeLoop:
         with self._ingress_lock:
             return len(self._queue)
 
+    def utilization(self) -> float:
+        """Held pages over all the pod's pages (``kvCacheUtilization``)."""
+        held = total = 0
+        for card in self.cards:
+            h, t = card.engine.page_counts()
+            held, total = held + h, total + t
+        return held / total if total else 0.0
+
     # -- readiness + heartbeats ------------------------------------------------
 
     def serving_wire(self) -> Dict[str, Any]:
@@ -497,7 +679,7 @@ class ServeLoop:
             "requestsPerSecond": round(stats["requestsPerSecond"], 3),
             "tokensPerSecond": round(stats["tokensPerSecond"], 3),
             "queueDepth": self.queue_depth(),
-            "kvCacheUtilization": round(self.engine.utilization(), 4),
+            "kvCacheUtilization": round(self.utilization(), 4),
             "loadedStep": self.loaded_step,
             "reloads": int(self.reloads),
         }
@@ -540,8 +722,9 @@ class ServeLoop:
 
     def _maybe_reload(self) -> bool:
         """Step-boundary reload: drop readiness, stagger, prefetch the
-        newer step, restore it into the live weights in place, re-ready.
-        True when a reload ran. Live KV pages are not touched."""
+        newer step, restore it into card 0's weights in place, have every
+        other card copy them, re-ready. True when a reload ran. Live KV
+        pages are not touched."""
         with self._reload_lock:
             target, self._reload_target = self._reload_target, None
             loaded = self._loaded_step
@@ -567,6 +750,7 @@ class ServeLoop:
             self._set_ready(True)
             return False
         if step > self.loaded_step:
+            self._sync_replicas()
             self._set_loaded_step(step)
             self.reloads += 1
             log.info("serve: weights hot-reloaded at step %d (reload %d, "
@@ -574,6 +758,11 @@ class ServeLoop:
         self._set_ready(True)
         self.reload_gaps.append(self._clock() - t0)
         return True
+
+    def _sync_replicas(self) -> None:
+        """Every other card copies card 0's weights (between pod steps)."""
+        for card in self.cards[1:]:
+            copy_weights(card.model, self.model)
 
     def _checkpoint_dir(self) -> str:
         return self.args.checkpoint_dir \
@@ -609,6 +798,9 @@ class ServeLoop:
         self.window.arrived(1)
         return req
 
+    def _busy(self) -> bool:
+        return any(card.busy() for card in self.cards)
+
     def _synthetic_request(self, now: float) -> None:
         """One generated arrival: a full-window prompt (request id mixed
         in) asking for the standard budget."""
@@ -637,84 +829,109 @@ class ServeLoop:
             req.shed_now()
 
     def _admit_from_queue(self) -> None:
-        """Iteration-boundary admission: pull queued requests into free
-        slots until slots or cache pages run out. A request the cache
-        cannot hold yet goes back to the queue head."""
-        for slot in range(self.args.batch):
-            if self._requests[slot] is not None:
+        """Admission into every card in turn."""
+        for card in self.cards:
+            self._admit(card)
+
+    def _admit(self, card: Card) -> None:
+        """Iteration-boundary admission: pull queued requests into
+        ``card``'s free slots until its slots or cache pages run out. A
+        request the cache cannot hold yet goes back to the queue head."""
+        for slot in range(len(card.requests)):
+            if card.requests[slot] is not None:
                 continue
             with self._ingress_lock:
                 if not self._queue:
                     return
                 req = self._queue.pop(0)
-            admitted, token = self.engine.admit(
-                slot, req.prompt, req.max_tokens, self.model)
+            try:
+                with fa.launch_scope(card.index):
+                    admitted, token = card.engine.admit(
+                        slot, req.prompt, req.max_tokens, card.model)
+            except BaseException:
+                req.shed_now()
+                raise
             if not admitted:
                 with self._ingress_lock:
                     self._queue.insert(0, req)
                 return
-            self._requests[slot] = req
+            req.card = card.index
+            card.requests[slot] = req
             if token is not None:
                 # The paged prefill emits the first token at admission.
-                self._deliver(slot, req, token, self._clock())
+                self._deliver(card, slot, req, token, self._clock())
 
     # -- the decode loop -------------------------------------------------------
 
-    def _deliver(self, slot: int, req: Request, token: int,
+    def _deliver(self, card: Card, slot: int, req: Request, token: int,
                  now: float) -> None:
         """Hand one token to its request; on completion free the slot and
         its cache pages immediately."""
         req.tokens.append(int(token))
-        self.tokens_generated += 1
+        card.tokens_generated += 1
         self.window.generated(1)
         if len(req.tokens) >= req.max_tokens:
             latency = now - req.arrived
             self.window.record(latency)
-            if len(self._run_latencies) < RUN_LATENCY_CAP:
-                self._run_latencies.append(latency)
-            self.completed += 1
-            self._requests[slot] = None
-            self.engine.release(slot)
+            if len(card.latencies) < RUN_LATENCY_CAP:
+                card.latencies.append(latency)
+            card.completed += 1
+            card.requests[slot] = None
+            card.engine.release(slot)
             req.finish()
 
-    def _active_mask(self):
-        return np.array([r is not None for r in self._requests], bool)
-
     def _decode_step(self) -> None:
+        """One pod step: every card that holds a request steps in turn,
+        then each card's tokens go to its requests. A failed step counts
+        on its card; ``MAX_CONSECUTIVE_FAILURES`` in a row on any card
+        raise."""
         rec = self.recorder
         if rec is not None:
             rec.begin(self.steps)
             rec.lap(steptrace_mod.DATA)
-        active = self._active_mask()
-        try:
-            next_tokens = self.engine.step(self.model, active)
-        except Exception:  # noqa: BLE001 — a failed step must be visible
-            self.failed_steps += 1
-            self._consecutive_failures += 1
-            log.exception("serve: decode step failed")
+        stepped = []
+        for card in self.cards:
+            if not card.busy():
+                continue
+            active = np.array([r is not None for r in card.requests], bool)
+            card.steps += 1
+            try:
+                with fa.launch_scope(card.index):
+                    next_tokens = card.engine.step(card.model, active)
+            except Exception:  # noqa: BLE001 — a failed step must be visible
+                card.failed_steps += 1
+                card.consecutive_failures += 1
+                log.exception("serve: decode step failed on card %d",
+                              card.index)
+                if card.consecutive_failures >= MAX_CONSECUTIVE_FAILURES:
+                    if rec is not None:
+                        rec.abandon()
+                    raise RuntimeError(
+                        f"serve: {card.consecutive_failures} consecutive "
+                        f"decode failures on card {card.index}; giving up")
+                continue
+            card.consecutive_failures = 0
+            stepped.append((card, active, next_tokens))
+        if not stepped:
             if rec is not None:
                 rec.abandon()
-            if self._consecutive_failures >= MAX_CONSECUTIVE_FAILURES:
-                raise RuntimeError(
-                    f"serve: {self._consecutive_failures} consecutive "
-                    f"decode failures; giving up")
             return
-        self._consecutive_failures = 0
         if rec is not None:
             rec.lap(steptrace_mod.COMPUTE)
         now = self._clock()
-        for slot in range(self.args.batch):
-            req = self._requests[slot]
-            if req is None or not active[slot]:
-                continue
-            self._deliver(slot, req, int(next_tokens[slot]), now)
+        for card, active, next_tokens in stepped:
+            for slot in range(len(card.requests)):
+                req = card.requests[slot]
+                if req is None or not active[slot]:
+                    continue
+                self._deliver(card, slot, req, int(next_tokens[slot]), now)
         if rec is not None:
             rec.lap(steptrace_mod.HOST)
             rec.commit()
 
     def _restore_weights(self) -> int:
-        """Load the newest verified checkpoint's params into the serving
-        model and return its step (0 = the seeded init: no directory, or
+        """Load the newest verified checkpoint's params into card 0's
+        replica and return its step (0 = the seeded init: no directory, or
         nothing in it). A fresh reader Checkpointer per load walks,
         verifies and quarantines as the trainer's restore does, and reads
         only the params file."""
@@ -730,16 +947,20 @@ class ServeLoop:
         return int(step)
 
     def _warmup(self) -> None:
-        """Run the engine's paths once before readiness. A failure counts
-        like a failed decode step (the replica does not go ready)."""
-        try:
-            self.engine.warmup(self.model)
-        except Exception:  # noqa: BLE001 — a failed warm-up must be visible
-            self.failed_steps += 1
-            self._consecutive_failures += 1
-            log.exception("serve: engine warm-up failed")
-            return
-        self._consecutive_failures = 0
+        """Run each card's engine paths once before readiness, in turn. A
+        failure counts like a failed decode step on that
+        card (the replica does not go ready)."""
+        for card in self.cards:
+            try:
+                with fa.launch_scope(card.index):
+                    card.engine.warmup(card.model)
+            except Exception:  # noqa: BLE001 — a failed warm-up must be visible
+                card.failed_steps += 1
+                card.consecutive_failures += 1
+                log.exception("serve: engine warm-up failed on card %d",
+                              card.index)
+                continue
+            card.consecutive_failures = 0
 
     def _start_http(self) -> None:
         if self.args.http_port <= 0:
@@ -753,13 +974,16 @@ class ServeLoop:
 
     def run(self, duration: Optional[float] = None) -> Dict[str, Any]:
         """Serve until the load schedule ends (or ``duration`` caps it);
-        returns a summary."""
+        returns a summary. Raises when a card gave up."""
         schedule = LoadSchedule.parse(self.args.load)
         gen = LoadGenerator(schedule)
-        self._set_loaded_step(self._restore_weights())
+        step = self._restore_weights()
+        if step:
+            self._sync_replicas()
+        self._set_loaded_step(step)
         self._warmup()
         self.steps += 1
-        self._set_ready(self._consecutive_failures == 0)
+        self._set_ready(not self._failing())
         if self.store is not None:
             self._watcher = threading.Thread(target=self._watch_store,
                                              daemon=True,
@@ -774,17 +998,17 @@ class ServeLoop:
                     break
                 arrivals = gen.due(now)
                 if (arrivals is None and self.queue_depth() == 0
-                        and all(r is None for r in self._requests)):
+                        and not self._busy()):
                     break  # schedule over, queue + in-flight drained
                 for _ in range(arrivals or 0):
                     self._synthetic_request(now)
                 self._shed_expired(now)
                 self._admit_from_queue()
                 self._maybe_reload()
-                if any(r is not None for r in self._requests):
+                if self._busy():
                     self._decode_step()
                     self.steps += 1
-                    if not self.ready and self._consecutive_failures == 0:
+                    if not self.ready and not self._failing():
                         self._set_ready(True)
                 else:
                     time.sleep(IDLE_SLEEP)
@@ -797,16 +1021,17 @@ class ServeLoop:
                 self._shed += len(leftover)
             for req in leftover:
                 req.shed_now()
-            for slot in range(self.args.batch):
-                req = self._requests[slot]
-                if req is not None and not req.done.is_set():
-                    req.shed_now()
+            for card in self.cards:
+                for req in card.requests:
+                    if req is not None and not req.done.is_set():
+                        req.shed_now()
             if self._http is not None:
                 self._http.shutdown()
                 self._http.server_close()
             if self._watcher is not None:
                 self._watcher.join(timeout=2.0)
         elapsed = max(1e-9, self._clock() - t0)
+        tokens = self.tokens_generated
         summary: Dict[str, Any] = {
             "steps": self.steps,
             "completed": self.completed,
@@ -816,12 +1041,13 @@ class ServeLoop:
             "reloadGapSeconds": list(self.reload_gaps),
             "loadedStep": self.loaded_step,
             "shed": self.shed,
-            "tokensGenerated": self.tokens_generated,
+            "tokensGenerated": tokens,
             "elapsedSeconds": elapsed,
-            "tokensPerSecond": self.tokens_generated / elapsed,
-            "kvCacheUtilization": self.engine.utilization(),
+            "tokensPerSecond": tokens / elapsed,
+            "kvCacheUtilization": self.utilization(),
+            "cards": [c.summary() for c in self.cards],
         }
-        lat = sorted(self._run_latencies)
+        lat = sorted(x for c in self.cards for x in c.latencies)
         if lat:
             for name, q in (("p50LatencySeconds", 0.50),
                             ("p95LatencySeconds", 0.95),
@@ -899,8 +1125,12 @@ def _make_http_server(loop: ServeLoop, port: int):
 
 
 def run(info: bootstrap.ProcessInfo, args=None) -> Dict[str, Any]:
+    """Serve on the pod's cards (:func:`pod_devices` of ``--device`` and
+    ``TPUJOB_POD_CARDS``); logs the summary, each card's counts and its
+    kernel launches, and the process's launches."""
     args = args or parse_args([])
-    loop = ServeLoop(args, info)
+    loop = ServeLoop(args, info,
+                     devices=pod_devices(args.device, info.pod_cards))
     summary = loop.run()
     log.info("serve: %d steps, %d/%d requests completed (%d shed), "
              "%.0f tokens/sec, %d reloads, %d failed steps, weights of "
@@ -908,12 +1138,17 @@ def run(info: bootstrap.ProcessInfo, args=None) -> Dict[str, Any]:
              summary["arrivals"], summary["shed"],
              summary["tokensPerSecond"], summary["reloads"],
              summary["failedSteps"], summary["loadedStep"])
+    for card in summary["cards"]:
+        log.info("serve card %d: %s", card["card"], json.dumps(
+            {**card, "launches": fa.launch_counts(scope=card["card"])}))
+    log.info("kernel launches: %s", json.dumps(fa.launch_counts()))
     return summary
 
 
 def main() -> None:
-    """Serve replicas are independent single-process servers; the
-    run_payload wrapper owns the exit-code contract (SIGTERM -> 143)."""
+    """Serve replicas are independent servers (one process drives a
+    pod's cards): no process group is formed, and the run_payload
+    wrapper owns the exit-code contract (SIGTERM -> 143)."""
     args = parse_args()
     bootstrap.main_wrapper(lambda info: run(info, args))
 
