@@ -1,0 +1,10 @@
+"""``idle.train``: the share of the profiler's device window (training
+steps traced on the card alone) in which no operation ran on the card,
+in %."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t["window_s"] <= 0 or t["busy_s"] <= 0:
+        return None
+    return 100.0 * max(0.0, 1.0 - t["busy_s"] / t["window_s"])
