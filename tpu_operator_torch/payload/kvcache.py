@@ -19,6 +19,14 @@
   through the page table (inactive slots write the trash page), gathers
   the slot's page span with a plain torch index and attends on
   ``lengths + 1`` with the flash decode kernel.
+- **Spans** (``steptrace.span``, off unless switched on or a profiler
+  window runs): ``kvcache.prefill`` covers a prefill from its forward to
+  the end of its token read, ``kvcache.decode`` a decode step from entry
+  to the end of its token read; so the card's work of each lies inside
+  its span. Each stamps ``read_ns`` (attr, the span's clock) where its
+  launches end and its token read begins. A decode step calls
+  ``on_dispatch`` at the same point (the serve loop laps ``DISPATCH``
+  there, and ``COMPUTE`` after the read).
 
 Masking discipline: every cache position >= a slot's length is never read
 by the decode kernel, so stale pages and the padded tail contribute
@@ -34,13 +42,14 @@ to every call (``params`` in the reference's signatures).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from tpu_operator_torch.device import resolve_device
 from tpu_operator_torch.payload import flash_attention as fa
+from tpu_operator_torch.payload import steptrace
 
 DEFAULT_PAGE_SIZE = 16
 
@@ -122,7 +131,8 @@ class DecodeEngine:
     def __init__(self, spec: ModelSpec, *, slots: int,
                  prompt_pad: int, max_new: int,
                  page_size: int = DEFAULT_PAGE_SIZE, num_pages: int = 0,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 on_dispatch: Optional[Callable[[], None]] = None):
         if slots <= 0:
             raise ValueError(f"slots must be positive, got {slots}")
         if page_size <= 0:
@@ -154,6 +164,9 @@ class DecodeEngine:
         self._owned: List[Optional[List[int]]] = [None] * self.slots
         self.prefills = 0
         self.decode_steps = 0
+        # Called by each decode step once its work is launched, just
+        # before the token read.
+        self.on_dispatch = on_dispatch
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(
@@ -176,18 +189,21 @@ class DecodeEngine:
             return attend
 
         dev = self.device
-        positions = torch.arange(self.prompt_pad, device=dev)[None, :]
-        logits = model(self._to_device(tokens), positions, attend_for_layer)
-        nxt = torch.argmax(logits[0, length - 1].float())
-        pos = np.arange(self.prompt_pad)
-        page_ids = self._to_device(table[pos // self.page_size].astype(
-            np.int64))
-        offs = self._to_device((pos % self.page_size).astype(np.int64))
-        for i, (k, v) in enumerate(collected):
-            self._k_pages[i, page_ids, offs] = k[0]
-            self._v_pages[i, page_ids, offs] = v[0]
-        self.prefills += 1
-        return int(nxt)
+        with steptrace.span("kvcache.prefill") as attrs:
+            positions = torch.arange(self.prompt_pad, device=dev)[None, :]
+            logits = model(self._to_device(tokens), positions,
+                           attend_for_layer)
+            nxt = torch.argmax(logits[0, length - 1].float())
+            pos = np.arange(self.prompt_pad)
+            page_ids = self._to_device(table[pos // self.page_size].astype(
+                np.int64))
+            offs = self._to_device((pos % self.page_size).astype(np.int64))
+            for i, (k, v) in enumerate(collected):
+                self._k_pages[i, page_ids, offs] = k[0]
+                self._v_pages[i, page_ids, offs] = v[0]
+            self.prefills += 1
+            steptrace.mark(attrs, "read_ns")
+            return int(nxt)
 
     @torch.inference_mode()
     def _step(self, model, active: np.ndarray) -> np.ndarray:
@@ -195,6 +211,17 @@ class DecodeEngine:
         token at its current position, write its K/V through the page
         table (inactive slots write the trash page), and attend against
         the gathered span with the length-masked decode kernel."""
+        with steptrace.span("kvcache.decode") as attrs:
+            nxt = self._launch_step(model, active).to(torch.int32)
+            self.decode_steps += 1
+            steptrace.mark(attrs, "read_ns")
+            if self.on_dispatch is not None:
+                self.on_dispatch()
+            return nxt.cpu().numpy()
+
+    def _launch_step(self, model, active: np.ndarray) -> torch.Tensor:
+        """The decode step's device work, up to the next tokens' argmax
+        (on the device)."""
         s = self.spec
         kvh, hd = s.grouped_kv_heads, s.head_dim
         lengths = self._lengths
@@ -221,9 +248,7 @@ class DecodeEngine:
             return attend
 
         logits = model(tokens, positions, attend_for_layer)
-        nxt = torch.argmax(logits[:, 0].float(), dim=-1)
-        self.decode_steps += 1
-        return nxt.to(torch.int32).cpu().numpy()
+        return torch.argmax(logits[:, 0].float(), dim=-1)
 
     # -- host-side slot management ---------------------------------------------
 

@@ -19,6 +19,10 @@ module is the payload half of the profile directive's round trip:
   next heartbeat, where the operator folds ``status.profile`` to
   ``Captured``.
 
+While a trace runs, the program's spans (``steptrace.span``) are on,
+and each enters the trace as a range of its name (``train.forward``,
+``kvcache.decode`` ...); they go off again when it stops.
+
 ``torch`` is imported only when a trace starts.
 """
 

@@ -400,7 +400,8 @@ class PagedEngine:
 
     kind = "paged"
 
-    def __init__(self, args, device=None):
+    def __init__(self, args, device=None,
+                 on_dispatch: Optional[Callable[[], None]] = None):
         self.args = args
         spec = kvcache.ModelSpec(
             vocab=args.vocab, dim=args.dim, heads=args.heads,
@@ -409,7 +410,8 @@ class PagedEngine:
         self.cache = kvcache.DecodeEngine(
             spec, slots=args.batch, prompt_pad=args.window,
             max_new=args.decode_tokens, page_size=args.page_size,
-            num_pages=args.kv_pages, device=device)
+            num_pages=args.kv_pages, device=device,
+            on_dispatch=on_dispatch)
 
     def can_admit(self, prompt_len: int, new_tokens: int) -> bool:
         return self.cache.can_admit(prompt_len, new_tokens)
@@ -447,11 +449,13 @@ class PagedEngine:
         self.cache.release(0)
 
 
-def make_engine(args, device=None):
-    """Engine factory for --decode-engine."""
+def make_engine(args, device=None,
+                on_dispatch: Optional[Callable[[], None]] = None):
+    """Engine factory for --decode-engine (``on_dispatch``: the paged
+    engine's hook between a decode step's launches and its token read)."""
     if args.decode_engine == "reforward":
         return ReforwardEngine(args, device)
-    return PagedEngine(args, device)
+    return PagedEngine(args, device, on_dispatch)
 
 
 # --- the pod's cards ----------------------------------------------------------
@@ -498,13 +502,14 @@ class Card:
     and its counts."""
 
     def __init__(self, index: int, device: torch.device, first: int, args,
-                 model: TransformerLM):
+                 model: TransformerLM,
+                 on_dispatch: Optional[Callable[[], None]] = None):
         self.index = index
         self.device = device
         self.first = first
         self.args = args
         self.model = model
-        self.engine = make_engine(args, device)
+        self.engine = make_engine(args, device, on_dispatch)
         self.requests: List[Optional[Request]] = [None] * args.batch
         self.steps = 0
         self.completed = 0
@@ -613,12 +618,19 @@ class ServeLoop:
                 copy_weights(replica, model)
             else:
                 replica = model
-            cards.append(Card(index, dev, first, card_args, replica))
+            cards.append(Card(index, dev, first, card_args, replica,
+                              on_dispatch=self._lap_dispatch))
         if n > 1:
             log.info("serve: a pod of %d cards: %s", n, ", ".join(
                 f"card {c.index} ({c.device}) slots {c.first}-"
                 f"{c.first + c.args.batch - 1}" for c in cards))
         return cards
+
+    def _lap_dispatch(self) -> None:
+        """A paged engine's decode step has launched its work: the flight
+        recorder's DISPATCH ends here, before the token read."""
+        if self.recorder is not None:
+            self.recorder.lap(steptrace_mod.DISPATCH)
 
     @property
     def model(self) -> TransformerLM:
@@ -845,7 +857,8 @@ class ServeLoop:
                     return
                 req = self._queue.pop(0)
             try:
-                with fa.launch_scope(card.index):
+                with steptrace_mod.span("serve.admit", card=card.index), \
+                        fa.launch_scope(card.index):
                     admitted, token = card.engine.admit(
                         slot, req.prompt, req.max_tokens, card.model)
             except BaseException:
@@ -884,11 +897,11 @@ class ServeLoop:
         """One pod step: every card that holds a request steps in turn,
         then each card's tokens go to its requests. A failed step counts
         on its card; ``MAX_CONSECUTIVE_FAILURES`` in a row on any card
-        raise."""
+        raise. The flight recorder's step began at the top of the loop
+        iteration (:meth:`run`): a paged engine's step laps ``DISPATCH``
+        before its token read (:meth:`_lap_dispatch`), this laps
+        ``COMPUTE`` after it, then ``HOST``."""
         rec = self.recorder
-        if rec is not None:
-            rec.begin(self.steps)
-            rec.lap(steptrace_mod.DATA)
         stepped = []
         for card in self.cards:
             if not card.busy():
@@ -910,14 +923,14 @@ class ServeLoop:
                         f"serve: {card.consecutive_failures} consecutive "
                         f"decode failures on card {card.index}; giving up")
                 continue
+            if rec is not None:
+                rec.lap(steptrace_mod.COMPUTE)
             card.consecutive_failures = 0
             stepped.append((card, active, next_tokens))
         if not stepped:
             if rec is not None:
                 rec.abandon()
             return
-        if rec is not None:
-            rec.lap(steptrace_mod.COMPUTE)
         now = self._clock()
         for card, active, next_tokens in stepped:
             for slot in range(len(card.requests)):
@@ -990,12 +1003,18 @@ class ServeLoop:
                                              name="serve-reload-watch")
             self._watcher.start()
         self._start_http()
+        rec = self.recorder
         t0 = self._clock()
         try:
             while not self._stop.is_set():
                 now = self._clock()
                 if duration is not None and now - t0 >= duration:
                     break
+                # The iteration's admission and prefills are the step's
+                # DATA; an iteration with no decode step is abandoned.
+                if rec is not None:
+                    rec.begin(self.steps)
+                steptrace_mod.follow_profiler()
                 arrivals = gen.due(now)
                 if (arrivals is None and self.queue_depth() == 0
                         and not self._busy()):
@@ -1006,14 +1025,20 @@ class ServeLoop:
                 self._admit_from_queue()
                 self._maybe_reload()
                 if self._busy():
+                    if rec is not None:
+                        rec.lap(steptrace_mod.DATA)
                     self._decode_step()
                     self.steps += 1
                     if not self.ready and not self._failing():
                         self._set_ready(True)
                 else:
+                    if rec is not None:
+                        rec.abandon()
                     time.sleep(IDLE_SLEEP)
                 self._post_beat()
         finally:
+            if rec is not None:
+                rec.abandon()
             self._stop.set()
             self._set_ready(False)
             with self._ingress_lock:

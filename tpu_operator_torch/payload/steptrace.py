@@ -15,23 +15,59 @@ times the phases:
   digest describes a disjoint span of steps, so the controller can feed
   histograms without double counting.
 
-Phases (one step, in loop order; the serve loop times DATA, COMPUTE and
-HOST, the training loop DATA, DISPATCH, COMPUTE, CHECKPOINT and HOST):
+Phases (one step, in loop order; the serve loop times DATA, DISPATCH,
+COMPUTE and HOST, the training loop DATA, DISPATCH, COMPUTE, CHECKPOINT
+and HOST):
 
-- ``DATA`` — input wait before the step.
-- ``DISPATCH`` — the launch of the step's device work, where a loop
-  times it apart from the wait.
-- ``COMPUTE`` — the wait for device work: the decode step's next tokens,
+- ``DATA`` — input wait before the step. In the serve loop: the loop
+  iteration's admission (every prefill included), shedding and reload
+  check, from the top of the iteration to the decode step.
+- ``DISPATCH`` — the launch of the step's device work. In the serve
+  loop: from the decode step's start to just before its token read
+  (``kvcache.DecodeEngine``'s ``on_dispatch``), the host's launches of
+  every layer; in the
+  training loop: the ``train_step`` call, which blocks on a full launch
+  queue, so it holds most of the card's time too.
+- ``COMPUTE`` — the wait for device work: the decode step's token read,
   or the training loop's fence on the previous step.
 - ``CHECKPOINT`` — a checkpoint save at the step boundary.
 - ``HOST`` — everything else host-side: token delivery, completions,
   logs, the heartbeat post.
 
+**Spans** (:func:`span`, off by default; :func:`trace_spans` switches
+them on, and :func:`follow_profiler` keeps them on for as long as a
+``torch.profiler`` window runs) name the program's own work inside a
+step: a name, ``t0`` / ``t1`` from ``time.perf_counter_ns()``, attrs, and
+for a span given a CUDA device the card time between a pair of CUDA
+events at its edges (``device_ms``, resolved once the events are
+complete: at a fence the loop already has, :func:`resolve_spans`, or at
+:func:`span_log`). Events at a span's edges give the card's elapsed time,
+its waits on the host included, so only spans whose launches run ahead of
+the card (the training step's) take a device. :func:`mark` stamps a point
+inside a span on its clock. Off, a span site reads one module flag and
+returns a shared no-op context: no clock, no event, no profiler range.
+The log carries one anchor, ``time.time_ns()`` and
+``time.perf_counter_ns()`` read together once per log (at import and at
+:func:`clear_spans`), which places every span on the profiler's clock
+(epoch time). While a profiler window runs, a span also enters a
+``record_function`` of its name, so a trace carries the program's names.
+
+| Span | Where | Covers | Card time |
+| --- | --- | --- | --- |
+| ``serve.admit`` | ``serve.ServeLoop._admit`` | one ``engine.admit`` (attr: ``card``) | no |
+| ``kvcache.prefill`` | ``kvcache.DecodeEngine._prefill`` | the forward, argmax and K/V scatter, and the token read (``read_ns``: where the read begins) | no |
+| ``kvcache.decode`` | ``kvcache.DecodeEngine._step`` | the whole decode step, its token read included (``read_ns`` as above) | no |
+| ``train.step`` | ``train.make_loss_train_step`` | the whole step | yes |
+| ``train.forward`` / ``train.backward`` | the same, a microbatch each | ``loss_fn`` / ``.backward()`` (attr: ``microbatch``) | yes |
+| ``train.reduce`` | the same | the multi-process gradient reduce | yes |
+| ``train.optimizer`` | the same | ``optimizer.step`` | yes |
+
 This is the PyTorch payload's own copy of the part of
 ``tpu_operator/payload/steptrace.py`` that the two loops use (stdlib
-only; a plain ``threading.Lock`` where the original takes a
-lock-order-witnessed one). The wire format is the same, so the operator
-reads both payloads' digests alike. The recorder also keeps the last
+only at import, torch only inside a span that is on; a plain
+``threading.Lock`` where the original takes a lock-order-witnessed one).
+The wire format is the same, so the operator reads both payloads' digests
+alike. The recorder also keeps the last
 ``capacity`` steps in a ring buffer, which :func:`postmortem_dump` writes
 next to the checkpoint dir on a retryable exit
 (``steptrace-attempt<N>-p<P>.json``, :func:`postmortem_path`).
@@ -44,6 +80,7 @@ import json
 import logging
 import math
 import os
+import sys
 import time
 import threading
 from typing import Any, Callable, Dict, List, Optional
@@ -350,3 +387,193 @@ def postmortem_dump(recorder: StepRecorder, checkpoint_dir: str,
     log.info("steptrace: dumped last %d step timings to %s",
              min(recorder.steps_recorded, recorder.capacity), path)
     return path
+
+
+# --- spans --------------------------------------------------------------------
+
+# The spans the log keeps: the recorder's window of steps at up to 16
+# spans a step (a training step of four microbatches records ten).
+SPAN_CAPACITY = 16 * DEFAULT_BUFFER_STEPS
+
+
+def _read_anchor() -> Dict[str, int]:
+    """``time.time_ns()`` beside the midpoint of two
+    ``time.perf_counter_ns()`` reads taken round it."""
+    before = time.perf_counter_ns()
+    epoch = time.time_ns()
+    after = time.perf_counter_ns()
+    return {"epoch_ns": epoch, "perf_ns": (before + after) // 2}
+
+
+_spans_on = False  # the one flag a span site reads
+_switched_on = False  # trace_spans()
+_anchor = _read_anchor()  # guarded-by: _span_lock (read once per log)
+_span_lock = threading.Lock()
+_spans: collections.deque = collections.deque(
+    maxlen=SPAN_CAPACITY)  # guarded-by: _span_lock
+# Spans whose end event may not have completed: (record, card, start, end).
+_pending: collections.deque = collections.deque()  # guarded-by: _span_lock
+_free_events: Dict[Any, List[Any]] = {}  # guarded-by: _span_lock
+_nesting = threading.local()
+
+
+def _profiler_running() -> bool:
+    """A ``torch.profiler`` window is running (torch's own flag; False
+    while torch is not loaded)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and bool(getattr(prof, "_is_profiler_enabled",
+                                             False))
+
+
+def trace_spans(on: bool) -> None:
+    """Switch spans on or off (off by default)."""
+    global _switched_on, _spans_on
+    _switched_on = bool(on)
+    _spans_on = _switched_on or _profiler_running()
+
+
+def follow_profiler() -> bool:
+    """Spans on while :func:`trace_spans` or a ``torch.profiler`` window
+    holds them on, else off; the loops call it once a step, so a window
+    that anyone opens carries the program's spans. Returns the state."""
+    global _spans_on
+    _spans_on = _switched_on or _profiler_running()
+    return _spans_on
+
+
+class _NoSpan:
+    """The shared context of a span site while spans are off."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def _card(device) -> Any:
+    """The CUDA device a span times on the card, or None."""
+    if device is None or getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+
+    return torch.device("cuda", device.index if device.index is not None
+                        else torch.cuda.current_device())
+
+
+class _Span:
+    __slots__ = ("record", "card", "events", "range")
+
+    def __init__(self, name: str, device, attrs: Dict[str, Any]):
+        self.record: Dict[str, Any] = {"name": name, "attrs": attrs}
+        self.card = _card(device)
+        self.events = None
+        self.range = None
+
+    def __enter__(self) -> Dict[str, Any]:
+        depth = getattr(_nesting, "depth", 0)
+        self.record["depth"] = depth
+        _nesting.depth = depth + 1
+        if _profiler_running():
+            import torch
+
+            self.range = torch.autograd.profiler.record_function(
+                self.record["name"])
+            self.range.__enter__()
+        if self.card is not None:
+            import torch
+
+            with _span_lock:
+                free = _free_events.get(self.card)
+                self.events = free.pop() if free else None
+            if self.events is None:
+                self.events = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+            self.events[0].record(torch.cuda.current_stream(self.card))
+        self.record["t0"] = time.perf_counter_ns()
+        return self.record["attrs"]
+
+    def __exit__(self, *exc) -> bool:
+        record = self.record
+        record["t1"] = time.perf_counter_ns()
+        if self.events is not None:
+            import torch
+
+            self.events[1].record(torch.cuda.current_stream(self.card))
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _nesting.depth = record["depth"]
+        with _span_lock:
+            _spans.append(record)
+            if self.events is not None:
+                _pending.append((record, self.card) + tuple(self.events))
+                if len(_pending) > SPAN_CAPACITY:
+                    # Never fenced: the oldest keeps no card time.
+                    _, card, start, end = _pending.popleft()
+                    _free_events.setdefault(card, []).append((start, end))
+        return False
+
+
+def span(name: str, device=None, **attrs):
+    """A context that records one span of ``name`` with ``attrs`` (and,
+    with a CUDA ``device``, its card time) while spans are on; entered,
+    it gives the span's attrs dict (None while off), which the caller may
+    add to before the log is read."""
+    if not _spans_on:
+        return _NO_SPAN
+    return _Span(name, device, attrs)
+
+
+def mark(attrs: Optional[Dict[str, Any]], key: str) -> None:
+    """Stamp ``key`` in an open span's ``attrs`` with the span clock
+    (``perf_counter`` ns, placed through the anchor as ``t0`` is);
+    nothing while spans are off (``attrs`` None)."""
+    if attrs is not None:
+        attrs[key] = time.perf_counter_ns()
+
+
+def resolve_spans(wait: bool = False) -> None:
+    """Turn the card times of completed spans into ``device_ms``, oldest
+    first, and stop at the first whose end event has not completed
+    (``wait``: wait for each instead). A loop calls it after a fence it
+    already has; it never synchronizes there."""
+    if not _pending:
+        return
+    with _span_lock:
+        while _pending:
+            record, card, start, end = _pending[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                break
+            record["device_ms"] = start.elapsed_time(end)
+            _pending.popleft()
+            _free_events.setdefault(card, []).append((start, end))
+
+
+def span_log() -> Dict[str, Any]:
+    """A snapshot of the log, oldest span first (waits for the card times
+    still pending): ``anchor`` maps ``t0`` / ``t1`` (perf_counter ns) onto
+    the profiler's clock, epoch ns = ``epoch_ns`` + t - ``perf_ns``."""
+    resolve_spans(wait=True)
+    with _span_lock:
+        spans = [dict(r, attrs=dict(r["attrs"])) for r in _spans]
+        anchor = dict(_anchor)
+    return {"anchor": anchor, "capacity": SPAN_CAPACITY, "spans": spans}
+
+
+def clear_spans() -> None:
+    """Empty the log and read its anchor anew (spans still open land in
+    it when they end)."""
+    global _anchor
+    with _span_lock:
+        _anchor = _read_anchor()
+        _spans.clear()
+        while _pending:
+            _, card, start, end = _pending.popleft()
+            _free_events.setdefault(card, []).append((start, end))

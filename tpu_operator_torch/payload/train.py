@@ -265,29 +265,44 @@ def make_loss_train_step(loss_fn: Callable[[torch.Tensor],
     ``grad_accum`` sequential microbatches (the leading dim split), then
     ``reduce(params, metrics)`` after the last backward when given (the
     multi-process all-reduce), then one ``optimizer.step(params,
-    opt_state)`` in place. The metrics stay on the device."""
+    opt_state)`` in place. The metrics stay on the device.
+
+    Spans (``steptrace.span``, each with its card time on a CUDA device):
+    ``train.step`` round the whole step, ``train.forward`` and
+    ``train.backward`` round each microbatch's ``loss_fn`` and backward
+    (attr ``microbatch``), ``train.reduce`` and ``train.optimizer``."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     params = list(params)
+    device = params[0].device if params else None
 
     def step(batch: torch.Tensor) -> Metrics:
         b = batch.shape[0]
         if b % grad_accum != 0:
             raise ValueError(
                 f"batch {b} not divisible by grad_accum={grad_accum}")
-        for p in params:
-            p.grad = None
-        micro_metrics = []
-        for mb in batch.reshape(grad_accum, b // grad_accum,
-                                *batch.shape[1:]):
-            loss, metrics = loss_fn(mb)
-            (loss / grad_accum).backward()
-            micro_metrics.append({k: v.detach() for k, v in metrics.items()})
-        metrics = {k: torch.stack([m[k] for m in micro_metrics]).mean()
-                   for k in micro_metrics[0]}
-        if reduce is not None:
-            metrics = reduce(params, metrics)
-        optimizer.step(params, opt_state)
+        steptrace_mod.follow_profiler()
+        with steptrace_mod.span("train.step", device):
+            for p in params:
+                p.grad = None
+            micro_metrics = []
+            for j, mb in enumerate(batch.reshape(grad_accum, b // grad_accum,
+                                                 *batch.shape[1:])):
+                with steptrace_mod.span("train.forward", device,
+                                        microbatch=j):
+                    loss, metrics = loss_fn(mb)
+                with steptrace_mod.span("train.backward", device,
+                                        microbatch=j):
+                    (loss / grad_accum).backward()
+                micro_metrics.append({k: v.detach()
+                                      for k, v in metrics.items()})
+            metrics = {k: torch.stack([m[k] for m in micro_metrics]).mean()
+                       for k in micro_metrics[0]}
+            if reduce is not None:
+                with steptrace_mod.span("train.reduce", device):
+                    metrics = reduce(params, metrics)
+            with steptrace_mod.span("train.optimizer", device):
+                optimizer.step(params, opt_state)
         return metrics
 
     return step
@@ -598,7 +613,9 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
     from this run's first step. A profile directive from a heartbeat ACK
     starts an on-demand ``profile.ProfileCapture`` (one at a time), which
     traces only when the ``profile_dir`` window is neither armed nor
-    running: one profiler owner."""
+    running: one profiler owner. While either window runs, the step's
+    spans are on (``steptrace.follow_profiler``, checked once a step), so
+    the trace carries their names; they are off again after it."""
     if checkpointer is not None and state is None:
         raise ValueError("train_loop: a checkpointer needs the state it "
                          "saves and restores")
@@ -715,6 +732,7 @@ def train_loop(train_step: Callable[..., Metrics], batches, steps: int, *,
             elif fence is not None:
                 fence.wait()
                 ready = fence
+                steptrace_mod.resolve_spans()
             if recorder is not None:
                 recorder.lap(steptrace_mod.COMPUTE)
             fence = current
